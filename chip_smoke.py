@@ -5,9 +5,10 @@
 Phases (each prints one line; any failure raises and the exit code is not 0):
   1. the card: torch's device name and nvidia-smi's name and power limit;
   2. build the CUDA kernels from firefoam_torch/csrc/ (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version on the card, on random
-     DIA systems with the box-fire offsets at 100k cells, B in {1, 3, 4, 16},
-     shared and per-row matrices, float32 and float64;
+  3. each kernel (K1 bicgstab, K2 pcg, K3 smooth) against its plain PyTorch
+     version on the card, on random DIA systems with the box-fire offsets at
+     100k cells, float32 and float64, shared and per-row matrices (B in
+     {1, 3, 4, 16} for K1/K2, {1, 4} for K3);
   4. the main path at 100k cells in float32: write_box_fire_case(50,40,50)
      → FireFoamSolver(device="cuda") → initial_state() → one warm-up step →
      make_chunk(20), with the kernels' launch counters checked, every logged
@@ -16,15 +17,28 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      float64 on the CPU (the plain PyTorch solvers): the float32 T may drift
      from float64 by at most 0.05 relative, and the card's float64 T and U
      must match the CPU's within 1e-6 relative;
-  6. the kernels' JSON line, the card line, and the final JSON line.
+  6. the run CLI at 100k cells in float32 on the smoothSolver fire case with
+     every run feature (write_smooth_fire_case: function objects, fvOptions,
+     RTI probes and links), in-process through
+     firefoam_torch.models.run.main: 30 steps in chunks of 10; the same 20
+     steps writing once (time directory + checkpoint); 10 steps resumed
+     from that checkpoint. Each run's launch counts (per step K3 3, K1 1
+     plus the fvDOM steps, K2 2, plus 3 K2 of the hydrostatic init), the
+     function-object and rtis rows, the written T and U against the
+     checkpoint, and the repeated and resumed rows against the
+     uninterrupted run (equal: the step is bit-reproducible on the card);
+  7. the kernels' JSON line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -36,9 +50,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from firefoam_torch.io import read_field_file  # noqa: E402
+from firefoam_torch.models import run as run_cli  # noqa: E402
 from firefoam_torch.models.firefoam import FireFoamSolver  # noqa: E402
 from firefoam_torch.solvers import dia_krylov, linear  # noqa: E402
-from firefoam_torch.utils.synthcase import write_box_fire_case  # noqa: E402
+from firefoam_torch.utils.synthcase import write_box_fire_case, write_smooth_fire_case  # noqa: E402
 
 N_MAIN = (50, 40, 50)  # 100,000 cells
 N_SMALL = (30, 15, 20)  # 9,000 cells
@@ -48,8 +64,33 @@ SOURCE = "firefoam_torch/csrc/dia_krylov.cu"
 REPLACES = {
     "bicgstab": "firefoam_tpu/solvers/pallas_cg.py:281",
     "pcg": "firefoam_tpu/solvers/pallas_cg.py:201",
+    "smooth": "firefoam_tpu/solvers/pallas_cg.py:377",
 }
-TOL = {torch.float64: (1e-9, 0), torch.float32: (1e-4, 2)}  # (x rel, iteration slack)
+# (x rel, iteration slack); K3's f32 slack is one round of 4 sweeps: its
+# float32 stagnation exit can fire a round apart from the plain version's
+TOL = {torch.float64: (1e-9, 0), torch.float32: (1e-4, 2)}
+SMOOTH_F32_SLACK = 4
+SMOOTH_SWEEPS = 800  # the fire step's budget: max(maxIter, 200)·4
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s and non-tensor-core FLOP/s per type
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# floating-point operations per cell, counted from csrc/dia_krylov.cu: one
+# DIA row (K = 3 offsets) is 14; the prologue (2 rows + norm sums) 40;
+# a CG iteration 29; a BiCGStab iteration 58; a Jacobi sweep 18 and its
+# residual check (once per 4 sweeps) 17
+FLOPS_PROLOGUE = 40
+FLOPS_ITER = {"pcg": 29, "bicgstab": 58, "smooth": 18 + 17 / 4}
+# vectors of nC values each iteration (sweep) of a row streams, counted from
+# the kernels' passes: CG 20, BiCGStab 39, a Jacobi sweep 10 plus its
+# residual check (9, once per 4 sweeps)
+VECTORS_ITER = {"pcg": 20, "bicgstab": 39, "smooth": 10 + 9 / 4}
+CHUNK_CLI = 10
+# repeated and resumed vs uninterrupted CLI runs, per column of the printed
+# (8-digit) rows relative to the column's largest value: 0, the card's step
+# is bit-reproducible (every reduction has a fixed order; the boundary sums'
+# index_add_ groups never collide, so its atomics add in a fixed order)
+RESUME_TOL = 0.0
 # card f64 vs CPU f64 after DRIFT_STEPS steps: the fvDOM ray solves stop at
 # a residual of 1e-4, and where they stop depends on summation order
 CPU_TOL = 1e-6
@@ -114,25 +155,55 @@ def time_ms(fn, reps=5):
     return t0.elapsed_time(t1) / reps
 
 
+def bound(name, dtype, ops, iters):
+    """(bound_ms, bound_by): the least time the card could take for one
+    solve of these operands — the larger of the bytes the function must
+    move (each operand read once, x written once) over HBM's rate and the
+    operations this run's iteration counts needed over the peak rate."""
+    nbytes = sum(t.numel() for t in ops) * ops[0].element_size()
+    nbytes += ops[-1].numel() * ops[-1].element_size()  # x, the shape of x0
+    nC = ops[-1].shape[-1]
+    B = ops[-1].shape[0] if ops[-1].ndim == 2 else 1
+    flops = nC * (B * FLOPS_PROLOGUE + FLOPS_ITER[name] * float(np.sum(iters)))
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def streamed_ms(name, dtype, nC, iters):
+    """The time HBM takes to stream every iteration's vectors once (no
+    reuse from cache between passes): a looser bound than `bound`."""
+    nbytes = VECTORS_ITER[name] * nC * torch.finfo(dtype).bits // 8 * float(np.sum(iters))
+    return 1e3 * nbytes / HBM_BYTES_S
+
+
 def phase_kernels(dev):
     rng = np.random.RandomState(0)
     stats = {}
-    for name, twin, kern, sym in (
-        ("pcg", linear.pcg, dia_krylov.dia_pcg, True),
-        ("bicgstab", linear.bicgstab, dia_krylov.dia_bicgstab, False),
+    smooth_kw = dict(max_iter=SMOOTH_SWEEPS)
+    for name, plain, kern, sym, shapes in (
+        ("pcg", lambda *a, **k: dia_krylov.plain(linear.pcg, *a, **k), dia_krylov.dia_pcg, True,
+         ((1, False), (3, False), (4, True), (16, True))),
+        ("bicgstab", lambda *a, **k: dia_krylov.plain(linear.bicgstab, *a, **k),
+         dia_krylov.dia_bicgstab, False, ((1, False), (3, False), (4, True), (16, True))),
+        ("smooth", dia_krylov.plain_smooth, dia_krylov.dia_smooth, False,
+         ((1, False), (4, True))),
     ):
         st = stats.setdefault(name, {"max_abs_err": 0.0})
         for dtype in (torch.float64, torch.float32):
             xtol, slack = TOL[dtype]
-            for B, per_row in ((1, False), (3, False), (4, True), (16, True)):
+            if name == "smooth" and dtype == torch.float32:
+                slack = SMOOTH_F32_SLACK
+            for B, per_row in shapes:
                 offs, d, up, lo, b, x0 = dia_system(rng, N_MAIN, B, per_row, sym, dtype, dev)
                 args = dict(tol=1e-8, rel_tol=0.0, max_iter=1000)
+                if name == "smooth":
+                    args.update(smooth_kw)
 
                 def run_k():
                     return kern(d, up, lo, b, x0, offs, **args)
 
                 def run_p():
-                    return dia_krylov.plain(twin, d, up, lo, b, x0, offs, **args)
+                    return plain(d, up, lo, b, x0, offs, **args)
 
                 rk, rp = run_k(), run_p()
                 torch.cuda.synchronize()
@@ -150,11 +221,16 @@ def phase_kernels(dev):
                 if not ok:
                     raise SystemExit(f"phase 3: {name} disagrees with its plain version")
                 st["max_abs_err"] = max(st["max_abs_err"], err)
-                # the main path's shape: float32, U-like shared rows for K1,
-                # one p_rgh row for K2
-                if dtype == torch.float32 and ((name == "pcg" and B == 1) or
+                # the main path's shapes in float32: U-like shared rows for
+                # K1, one p_rgh row for K2, one h or k row for K3
+                if dtype == torch.float32 and ((name in ("pcg", "smooth") and B == 1) or
                                                (name == "bicgstab" and B == 3)):
                     st["ms"], st["plain_ms"] = ms_k, ms_p
+                    st["bound_ms"], st["bound_by"] = bound(name, dtype, (d, up, lo, b, x0), it_k)
+                    say(3, f"{name} bound {st['bound_ms']:.4f} ms ({st['bound_by']}); "
+                           f"every iteration's vectors streamed from HBM "
+                           f"{streamed_ms(name, dtype, x0.shape[-1], it_k):.4f} ms; "
+                           f"{it_k.tolist()} iterations")
     return stats
 
 
@@ -216,6 +292,116 @@ def phase_main(dev, case):
     return launches, ms, n
 
 
+# ---------------------------------------------------------------- phase 6
+def cli(args):
+    """run.main(args) in this process; returns its printed output (echoing
+    the last line). A failure inside raises."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_cli.main(args)
+    out = buf.getvalue()
+    if rc != 0:
+        raise SystemExit(f"phase 6: run {' '.join(args)} exited {rc}")
+    say(6, out.strip().splitlines()[-1])
+    return out
+
+
+def dat(root, sub):
+    """The rows of a postProcessing .dat file."""
+    return np.loadtxt(os.path.join(root, "postProcessing", sub), ndmin=2)
+
+
+def rows_diff(a, b):
+    """The largest difference between two runs' rows of the .dat files,
+    per column relative to that column's largest value in `b`."""
+    return max(float(np.max(np.abs(a[s] - b[s]) /
+                            np.maximum(np.max(np.abs(b[s]), axis=0), 1e-30))) for s in b)
+
+
+def slice_launches(n_steps, count0, solver_freq):
+    """K1/K2/K3 launches of one CLI run: per step U (K1), Yi, h and k (K3)
+    and two p_rgh correctors (K2); fvDOM adds one K1 launch on its solve
+    steps; the hydrostatic init of initial_state adds 3 K2 launches."""
+    n_rad = sum(1 for c in range(count0, count0 + n_steps)
+                if c == 0 or (solver_freq > 0 and c % solver_freq == 0))
+    return {"bicgstab": n_steps + n_rad, "pcg": 3 + 2 * n_steps, "smooth": 3 * n_steps}
+
+
+DATS = ("HRR/0/volFieldValue.dat", "minMaxTU/0/fieldMinMax.dat", "plume/0/probes.dat",
+        "rtis/0/rtis.dat")
+
+
+def phase_cli(tmp):
+    """The slice through the run CLI (see the module docstring); returns the
+    launch counts of its 20-step writing run."""
+    case = write_smooth_fire_case(os.path.join(tmp, "slice"), n=N_MAIN, end_time=100.0,
+                                  write_control="runTime", write_interval=1e3)
+    base = ["--case", case, "--chunk", str(CHUNK_CLI), "--quiet"]
+    freq = 10  # the case's fvDOM solverFreq
+
+    def run(args, n_steps, count0):
+        dia_krylov.reset_counts()
+        out = cli(base + args)
+        got = dict(dia_krylov.LAUNCHES)
+        exp = slice_launches(n_steps, count0, freq)
+        say(6, f"launches {got} (expected {exp})")
+        if got != exp:
+            raise SystemExit("phase 6: kernel launch counts do not match the solves")
+        rows = {sub: dat(case, sub) for sub in DATS}
+        for sub, r in rows.items():
+            if r.shape[0] != n_steps or not np.all(np.isfinite(r)):
+                raise SystemExit(f"phase 6: {sub} has {r.shape[0]} rows for {n_steps} steps "
+                                 f"or non-finite values")
+        return out, got, rows
+
+    # 1. 30 uninterrupted steps
+    _, _, full = run(["--max-steps", "30"], 30, 0)
+    t = full[DATS[0]][:, 0]
+    T_max = full[DATS[1]][:, 1]  # columns: t, T_max, T_min, U_max, U_min (sorted keys)
+    say(6, f"30 steps: t {t[0]:.6g} … {t[-1]:.6g} s, T max {T_max[0]:.3f} → {T_max[-1]:.3f} K")
+    if not T_max[-1] > 298.15 + 1.0:
+        raise SystemExit("phase 6: the gas did not heat")
+    # 2. the same 20 steps, writing once at step 20 (runTime writes do not
+    # change the steps): a write interval between t(10) and t(20)
+    w = float(0.5 * (t[9] + t[19]))
+    with open(os.path.join(case, "system", "controlDict")) as f:
+        txt = f.read()
+    with open(os.path.join(case, "system", "controlDict"), "w") as f:
+        f.write(txt.replace("writeInterval 1000.0;", f"writeInterval {w!r};"))
+    out_dir = os.path.join(tmp, "slice_out")
+    out, launches, first = run(["--max-steps", "20", "--output", out_dir], 20, 0)
+    m = re.search(r"([0-9.]+) ms/step, writing ([0-9.]+) s", out)
+    ms, write_s = float(m.group(1)), float(m.group(2))
+    times = sorted(d for d in os.listdir(out_dir) if d[0].isdigit())
+    ckpt = run_cli.latest_checkpoint(out_dir)
+    if len(times) != 1 or ckpt is None:
+        raise SystemExit(f"phase 6: expected one write, found {times}")
+    with np.load(ckpt) as z:
+        state = {k: z[k] for k in z.files}
+    for f in ("T", "U"):
+        got = read_field_file(os.path.join(out_dir, times[0], f)).internal_array(
+            int(np.prod(N_MAIN)))
+        ref = state[f"['{f}'].i"].astype(np.float64)
+        err = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)))
+        say(6, f"written {f} at t = {times[0]} vs the checkpoint: max rel {err:.3e}")
+        if not err <= 1e-7:  # 8 significant digits
+            raise SystemExit(f"phase 6: written {f} differs from the state")
+    # two runs of the same 20 steps
+    rep20 = rows_diff(first, {s: full[s][:20] for s in DATS})
+    # 3. 10 steps resumed from the checkpoint at step 20
+    count0 = int(state["['rad']['count']"])
+    _, _, resumed = run(["--max-steps", "10", "--resume", ckpt], 10, count0)
+    res10 = rows_diff(resumed, {s: full[s][20:] for s in DATS})
+    say(6, f"{int(np.prod(N_MAIN))} cells float32 CLI: {ms:.3f} ms/step over chunks of "
+           f"{CHUNK_CLI}, writing {write_s:.3f} s (one time directory + checkpoint); "
+           f"function-object/rtis rows, max rel difference: repeated 20 steps {rep20:.3e}, "
+           f"resumed steps 21-30 vs uninterrupted {res10:.3e}")
+    if not max(rep20, res10) <= RESUME_TOL:
+        raise SystemExit(f"phase 6: a repeated or resumed run differs from the uninterrupted "
+                         f"one beyond {RESUME_TOL}")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 5
 def phase_drift(dev, case):
     out = {}
@@ -263,9 +449,10 @@ def main():
 
     with tempfile.TemporaryDirectory(prefix="firefoam_smoke_") as tmp:
         main_case = write_box_fire_case(os.path.join(tmp, "main"), n=N_MAIN)
-        launches, _, _ = phase_main(dev, main_case)
+        phase_main(dev, main_case)
         small_case = write_box_fire_case(os.path.join(tmp, "small"), n=N_SMALL)
         phase_drift(dev, small_case)
+        launches = phase_cli(tmp)
 
     kernels = [
         {
@@ -277,9 +464,14 @@ def main():
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],
+            "bound_ms": stats[name_k]["bound_ms"],
+            "bound_by": stats[name_k]["bound_by"],
+            "library_ms": None,  # no single PyTorch call solves these systems
         }
-        for name_k in ("bicgstab", "pcg")
+        for name_k in ("bicgstab", "pcg", "smooth")
     ]
+    if not all(k["launches"] > 0 for k in kernels):
+        raise SystemExit("a kernel of the slice was never launched")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,6 +5,10 @@ Precision policy (the same as the JAX package's):
   * production runs on the GPU use float32 — the default on CUDA.
 Callers pick another dtype explicitly (FireFoamSolver(dtype=...)).
 
+Device policy: the port runs on the card. `default_device()` is CUDA and
+raises where there is none; the CPU is used only when a caller passes
+device="cpu" (the tests, `run --cpu`).
+
 Every tensor the port builds carries an explicit device and dtype, so a
 float64 host array never promotes a float32 device computation.
 """
@@ -30,8 +34,13 @@ TOL_FLOOR_EPS = 100.0
 
 
 def default_device() -> torch.device:
-    """CUDA when a card is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA card; raises where there is none (pass device="cpu" to run
+    on the CPU)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "firefoam_torch: no CUDA device; pass device=\"cpu\" (run --cpu) to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def real_dtype(device=None) -> torch.dtype:

@@ -5,6 +5,7 @@
 //       (:232-248)                       -> dia_row / dia_row_const below
 //   K1  _bicgstab_kernel (:281-374)      -> bicgstab_kernel
 //   K2  _pcg_kernel (:201-278)           -> pcg_kernel
+//   K3  _smooth_kernel (:377-456)        -> smooth_kernel
 // The Python wrappers and the plain PyTorch twins are in
 // firefoam_torch/solvers/dia_krylov.py and solvers/linear.py.
 //
@@ -63,6 +64,8 @@ struct Params {
   int nC;
   double tol, rel_tol, floor_eps;
   int max_iter;
+  double omega;                  // K3 only: Jacobi damping
+  int check_every;               // K3 only: sweeps per residual check
 };
 
 // nz(): guard a denominator against exact zero, keeping its sign
@@ -338,6 +341,71 @@ __global__ void __launch_bounds__(kThreads) bicgstab_kernel(Params<T> p) {
   }
 }
 
+// K3: damped Jacobi smoother (linear.py:jacobi_smooth semantics), the
+// smoothSolver role: rounds of `check_every` sweeps x ← x + ω(b − A·x)/d,
+// each round followed by the L1 residual over the normFactor; a row goes on
+// while res > stop, it < max_iter and the residual still drops by 1e-4
+// relative (or it = 0). `it` counts sweeps, as in the Pallas kernel.
+//
+// A Jacobi sweep must read only the previous iterate, so the sweeps
+// ping-pong between p.x and one scratch vector with a block barrier between
+// them; updating in place would make it Gauss-Seidel, which is not the
+// twin. The scratch also holds r = b − A·x0 for the prologue.
+//
+// What bounds it: a sweep reads d, b, 6 off-diagonal vectors and x and
+// writes x — about 10 vectors of nC values — and the solves of the fire
+// step take tens to hundreds of sweeps, so it is memory-bound; one block per
+// row keeps it on one SM per row (latency-bound there, as K1 and K2 are).
+// work: the second x buffer.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) smooth_kernel(Params<T> p) {
+  __shared__ T sm[32 * 4];
+  const int row = blockIdx.x;
+  const int nC = p.nC;
+  const T* d = p.diag + row * p.sd;
+  const T* up = p.upper + row * p.su;
+  const T* lo = p.lower + row * p.sl;
+  const T* b = p.b + (long long)row * nC;
+  const T* x0 = p.x0 + (long long)row * nC;
+  T* x = p.x + (long long)row * nC;
+  T* xs = p.work + (long long)row * nC;
+
+  T norm, res0, unused1, unused2;
+  prologue(p, d, up, lo, b, x0, x, xs, sm, norm, res0, unused1, unused2);
+  const T stop = stop_at(p, res0);
+  const T omega = T(p.omega);
+  T res = res0;
+  T res_prev = res0;  // not read before it > 0
+  T* cur = x;
+  T* nxt = xs;
+  int it = 0;
+  while (res > stop && it < p.max_iter && (res < res_prev * T(1.0 - 1e-4) || it == 0)) {
+    for (int s = 0; s < p.check_every; ++s) {
+      for (int c = threadIdx.x; c < nC; c += blockDim.x)
+        nxt[c] = cur[c] + (omega / d[c]) * (b[c] - dia_row(d, up, lo, p, cur, c));
+      __syncthreads();
+      T* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+    T s1[1] = {T(0)};
+    for (int c = threadIdx.x; c < nC; c += blockDim.x)
+      s1[0] += fabs(b[c] - dia_row(d, up, lo, p, cur, c));
+    block_sum<T, 1>(s1, sm);
+    res_prev = res;
+    res = s1[0] / norm;
+    it += p.check_every;
+  }
+  if (cur != x) {
+    for (int c = threadIdx.x; c < nC; c += blockDim.x) x[c] = cur[c];
+  }
+  if (threadIdx.x == 0) {
+    p.res0[row] = res0;
+    p.res[row] = res;
+    p.iters[row] = it;
+  }
+}
+
 template <typename T>
 Params<T> make_params(const T* diag, long long sd, const T* upper, long long su,
                       const T* lower, long long sl, const T* b, const T* x0, T* x,
@@ -354,6 +422,8 @@ Params<T> make_params(const T* diag, long long sd, const T* upper, long long su,
   p.K = K; p.nC = nC;
   p.tol = tol; p.rel_tol = rel_tol; p.floor_eps = floor_eps;
   p.max_iter = max_iter;
+  p.omega = 0.0;
+  p.check_every = 0;
   return p;
 }
 
@@ -379,3 +449,24 @@ FFK_ENTRY(pcg, pcg_kernel, float, f32)
 FFK_ENTRY(pcg, pcg_kernel, double, f64)
 FFK_ENTRY(bicgstab, bicgstab_kernel, float, f32)
 FFK_ENTRY(bicgstab, bicgstab_kernel, double, f64)
+
+// K3 takes the same operands plus the damping and the sweeps per check.
+#define FFK_SMOOTH_ENTRY(T, SUF)                                                     \
+  extern "C" int ffk_smooth_##SUF(                                                   \
+      const T* diag, long long sd, const T* upper, long long su, const T* lower,     \
+      long long sl, const T* b, const T* x0, T* x, T* res0, T* res, int* iters,      \
+      T* work, const int* offs, int K, int nC, int B, double tol, double rel_tol,    \
+      double floor_eps, int max_iter, double omega, int check_every, void* stream) { \
+    if (K < 1 || K > kMaxOffsets || nC < 1 || B < 1 || check_every < 1)             \
+      return (int)cudaErrorInvalidValue;                                             \
+    Params<T> p = make_params<T>(diag, sd, upper, su, lower, sl, b, x0, x, res0,     \
+                                 res, iters, work, offs, K, nC, tol, rel_tol,        \
+                                 floor_eps, max_iter);                               \
+    p.omega = omega;                                                                 \
+    p.check_every = check_every;                                                     \
+    smooth_kernel<T><<<B, kThreads, 0, (cudaStream_t)stream>>>(p);                   \
+    return (int)cudaGetLastError();                                                  \
+  }
+
+FFK_SMOOTH_ENTRY(float, f32)
+FFK_SMOOTH_ENTRY(double, f64)

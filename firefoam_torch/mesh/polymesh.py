@@ -20,6 +20,7 @@ from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..config import small
 
@@ -123,8 +124,8 @@ class PolyMesh:
         sum_a = np.add.reduceat(a_tri, fo[:-1])
         sum_ac = np.add.reduceat(a_tri[:, None] * c_tri, fo[:-1], axis=0)
 
-        ok = sum_a > small()
-        f_ctr = np.where(ok[:, None], sum_ac / np.maximum(sum_a, small())[:, None] / 3.0, c_est)
+        ok = sum_a > small(torch.float64)
+        f_ctr = np.where(ok[:, None], sum_ac / np.maximum(sum_a, small(torch.float64))[:, None] / 3.0, c_est)
         f_area = 0.5 * sum_n
 
         # triangles: exact (OpenFOAM special-cases these)
@@ -171,7 +172,7 @@ class PolyMesh:
 
         vol = cell_sum(pyr3_own, pyr3_nei)
         ctr = cell_sum(pyr3_own[:, None] * pc_own, pyr3_nei[:, None] * pc_nei)
-        ctr /= np.maximum(vol, small())[:, None]
+        ctr /= np.maximum(vol, small(torch.float64))[:, None]
         vol /= 3.0
 
         return {
@@ -216,7 +217,7 @@ class PolyMesh:
         Cf = self.Cf[:n_int]
         d_own = np.abs(np.einsum("ij,ij->i", Sf, Cf - self.C[self.owner[:n_int]]))
         d_nei = np.abs(np.einsum("ij,ij->i", Sf, self.C[self.neighbour] - Cf))
-        return d_nei / np.maximum(d_own + d_nei, small())
+        return d_nei / np.maximum(d_own + d_nei, small(torch.float64))
 
     def delta_coeffs(self) -> Tuple[np.ndarray, np.ndarray]:
         """(internal 1/|d|, boundary 1/|Cf - C_own|)."""
@@ -224,7 +225,7 @@ class PolyMesh:
         d = self.C[self.neighbour] - self.C[self.owner[:n_int]]
         internal = 1.0 / np.linalg.norm(d, axis=1)
         db = self.Cf[n_int:] - self.C[self.owner[n_int:]]
-        boundary = 1.0 / np.maximum(np.linalg.norm(db, axis=1), small())
+        boundary = 1.0 / np.maximum(np.linalg.norm(db, axis=1), small(torch.float64))
         return internal, boundary
 
     def non_orth_delta_coeffs(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -235,7 +236,7 @@ class PolyMesh:
         sfd = np.einsum("ij,ij->i", unit_sf, d)
         internal = 1.0 / np.maximum(sfd, 0.05 * np.linalg.norm(d, axis=1))
         db = self.Cf[n_int:] - self.C[self.owner[n_int:]]
-        unit_sfb = self.Sf[n_int:] / np.maximum(self.magSf[n_int:, None], small())
+        unit_sfb = self.Sf[n_int:] / np.maximum(self.magSf[n_int:, None], small(torch.float64))
         sfdb = np.einsum("ij,ij->i", unit_sfb, db)
         boundary = 1.0 / np.maximum(sfdb, 0.05 * np.linalg.norm(db, axis=1))
         return internal, boundary
@@ -250,7 +251,7 @@ class PolyMesh:
         a = np.zeros(self.n_cells)
         np.add.at(a, self.owner, self.magSf)
         np.add.at(a, self.neighbour, self.magSf[:n_int])
-        return float(np.max(np.linalg.norm(s, axis=1) / np.maximum(a, small())))
+        return float(np.max(np.linalg.norm(s, axis=1) / np.maximum(a, small(torch.float64))))
 
     # --------------------------------------------------------------- editing
     def with_patches(self, patches: List[Patch]) -> "PolyMesh":

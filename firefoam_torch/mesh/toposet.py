@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..config import small
 
@@ -86,9 +87,9 @@ class TopoSets:
             # faces whose unit normal matches: |1 − n̂·normal| < tol
             # (OpenFOAM normalToFace.C; cases/singleBox/system/topoSetDict)
             normal = np.asarray(info.get_vector("normal"), float)
-            normal = normal / (np.linalg.norm(normal) + small())
+            normal = normal / (np.linalg.norm(normal) + small(torch.float64))
             tol = info.get_scalar("cos", 0.01)
-            nf = mesh.Sf / np.maximum(mesh.magSf, small())[:, None]
+            nf = mesh.Sf / np.maximum(mesh.magSf, small(torch.float64))[:, None]
             return np.where(np.abs(1.0 - nf @ normal) < tol)[0]
         raise NotImplementedError(f"face source {source}")
 

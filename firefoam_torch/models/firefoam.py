@@ -12,19 +12,25 @@ with adaptive Δt, matching the reference equation set:
   solver/setMultiRegionDeltaT.H:34-63  Courant-limited Δt growth
 
 Every linear solve of the step is a DIA system solved by the whole-solve
-Krylov kernels of solvers/dia_krylov.py (the plain PyTorch twins on CPU):
-U (3 rows), the species (one row each), h, k, the fvDOM rays and both
-p_rgh correctors, hydrostatic init included.
+kernels of solvers/dia_krylov.py (the plain PyTorch twins on CPU): U (3
+rows), the species (one row each), h, k, the fvDOM rays and both p_rgh
+correctors, hydrostatic init included; each fvSolution entry picks K1
+(PBiCGStab), K2 (PCG) or K3 (smoothSolver, damped Jacobi).
 
-Not ported: Lagrangian spray, surface film, pyrolysis regions, fvOptions,
-function objects, RTI probes, wall functions, the DIC/AMG/GMG/PairMG
-pressure solvers, the SPMD `local=` path and the hoisted-jit entry points.
-A case that needs one of them raises at construction.
+The run features come along: fvOptions sources in UEqn and EEqn, the
+controlDict function objects (reduced into the step log), the RTI probes
+of system/rtisDict and the cell-wise RTI links of constant/rtiProperties
+(advanced in the state each step). models/run.py drives the time loop,
+writing and checkpointing.
+
+Not ported: Lagrangian spray, surface film, pyrolysis regions, wall
+functions, the DIC/AMG/GMG/PairMG pressure solvers, the SPMD `local=` path
+and the hoisted-jit entry points. A case that needs one of them raises at
+construction.
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -33,6 +39,9 @@ import torch
 
 from ..combustion.edm import EddyDissipationModel
 from ..config import default_device, real_dtype, small
+from ..functionobjects.fieldvalue import make_function_objects
+from ..functionobjects.rtilinks import RTILinks
+from ..functionobjects.rtis import RtiProbes
 from ..io import Case
 from ..io.foamdict import FoamDict, expand_env, parse_file
 from ..mesh import build_case_mesh
@@ -41,9 +50,10 @@ from ..ops import bcs as bcmod
 from ..ops import fvc, fvm
 from ..ops.bcs import initial_boundary, make_field_bcs
 from ..solvers import dia_krylov
-from ..solvers.linear import solve_scalar
+from ..solvers.linear import smooth_sweeps, solve_scalar
 from ..thermo import GasThermo, SingleStepReaction
 from ..turbulence.kEqn import KEqnLES
+from .fvoptions import FvOptions
 
 __all__ = ["FireFoamSolver", "state_from_numpy", "state_to_numpy"]
 
@@ -85,14 +95,14 @@ class Controls:
 class FireFoamSolver:
     """Host-side case setup + the eager step."""
 
-    def __init__(self, case_dir: str, device=None, dtype=None):
+    def __init__(self, case_dir: str, device=None, dtype=None, radiation: bool = True):
         self.device = torch.device(device) if device is not None else default_device()
         self.dtype = dtype or real_dtype(self.device)
         self.case = Case(case_dir)
         self.cm = build_case_mesh(case_dir)
         self.geom = MeshGeometry.from_polymesh(self.cm.mesh, dtype=self.dtype, device=self.device)
         g = self.geom
-        self._check_supported(case_dir)
+        self._check_supported()
 
         # ---- thermo / chemistry ----
         tp = self.case.constant("thermophysicalProperties")
@@ -130,7 +140,8 @@ class FireFoamSolver:
         )
         from ..radiation import make_radiation
 
-        self.radiation = make_radiation(rad_props, g, self.case)
+        # radiation=False runs without the radiation model (run --no-radiation)
+        self.radiation = make_radiation(rad_props, g, self.case) if radiation else None
         aec = rad_props.get_dict("constRadFractionEmissionCoeffs", FoamDict())
         self.ehrr = aec.get_scalar("Ehrr2", aec.get_scalar("EhrrCoeff", 0.2))
 
@@ -180,11 +191,19 @@ class FireFoamSolver:
         self.t0 = float(self.t0_name)
         self._read_initial_fields()
 
+        # ---- fvOptions, function objects, RTI probes and links ----
+        self.fv_options = FvOptions(case_dir, g, self.cm.sets.cell_zones)
+        if not self.fv_options.active:
+            self.fv_options = None
+        self.function_objects = make_function_objects(self, cd)
+        self.rtis = RtiProbes.try_from_case(self, case_dir)
+        self.rti_links = RTILinks(self.case, g.n_cells, self.dtype, self.device)
+
     # ------------------------------------------------------------------
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype, device=self.device)
 
-    def _check_supported(self, case_dir: str):
+    def _check_supported(self):
         """Raise on the case features the port does not carry."""
         case = self.case
         if case.has_constant("reactingCloud1Properties"):
@@ -197,15 +216,6 @@ class FireFoamSolver:
             sfp = case.constant("surfaceFilmProperties")
             if sfp.get_bool("active", False) and sfp.get_word("surfaceFilmModel", "none") != "none":
                 raise NotImplementedError("surface film region")
-        for sub in ("system", "constant"):
-            if os.path.isfile(os.path.join(case_dir, sub, "fvOptions")):
-                raise NotImplementedError("fvOptions")
-            if os.path.isfile(os.path.join(case_dir, sub, "rtisDict")):
-                raise NotImplementedError("rti probes")
-        if case.has_constant("rtiProperties") and case.constant("rtiProperties").get_bool("active", False):
-            raise NotImplementedError("rti links")
-        if list(case.control_dict.get_dict("functions", FoamDict()).subdicts()):
-            raise NotImplementedError("controlDict function objects")
         lsch = case.fv_schemes.get_dict("laplacianSchemes").lookup("default", "")
         toks = [str(t) for t in lsch] if isinstance(lsch, list) else [str(lsch)]
         if "corrected" in toks or "limited" in toks:
@@ -312,6 +322,10 @@ class FireFoamSolver:
         }
         if self.radiation is not None:
             state["rad"] = self.radiation.initial_state()
+        if self.rtis is not None and self.rtis.n > 0:
+            state["rtis"] = self.rtis.initial_state()
+        if self.rti_links.active:
+            state["rti_links"] = self.rti_links.initial_state()
         # phrghEqn.H runs only at t = 0
         if self.ctl.hydrostatic_init and self.t0 == 0.0:
             state = self._hydrostatic_init(state)
@@ -499,12 +513,17 @@ class FireFoamSolver:
 
     def _lin_fn(self, ctl):
         """fn(diag, upper, lower, b, x0) → SolverResult for the controls:
-        PCG/GAMG → K2 (dia_pcg), every other Krylov solver → K1
-        (dia_bicgstab)."""
+        PCG/GAMG → K2 (dia_pcg); smoothSolver → K3 (dia_smooth, damped
+        Jacobi: the JAX package's path without the DIC/GaussSeidel schedule,
+        whose smoother and nSweeps it does not read); every other Krylov
+        solver → K1 (dia_bicgstab)."""
         sol, tol, rel, mx = ctl["solver"], ctl["tolerance"], ctl["relTol"], ctl["maxIter"]
-        if sol == "smoothSolver":
-            raise NotImplementedError("smoothSolver (the damped-Jacobi kernel is not ported)")
-        kern = dia_krylov.dia_pcg if sol in ("PCG", "GAMG") else dia_krylov.dia_bicgstab
+        if sol in ("PCG", "GAMG"):
+            kern = dia_krylov.dia_pcg
+        elif sol == "smoothSolver":
+            kern, mx = dia_krylov.dia_smooth, smooth_sweeps(mx)
+        else:
+            kern = dia_krylov.dia_bicgstab
         offsets = self.geom.offsets
 
         def fn(d, up, lo, b, x0):
@@ -538,6 +557,13 @@ class FireFoamSolver:
         )
         div_tau = self.turb.div_dev_rho_reff(U, mu_eff, gradU)
         m = m.add_source(div_tau + srcs["SU"])
+        if self.fv_options is not None:
+            # fvOptions(rho, U) (UEqn.H:31)
+            su_o, sp_o = self.fv_options.source("U", U.i, self.dtype)
+            m = fvm.FvMatrix(
+                g, m.diag - sp_o * g.V, m.lower, m.upper, m.source + su_o * g.V[:, None],
+                m.internal_coeffs, m.boundary_coeffs, m.psi,
+            )
         rf = self._eqn_relax_factor("U")
         if rf is not None:
             m = m.relax(rf)
@@ -687,6 +713,13 @@ class FireFoamSolver:
             - fvm.laplacian(g, alpha_eff_f, hs, gic, gbc)
         )
         m = m.add_source(qdot + sh_rad + srcs["Sh"] + state["dpdt"] - ddtK - divK)
+        if self.fv_options is not None:
+            # fvOptions(rho, h) (YEEqn.H:101): Su + Sp·h semi-implicit
+            su_o, sp_o = self.fv_options.source("h", hs.i, self.dtype)
+            m = fvm.FvMatrix(
+                g, m.diag - sp_o * g.V, m.lower, m.upper, m.source + su_o * g.V,
+                m.internal_coeffs, m.boundary_coeffs, m.psi,
+            )
         rf = self._eqn_relax_factor("h")
         if rf is not None:
             m = m.relax(rf)
@@ -939,6 +972,16 @@ class FireFoamSolver:
         state["phi_old_i"] = state["phi"].i
         state["K_old_i"] = 0.5 * torch.sum(state["U"].i * state["U"].i, dim=1)
         state["_phi_b_prev"] = phi_b_species
+        # RTI probes and links (solver/rti.H): before the time advance, on
+        # the current fields
+        if "rtis" in state:
+            state["rtis"] = self.rtis.advance(state["rtis"], state)
+            log["rtis_Te"] = state["rtis"]["Te"]
+            log["rtis_t_act"] = state["rtis"]["t_act"]
+        if "rti_links" in state:
+            state["rti_links"] = self.rti_links.advance(
+                state["rti_links"], state["T"].i, state["U"].i, state["t"], dt
+            )
         state["t"] = state["t"] + dt
         if self.ctl.adjust:
             state["dt"] = self.new_dt(state)
@@ -969,6 +1012,7 @@ class FireFoamSolver:
             log[f"Y_{sp}_max"] = y_max[s]
         log["t"] = state["t"]
         log["dt"] = dt
+        log.update(self.function_objects.compute(state))
         return state, log
 
     # ------------------------------------------------------------------

@@ -6,7 +6,10 @@ slot (o, c) holds the face from cell c to cell c + offsets[o] (zero
 coefficients where absent). blockMesh lattices are lexicographic, so they
 fit with 3 offsets (1, nx, nx·ny). Face↔cell motion is then a roll or a
 shift plus elementwise math; boundary↔cell motion is an index_add_ / an
-index_select over the owner cells.
+index_select over the owner cells. The index_add_ runs in groups whose
+owner cells are distinct, so no two additions collide: on the card (where
+index_add_ adds with atomics) the sums are bitwise reproducible, and on the
+CPU they keep the face order of one index_add_.
 
 A mesh that does not fit the DIA layout raises: the JAX package's SEG,
 hybrid and banded layouts are not ported.
@@ -70,6 +73,9 @@ class MeshGeometry:
     b_dc: torch.Tensor  # [nB]
     b_nodc: torch.Tensor  # [nB]
     b_Cf: torch.Tensor  # [nB,3]
+    # boundary faces grouped by their rank among their owner cell's faces
+    # (face order): ((faces, owners), ...), owners distinct within a group
+    b_groups: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
 
     patches: Tuple[PatchInfo, ...]
     offsets: Tuple[int, ...]
@@ -160,6 +166,15 @@ class MeshGeometry:
         np.add.at(tens, b_own, bb)
         recon = np.linalg.inv(tens)
 
+        order = np.argsort(b_own, kind="stable")
+        first = np.searchsorted(b_own[order], b_own[order], side="left")
+        rank = np.empty(nB, np.int64)
+        rank[order] = np.arange(nB) - first
+        b_groups = tuple(
+            (ix(f), ix(b_own[f]))
+            for f in (np.nonzero(rank == k)[0] for k in range(int(rank.max(initial=-1)) + 1))
+        )
+
         return cls(
             n_cells=nC,
             n_internal=nIp,
@@ -181,6 +196,7 @@ class MeshGeometry:
             b_dc=r(dc_b),
             b_nodc=r(nodc_b),
             b_Cf=r(mesh.Cf[n_int:]),
+            b_groups=b_groups,
             patches=patches,
             offsets=offs,
             face_perm=slot,
@@ -235,11 +251,14 @@ class MeshGeometry:
         )
 
     def boundary_to_cell_sum(self, bv: torch.Tensor) -> torch.Tensor:
-        """Σ of boundary-face values into their owner cells."""
+        """Σ of boundary-face values into their owner cells, in face order
+        (one index_add_ per group of `b_groups`: reproducible on the card)."""
         out = torch.zeros(
             (self.n_cells,) + tuple(bv.shape[1:]), dtype=bv.dtype, device=bv.device
         )
-        return out.index_add_(0, self.b_own, bv)
+        for faces, owners in self.b_groups:
+            out.index_add_(0, owners, bv.index_select(0, faces))
+        return out
 
     def cell_to_boundary(self, x: torch.Tensor) -> torch.Tensor:
         """x[b_own] ([nC(,d)] → [nB(,d)])."""

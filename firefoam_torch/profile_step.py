@@ -1,12 +1,13 @@
 """Profile the port's box-fire step on a CUDA card with torch.profiler.
 
-    python -m firefoam_torch.profile_step [--n 50 40 50] [--steps 3]
+    python -m firefoam_torch.profile_step [--n 50 40 50] [--steps 3] [--smooth]
 
-Builds write_box_fire_case(n), runs initial_state() and 12 warm-up steps,
-then profiles `--steps` steps. Prints the device time per kernel (top 25)
-and the device-busy share of the window's wall time (the profiler itself
-slows the host, so the idle share it reads is an upper bound). Needs a CUDA
-card; imports no JAX.
+Builds write_box_fire_case(n) (with --smooth, write_smooth_fire_case(n):
+smoothSolver for Yi, h and k, and the run features), runs initial_state()
+and 12 warm-up steps, then profiles `--steps` steps. Prints their solver
+iterations, the device time per kernel (top 25) and the device-busy share
+of the window's wall time (the profiler itself slows the host, so the idle
+share it reads is an upper bound). Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import time
 import torch
 
 from .models.firefoam import FireFoamSolver
-from .utils.synthcase import write_box_fire_case
+from .utils.synthcase import write_box_fire_case, write_smooth_fire_case
 
 # the box fire ignites around step 3 and solves its fvDOM rays on steps 1,
 # 11, 21, ...: steps 13-20 are a burning fire between two ray solves
@@ -49,11 +50,14 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, nargs=3, default=(50, 40, 50))
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--smooth", action="store_true",
+                    help="the smoothSolver case with the run features")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     with tempfile.TemporaryDirectory(prefix="firefoam_prof_") as tmp:
-        case = write_box_fire_case(tmp, n=tuple(args.n))
+        write = write_smooth_fire_case if args.smooth else write_box_fire_case
+        case = write(tmp, n=tuple(args.n))
         solver = FireFoamSolver(case, device="cuda")
         state = solver.initial_state()
         step = solver.make_step()
@@ -63,11 +67,16 @@ def main():
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
+            logs = []
             for _ in range(args.steps):
-                state, _ = step(state)
+                state, log = step(state)
+                logs.append(log)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     n = solver.geom.n_cells
+    for i, log in enumerate(logs):
+        its = {k: int(v) for k, v in sorted(log.items()) if k.endswith("_iters") or "iters_" in k}
+        print(f"step {WARMUP + i + 1} solver iterations: {its}")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
     busy = _busy_us(prof)
     print(f"{n} cells, {args.steps} steps: wall {wall_us / args.steps / 1e3:.3f} ms/step, "

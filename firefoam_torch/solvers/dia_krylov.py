@@ -5,7 +5,8 @@ firefoam_tpu/solvers/pallas_cg.py:
   * K0 `_dia_matvec` + the normFactor prologue → `dia_row` device functions
     shared by both kernels (csrc/dia_krylov.cu);
   * K1 `_bicgstab_kernel` → `dia_bicgstab`;
-  * K2 `_pcg_kernel`      → `dia_pcg`.
+  * K2 `_pcg_kernel`      → `dia_pcg`;
+  * K3 `_smooth_kernel`   → `dia_smooth`.
 
 Operands: diag, b, x0 are [nC] or [B, nC]; upper, lower are [K·nC] or
 [B, K·nC] in the DIA face-slot layout of ops/geometry.py (slot k·nC + c is
@@ -18,9 +19,10 @@ row; callers take the max where they want one count.
 
 A CUDA tensor goes to the kernel or raises; a CPU tensor runs the plain
 twin of solvers/linear.py on the same operands. The kernels are compiled
-with nvcc for sm_90a at first use, from csrc/dia_krylov.cu only, into
-firefoam_torch/_build/, and loaded with ctypes; each launch runs on the
-current PyTorch stream and adds one to LAUNCHES[name].
+with nvcc for sm_90a at first use, from the sources in csrc/, into
+firefoam_torch/_build/ (named by a hash of every source), and loaded with
+ctypes; each launch runs on the current PyTorch stream and adds one to
+LAUNCHES[name].
 """
 
 from __future__ import annotations
@@ -45,19 +47,21 @@ __all__ = [
     "dia_matvec",
     "dia_pcg",
     "dia_bicgstab",
+    "dia_smooth",
     "plain",
     "build_seconds",
     "reset_counts",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "dia_krylov.cu")
+_CSRC = os.path.join(_PKG, "csrc")
+_SRC = os.path.join(_CSRC, "dia_krylov.cu")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _MAX_OFFSETS = 8
 # scratch vectors per batch row (see the kernels' work layout)
-_WORK = {"pcg": 3, "bicgstab": 8}
+_WORK = {"pcg": 3, "bicgstab": 8, "smooth": 1}
 
-LAUNCHES = {"bicgstab": 0, "pcg": 0}
+LAUNCHES = {"bicgstab": 0, "pcg": 0, "smooth": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -94,10 +98,15 @@ def _nvcc() -> str:
 
 
 def _build() -> str:
-    """Compile csrc/dia_krylov.cu for sm_90a (once per source content) and
-    return the shared library's path."""
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:12]
+    """Compile csrc/dia_krylov.cu for sm_90a (once per content of csrc/:
+    every source it compiles or includes) and return the library's path."""
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(_CSRC)):
+        if name.endswith((".cu", ".cuh", ".h")):
+            h.update(name.encode())
+            with open(os.path.join(_CSRC, name), "rb") as f:
+                h.update(f.read())
+    tag = h.hexdigest()[:12]
     out = os.path.join(_BUILD_DIR, f"libdia_krylov_{tag}.so")
     if os.path.exists(out):
         return out
@@ -122,26 +131,27 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(_build())
             vp, ll, ci, cd = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
-            for name in ("pcg", "bicgstab"):
+            common = [
+                vp, ll, vp, ll, vp, ll,  # diag, upper, lower + batch strides
+                vp, vp,  # b, x0
+                vp, vp, vp, vp,  # x, res0, res, iters
+                vp,  # work
+                ctypes.POINTER(ci), ci,  # offsets (host), K
+                ci, ci,  # nC, B
+                cd, cd, cd, ci,  # tol, rel_tol, floor_eps, max_iter
+            ]
+            for name in LAUNCHES:
+                extra = [cd, ci] if name == "smooth" else []  # omega, check_every
                 for suf in ("f32", "f64"):
                     fn = getattr(lib, f"ffk_{name}_{suf}")
-                    fn.argtypes = [
-                        vp, ll, vp, ll, vp, ll,  # diag, upper, lower + batch strides
-                        vp, vp,  # b, x0
-                        vp, vp, vp, vp,  # x, res0, res, iters
-                        vp,  # work
-                        ctypes.POINTER(ci), ci,  # offsets (host), K
-                        ci, ci,  # nC, B
-                        cd, cd, cd, ci,  # tol, rel_tol, floor_eps, max_iter
-                        vp,  # stream
-                    ]
+                    fn.argtypes = common + extra + [vp]  # ..., stream
                     fn.restype = ci
             _lib = lib
     return _lib
 
 
 # ---------------------------------------------------------------- launcher
-def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter):
+def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, extra=()):
     dtype = x0.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dia_{name}: dtype {dtype} not supported")
@@ -186,7 +196,7 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter):
         x.data_ptr(), res0.data_ptr(), res.data_ptr(), iters.data_ptr(),
         work.data_ptr(), offs, K, nC, B,
         float(tol), float(rel_tol), TOL_FLOOR_EPS * torch.finfo(dtype).eps,
-        int(max_iter), stream,
+        int(max_iter), *extra, stream,
     )
     if err != 0:
         raise RuntimeError(f"dia_{name} kernel launch failed: cudaError {err}")
@@ -196,21 +206,38 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter):
     return SolverResult(x, res0, res, iters)
 
 
-def plain(fn, diag, upper, lower, b, x0, offsets, tol=1e-6, rel_tol=0.0, max_iter=1000):
+def plain(fn, diag, upper, lower, b, x0, offsets, tol=1e-6, rel_tol=0.0, max_iter=1000,
+          **kw):
     """The plain PyTorch version of a kernel, on any device: the twin `fn`
-    (linear.pcg or linear.bicgstab) with the DIA matvec."""
+    (linear.pcg, linear.bicgstab or linear.jacobi_smooth, whose extra
+    arguments pass through `kw`) with the DIA matvec."""
 
     def mv(v):
         return dia_matvec(diag, upper, lower, offsets, v)
 
-    return fn(mv, x0, b, diag, tol=tol, rel_tol=rel_tol, max_iter=max_iter)
+    return fn(mv, x0, b, diag, tol=tol, rel_tol=rel_tol, max_iter=max_iter, **kw)
+
+
+def plain_smooth(diag, upper, lower, b, x0, offsets, tol=1e-6, rel_tol=0.0, max_iter=1000,
+                 omega=0.8, check_every=4):
+    """K3's plain version: jacobi_smooth counts rounds of `check_every`
+    sweeps and reports sweeps; the kernel's `max_iter` counts sweeps and
+    starts a round while it < max_iter, i.e. ceil(max_iter/check_every)
+    rounds."""
+    return plain(linear.jacobi_smooth, diag, upper, lower, b, x0, offsets, tol, rel_tol,
+                 -(-int(max_iter) // int(check_every)), n_sweeps=int(check_every),
+                 damping=float(omega))
+
+
+def _on_cpu(name, x0):
+    if x0.device.type != "cpu":
+        raise NotImplementedError(f"dia_{name}: no kernel for device {x0.device}")
 
 
 def _dispatch(name, twin, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter):
     if x0.is_cuda:
         return _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter)
-    if x0.device.type != "cpu":
-        raise NotImplementedError(f"dia_{name}: no kernel for device {x0.device}")
+    _on_cpu(name, x0)
     return plain(twin, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter)
 
 
@@ -226,6 +253,18 @@ def dia_bicgstab(diag, upper, lower, b, x0, offsets, tol=1e-6, rel_tol=0.0,
     """Whole-solve Jacobi-preconditioned BiCGStab (PBiCGStab role); K1."""
     return _dispatch("bicgstab", linear.bicgstab, diag, upper, lower, b, x0, offsets,
                      tol, rel_tol, max_iter)
+
+
+def dia_smooth(diag, upper, lower, b, x0, offsets, tol=1e-6, rel_tol=0.0,
+               max_iter=1000, omega=0.8, check_every=4) -> SolverResult:
+    """Whole-solve damped-Jacobi smoother (smoothSolver role); K3.
+    `max_iter` and `n_iterations` count sweeps, as in the Pallas kernel."""
+    if x0.is_cuda:
+        return _launch("smooth", diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter,
+                       extra=(float(omega), int(check_every)))
+    _on_cpu("smooth", x0)
+    return plain_smooth(diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter,
+                        omega, check_every)
 
 
 def build_seconds() -> float:

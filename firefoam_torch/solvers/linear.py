@@ -29,7 +29,8 @@ import torch
 
 from ..config import TOL_FLOOR_EPS
 
-__all__ = ["SolverResult", "solve_scalar", "pcg", "bicgstab", "jacobi_smooth"]
+__all__ = ["SolverResult", "solve_scalar", "smooth_sweeps", "pcg", "bicgstab",
+           "jacobi_smooth"]
 
 
 class SolverResult(NamedTuple):
@@ -215,9 +216,12 @@ def jacobi_smooth(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
 
 def solve_scalar(m, x0: torch.Tensor, solver: str = "PCG", tol: float = 1e-6,
                  rel_tol: float = 0.0, max_iter: int = 1000) -> SolverResult:
-    """Solve one scalar FvMatrix system on the DIA layout. PCG/GAMG and
-    PBiCGStab/PBiCG go to the whole-solve kernels of dia_krylov (plain
-    twins on the CPU)."""
+    """Solve one scalar FvMatrix system on the DIA layout. PCG/GAMG,
+    PBiCGStab/PBiCG and smoothSolver go to the whole-solve kernels of
+    dia_krylov (plain twins on the CPU). smoothSolver is damped Jacobi with
+    max(maxIter, 200) rounds of 4 sweeps, as in the JAX package
+    (linear.py:285-290, 302-307); the dict's smoother and nSweeps are not
+    read."""
     from . import dia_krylov
 
     diag_t, b = m.totals()
@@ -232,4 +236,16 @@ def solve_scalar(m, x0: torch.Tensor, solver: str = "PCG", tol: float = 1e-6,
             diag_t, m.upper, m.lower, b, x0, g.offsets,
             tol=tol, rel_tol=rel_tol, max_iter=max_iter,
         )
+    if solver == "smoothSolver":
+        return dia_krylov.dia_smooth(
+            diag_t, m.upper, m.lower, b, x0, g.offsets,
+            tol=tol, rel_tol=rel_tol, max_iter=smooth_sweeps(max_iter),
+        )
     raise NotImplementedError(f"linear solver '{solver}'")
+
+
+def smooth_sweeps(max_iter: int) -> int:
+    """The sweep budget of a smoothSolver entry: damped Jacobi needs
+    headroom beyond the dict's maxIter, so max(maxIter, 200) rounds of 4
+    sweeps (firefoam_tpu solve_scalar and _lin_fn)."""
+    return max(int(max_iter), 200) * 4

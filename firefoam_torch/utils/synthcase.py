@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["write_box_fire_case", "write_castellated_fire_case"]
+__all__ = ["write_box_fire_case", "write_smooth_fire_case", "write_castellated_fire_case"]
 
 
 def _w(path, text):
@@ -333,6 +333,103 @@ sootModel none;
             p: "type greyDiffusiveRadiation;\n        T T;\n        emissivityMode lookup;\n        emissivity uniform 1;\n        value uniform 0;"
             for p in ("top", "sides", "base", "burner")
         },
+    )
+    return root
+
+
+def write_smooth_fire_case(
+    root: str,
+    n=(8, 8, 8),
+    size=(1.0, 1.0, 1.0),
+    end_time: float = 0.1,
+    write_control: str = "adjustableRunTime",
+    write_interval: float = 1.0,
+    **kw,
+) -> str:
+    """The box fire (write_box_fire_case) with the features of a run:
+    fvSolution's "(Yi|h|k).*" entry on OpenFOAM's usual transport-equation
+    smoother (smoothSolver + symGaussSeidel; the solvers run it as damped
+    Jacobi), controlDict function objects (volFieldValue of Qdot,
+    fieldMinMax of T and U, probes of T above the burner), system/fvOptions
+    (small semi-implicit sources on h and U, and the radiation option),
+    system/rtisDict (4 sprinkler-link probes) and an active
+    constant/rtiProperties."""
+    write_box_fire_case(root, n=n, size=size, end_time=end_time, **kw)
+    lx, ly, lz = size
+    dt = kw.get("dt", 0.01)
+    probes = " ".join(f"({lx / 2} {ly * f} {lz / 2})" for f in (0.3, 0.5, 0.7))
+    rtis = " ".join(
+        f"({lx * fx} {ly * fy} {lz / 2})" for fx, fy in ((0.5, 0.8), (0.3, 0.8), (0.7, 0.8), (0.5, 0.95))
+    )
+    _w(
+        f"{root}/system/controlDict",
+        f"""FoamFile {{ version 2.0; format ascii; class dictionary; object controlDict; }}
+application fireFoam;
+startFrom startTime; startTime 0;
+stopAt endTime; endTime {end_time};
+deltaT {dt};
+writeControl {write_control}; writeInterval {write_interval};
+adjustTimeStep yes; maxCo 0.9; maxDeltaT 0.1;
+runTimeModifiable no;
+functions
+{{
+    HRR {{ type volFieldValue; fields (Qdot); operation volIntegrate; regionType all; }}
+    minMaxTU {{ type fieldMinMax; fields (T U); }}
+    plume {{ type probes; fields (T); probeLocations ({probes}); }}
+}}
+""",
+    )
+    with open(f"{root}/system/fvSolution") as f:
+        fvs = f.read()
+    old = '"(Yi|h|k).*" { $U; tolerance 1e-8; }'
+    if old not in fvs:
+        raise ValueError("write_box_fire_case's fvSolution has changed")
+    _w(
+        f"{root}/system/fvSolution",
+        fvs.replace(
+            old,
+            '"(Yi|h|k).*" { solver smoothSolver; smoother symGaussSeidel; nSweeps 1; '
+            "tolerance 1e-8; relTol 0; maxIter 50; }",
+        ),
+    )
+    _w(
+        f"{root}/system/fvOptions",
+        """FoamFile { version 2.0; format ascii; class dictionary; object fvOptions; }
+heater
+{
+    type            scalarSemiImplicitSource;
+    selectionMode   all;
+    volumeMode      absolute;
+    injectionRateSuSp { h (500 -0.001); }
+}
+draught
+{
+    type            vectorSemiImplicitSource;
+    selectionMode   all;
+    volumeMode      specific;
+    injectionRateSuSp { U ((0 0.05 0) 0); }
+}
+radiation { type radiation; libs (radiationModels); fields (h); }
+""",
+    )
+    _w(
+        f"{root}/system/rtisDict",
+        f"""FoamFile {{ version 2.0; format ascii; class dictionary; object rtisDict; }}
+rtiLocations ({rtis});
+RTI 50; C 0.5; initialTemperature 298.15; activationTemperature 330;
+""",
+    )
+    links = "\n".join(
+        f"RTI{i} {rti}; C{i} {c}; Tact{i} {tact};"
+        for i, (rti, c, tact) in enumerate(
+            ((50, 0.5, 330), (80, 0.6, 341), (100, 0.65, 345), (150, 0.8, 360), (200, 1.0, 380)),
+            start=1,
+        )
+    )
+    _w(
+        f"{root}/constant/rtiProperties",
+        "FoamFile { version 2.0; format ascii; class dictionary; object rtiProperties; }\n"
+        f"active true;\n{links}\n",
     )
     return root
 

@@ -6,13 +6,16 @@ JAX, so it also runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest -q
 
-* K1/K2 against their plain PyTorch versions on the same operands
-  (f64: equal iteration counts, x to 1e-9 relative; f32: counts within ±2,
-  x to 1e-4 relative), with the launch counter checked.
+* K1/K2/K3 against their plain PyTorch versions on the same operands
+  (f64: equal iteration counts, x to 1e-9 relative; f32: K1/K2 counts
+  within ±2, K3 sweeps within ±4 — one round of its residual check, where
+  the f32 stagnation exit can fire a round apart — x to 1e-4 relative),
+  with the launch counter checked.
 * K1 on a system where BiCGStab breaks down (rhat·v = 0 in float64): it
   restarts as the twin does.
 * One box-fire step on CUDA against the same step on the CPU in float64
-  (the kernels against the CPU twins inside the real step).
+  (the kernels against the CPU twins inside the real step), with the
+  PBiCGStab and with the smoothSolver fvSolution.
 """
 
 import numpy as np
@@ -21,7 +24,7 @@ import torch
 
 from firefoam_torch.models.firefoam import FireFoamSolver, state_from_numpy, state_to_numpy
 from firefoam_torch.solvers import dia_krylov, linear
-from firefoam_torch.utils.synthcase import write_box_fire_case
+from firefoam_torch.utils.synthcase import write_box_fire_case, write_smooth_fire_case
 
 pytestmark = pytest.mark.gpu
 
@@ -62,16 +65,21 @@ def _system(seed, B, sym, shared, dtype, dev):
 
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("name", ["pcg", "bicgstab"])
+@pytest.mark.parametrize("name", ["pcg", "bicgstab", "smooth"])
 def test_kernel_matches_plain_version(name, dtype, shared):
     _need_cuda()
     ops = _system(41, 4, name == "pcg", shared, dtype, torch.device("cuda"))
     before = dia_krylov.LAUNCHES[name]
-    got = getattr(dia_krylov, f"dia_{name}")(*ops, OFFS, tol=1e-8, max_iter=500)
+    # K3's budget counts sweeps: 800 is the fire step's max(maxIter, 200)·4
+    mx = 800 if name == "smooth" else 500
+    got = getattr(dia_krylov, f"dia_{name}")(*ops, OFFS, tol=1e-8, max_iter=mx)
     torch.cuda.synchronize()
     assert dia_krylov.LAUNCHES[name] == before + 1
-    ref = dia_krylov.plain(getattr(linear, name), *ops, OFFS, tol=1e-8, max_iter=500)
-    slack, xtol = (0, 1e-9) if dtype == torch.float64 else (2, 1e-4)
+    if name == "smooth":
+        ref = dia_krylov.plain_smooth(*ops, OFFS, tol=1e-8, max_iter=mx)
+    else:
+        ref = dia_krylov.plain(getattr(linear, name), *ops, OFFS, tol=1e-8, max_iter=mx)
+    slack, xtol = (0, 1e-9) if dtype == torch.float64 else (4 if name == "smooth" else 2, 1e-4)
     its = (got.n_iterations.cpu().numpy(), ref.n_iterations.cpu().numpy())
     assert np.all(np.abs(its[0] - its[1]) <= slack), its
     rel = float((got.x - ref.x).abs().max() / ref.x.abs().max())
@@ -113,14 +121,17 @@ def test_kernel_rejects_bad_operands():
         dia_krylov.dia_pcg(d, up, lo, b, x0.t().contiguous().t(), OFFS)
 
 
-def test_box_fire_step_on_cuda_matches_cpu(tmp_path):
-    """The main path on the card in float64: every solve goes through K1/K2.
+@pytest.mark.parametrize("smooth", [False, True])
+def test_box_fire_step_on_cuda_matches_cpu(tmp_path, smooth):
+    """The main path on the card in float64: every solve goes through K1/K2
+    and, with the smoothSolver fvSolution (and the run features), K3.
     The initial state (hydrostatic init: three PCG solves at relTol 0.01,
     whose reductions sum in another order on the card) matches the CPU's to
     1e-10, and one step (with its fvDOM solve) from the same state to 1e-9
     with equal iteration counts."""
     _need_cuda()
-    root = write_box_fire_case(str(tmp_path / "box"), n=(8, 8, 8))
+    write = write_smooth_fire_case if smooth else write_box_fire_case
+    root = write(str(tmp_path / "box"), n=(8, 8, 8))
     cpu = FireFoamSolver(root, device="cpu", dtype=torch.float64)
     gpu = FireFoamSolver(root, device="cuda", dtype=torch.float64)
     st_c, st_g = cpu.initial_state(), gpu.initial_state()
@@ -134,7 +145,9 @@ def test_box_fire_step_on_cuda_matches_cpu(tmp_path):
     st_g, log_g = gpu.step(st_g)
     torch.cuda.synchronize()
     assert dia_krylov.LAUNCHES["pcg"] == 2  # two p_rgh correctors
-    assert dia_krylov.LAUNCHES["bicgstab"] == 5  # U, Yi, h, k and the fvDOM rays
+    # U and the fvDOM rays; Yi, h and k on K1 (PBiCGStab) or K3 (smoothSolver)
+    assert dia_krylov.LAUNCHES["bicgstab"] == (2 if smooth else 5)
+    assert dia_krylov.LAUNCHES["smooth"] == (3 if smooth else 0)
     for k in log_c:
         if k.endswith("_iters") or "iters_" in k:
             assert int(log_g[k]) == int(log_c[k]), (k, int(log_g[k]), int(log_c[k]))
@@ -142,3 +155,20 @@ def test_box_fire_step_on_cuda_matches_cpu(tmp_path):
         a, b = st_g[f].i.cpu().numpy(), st_c[f].i.numpy()
         rel = np.max(np.abs(a - b)) / np.max(np.abs(b))
         assert rel <= 1e-9, (f, rel)
+
+
+def test_step_is_reproducible_on_cuda(tmp_path):
+    """Two float32 runs of the smoothSolver case from t = 0 (hydrostatic
+    init, 5 steps with an fvDOM solve) give bitwise equal states: the
+    boundary sums' index_add_ groups never collide, so the card's atomics
+    add in a fixed order."""
+    _need_cuda()
+    root = write_smooth_fire_case(str(tmp_path / "box"), n=(8, 8, 8))
+    solver = FireFoamSolver(root, device="cuda", dtype=torch.float32)
+    runs = []
+    for _ in range(2):
+        st = solver.initial_state()
+        st, _ = solver.make_chunk(5)(st)
+        runs.append(state_to_numpy(st))
+    for f in ("T", "U", "p_rgh", "Y", "k"):
+        np.testing.assert_array_equal(runs[0][f].i, runs[1][f].i, err_msg=f)

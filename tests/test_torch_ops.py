@@ -109,6 +109,23 @@ def test_geometry_primitives_match(env):
                 jg.cell_sum_unsigned(jnp.asarray(F.phi[0]), jnp.asarray(F.phi[1]))) <= TOL
 
 
+def test_boundary_sum_groups_are_collision_free(env):
+    """boundary_to_cell_sum adds in groups whose owner cells are distinct
+    (reproducible with the card's atomics) and equals one index_add_ in
+    face order bitwise."""
+    _, _, tg = env
+    faces = torch.cat([f for f, _ in tg.b_groups])
+    assert sorted(faces.tolist()) == list(range(tg.n_boundary))
+    for f, own in tg.b_groups:
+        assert len(set(own.tolist())) == len(own)
+        assert torch.equal(own, tg.b_own[f])
+    rng = np.random.RandomState(3)
+    for shape in ((tg.n_boundary,), (tg.n_boundary, 3)):
+        bv = torch.as_tensor(rng.randn(*shape) * 10.0 ** rng.uniform(-8, 8, shape))
+        one = torch.zeros((tg.n_cells,) + shape[1:], dtype=bv.dtype).index_add_(0, tg.b_own, bv)
+        assert torch.equal(tg.boundary_to_cell_sum(bv), one)
+
+
 def test_fvc_operators_match(env):
     _, jg, tg = env
     F = Fields(jg, seed=2)

@@ -151,8 +151,14 @@ def test_five_chained_steps(run):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, imports neither JAX nor
+    the JAX package."""
     code = (
-        "import firefoam_torch.models.firefoam, sys; "
+        "import importlib, pkgutil, sys, firefoam_torch; "
+        "mods = [m.name for m in pkgutil.walk_packages(firefoam_torch.__path__, 'firefoam_torch.')]; "
+        "assert len(mods) > 40, mods; "
+        "[importlib.import_module(m) for m in mods]; "
+        "import chip_smoke; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m.startswith('firefoam_tpu') for m in sys.modules), 'firefoam_tpu imported'"
     )
