@@ -5,10 +5,14 @@
 Phases (each prints one line; any failure raises and the exit code is not 0):
   1. the card: torch's device name and nvidia-smi's name and power limit;
   2. build the CUDA kernels from firefoam_torch/csrc/ (nvcc, sm_90a);
-  3. each kernel (K1 bicgstab, K2 pcg, K3 smooth) against its plain PyTorch
-     version on the card, on random DIA systems with the box-fire offsets at
-     100k cells, float32 and float64, shared and per-row matrices (B in
-     {1, 3, 4, 16} for K1/K2, {1, 4} for K3);
+  3. the time of one grid barrier (grid.sync() over every co-resident
+     block), then each kernel (K1 bicgstab, K2 pcg, K3 smooth) against its
+     plain PyTorch version on the card, on random DIA systems with the
+     box-fire offsets at 100k cells, float32 and float64, shared and
+     per-row matrices (B in {1, 3, 4, 16} for K1/K2 — the grid-wide
+     kernels — and {1, 4} for K3); K1/K2 also on the 9k-cell lattice, on a
+     batch whose rows stop at different iterations, and on more rows than
+     the card has blocks (the one-block-per-row kernels);
   4. the main path at 100k cells in float32: write_box_fire_case(50,40,50)
      → FireFoamSolver(device="cuda") → initial_state() → one warm-up step →
      make_chunk(20), with the kernels' launch counters checked, every logged
@@ -85,6 +89,13 @@ FLOPS_ITER = {"pcg": 29, "bicgstab": 58, "smooth": 18 + 17 / 4}
 # the kernels' passes: CG 20, BiCGStab 39, a Jacobi sweep 10 plus its
 # residual check (9, once per 4 sweeps)
 VECTORS_ITER = {"pcg": 20, "bicgstab": 39, "smooth": 10 + 9 / 4}
+# barriers over all of a row's blocks per iteration (sweep), each with a
+# dependent pass behind it: what an iteration costs when its bytes are on
+# the SMs. K3 runs in one block per row today, so its barriers are block
+# barriers; its entry is what a grid-wide K3 would have (one per sweep, one
+# per residual check)
+BARRIERS_ITER = {"pcg": 3, "bicgstab": 5, "smooth": 1 + 1 / 4}
+BARRIERS_PROLOGUE = 2
 CHUNK_CLI = 10
 # repeated and resumed vs uninterrupted CLI runs, per column of the printed
 # (8-digit) rows relative to the column's largest value: 0, the card's step
@@ -176,31 +187,65 @@ def streamed_ms(name, dtype, nC, iters):
     return 1e3 * nbytes / HBM_BYTES_S
 
 
-def phase_kernels(dev):
+def latency_ms(name, iters, sync_s):
+    """iterations × grid barriers per iteration × the measured time of one
+    grid barrier (plus the prologue's): the least a solve that synchronises
+    that often can take on this card."""
+    return 1e3 * sync_s * (BARRIERS_PROLOGUE + BARRIERS_ITER[name] * float(np.max(iters)))
+
+
+def phase_sync():
+    """The time of one grid.sync() over every co-resident block of K2."""
+    G, _ = dia_krylov._coop_blocks("pcg", torch.float32, 0)
+    sync_s = dia_krylov.grid_sync_seconds(G)
+    say(3, f"one grid barrier over {G} blocks of 1024 threads: {1e6 * sync_s:.3f} us "
+           f"(over 9 blocks {1e6 * dia_krylov.grid_sync_seconds(9):.3f} us)")
+    if not 0.0 < sync_s < 1e-3:
+        raise SystemExit("phase 3: implausible grid barrier time")
+    return G, sync_s
+
+
+def phase_kernels(dev, G, sync_s):
     rng = np.random.RandomState(0)
     stats = {}
     smooth_kw = dict(max_iter=SMOOTH_SWEEPS)
+    # (lattice, B, per-row matrices, rows stop apart)
+    main = tuple((N_MAIN, B, pr, False)
+                 for B, pr in ((1, False), (3, False), (4, True), (16, True)))
+    extra = ((N_SMALL, 1, False, False), (N_SMALL, 4, True, False), (N_SMALL, 4, True, True),
+             (N_SMALL, G + 68, False, False))  # more rows than blocks: 200 on an H100
     for name, plain, kern, sym, shapes in (
         ("pcg", lambda *a, **k: dia_krylov.plain(linear.pcg, *a, **k), dia_krylov.dia_pcg, True,
-         ((1, False), (3, False), (4, True), (16, True))),
+         main + extra),
         ("bicgstab", lambda *a, **k: dia_krylov.plain(linear.bicgstab, *a, **k),
-         dia_krylov.dia_bicgstab, False, ((1, False), (3, False), (4, True), (16, True))),
+         dia_krylov.dia_bicgstab, False, main + extra),
         ("smooth", dia_krylov.plain_smooth, dia_krylov.dia_smooth, False,
-         ((1, False), (4, True))),
+         ((N_MAIN, 1, False, False), (N_MAIN, 4, True, False))),
     ):
         st = stats.setdefault(name, {"max_abs_err": 0.0})
         for dtype in (torch.float64, torch.float32):
             xtol, slack = TOL[dtype]
             if name == "smooth" and dtype == torch.float32:
                 slack = SMOOTH_F32_SLACK
-            for B, per_row in shapes:
-                offs, d, up, lo, b, x0 = dia_system(rng, N_MAIN, B, per_row, sym, dtype, dev)
+            for nxyz, B, per_row, apart in shapes:
+                offs, d, up, lo, b, x0 = dia_system(rng, nxyz, B, per_row, sym, dtype, dev)
+                nC = x0.shape[-1]
                 args = dict(tol=1e-8, rel_tol=0.0, max_iter=1000)
                 if name == "smooth":
                     args.update(smooth_kw)
+                if apart:  # right-hand sides of very different size and a relTol
+                    scale = torch.tensor([1.0, 1e3, 1e-3, 30.0], dtype=dtype, device=dev)
+                    b = (b * scale[:, None]).contiguous()
+                    args.update(tol=1e-6, rel_tol=0.05)
 
                 def run_k():
                     return kern(d, up, lo, b, x0, offs, **args)
+
+                def ms_laid_out(**kw):
+                    """The same K1/K2 launch with another layout, timed."""
+                    return time_ms(lambda: dia_krylov._launch(
+                        name, d, up, lo, b, x0, offs, args["tol"], args["rel_tol"],
+                        args["max_iter"], **kw), reps=20)
 
                 def run_p():
                     return plain(d, up, lo, b, x0, offs, **args)
@@ -210,27 +255,55 @@ def phase_kernels(dev):
                 it_k = rk.n_iterations.cpu().numpy()
                 it_p = rp.n_iterations.cpu().numpy()
                 err = float((rk.x - rp.x).abs().max())
-                rel = err / float(rp.x.abs().max())
+                rel = float(((rk.x - rp.x).abs().amax(-1) / rp.x.abs().amax(-1)).max())
                 ok = rel <= xtol and np.all(np.abs(it_k - it_p) <= slack) and bool(
                     torch.isfinite(rk.x).all()
                 )
-                ms_k, ms_p = time_ms(run_k), time_ms(run_p, reps=2)
-                say(3, f"{name} {str(dtype)[6:]} B={B} {'per-row' if per_row else 'shared'}: "
-                       f"iters kernel {it_k.tolist()} plain {it_p.tolist()} "
+                if apart and len(set(it_p.tolist())) < 2:
+                    raise SystemExit("phase 3: the rows meant to stop apart stopped together")
+                ms_k, ms_p = time_ms(run_k, reps=20), time_ms(run_p, reps=2)
+                blocks = ""
+                if name in ("pcg", "bicgstab"):
+                    plan, smem = dia_krylov._grid_launch_plan(name, dtype, B, nC, len(offs),
+                                                              x0.element_size())
+                    blocks = (f" grid-wide {B}x{plan.blocks_per_row} blocks of "
+                              f"{plan.cells_per_block} cells, {smem} B shared"
+                              if plan.grid_wide else " one block per row")
+                show = (lambda a: a.tolist()) if B <= 16 else (
+                    lambda a: f"{int(a.min())}..{int(a.max())}")
+                say(3, f"{name} {str(dtype)[6:]} {nC} cells B={B} "
+                       f"{'per-row' if per_row else 'shared'}{' rows apart' if apart else ''}"
+                       f"{blocks}: iters kernel {show(it_k)} plain {show(it_p)} "
                        f"max rel err {rel:.3e} kernel {ms_k:.3f} ms plain {ms_p:.3f} ms")
                 if not ok:
                     raise SystemExit(f"phase 3: {name} disagrees with its plain version")
                 st["max_abs_err"] = max(st["max_abs_err"], err)
                 # the main path's shapes in float32: U-like shared rows for
                 # K1, one p_rgh row for K2, one h or k row for K3
-                if dtype == torch.float32 and ((name in ("pcg", "smooth") and B == 1) or
-                                               (name == "bicgstab" and B == 3)):
+                if nxyz == N_MAIN and dtype == torch.float32 and (
+                        (name in ("pcg", "smooth") and B == 1) or (name == "bicgstab" and B == 3)):
                     st["ms"], st["plain_ms"] = ms_k, ms_p
                     st["bound_ms"], st["bound_by"] = bound(name, dtype, (d, up, lo, b, x0), it_k)
+                    st["latency_ms"] = latency_ms(name, it_k, sync_s)
+                    st["us_per_iteration"] = 1e3 * ms_k / float(np.max(it_k))
                     say(3, f"{name} bound {st['bound_ms']:.4f} ms ({st['bound_by']}); "
                            f"every iteration's vectors streamed from HBM "
-                           f"{streamed_ms(name, dtype, x0.shape[-1], it_k):.4f} ms; "
-                           f"{it_k.tolist()} iterations")
+                           f"{streamed_ms(name, dtype, nC, it_k):.4f} ms; its grid barriers alone "
+                           f"{st['latency_ms']:.4f} ms; {it_k.tolist()} iterations, "
+                           f"{st['us_per_iteration']:.3f} us each")
+                    st["blocks"] = B * plan.blocks_per_row if name != "smooth" else B
+                    if name != "smooth":
+                        say(3, f"{name} the same solve with its slices streamed from L2 "
+                               f"(nothing kept in shared memory) "
+                               f"{ms_laid_out(resident=False):.3f} ms; with at least 256 cells "
+                               f"a block {ms_laid_out(min_cells=256):.3f} ms, 1024 cells "
+                               f"{ms_laid_out(min_cells=1024):.3f} ms")
+                if nxyz == N_SMALL and dtype == torch.float32 and B == 1 and name != "smooth":
+                    say(3, f"{name} {nC} cells: {1e3 * ms_k / float(np.max(it_k)):.3f} us per "
+                           f"iteration; with at least 128 cells a block "
+                           f"{ms_laid_out(min_cells=128):.3f} ms, 256 "
+                           f"{ms_laid_out(min_cells=256):.3f} ms, 1024 "
+                           f"{ms_laid_out(min_cells=1024):.3f} ms")
     return stats
 
 
@@ -445,7 +518,8 @@ def main():
     say(2, f"kernels built and loaded in {dia_krylov.build_seconds():.2f} s "
            f"from {SOURCE}")
 
-    stats = phase_kernels(dev)
+    G, sync_s = phase_sync()
+    stats = phase_kernels(dev, G, sync_s)
 
     with tempfile.TemporaryDirectory(prefix="firefoam_smoke_") as tmp:
         main_case = write_box_fire_case(os.path.join(tmp, "main"), n=N_MAIN)
@@ -467,6 +541,10 @@ def main():
             "bound_ms": stats[name_k]["bound_ms"],
             "bound_by": stats[name_k]["bound_by"],
             "library_ms": None,  # no single PyTorch call solves these systems
+            "latency_ms": stats[name_k]["latency_ms"],
+            "us_per_iteration": stats[name_k]["us_per_iteration"],
+            "blocks": stats[name_k]["blocks"],
+            "grid_sync_us": 1e6 * sync_s,
         }
         for name_k in ("bicgstab", "pcg", "smooth")
     ]

@@ -2,27 +2,47 @@
 //
 // Replaces the Pallas kernels of firefoam_tpu/solvers/pallas_cg.py:
 //   K0  _dia_matvec (pallas_cg.py:187) and the normFactor prologue
-//       (:232-248)                       -> dia_row / dia_row_const below
-//   K1  _bicgstab_kernel (:281-374)      -> bicgstab_kernel
-//   K2  _pcg_kernel (:201-278)           -> pcg_kernel
+//       (:232-248)                       -> dia_row* / prologue* below
+//   K1  _bicgstab_kernel (:281-374)      -> bicgstab_grid_kernel, bicgstab_kernel
+//   K2  _pcg_kernel (:201-278)           -> pcg_grid_kernel, pcg_kernel
 //   K3  _smooth_kernel (:377-456)        -> smooth_kernel
 // The Python wrappers and the plain PyTorch twins are in
 // firefoam_torch/solvers/dia_krylov.py and solvers/linear.py.
 //
-// Design: one thread block per batch row runs that row's whole solve —
-// matvec, Jacobi preconditioner, block-wide reductions (warp shuffles plus
-// shared memory) and the stop test — in one launch, the analogue of the
-// Pallas grid-over-batch mode. The Krylov work vectors live in device
-// scratch that the wrapper allocates; neighbours are read with bounds
-// checks (c + o < nC, c >= o), not wrapped shifts.
+// What bounds K1 and K2 on this card: not bytes. A 100k-cell row's working
+// set (a few MB) sits in the 50 MB L2, and a Krylov iteration is a chain of
+// dependent steps — a matvec, a dot product over the whole row, an update,
+// another dot product — so a solve costs (iterations) x (synchronisations
+// per iteration) x (the latency of one synchronisation plus one pass).
 //
-// What bounds it: one iteration streams about 20 vectors of nC values
-// (3 coefficient diagonals up and down, diag, the iterate vectors), so at
-// 100k cells and K = 3 it is memory-bandwidth bound, and one block per row
-// uses one SM of 132 — a B = 1 p_rgh solve leaves the rest of the card
-// idle. The working set of a 100k-cell row (~8 MB in f64) sits in the
-// 50 MB L2 between iterations. Filling the card for B = 1 (a grid-wide
-// solve) is later work.
+// Design of K1 and K2 (the *_grid_kernel pair): one system spread over the
+// whole card. The launch is cooperative (cudaLaunchCooperativeKernel), so
+// every block is resident and cooperative_groups' grid.sync() is a barrier
+// over all of them. The wrapper's grid_plan gives each batch row a group of
+// `bpr` consecutive blocks and each block one contiguous range of `L` cells;
+// a thread owns the same cells in every pass, so only the vector whose
+// neighbours other blocks read (p in CG; p-hat and s-hat in BiCGStab) is
+// exchanged through global memory, read with ld.global.cg (L2, never the
+// non-coherent path) after a grid barrier. Everything else a block needs —
+// its slice of the diagonal, of the K upper and K lower diagonals (the
+// lower one stored shifted, so slot i is the coefficient of x[c-o]), and of
+// the Krylov vectors — lives in its dynamic shared memory when the slice
+// fits (Params::resident), else it is streamed from L2 through the same
+// code (the pointers then aim at global memory).
+//   Reductions: each block sums its cells (block_sum), writes the partial to
+// its own slot, and after the grid barrier every block of the row adds the
+// row's slots in one fixed order (row_sum). No float atomics: every block
+// of a row holds bit-identical alpha, beta, res, rho and omega, so the loop
+// tests and K1's retry branch are uniform over the row, and two launches of
+// one solve give bit-equal results (the order depends on bpr and L alone).
+//   One barrier serves all rows, so every block walks through the same
+// barriers each trip of the loop whatever its row does: a row that stopped
+// (or retries) does no work with x frozen, and the loop ends for the whole
+// grid when no row's flag (written before, read after a barrier) is set.
+//
+// When there are more rows than co-resident blocks the one-block-per-row
+// kernels (pcg_kernel, bicgstab_kernel: block barriers only) are the right
+// shape already and take the launch; K3 still has only that shape.
 //
 // Batch semantics: every row stops at its own rule and reports its own
 // iteration count, as a jax.vmap over firefoam_tpu/solvers/linear.py does.
@@ -30,9 +50,12 @@
 // converges (pallas_cg.py:250-252, 334-335); the max over rows is taken by
 // the caller after the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -66,6 +89,12 @@ struct Params {
   int max_iter;
   double omega;                  // K3 only: Jacobi damping
   int check_every;               // K3 only: sweeps per residual check
+  // grid-wide kernels only (the wrapper's grid_plan):
+  int bpr;                       // blocks per batch row
+  int L;                         // cells per block (the last of a row may own fewer)
+  int resident;                  // 1: the block's slices live in dynamic shared memory
+  T* slots;                      // [kSlots, gridDim.x] per-block partial sums
+  int* flags;                    // [B] row still iterating
 };
 
 // nz(): guard a denominator against exact zero, keeping its sign
@@ -341,6 +370,395 @@ __global__ void __launch_bounds__(kThreads) bicgstab_kernel(Params<T> p) {
   }
 }
 
+// ------------------------------------------------------------ grid-wide K1, K2
+constexpr int kSlots = 16;  // partial sums per block: K2 uses 8, K1 11
+
+// A block's place in the plan, and its view of its row's read-only operands:
+// slot i is cell c0 + i. `l` is indexed k*ls + i - lsh*o (lsh = 0 when the
+// shared-memory copy is already shifted by the offset).
+template <typename T>
+struct Slice {
+  int row, first, c0, n;  // batch row, its first block, first cell, cells owned
+  const T* d;
+  const T* u;
+  const T* l;
+  long long us, ls;
+  int lsh;
+};
+
+template <typename T>
+__device__ __forceinline__ T* stage_operands(const Params<T>& p, T* sh, Slice<T>& s) {
+  s.row = blockIdx.x / p.bpr;
+  s.first = s.row * p.bpr;
+  const long long at = (long long)(blockIdx.x - s.first) * p.L;
+  s.c0 = at < p.nC ? (int)at : p.nC;
+  s.n = min(p.L, p.nC - s.c0);
+  const T* gd = p.diag + s.row * p.sd + s.c0;
+  const T* gu = p.upper + s.row * p.su + s.c0;
+  const T* gl = p.lower + s.row * p.sl + s.c0;
+  if (!p.resident) {
+    s.d = gd; s.u = gu; s.l = gl;
+    s.us = s.ls = p.nC;
+    s.lsh = 1;
+    return sh;
+  }
+  const int L = p.L;
+  T* sd = sh;
+  T* su = sd + L;
+  T* sl = su + (long long)p.K * L;
+  for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+    const int c = s.c0 + i;
+    sd[i] = gd[i];
+    for (int k = 0; k < p.K; ++k) {
+      const int o = p.off[k];
+      su[k * L + i] = gu[(long long)k * p.nC + i];
+      sl[k * L + i] = c >= o ? gl[(long long)k * p.nC + i - o] : T(0);
+    }
+  }
+  s.d = sd; s.u = su; s.l = sl;
+  s.us = s.ls = L;
+  s.lsh = 0;
+  return sl + (long long)p.K * L;
+}
+
+// One Krylov vector's slice: shared memory when resident, else `global`
+// (which already points at the block's first cell).
+template <typename T>
+__device__ __forceinline__ T* take(const Params<T>& p, T*& sh, T* global) {
+  if (!p.resident) return global;
+  T* v = sh;
+  sh += p.L;
+  return v;
+}
+
+// K0 on a slice: row c = c0 + i of M·x. `xrow` is the whole row of a vector
+// that other blocks write: read through L2 (ld.global.cg), after a grid
+// barrier; `xc` is the block's own copy of x[c].
+template <typename T>
+__device__ __forceinline__ T dia_row_s(const Slice<T>& s, const Params<T>& p, const T* xrow,
+                                       T xc, int i) {
+  const int c = s.c0 + i;
+  T own = T(0), nei = T(0);
+  for (int k = 0; k < p.K; ++k) {
+    const int o = p.off[k];
+    if (c + o < p.nC) own += s.u[k * s.us + i] * __ldcg(xrow + c + o);
+  }
+  for (int k = 0; k < p.K; ++k) {
+    const int o = p.off[k];
+    if (c >= o) nei += s.l[k * s.ls + i - s.lsh * o] * __ldcg(xrow + c - o);
+  }
+  return s.d[i] * xc + (own + nei);
+}
+
+template <typename T>
+__device__ __forceinline__ T dia_row_const_s(const Slice<T>& s, const Params<T>& p, T xr, int i) {
+  const int c = s.c0 + i;
+  T own = T(0), nei = T(0);
+  for (int k = 0; k < p.K; ++k) {
+    const int o = p.off[k];
+    if (c + o < p.nC) own += s.u[k * s.us + i] * xr;
+  }
+  for (int k = 0; k < p.K; ++k) {
+    const int o = p.off[k];
+    if (c >= o) nei += s.l[k * s.ls + i - s.lsh * o] * xr;
+  }
+  return s.d[i] * xr + (own + nei);
+}
+
+// Sum N values over a batch row's blocks; one grid barrier. Every block —
+// also of a row with work == false, which only passes the barrier — must
+// call it. The block's partials go to slots [site, site + N) of its own
+// column; after the barrier warp 0 adds the row's columns (lane j takes
+// columns j, j + 32, ... in order, then a butterfly: an order fixed by bpr
+// alone, equal in every block of the row). A site is written once per trip
+// of a solver's loop and there is another barrier before its next write.
+template <typename T, int N>
+__device__ __forceinline__ void row_sum(cg::grid_group& grid, bool work, const Params<T>& p,
+                                        const Slice<T>& s, int site, T (&v)[N], T* sm) {
+  const int nblk = gridDim.x;
+  if (work) {
+    block_sum<T, N>(v, sm);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) __stcg(p.slots + (long long)(site + i) * nblk + blockIdx.x, v[i]);
+    }
+  }
+  grid.sync();
+  if (!work) return;
+  if (threadIdx.x < 32) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const T* col = p.slots + (long long)(site + i) * nblk + s.first;
+      T t = T(0);
+      for (int j = threadIdx.x; j < p.bpr; j += 32) t += __ldcg(col + j);
+      for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+      if (threadIdx.x == 0) sm[i * 32] = t;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = sm[i * 32];
+}
+
+// True while any row still iterates; one grid barrier. Every block of a row
+// publishes the row's (uniform) `active` before the barrier and reads all
+// rows' flags after it, so the answer is the same in every block of the
+// grid. The solvers call it once per trip of their loops, with at least two
+// more grid barriers before the next call overwrites the flags.
+template <typename T>
+__device__ __forceinline__ bool any_row_active(cg::grid_group& grid, const Params<T>& p,
+                                               const Slice<T>& s, bool active) {
+  if (threadIdx.x == 0) __stcg(p.flags + s.row, active ? 1 : 0);
+  grid.sync();
+  const int B = gridDim.x / p.bpr;
+  int any = 0;
+  for (int q = threadIdx.x; q < B; q += blockDim.x) any |= __ldcg(p.flags + q);
+  return __syncthreads_or(any) != 0;
+}
+
+// The prologue of K1 and K2 over a row's blocks (two grid barriers): as
+// `prologue`, with x and r the block's slices. x0 is read-only for the
+// launch, so its neighbours are read from it directly.
+template <typename T>
+__device__ void prologue_grid(cg::grid_group& grid, const Params<T>& p, const Slice<T>& s,
+                              T* x, T* r, T* sm, T& norm, T& res0, T& rr, T& rzr) {
+  const T* b = p.b + (long long)s.row * p.nC + s.c0;
+  const T* x0 = p.x0 + (long long)s.row * p.nC;
+  T s1[1] = {T(0)};
+  for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+    const T v = x0[s.c0 + i];
+    x[i] = v;
+    s1[0] += v;
+  }
+  row_sum<T, 1>(grid, true, p, s, 0, s1, sm);
+  const T xref = s1[0] / T(p.nC);
+  T s4[4] = {T(0), T(0), T(0), T(0)};
+  for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+    const T ax = dia_row_s(s, p, x0, x[i], i);
+    const T ar = dia_row_const_s(s, p, xref, i);
+    const T rc = b[i] - ax;
+    r[i] = rc;
+    s4[0] += fabs(ax - ar) + fabs(b[i] - ar);
+    s4[1] += fabs(rc);
+    s4[2] += rc * rc;
+    s4[3] += rc * ((T(1) / s.d[i]) * rc);
+  }
+  row_sum<T, 4>(grid, true, p, s, 1, s4, sm);
+  norm = s4[0] + Lim<T>::tiny() * T(1e6);
+  res0 = s4[1] / norm;
+  rr = s4[2];
+  rzr = s4[3];
+}
+
+template <typename T>
+__device__ __forceinline__ void finish_grid(const Params<T>& p, const Slice<T>& s, const T* x,
+                                            T res0, T res, int it) {
+  if (p.resident) {
+    T* xg = p.x + (long long)s.row * p.nC + s.c0;
+    for (int i = threadIdx.x; i < s.n; i += blockDim.x) xg[i] = x[i];
+  }
+  if (blockIdx.x == s.first && threadIdx.x == 0) {
+    p.res0[s.row] = res0;
+    p.res[s.row] = res;
+    p.iters[s.row] = it;
+  }
+}
+
+extern __shared__ __align__(16) unsigned char ffk_dyn_smem[];
+
+// K2 over the grid: the arithmetic of pcg_kernel, three grid barriers per
+// iteration (p published; p·Ap; Σ|r| and r·z). work: r, p, Ap as pcg_kernel.
+// Resident slices: d, K upper, K lower, x, r, p, Ap (5 + 2K vectors of L).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) pcg_grid_kernel(Params<T> p) {
+  __shared__ T sm[32 * 4];
+  cg::grid_group grid = cg::this_grid();
+  Slice<T> s;
+  T* sh = stage_operands(p, reinterpret_cast<T*>(ffk_dyn_smem), s);
+  const long long n = p.nC;
+  T* w = p.work + (long long)s.row * 3 * n;
+  T* x = take(p, sh, p.x + (long long)s.row * n + s.c0);
+  T* r = take(p, sh, w + s.c0);
+  T* pg = w + n;  // the whole row's p, exchanged between blocks
+  T* pv = take(p, sh, pg + s.c0);
+  T* ap = take(p, sh, w + 2 * n + s.c0);
+
+  T norm, res0, rr, rz;
+  prologue_grid(grid, p, s, x, r, sm, norm, res0, rr, rz);
+  for (int i = threadIdx.x; i < s.n; i += blockDim.x) pv[i] = T(0);
+  const T stop = stop_at(p, res0);
+  T res = res0, rz_old = T(1);
+  int it = 0;
+  for (;;) {
+    const bool active = res > stop && it < p.max_iter;
+    if (active) {
+      const T beta = it == 0 ? T(0) : rz / rz_old;
+      for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+        const T pc = (T(1) / s.d[i]) * r[i] + beta * pv[i];
+        pv[i] = pc;
+        pg[s.c0 + i] = pc;
+      }
+    }
+    if (!any_row_active(grid, p, s, active)) break;
+    T s1[1] = {T(0)};
+    if (active) {
+      for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+        const T a = dia_row_s(s, p, pg, pv[i], i);
+        ap[i] = a;
+        s1[0] += pv[i] * a;
+      }
+    }
+    row_sum<T, 1>(grid, active, p, s, 5, s1, sm);
+    T s2[2] = {T(0), T(0)};
+    if (active) {
+      const T alpha = rz / s1[0];
+      for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+        x[i] = x[i] + alpha * pv[i];
+        const T rc = r[i] - alpha * ap[i];
+        r[i] = rc;
+        s2[0] += fabs(rc);
+        s2[1] += rc * ((T(1) / s.d[i]) * rc);
+      }
+    }
+    row_sum<T, 2>(grid, active, p, s, 6, s2, sm);
+    if (active) {
+      res = s2[0] / norm;
+      rz_old = rz;
+      rz = s2[1];
+      ++it;
+    }
+  }
+  finish_grid(p, s, x, res0, res, it);
+}
+
+// K1 over the grid: the arithmetic and the restart/retry rules of
+// bicgstab_kernel, five grid barriers per iteration (p-hat published;
+// rhat·v; s-hat published; t·s and t·t; Σ|r|, rhat·r and r·r). A row that
+// must retry (rhat·v ≈ 0 after a step that did not restart) drops the step
+// as bicgstab_kernel's `continue` does, but walks on through the trip's
+// remaining barriers doing nothing. work: as bicgstab_kernel.
+// Resident slices: d, K upper, K lower, x, r, rhat, p, v, phat, s, shat, t
+// (10 + 2K vectors of L).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bicgstab_grid_kernel(Params<T> p) {
+  __shared__ T sm[32 * 4];
+  cg::grid_group grid = cg::this_grid();
+  Slice<T> s;
+  T* sh = stage_operands(p, reinterpret_cast<T*>(ffk_dyn_smem), s);
+  const long long n = p.nC;
+  T* w = p.work + (long long)s.row * 8 * n;
+  T* x = take(p, sh, p.x + (long long)s.row * n + s.c0);
+  T* r = take(p, sh, w + s.c0);
+  T* rhat = take(p, sh, w + n + s.c0);
+  T* pv = take(p, sh, w + 2 * n + s.c0);
+  T* v = take(p, sh, w + 3 * n + s.c0);
+  T* phat_g = w + 4 * n;  // whole rows, exchanged between blocks
+  T* shat_g = w + 6 * n;
+  T* phat = take(p, sh, phat_g + s.c0);
+  T* sv = take(p, sh, w + 5 * n + s.c0);
+  T* shat = take(p, sh, shat_g + s.c0);
+  T* t = take(p, sh, w + 7 * n + s.c0);
+
+  T norm, res0, rr, unused;
+  prologue_grid(grid, p, s, x, r, sm, norm, res0, rr, unused);
+  for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+    rhat[i] = r[i];
+    pv[i] = T(0);
+    v[i] = T(0);
+  }
+  const T stop = stop_at(p, res0);
+  const T small = Lim<T>::tiny() * T(1e3);
+  const T t6 = Lim<T>::tiny() * T(1e6);
+  T res = res0, rho_old = T(1), alpha = T(1), omega = T(1);
+  T rhr = rr;  // Σ rhat·r, fused into the previous residual pass
+  int it = 0;
+  bool retry = false;
+  for (;;) {
+    const bool active = res > stop && it < p.max_iter;
+    T rho = rhr;
+    const bool restart = fabs(rho) < small * rr || it == 0 || retry ||
+                         fabs(rho_old) < t6 || fabs(omega) < t6;
+    if (restart) rho = rr;
+    if (active) {
+      const T beta = restart ? T(0) : (rho / nz(rho_old)) * (alpha / nz(omega));
+      for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+        if (restart) rhat[i] = r[i];
+        const T pc = r[i] + beta * (pv[i] - omega * v[i]);
+        pv[i] = pc;
+        const T ph = (T(1) / s.d[i]) * pc;
+        phat[i] = ph;
+        phat_g[s.c0 + i] = ph;
+      }
+    }
+    if (!any_row_active(grid, p, s, active)) break;
+    T s1[1] = {T(0)};
+    if (active) {
+      for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+        const T vc = dia_row_s(s, p, phat_g, phat[i], i);
+        v[i] = vc;
+        s1[0] += rhat[i] * vc;
+      }
+    }
+    row_sum<T, 1>(grid, active, p, s, 5, s1, sm);
+    // s1 is uniform over the row's blocks, so they take this branch together
+    retry = active && !restart && fabs(s1[0]) < t6;
+    const bool work = active && !retry;
+    if (work) {
+      alpha = rho / nz(s1[0]);
+      for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+        const T sc = r[i] - alpha * v[i];
+        sv[i] = sc;
+        const T sh_ = (T(1) / s.d[i]) * sc;
+        shat[i] = sh_;
+        shat_g[s.c0 + i] = sh_;
+      }
+    }
+    grid.sync();
+    T s2[2] = {T(0), T(0)};
+    if (work) {
+      for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+        const T tc = dia_row_s(s, p, shat_g, shat[i], i);
+        t[i] = tc;
+        s2[0] += tc * sv[i];
+        s2[1] += tc * tc;
+      }
+    }
+    row_sum<T, 2>(grid, work, p, s, 6, s2, sm);
+    T s3[3] = {T(0), T(0), T(0)};
+    if (work) {
+      omega = s2[0] / nz(s2[1]);
+      for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+        x[i] = x[i] + alpha * phat[i] + omega * shat[i];
+        const T rc = sv[i] - omega * t[i];
+        r[i] = rc;
+        s3[0] += fabs(rc);
+        s3[1] += rhat[i] * rc;
+        s3[2] += rc * rc;
+      }
+    }
+    row_sum<T, 3>(grid, work, p, s, 8, s3, sm);
+    if (work) {
+      res = s3[0] / norm;
+      rhr = s3[1];
+      rr = s3[2];
+      rho_old = rho;
+      ++it;
+    }
+  }
+  finish_grid(p, s, x, res0, res, it);
+}
+
+// N grid barriers and nothing else: the yardstick for the kernels above.
+__global__ void __launch_bounds__(kThreads) sync_bench_kernel(int n) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < n; ++i) grid.sync();
+}
+
+template <typename T>
+const void* grid_kernel(int which) {
+  return which == 0 ? (const void*)pcg_grid_kernel<T> : (const void*)bicgstab_grid_kernel<T>;
+}
+
 // K3: damped Jacobi smoother (linear.py:jacobi_smooth semantics), the
 // smoothSolver role: rounds of `check_every` sweeps x ← x + ω(b − A·x)/d,
 // each round followed by the L1 residual over the normFactor; a row goes on
@@ -424,6 +842,8 @@ Params<T> make_params(const T* diag, long long sd, const T* upper, long long su,
   p.max_iter = max_iter;
   p.omega = 0.0;
   p.check_every = 0;
+  p.bpr = 1; p.L = nC; p.resident = 0;
+  p.slots = nullptr; p.flags = nullptr;
   return p;
 }
 
@@ -449,6 +869,76 @@ FFK_ENTRY(pcg, pcg_kernel, float, f32)
 FFK_ENTRY(pcg, pcg_kernel, double, f64)
 FFK_ENTRY(bicgstab, bicgstab_kernel, float, f32)
 FFK_ENTRY(bicgstab, bicgstab_kernel, double, f64)
+
+// The grid-wide K1 and K2: the same operands plus the plan (blocks per row,
+// cells per block), the partial-sum slots [16, B*bpr], the row flags [B] and
+// the dynamic shared bytes (0: stream the slices from L2). The launch is
+// cooperative; one that cannot be co-resident is refused with an error.
+#define FFK_GRID_ENTRY(NAME, KERNEL, T, SUF)                                         \
+  extern "C" int ffk_##NAME##_grid_##SUF(                                            \
+      const T* diag, long long sd, const T* upper, long long su, const T* lower,     \
+      long long sl, const T* b, const T* x0, T* x, T* res0, T* res, int* iters,      \
+      T* work, const int* offs, int K, int nC, int B, double tol, double rel_tol,    \
+      double floor_eps, int max_iter, T* slots, int* flags, int bpr, int L,          \
+      int smem_bytes, void* stream) {                                                \
+    if (K < 1 || K > kMaxOffsets || nC < 1 || B < 1 || bpr < 1 || L < 1 ||           \
+        (long long)bpr * L < nC || smem_bytes < 0)                                   \
+      return (int)cudaErrorInvalidValue;                                             \
+    Params<T> p = make_params<T>(diag, sd, upper, su, lower, sl, b, x0, x, res0,     \
+                                 res, iters, work, offs, K, nC, tol, rel_tol,        \
+                                 floor_eps, max_iter);                               \
+    p.bpr = bpr; p.L = L; p.resident = smem_bytes > 0;                               \
+    p.slots = slots; p.flags = flags;                                                \
+    void* args[] = {&p};                                                             \
+    return (int)cudaLaunchCooperativeKernel((const void*)KERNEL<T>, dim3(B * bpr),   \
+                                            dim3(kThreads), args, (size_t)smem_bytes, \
+                                            (cudaStream_t)stream);                   \
+  }
+
+FFK_GRID_ENTRY(pcg, pcg_grid_kernel, float, f32)
+FFK_GRID_ENTRY(pcg, pcg_grid_kernel, double, f64)
+FFK_GRID_ENTRY(bicgstab, bicgstab_grid_kernel, float, f32)
+FFK_GRID_ENTRY(bicgstab, bicgstab_grid_kernel, double, f64)
+
+// How many blocks of a grid-wide kernel (which: 0 pcg, 1 bicgstab) are
+// co-resident on the current device with `smem_bytes` of dynamic shared
+// memory each (0 when that is more than a block may have), and the most
+// dynamic shared memory a block of it may have; the kernel is opted in to
+// that much. Fails with cudaErrorNotSupported on a device without
+// cooperative launch.
+extern "C" int ffk_coop_blocks(int which, int is_f64, int smem_bytes, int* blocks,
+                               int* max_smem_bytes) {
+  int dev = 0, coop = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop || which < 0 || which > 1) return (int)cudaErrorNotSupported;
+  const void* f = is_f64 ? grid_kernel<double>(which) : grid_kernel<float>(which);
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, f);
+  if (e != cudaSuccess) return (int)e;
+  const int max_dyn = optin - (int)fa.sharedSizeBytes;
+  e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dyn);
+  if (e != cudaSuccess) return (int)e;
+  *max_smem_bytes = max_dyn;
+  *blocks = 0;
+  if (smem_bytes > max_dyn) return 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, kThreads, (size_t)smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  *blocks = per_sm * sms;
+  return 0;
+}
+
+// `n` grid barriers over `blocks` blocks of 1024 threads (cooperative).
+extern "C" int ffk_sync_bench(int blocks, int n, void* stream) {
+  if (blocks < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  void* args[] = {&n};
+  return (int)cudaLaunchCooperativeKernel((const void*)sync_bench_kernel, dim3(blocks),
+                                          dim3(kThreads), args, 0, (cudaStream_t)stream);
+}
 
 // K3 takes the same operands plus the damping and the sweeps per check.
 #define FFK_SMOOTH_ENTRY(T, SUF)                                                     \

@@ -23,18 +23,28 @@ with nvcc for sm_90a at first use, from the sources in csrc/, into
 firefoam_torch/_build/ (named by a hash of every source), and loaded with
 ctypes; each launch runs on the current PyTorch stream and adds one to
 LAUNCHES[name].
+
+K1 and K2 have two kernels each. With G the number of blocks of the kernel
+that are co-resident on the card (its occupancy times the SM count, asked of
+the library once per kernel, dtype and shared-memory size), a batch of
+B <= G rows goes to the grid-wide kernel: a cooperative launch in which
+`grid_plan(B, nC, G)` gives every row a group of blocks and every block a
+contiguous range of cells, kept in the block's shared memory when it fits.
+B > G goes to the one-block-per-row kernel. The choice follows from B, nC
+and G alone. K3 has the one-block-per-row kernel only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -48,6 +58,9 @@ __all__ = [
     "dia_pcg",
     "dia_bicgstab",
     "dia_smooth",
+    "grid_plan",
+    "GridPlan",
+    "grid_sync_seconds",
     "plain",
     "build_seconds",
     "reset_counts",
@@ -60,6 +73,16 @@ _BUILD_DIR = os.path.join(_PKG, "_build")
 _MAX_OFFSETS = 8
 # scratch vectors per batch row (see the kernels' work layout)
 _WORK = {"pcg": 3, "bicgstab": 8, "smooth": 1}
+
+# the grid-wide kernels: index in csrc (ffk_coop_blocks' `which`) and the
+# vectors of L cells a block keeps in shared memory besides the 2K
+# off-diagonals (d, x and the kernel's Krylov vectors)
+_GRID = {"pcg": (0, 5), "bicgstab": (1, 10)}
+_SLOTS = 16  # partial sums per block (kSlots in csrc)
+# A block (1024 threads) gets at least this many cells where the row has
+# them. On an H100 the grid barrier costs the same for 9 or 132 blocks, and
+# 512 measured best or tied among 128, 256, 512 and 1024 at 9k and 100k cells.
+MIN_CELLS = 512
 
 LAUNCHES = {"bicgstab": 0, "pcg": 0, "smooth": 0}
 
@@ -125,33 +148,130 @@ def _build() -> str:
     return out
 
 
+def signatures() -> dict:
+    """argtypes of every C entry point of csrc/dia_krylov.cu, by name."""
+    vp, ll, ci, cd = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
+    ip = ctypes.POINTER(ci)
+    common = [
+        vp, ll, vp, ll, vp, ll,  # diag, upper, lower + batch strides
+        vp, vp,  # b, x0
+        vp, vp, vp, vp,  # x, res0, res, iters
+        vp,  # work
+        ip, ci,  # offsets (host), K
+        ci, ci,  # nC, B
+        cd, cd, cd, ci,  # tol, rel_tol, floor_eps, max_iter
+    ]
+    sig = {
+        "ffk_coop_blocks": [ci, ci, ci, ip, ip],  # which, is_f64, smem; blocks, max smem
+        "ffk_sync_bench": [ci, ci, vp],  # blocks, barriers, stream
+    }
+    for suf in ("f32", "f64"):
+        for name in LAUNCHES:
+            extra = [cd, ci] if name == "smooth" else []  # omega, check_every
+            sig[f"ffk_{name}_{suf}"] = common + extra + [vp]  # ..., stream
+        for name in _GRID:
+            # ..., slots, flags, blocks per row, cells per block, smem bytes, stream
+            sig[f"ffk_{name}_grid_{suf}"] = common + [vp, vp, ci, ci, ci, vp]
+    return sig
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(_build())
-            vp, ll, ci, cd = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
-            common = [
-                vp, ll, vp, ll, vp, ll,  # diag, upper, lower + batch strides
-                vp, vp,  # b, x0
-                vp, vp, vp, vp,  # x, res0, res, iters
-                vp,  # work
-                ctypes.POINTER(ci), ci,  # offsets (host), K
-                ci, ci,  # nC, B
-                cd, cd, cd, ci,  # tol, rel_tol, floor_eps, max_iter
-            ]
-            for name in LAUNCHES:
-                extra = [cd, ci] if name == "smooth" else []  # omega, check_every
-                for suf in ("f32", "f64"):
-                    fn = getattr(lib, f"ffk_{name}_{suf}")
-                    fn.argtypes = common + extra + [vp]  # ..., stream
-                    fn.restype = ci
+            for name, argtypes in signatures().items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
+# ------------------------------------------------------------------- plan
+class GridPlan(NamedTuple):
+    grid_wide: bool  # False: one block per row (B > G), the other fields say so too
+    blocks_per_row: int
+    cells_per_block: int
+    ranges: tuple  # (first cell, end) of each of a row's blocks, in block order
+
+
+@functools.lru_cache(maxsize=None)
+def grid_plan(B: int, nC: int, G: int, min_cells: int = MIN_CELLS) -> GridPlan:
+    """How B systems of nC cells are laid over G co-resident blocks: row i
+    owns blocks [i·bpr, (i+1)·bpr), and block j of a row the cells
+    [j·L, min((j+1)·L, nC)). bpr is at most G // B and at most what gives a
+    block `min_cells` cells; L is a multiple of 32 (a warp's loads stay
+    aligned) and no block is empty. More rows than blocks: one block per
+    row, not grid-wide."""
+    if B < 1 or nC < 1 or G < 1:
+        raise ValueError(f"grid_plan: B={B}, nC={nC}, G={G}")
+    if B > G:
+        return GridPlan(False, 1, nC, ((0, nC),))
+    bpr = max(1, min(G // B, -(-nC // min_cells)))
+    L = -(-(-(-nC // bpr)) // 32) * 32
+    bpr = -(-nC // L)
+    return GridPlan(True, bpr, L, tuple((j * L, min((j + 1) * L, nC)) for j in range(bpr)))
+
+
+_coop = {}
+
+
+def _coop_blocks(name: str, dtype, smem: int):
+    """(co-resident blocks of the grid-wide kernel `name` with `smem` bytes
+    of dynamic shared memory a block, the most such bytes a block may
+    have), asked of the library once per argument."""
+    key = (name, dtype, smem)
+    if key not in _coop:
+        blocks, max_smem = ctypes.c_int(0), ctypes.c_int(0)
+        err = _load().ffk_coop_blocks(_GRID[name][0], int(dtype == torch.float64), smem,
+                                      ctypes.byref(blocks), ctypes.byref(max_smem))
+        if err != 0:
+            raise RuntimeError(f"dia_{name}: no cooperative launch on this device "
+                               f"(cudaError {err})")
+        _coop[key] = (blocks.value, max_smem.value)
+    return _coop[key]
+
+
+def _grid_launch_plan(name, dtype, B, nC, K, esize, min_cells=MIN_CELLS):
+    """(plan, dynamic shared bytes) for a launch; bytes 0: the slices do not
+    fit beside each other and are streamed from L2."""
+    G, max_smem = _coop_blocks(name, dtype, 0)
+    plan = grid_plan(B, nC, G, min_cells)
+    if not plan.grid_wide:
+        return plan, 0
+    smem = (_GRID[name][1] + 2 * K) * plan.cells_per_block * esize
+    if smem > max_smem or _coop_blocks(name, dtype, smem)[0] < B * plan.blocks_per_row:
+        smem = 0
+    return plan, smem
+
+
+def grid_sync_seconds(blocks: int, n: int = 2000) -> float:
+    """The time of one grid barrier over `blocks` blocks of 1024 threads on
+    the current CUDA device: a cooperative kernel of n barriers, timed with
+    events after a warm-up launch, over n (the launch is a few µs of it)."""
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = _load().ffk_sync_bench(int(blocks), int(n), stream)
+        if err != 0:
+            raise RuntimeError(f"grid_sync_seconds: launch failed: cudaError {err}")
+
+    launch()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    launch()
+    t1.record()
+    torch.cuda.synchronize()
+    return 1e-3 * t0.elapsed_time(t1) / n
+
+
 # ---------------------------------------------------------------- launcher
-def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, extra=()):
+def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, extra=(),
+            resident=True, min_cells=MIN_CELLS):
+    """Check the operands and launch kernel `name` on them. `resident` and
+    `min_cells` exist for measurements (chip_smoke.py times a grid-wide
+    kernel with its slices streamed from L2, and other block counts)."""
     dtype = x0.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dia_{name}: dtype {dtype} not supported")
@@ -186,7 +306,16 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
     work = torch.empty((B, _WORK[name], nC), dtype=dtype, device=dev)
     offs = (ctypes.c_int * K)(*[int(o) for o in offsets])
     suf = "f32" if dtype == torch.float32 else "f64"
-    fn = getattr(_load(), f"ffk_{name}_{suf}")
+    fn_name = f"ffk_{name}_{suf}"
+    if name in _GRID:
+        plan, smem = _grid_launch_plan(name, dtype, B, nC, K, x0.element_size(), min_cells)
+        if plan.grid_wide:
+            fn_name = f"ffk_{name}_grid_{suf}"
+            slots = torch.empty((_SLOTS, B * plan.blocks_per_row), dtype=dtype, device=dev)
+            flags = torch.empty((B,), dtype=torch.int32, device=dev)
+            extra = (slots.data_ptr(), flags.data_ptr(), plan.blocks_per_row,
+                     plan.cells_per_block, smem if resident else 0)
+    fn = getattr(_load(), fn_name)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
         diag.data_ptr(), nC if diag.ndim == 2 else 0,
@@ -199,7 +328,7 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
         int(max_iter), *extra, stream,
     )
     if err != 0:
-        raise RuntimeError(f"dia_{name} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"dia_{name} kernel launch ({fn_name}) failed: cudaError {err}")
     LAUNCHES[name] += 1
     if squeeze:
         return SolverResult(x[0], res0[0], res[0], iters[0])

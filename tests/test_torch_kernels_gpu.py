@@ -10,7 +10,13 @@ JAX, so it also runs on a machine that has only PyTorch:
   (f64: equal iteration counts, x to 1e-9 relative; f32: K1/K2 counts
   within ±2, K3 sweeps within ±4 — one round of its residual check, where
   the f32 stagnation exit can fire a round apart — x to 1e-4 relative),
-  with the launch counter checked.
+  with the launch counter checked: on a 960-cell lattice (one block a row),
+  at 9k and 100k cells (K1/K2 grid-wide over many blocks a row) and with
+  more rows than the card has blocks (the one-block-per-row kernels).
+* Grid-wide K1/K2: rows that stop at different iterations, max_iter = 0,
+  an x0 that has converged already, two launches of one solve giving
+  bit-equal x and equal counts, and slices streamed from L2 against slices
+  resident in shared memory.
 * K1 on a system where BiCGStab breaks down (rhat·v = 0 in float64): it
   restarts as the twin does.
 * One box-fire step on CUDA against the same step on the CPU in float64
@@ -37,11 +43,27 @@ def _need_cuda():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
 
-def _system(seed, B, sym, shared, dtype, dev):
+# (lattice, rows): one block a row; K1/K2 grid-wide at 9k cells (B = 1 and a
+# batch) and at 100k cells; more rows than blocks
+SHAPES = {
+    "960x4": (NXYZ, 4),
+    "9k": ((30, 15, 20), 1),
+    "9kx3": ((30, 15, 20), 3),
+    "100k": ((50, 40, 50), 1),
+    "960x150": (NXYZ, 150),
+}
+
+
+def _offs(nxyz):
+    return (1, nxyz[0], nxyz[0] * nxyz[1])
+
+
+def _system(seed, B, sym, shared, dtype, dev, nxyz=NXYZ, shift=0.5):
     """B random diagonally dominant DIA systems on the lattice stencil;
-    `shared`: one off-diagonal set for every row (the U solve's shape)."""
+    `shared`: one off-diagonal set for every row (the U solve's shape);
+    `shift`: the least excess of the diagonal over its row's off-diagonals."""
     rng = np.random.RandomState(seed)
-    nx, ny, nz = NXYZ
+    nx, ny, nz = nxyz
     n = nx * ny * nz
     c = np.arange(n)
     exists = [c % nx + 1 < nx, (c // nx) % ny + 1 < ny, c // (nx * ny) + 1 < nz]
@@ -52,8 +74,8 @@ def _system(seed, B, sym, shared, dtype, dev):
         v = -(0.5 + rng.rand(R, n)) * exists[k]
         up[:, k] = v
         lo[:, k] = v if sym else v * (1.0 + 0.3 * rng.rand(R, n))
-    d = 0.5 + 0.1 * rng.rand(B, n)
-    for k, o in enumerate(OFFS):
+    d = shift + 0.1 * rng.rand(B, n)
+    for k, o in enumerate(_offs(nxyz)):
         d[:, : n - o] -= up[:, k, : n - o]
         d[:, o:] -= lo[:, k, : n - o]
     up, lo = up.reshape(R, -1), lo.reshape(R, -1)
@@ -63,27 +85,124 @@ def _system(seed, B, sym, shared, dtype, dev):
     return [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrs]
 
 
+@pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("name", ["pcg", "bicgstab", "smooth"])
-def test_kernel_matches_plain_version(name, dtype, shared):
+def test_kernel_matches_plain_version(name, dtype, shared, shape):
     _need_cuda()
-    ops = _system(41, 4, name == "pcg", shared, dtype, torch.device("cuda"))
+    nxyz, B = SHAPES[shape]
+    offs = _offs(nxyz)
+    # the shapes added with the grid-wide kernels are better conditioned: with
+    # more cells and more rows, two BiCGStab runs that differ in the order of
+    # their sums stay within the tolerances below only on such systems
+    shift = 0.5 if shape == "960x4" else 1.0
+    ops = _system(41, B, name == "pcg", shared, dtype, torch.device("cuda"), nxyz, shift)
     before = dia_krylov.LAUNCHES[name]
     # K3's budget counts sweeps: 800 is the fire step's max(maxIter, 200)·4
     mx = 800 if name == "smooth" else 500
-    got = getattr(dia_krylov, f"dia_{name}")(*ops, OFFS, tol=1e-8, max_iter=mx)
+    got = getattr(dia_krylov, f"dia_{name}")(*ops, offs, tol=1e-8, max_iter=mx)
     torch.cuda.synchronize()
     assert dia_krylov.LAUNCHES[name] == before + 1
     if name == "smooth":
-        ref = dia_krylov.plain_smooth(*ops, OFFS, tol=1e-8, max_iter=mx)
+        ref = dia_krylov.plain_smooth(*ops, offs, tol=1e-8, max_iter=mx)
     else:
-        ref = dia_krylov.plain(getattr(linear, name), *ops, OFFS, tol=1e-8, max_iter=mx)
+        ref = dia_krylov.plain(getattr(linear, name), *ops, offs, tol=1e-8, max_iter=mx)
     slack, xtol = (0, 1e-9) if dtype == torch.float64 else (4 if name == "smooth" else 2, 1e-4)
     its = (got.n_iterations.cpu().numpy(), ref.n_iterations.cpu().numpy())
     assert np.all(np.abs(its[0] - its[1]) <= slack), its
     rel = float((got.x - ref.x).abs().max() / ref.x.abs().max())
     assert rel <= xtol, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["pcg", "bicgstab"])
+def test_grid_rows_stop_at_their_own_iteration(name, dtype):
+    """relTol and right-hand sides of very different size make the rows of
+    one grid-wide launch stop at different iterations: every row keeps its
+    own count and its x, as the plain version's rows do."""
+    _need_cuda()
+    nxyz = (30, 15, 20)
+    d, up, lo, b, x0 = _system(43, 4, name == "pcg", False, dtype, torch.device("cuda"), nxyz, 1.0)
+    b = (b * torch.tensor([1.0, 1e3, 1e-3, 30.0], dtype=dtype, device=b.device)[:, None])
+    b = b.contiguous()
+    kw = dict(tol=1e-6, rel_tol=0.05, max_iter=300)
+    got = getattr(dia_krylov, f"dia_{name}")(d, up, lo, b, x0, _offs(nxyz), **kw)
+    ref = dia_krylov.plain(getattr(linear, name), d, up, lo, b, x0, _offs(nxyz), **kw)
+    its = (got.n_iterations.cpu().numpy(), ref.n_iterations.cpu().numpy())
+    assert len(set(its[1].tolist())) > 1, its
+    slack, xtol = (0, 1e-9) if dtype == torch.float64 else (2, 1e-4)
+    assert np.all(np.abs(its[0] - its[1]) <= slack), its
+    rel = (got.x - ref.x).abs().amax(dim=1) / ref.x.abs().amax(dim=1)
+    assert float(rel.max()) <= xtol, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["pcg", "bicgstab"])
+def test_grid_kernel_leaves_x0_when_there_is_nothing_to_do(name, dtype):
+    """max_iter = 0, and an x0 that meets the tolerance already (the
+    solution of a first solve): 0 iterations and x = x0 bitwise."""
+    _need_cuda()
+    nxyz = (30, 15, 20)
+    d, up, lo, b, x0 = _system(47, 2, name == "pcg", False, dtype, torch.device("cuda"), nxyz, 1.0)
+    fn = getattr(dia_krylov, f"dia_{name}")
+    none = fn(d, up, lo, b, x0, _offs(nxyz), tol=1e-8, max_iter=0)
+    assert none.n_iterations.tolist() == [0, 0]
+    assert torch.equal(none.x, x0)
+    assert torch.equal(none.final_residual, none.initial_residual)
+    first = fn(d, up, lo, b, x0, _offs(nxyz), tol=1e-6, max_iter=300)
+    assert min(first.n_iterations.tolist()) > 0
+    again = fn(d, up, lo, b, first.x, _offs(nxyz), tol=1e-3, max_iter=300)
+    assert again.n_iterations.tolist() == [0, 0]
+    assert torch.equal(again.x, first.x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["pcg", "bicgstab"])
+def test_grid_kernel_is_bit_reproducible(name, dtype):
+    """Two launches of one solve: bit-equal x and residuals, equal counts
+    (the partial sums of a row's blocks are added in a fixed order)."""
+    _need_cuda()
+    nxyz = (50, 40, 50)
+    ops = _system(53, 3, name == "pcg", True, dtype, torch.device("cuda"), nxyz, 1.0)
+    fn = getattr(dia_krylov, f"dia_{name}")
+    a = fn(*ops, _offs(nxyz), tol=1e-8, max_iter=500)
+    b = fn(*ops, _offs(nxyz), tol=1e-8, max_iter=500)
+    assert a.n_iterations.tolist() == b.n_iterations.tolist()
+    assert torch.equal(a.x, b.x)
+    assert torch.equal(a.final_residual, b.final_residual)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["pcg", "bicgstab"])
+def test_streamed_slices_equal_resident_ones(name, dtype):
+    """A block's slices kept in shared memory or streamed from L2 (what a
+    launch whose slices do not fit does): the same plan and the same
+    arithmetic, so bit-equal results."""
+    _need_cuda()
+    nxyz = (30, 15, 20)
+    ops = _system(59, 3, name == "pcg", False, dtype, torch.device("cuda"), nxyz, 1.0)
+    plan, smem = dia_krylov._grid_launch_plan(name, dtype, 3, 9000, 3, ops[0].element_size())
+    assert plan.grid_wide and smem > 0
+    a, b = (dia_krylov._launch(name, *ops, _offs(nxyz), 1e-8, 0.0, 500, resident=res)
+            for res in (True, False))
+    assert a.n_iterations.tolist() == b.n_iterations.tolist()
+    assert torch.equal(a.x, b.x)
+    assert torch.equal(a.final_residual, b.final_residual)
+
+
+def test_launch_picks_the_kernel_by_rows_and_blocks():
+    """B <= G: grid-wide (a plan of several blocks a row at 9k cells);
+    B > G: one block per row. G comes from the occupancy query."""
+    _need_cuda()
+    G, max_smem = dia_krylov._coop_blocks("pcg", torch.float32, 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert G >= sms and G % sms == 0 and max_smem > 48 * 1024
+    plan, smem = dia_krylov._grid_launch_plan("pcg", torch.float32, 1, 9000, 3, 4)
+    assert plan.grid_wide and plan.blocks_per_row > 1 and smem > 0
+    plan, smem = dia_krylov._grid_launch_plan("pcg", torch.float32, G + 1, 9000, 3, 4)
+    assert not plan.grid_wide and smem == 0
+    assert dia_krylov.grid_sync_seconds(G, 200) > 0.0
 
 
 def test_bicgstab_kernel_restarts_on_breakdown():
