@@ -9,10 +9,11 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      block), then each kernel (K1 bicgstab, K2 pcg, K3 smooth) against its
      plain PyTorch version on the card, on random DIA systems with the
      box-fire offsets at 100k cells, float32 and float64, shared and
-     per-row matrices (B in {1, 3, 4, 16} for K1/K2 — the grid-wide
-     kernels — and {1, 4} for K3); K1/K2 also on the 9k-cell lattice, on a
-     batch whose rows stop at different iterations, and on more rows than
-     the card has blocks (the one-block-per-row kernels);
+     per-row matrices (B in {1, 3, 4, 16} for K1/K2 and {1, 4} for K3: the
+     grid-wide kernels), on the 9k-cell lattice, on a batch whose rows stop
+     at different iterations, and on more rows than the card has blocks
+     (the one-block-per-row kernels); K3's main-path solve is also timed
+     through its one-block-per-row kernel, whose x must be bit-equal;
   4. the main path at 100k cells in float32: write_box_fire_case(50,40,50)
      → FireFoamSolver(device="cuda") → initial_state() → one warm-up step →
      make_chunk(20), with the kernels' launch counters checked, every logged
@@ -75,6 +76,7 @@ REPLACES = {
 TOL = {torch.float64: (1e-9, 0), torch.float32: (1e-4, 2)}
 SMOOTH_F32_SLACK = 4
 SMOOTH_SWEEPS = 800  # the fire step's budget: max(maxIter, 200)·4
+SMOOTH_EXTRA = (0.8, 4)  # dia_smooth's defaults: damping, sweeps per residual check
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s and non-tensor-core FLOP/s per type
 HBM_BYTES_S = 3.35e12
@@ -91,10 +93,11 @@ FLOPS_ITER = {"pcg": 29, "bicgstab": 58, "smooth": 18 + 17 / 4}
 VECTORS_ITER = {"pcg": 20, "bicgstab": 39, "smooth": 10 + 9 / 4}
 # barriers over all of a row's blocks per iteration (sweep), each with a
 # dependent pass behind it: what an iteration costs when its bytes are on
-# the SMs. K3 runs in one block per row today, so its barriers are block
-# barriers; its entry is what a grid-wide K3 would have (one per sweep, one
-# per residual check)
-BARRIERS_ITER = {"pcg": 3, "bicgstab": 5, "smooth": 1 + 1 / 4}
+# the SMs. K3: one per sweep and one per residual check (every 4 sweeps); the
+# rows' "still iterating" flags ride on the round's first sweep barrier. Each
+# kernel passes one more barrier than counted here, the one at which it
+# learns that no row iterates any more
+BARRIERS_ITER = {"pcg": 3, "bicgstab": 5, "smooth": 1 + 1 / SMOOTH_EXTRA[1]}
 BARRIERS_PROLOGUE = 2
 CHUNK_CLI = 10
 # repeated and resumed vs uninterrupted CLI runs, per column of the printed
@@ -220,7 +223,7 @@ def phase_kernels(dev, G, sync_s):
         ("bicgstab", lambda *a, **k: dia_krylov.plain(linear.bicgstab, *a, **k),
          dia_krylov.dia_bicgstab, False, main + extra),
         ("smooth", dia_krylov.plain_smooth, dia_krylov.dia_smooth, False,
-         ((N_MAIN, 1, False, False), (N_MAIN, 4, True, False))),
+         ((N_MAIN, 1, False, False), (N_MAIN, 4, True, False)) + extra),
     ):
         st = stats.setdefault(name, {"max_abs_err": 0.0})
         for dtype in (torch.float64, torch.float32):
@@ -237,15 +240,24 @@ def phase_kernels(dev, G, sync_s):
                     scale = torch.tensor([1.0, 1e3, 1e-3, 30.0], dtype=dtype, device=dev)
                     b = (b * scale[:, None]).contiguous()
                     args.update(tol=1e-6, rel_tol=0.05)
+                if apart and name == "smooth":
+                    # Jacobi's rate follows the diagonal's dominance: heavier
+                    # diagonals reach one absolute tolerance rounds sooner
+                    heavier = torch.tensor([0.0, 0.5, 2.0, 8.0], dtype=dtype, device=dev)
+                    d = d + heavier[:, None]
+                    args.update(tol=1e-4, rel_tol=0.0)
 
                 def run_k():
                     return kern(d, up, lo, b, x0, offs, **args)
 
-                def ms_laid_out(**kw):
-                    """The same K1/K2 launch with another layout, timed."""
-                    return time_ms(lambda: dia_krylov._launch(
+                def laid_out(**kw):
+                    """The same launch with another layout or kernel."""
+                    return dia_krylov._launch(
                         name, d, up, lo, b, x0, offs, args["tol"], args["rel_tol"],
-                        args["max_iter"], **kw), reps=20)
+                        args["max_iter"], extra=SMOOTH_EXTRA if name == "smooth" else (), **kw)
+
+                def ms_laid_out(**kw):
+                    return time_ms(lambda: laid_out(**kw), reps=20)
 
                 def run_p():
                     return plain(d, up, lo, b, x0, offs, **args)
@@ -262,13 +274,11 @@ def phase_kernels(dev, G, sync_s):
                 if apart and len(set(it_p.tolist())) < 2:
                     raise SystemExit("phase 3: the rows meant to stop apart stopped together")
                 ms_k, ms_p = time_ms(run_k, reps=20), time_ms(run_p, reps=2)
-                blocks = ""
-                if name in ("pcg", "bicgstab"):
-                    plan, smem = dia_krylov._grid_launch_plan(name, dtype, B, nC, len(offs),
-                                                              x0.element_size())
-                    blocks = (f" grid-wide {B}x{plan.blocks_per_row} blocks of "
-                              f"{plan.cells_per_block} cells, {smem} B shared"
-                              if plan.grid_wide else " one block per row")
+                plan, smem = dia_krylov._grid_launch_plan(name, dtype, B, nC, len(offs),
+                                                          x0.element_size())
+                blocks = (f" grid-wide {B}x{plan.blocks_per_row} blocks of "
+                          f"{plan.cells_per_block} cells, {smem} B shared"
+                          if plan.grid_wide else " one block per row")
                 show = (lambda a: a.tolist()) if B <= 16 else (
                     lambda a: f"{int(a.min())}..{int(a.max())}")
                 say(3, f"{name} {str(dtype)[6:]} {nC} cells B={B} "
@@ -279,7 +289,8 @@ def phase_kernels(dev, G, sync_s):
                     raise SystemExit(f"phase 3: {name} disagrees with its plain version")
                 st["max_abs_err"] = max(st["max_abs_err"], err)
                 # the main path's shapes in float32: U-like shared rows for
-                # K1, one p_rgh row for K2, one h or k row for K3
+                # K1, one p_rgh row for K2, one h or k row for K3 (whose
+                # iterations are sweeps)
                 if nxyz == N_MAIN and dtype == torch.float32 and (
                         (name in ("pcg", "smooth") and B == 1) or (name == "bicgstab" and B == 3)):
                     st["ms"], st["plain_ms"] = ms_k, ms_p
@@ -291,14 +302,24 @@ def phase_kernels(dev, G, sync_s):
                            f"{streamed_ms(name, dtype, nC, it_k):.4f} ms; its grid barriers alone "
                            f"{st['latency_ms']:.4f} ms; {it_k.tolist()} iterations, "
                            f"{st['us_per_iteration']:.3f} us each")
-                    st["blocks"] = B * plan.blocks_per_row if name != "smooth" else B
-                    if name != "smooth":
-                        say(3, f"{name} the same solve with its slices streamed from L2 "
-                               f"(nothing kept in shared memory) "
-                               f"{ms_laid_out(resident=False):.3f} ms; with at least 256 cells "
-                               f"a block {ms_laid_out(min_cells=256):.3f} ms, 1024 cells "
-                               f"{ms_laid_out(min_cells=1024):.3f} ms")
-                if nxyz == N_SMALL and dtype == torch.float32 and B == 1 and name != "smooth":
+                    st["blocks"] = B * plan.blocks_per_row
+                    say(3, f"{name} the same solve with its slices streamed from L2 "
+                           f"(nothing kept in shared memory) "
+                           f"{ms_laid_out(resident=False):.3f} ms; with at least 256 cells "
+                           f"a block {ms_laid_out(min_cells=256):.3f} ms, 1024 cells "
+                           f"{ms_laid_out(min_cells=1024):.3f} ms")
+                if name == "smooth" and nxyz == N_MAIN and B in (1, 4):
+                    # the main path's h/k and Yi shapes through the kernel that
+                    # takes B > G: a sweep is the same expression in both
+                    one = laid_out(grid_wide=False)
+                    same_sweeps = torch.equal(one.n_iterations, rk.n_iterations)
+                    say(3, f"smooth {str(dtype)[6:]} B={B} one block per row: "
+                           f"{ms_laid_out(grid_wide=False):.3f} ms, sweeps "
+                           f"{one.n_iterations.tolist()}, x bit-equal to the grid-wide "
+                           f"kernel's: {torch.equal(one.x, rk.x)}")
+                    if same_sweeps and not torch.equal(one.x, rk.x):
+                        raise SystemExit("phase 3: K3's two kernels differ after equal sweeps")
+                if nxyz == N_SMALL and dtype == torch.float32 and B == 1:
                     say(3, f"{name} {nC} cells: {1e3 * ms_k / float(np.max(it_k)):.3f} us per "
                            f"iteration; with at least 128 cells a block "
                            f"{ms_laid_out(min_cells=128):.3f} ms, 256 "

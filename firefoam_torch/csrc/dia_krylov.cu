@@ -5,24 +5,25 @@
 //       (:232-248)                       -> dia_row* / prologue* below
 //   K1  _bicgstab_kernel (:281-374)      -> bicgstab_grid_kernel, bicgstab_kernel
 //   K2  _pcg_kernel (:201-278)           -> pcg_grid_kernel, pcg_kernel
-//   K3  _smooth_kernel (:377-456)        -> smooth_kernel
+//   K3  _smooth_kernel (:377-456)        -> smooth_grid_kernel, smooth_kernel
 // The Python wrappers and the plain PyTorch twins are in
 // firefoam_torch/solvers/dia_krylov.py and solvers/linear.py.
 //
-// What bounds K1 and K2 on this card: not bytes. A 100k-cell row's working
-// set (a few MB) sits in the 50 MB L2, and a Krylov iteration is a chain of
-// dependent steps — a matvec, a dot product over the whole row, an update,
-// another dot product — so a solve costs (iterations) x (synchronisations
-// per iteration) x (the latency of one synchronisation plus one pass).
+// What bounds the three solvers on this card: not bytes. A 100k-cell row's
+// working set (a few MB) sits in the 50 MB L2, and a Krylov iteration is a
+// chain of dependent steps — a matvec, a dot product over the whole row, an
+// update, another dot product — as a Jacobi sweep depends on the one before
+// it, so a solve costs (iterations) x (synchronisations per iteration) x
+// (the latency of one synchronisation plus one pass).
 //
-// Design of K1 and K2 (the *_grid_kernel pair): one system spread over the
+// Design of the *_grid_kernel trio (K1, K2, K3): one system spread over the
 // whole card. The launch is cooperative (cudaLaunchCooperativeKernel), so
 // every block is resident and cooperative_groups' grid.sync() is a barrier
 // over all of them. The wrapper's grid_plan gives each batch row a group of
 // `bpr` consecutive blocks and each block one contiguous range of `L` cells;
 // a thread owns the same cells in every pass, so only the vector whose
-// neighbours other blocks read (p in CG; p-hat and s-hat in BiCGStab) is
-// exchanged through global memory, read with ld.global.cg (L2, never the
+// neighbours other blocks read (p in CG; p-hat and s-hat in BiCGStab; x in
+// the Jacobi smoother) is exchanged through global memory, read with ld.global.cg (L2, never the
 // non-coherent path) after a grid barrier. Everything else a block needs —
 // its slice of the diagonal, of the K upper and K lower diagonals (the
 // lower one stored shifted, so slot i is the coefficient of x[c-o]), and of
@@ -41,8 +42,8 @@
 // grid when no row's flag (written before, read after a barrier) is set.
 //
 // When there are more rows than co-resident blocks the one-block-per-row
-// kernels (pcg_kernel, bicgstab_kernel: block barriers only) are the right
-// shape already and take the launch; K3 still has only that shape.
+// kernels (pcg_kernel, bicgstab_kernel, smooth_kernel: block barriers only)
+// are the right shape already and take the launch.
 //
 // Batch semantics: every row stops at its own rule and reports its own
 // iteration count, as a jax.vmap over firefoam_tpu/solvers/linear.py does.
@@ -370,8 +371,8 @@ __global__ void __launch_bounds__(kThreads) bicgstab_kernel(Params<T> p) {
   }
 }
 
-// ------------------------------------------------------------ grid-wide K1, K2
-constexpr int kSlots = 16;  // partial sums per block: K2 uses 8, K1 11
+// -------------------------------------------------------- grid-wide K1, K2, K3
+constexpr int kSlots = 16;  // partial sums per block: K2 uses 8, K1 11, K3 6
 
 // A block's place in the plan, and its view of its row's read-only operands:
 // slot i is cell c0 + i. `l` is indexed k*ls + i - lsh*o (lsh = 0 when the
@@ -503,8 +504,8 @@ __device__ __forceinline__ void row_sum(cg::grid_group& grid, bool work, const P
 // True while any row still iterates; one grid barrier. Every block of a row
 // publishes the row's (uniform) `active` before the barrier and reads all
 // rows' flags after it, so the answer is the same in every block of the
-// grid. The solvers call it once per trip of their loops, with at least two
-// more grid barriers before the next call overwrites the flags.
+// grid. The solvers call it once per trip of their loops, with at least one
+// more grid barrier before the next call overwrites the flags.
 template <typename T>
 __device__ __forceinline__ bool any_row_active(cg::grid_group& grid, const Params<T>& p,
                                                const Slice<T>& s, bool active) {
@@ -516,7 +517,7 @@ __device__ __forceinline__ bool any_row_active(cg::grid_group& grid, const Param
   return __syncthreads_or(any) != 0;
 }
 
-// The prologue of K1 and K2 over a row's blocks (two grid barriers): as
+// The prologue of K1, K2 and K3 over a row's blocks (two grid barriers): as
 // `prologue`, with x and r the block's slices. x0 is read-only for the
 // launch, so its neighbours are read from it directly.
 template <typename T>
@@ -754,11 +755,6 @@ __global__ void __launch_bounds__(kThreads) sync_bench_kernel(int n) {
   for (int i = 0; i < n; ++i) grid.sync();
 }
 
-template <typename T>
-const void* grid_kernel(int which) {
-  return which == 0 ? (const void*)pcg_grid_kernel<T> : (const void*)bicgstab_grid_kernel<T>;
-}
-
 // K3: damped Jacobi smoother (linear.py:jacobi_smooth semantics), the
 // smoothSolver role: rounds of `check_every` sweeps x ← x + ω(b − A·x)/d,
 // each round followed by the L1 residual over the normFactor; a row goes on
@@ -766,14 +762,17 @@ const void* grid_kernel(int which) {
 // relative (or it = 0). `it` counts sweeps, as in the Pallas kernel.
 //
 // A Jacobi sweep must read only the previous iterate, so the sweeps
-// ping-pong between p.x and one scratch vector with a block barrier between
+// ping-pong between p.x and one scratch vector with a barrier between
 // them; updating in place would make it Gauss-Seidel, which is not the
 // twin. The scratch also holds r = b − A·x0 for the prologue.
 //
-// What bounds it: a sweep reads d, b, 6 off-diagonal vectors and x and
-// writes x — about 10 vectors of nC values — and the solves of the fire
-// step take tens to hundreds of sweeps, so it is memory-bound; one block per
-// row keeps it on one SM per row (latency-bound there, as K1 and K2 are).
+// What bounds it: a sweep touches d, b, 6 off-diagonal vectors and x —
+// about 10 vectors of nC values — none of which leaves the L2 at 100k
+// cells, and each sweep waits for the one before it. With one block per row
+// a single SM makes every load of a 100k-cell sweep (about 200 µs a sweep
+// on an H100: neither HBM's rate nor the arithmetic, but one SM's loads),
+// which is why rows that fit go to smooth_grid_kernel below and this kernel
+// keeps the batches with more rows than co-resident blocks.
 // work: the second x buffer.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) smooth_kernel(Params<T> p) {
@@ -824,6 +823,96 @@ __global__ void __launch_bounds__(kThreads) smooth_kernel(Params<T> p) {
   }
 }
 
+// K3 over the grid: the arithmetic of smooth_kernel, one grid barrier per
+// sweep and one per residual check. The iterate is the one exchanged vector:
+// sweep n reads its neighbours from one whole-row buffer in global memory
+// (x0 for the first sweep, then p.x and the scratch row in turns) and writes
+// the next; the barrier after it is enough, because the buffer a sweep
+// overwrites was last read before the previous barrier. The round's first
+// barrier also carries the rows' "still iterating" flags (any_row_active),
+// so a round of `check_every` sweeps costs check_every + 1 barriers. A
+// stopped row keeps its buffers and passes the barriers. Every cell is
+// computed with smooth_kernel's expression, so x after n sweeps is bit-equal
+// to smooth_kernel's; only the residual sums, which steer the stop, add in
+// another order. work: the second x buffer (and r of the prologue).
+// Resident slices: d, K upper, K lower, b, x (3 + 2K vectors of L).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) smooth_grid_kernel(Params<T> p) {
+  __shared__ T sm[32 * 4];
+  cg::grid_group grid = cg::this_grid();
+  Slice<T> s;
+  T* sh = stage_operands(p, reinterpret_cast<T*>(ffk_dyn_smem), s);
+  const long long n = p.nC;
+  T* xa = p.x + (long long)s.row * n;     // whole rows, exchanged between blocks
+  T* xb = p.work + (long long)s.row * n;
+  const T* b = p.b + (long long)s.row * n + s.c0;
+  if (p.resident) {  // b is read in every sweep: its slice is staged as the matrix is
+    T* bs = sh;
+    sh += p.L;
+    for (int i = threadIdx.x; i < s.n; i += blockDim.x) bs[i] = b[i];
+    b = bs;
+  }
+  T* x = take(p, sh, xa + s.c0);  // the block's own cells of the iterate
+
+  T norm, res0, unused1, unused2;
+  prologue_grid(grid, p, s, x, xb + s.c0, sm, norm, res0, unused1, unused2);
+  const T stop = stop_at(p, res0);
+  const T omega = T(p.omega);
+  T res = res0;
+  T res_prev = res0;  // not read before it > 0
+  const T* cur = p.x0 + (long long)s.row * n;
+  T* nxt = xa;
+  int it = 0;
+  for (;;) {
+    const bool active = res > stop && it < p.max_iter &&
+                        (res < res_prev * T(1.0 - 1e-4) || it == 0);
+    bool any = true;
+    for (int k = 0; k < p.check_every && any; ++k) {
+      if (active) {  // one sweep of the block's cells from `cur` into `nxt` (and the slice)
+        for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+          const int c = s.c0 + i;
+          const T xc = p.resident ? x[i] : __ldcg(cur + c);
+          const T v = xc + (omega / s.d[i]) * (b[i] - dia_row_s(s, p, cur, xc, i));
+          if (p.resident) x[i] = v;
+          nxt[c] = v;
+        }
+        cur = nxt;
+        nxt = nxt == xa ? xb : xa;
+      }
+      // the round's first barrier also carries the rows' flags
+      if (k == 0) any = any_row_active(grid, p, s, active);
+      else grid.sync();
+    }
+    if (!any) break;
+    T s1[1] = {T(0)};
+    if (active) {
+      for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+        const T xc = p.resident ? x[i] : __ldcg(cur + s.c0 + i);
+        s1[0] += fabs(b[i] - dia_row_s(s, p, cur, xc, i));
+      }
+    }
+    row_sum<T, 1>(grid, active, p, s, 5, s1, sm);
+    if (active) {
+      res_prev = res;
+      res = s1[0] / norm;
+      it += p.check_every;
+    }
+  }
+  // streamed: x aims at p.x, which holds x0 (no sweep) or every other iterate
+  if (!p.resident && cur == xb) {
+    for (int i = threadIdx.x; i < s.n; i += blockDim.x) x[i] = __ldcg(xb + s.c0 + i);
+  }
+  finish_grid(p, s, x, res0, res, it);
+}
+
+// The grid-wide kernels by index: 0 K2, 1 K1, 2 K3.
+template <typename T>
+const void* grid_kernel(int which) {
+  return which == 0   ? (const void*)pcg_grid_kernel<T>
+         : which == 1 ? (const void*)bicgstab_grid_kernel<T>
+                      : (const void*)smooth_grid_kernel<T>;
+}
+
 template <typename T>
 Params<T> make_params(const T* diag, long long sd, const T* upper, long long su,
                       const T* lower, long long sl, const T* b, const T* x0, T* x,
@@ -845,6 +934,22 @@ Params<T> make_params(const T* diag, long long sd, const T* upper, long long su,
   p.bpr = 1; p.L = nC; p.resident = 0;
   p.slots = nullptr; p.flags = nullptr;
   return p;
+}
+
+// The cooperative launch of a grid-wide kernel on the wrapper's plan: blocks
+// per row, cells per block, the partial-sum slots [16, B*bpr], the row flags
+// [B] and the dynamic shared bytes (0: stream the slices from L2). A launch
+// that cannot be co-resident is refused with an error.
+template <typename T>
+int launch_grid(const void* kernel, Params<T> p, int B, T* slots, int* flags, int bpr, int L,
+                int smem_bytes, void* stream) {
+  if (bpr < 1 || L < 1 || (long long)bpr * L < p.nC || smem_bytes < 0)
+    return (int)cudaErrorInvalidValue;
+  p.bpr = bpr; p.L = L; p.resident = smem_bytes > 0;
+  p.slots = slots; p.flags = flags;
+  void* args[] = {&p};
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(B * bpr), dim3(kThreads), args,
+                                          (size_t)smem_bytes, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -870,10 +975,7 @@ FFK_ENTRY(pcg, pcg_kernel, double, f64)
 FFK_ENTRY(bicgstab, bicgstab_kernel, float, f32)
 FFK_ENTRY(bicgstab, bicgstab_kernel, double, f64)
 
-// The grid-wide K1 and K2: the same operands plus the plan (blocks per row,
-// cells per block), the partial-sum slots [16, B*bpr], the row flags [B] and
-// the dynamic shared bytes (0: stream the slices from L2). The launch is
-// cooperative; one that cannot be co-resident is refused with an error.
+// The grid-wide K1 and K2: the same operands plus launch_grid's.
 #define FFK_GRID_ENTRY(NAME, KERNEL, T, SUF)                                         \
   extern "C" int ffk_##NAME##_grid_##SUF(                                            \
       const T* diag, long long sd, const T* upper, long long su, const T* lower,     \
@@ -881,18 +983,12 @@ FFK_ENTRY(bicgstab, bicgstab_kernel, double, f64)
       T* work, const int* offs, int K, int nC, int B, double tol, double rel_tol,    \
       double floor_eps, int max_iter, T* slots, int* flags, int bpr, int L,          \
       int smem_bytes, void* stream) {                                                \
-    if (K < 1 || K > kMaxOffsets || nC < 1 || B < 1 || bpr < 1 || L < 1 ||           \
-        (long long)bpr * L < nC || smem_bytes < 0)                                   \
-      return (int)cudaErrorInvalidValue;                                             \
+    if (K < 1 || K > kMaxOffsets || nC < 1 || B < 1) return (int)cudaErrorInvalidValue; \
     Params<T> p = make_params<T>(diag, sd, upper, su, lower, sl, b, x0, x, res0,     \
                                  res, iters, work, offs, K, nC, tol, rel_tol,        \
                                  floor_eps, max_iter);                               \
-    p.bpr = bpr; p.L = L; p.resident = smem_bytes > 0;                               \
-    p.slots = slots; p.flags = flags;                                                \
-    void* args[] = {&p};                                                             \
-    return (int)cudaLaunchCooperativeKernel((const void*)KERNEL<T>, dim3(B * bpr),   \
-                                            dim3(kThreads), args, (size_t)smem_bytes, \
-                                            (cudaStream_t)stream);                   \
+    return launch_grid<T>((const void*)KERNEL<T>, p, B, slots, flags, bpr, L,        \
+                          smem_bytes, stream);                                       \
   }
 
 FFK_GRID_ENTRY(pcg, pcg_grid_kernel, float, f32)
@@ -900,7 +996,7 @@ FFK_GRID_ENTRY(pcg, pcg_grid_kernel, double, f64)
 FFK_GRID_ENTRY(bicgstab, bicgstab_grid_kernel, float, f32)
 FFK_GRID_ENTRY(bicgstab, bicgstab_grid_kernel, double, f64)
 
-// How many blocks of a grid-wide kernel (which: 0 pcg, 1 bicgstab) are
+// How many blocks of a grid-wide kernel (which: 0 pcg, 1 bicgstab, 2 smooth) are
 // co-resident on the current device with `smem_bytes` of dynamic shared
 // memory each (0 when that is more than a block may have), and the most
 // dynamic shared memory a block of it may have; the kernel is opted in to
@@ -915,7 +1011,7 @@ extern "C" int ffk_coop_blocks(int which, int is_f64, int smem_bytes, int* block
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
-  if (!coop || which < 0 || which > 1) return (int)cudaErrorNotSupported;
+  if (!coop || which < 0 || which > 2) return (int)cudaErrorNotSupported;
   const void* f = is_f64 ? grid_kernel<double>(which) : grid_kernel<float>(which);
   cudaFuncAttributes fa;
   e = cudaFuncGetAttributes(&fa, f);
@@ -960,3 +1056,25 @@ extern "C" int ffk_sync_bench(int blocks, int n, void* stream) {
 
 FFK_SMOOTH_ENTRY(float, f32)
 FFK_SMOOTH_ENTRY(double, f64)
+
+// The grid-wide K3: K3's operands, then launch_grid's.
+#define FFK_SMOOTH_GRID_ENTRY(T, SUF)                                                \
+  extern "C" int ffk_smooth_grid_##SUF(                                              \
+      const T* diag, long long sd, const T* upper, long long su, const T* lower,     \
+      long long sl, const T* b, const T* x0, T* x, T* res0, T* res, int* iters,      \
+      T* work, const int* offs, int K, int nC, int B, double tol, double rel_tol,    \
+      double floor_eps, int max_iter, double omega, int check_every, T* slots,       \
+      int* flags, int bpr, int L, int smem_bytes, void* stream) {                    \
+    if (K < 1 || K > kMaxOffsets || nC < 1 || B < 1 || check_every < 1)             \
+      return (int)cudaErrorInvalidValue;                                             \
+    Params<T> p = make_params<T>(diag, sd, upper, su, lower, sl, b, x0, x, res0,     \
+                                 res, iters, work, offs, K, nC, tol, rel_tol,        \
+                                 floor_eps, max_iter);                               \
+    p.omega = omega;                                                                 \
+    p.check_every = check_every;                                                     \
+    return launch_grid<T>((const void*)smooth_grid_kernel<T>, p, B, slots, flags,    \
+                          bpr, L, smem_bytes, stream);                               \
+  }
+
+FFK_SMOOTH_GRID_ENTRY(float, f32)
+FFK_SMOOTH_GRID_ENTRY(double, f64)

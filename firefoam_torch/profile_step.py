@@ -5,8 +5,9 @@
 Builds write_box_fire_case(n) (with --smooth, write_smooth_fire_case(n):
 smoothSolver for Yi, h and k, and the run features), runs initial_state()
 and 12 warm-up steps, then profiles `--steps` steps. Prints their solver
-iterations, the device time per kernel (top 25) and the device-busy share
-of the window's wall time (the profiler itself slows the host, so the idle
+iterations, the device time per kernel (top 25), the port's own CUDA
+kernels (csrc/) whatever their rank, and the device-busy share of the
+window's wall time (the profiler itself slows the host, so the idle
 share it reads is an upper bound). Needs a CUDA card; imports no JAX.
 """
 
@@ -78,6 +79,13 @@ def main():
         its = {k: int(v) for k, v in sorted(log.items()) if k.endswith("_iters") or "iters_" in k}
         print(f"step {WARMUP + i + 1} solver iterations: {its}")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+    for e in prof.key_averages():
+        # nvcc names a kernel of csrc/'s unnamed namespace so; PyTorch's own
+        # kernels carry the words only inside their template arguments
+        if e.key.startswith("void (anonymous namespace)::") and e.self_device_time_total > 0:
+            kernel = e.key.split("::", 1)[1].split("(", 1)[0]
+            print(f"{kernel}: {e.count} launches, {e.self_device_time_total / e.count / 1e3:.4f} "
+                  f"ms each, {e.self_device_time_total / args.steps / 1e3:.4f} ms/step")
     busy = _busy_us(prof)
     print(f"{n} cells, {args.steps} steps: wall {wall_us / args.steps / 1e3:.3f} ms/step, "
           f"device busy {busy / args.steps / 1e3:.3f} ms/step "

@@ -24,14 +24,14 @@ firefoam_torch/_build/ (named by a hash of every source), and loaded with
 ctypes; each launch runs on the current PyTorch stream and adds one to
 LAUNCHES[name].
 
-K1 and K2 have two kernels each. With G the number of blocks of the kernel
-that are co-resident on the card (its occupancy times the SM count, asked of
-the library once per kernel, dtype and shared-memory size), a batch of
-B <= G rows goes to the grid-wide kernel: a cooperative launch in which
+K1, K2 and K3 have two kernels each. With G the number of blocks of the
+kernel that are co-resident on the card (its occupancy times the SM count,
+asked of the library once per kernel, dtype and shared-memory size), a batch
+of B <= G rows goes to the grid-wide kernel: a cooperative launch in which
 `grid_plan(B, nC, G)` gives every row a group of blocks and every block a
 contiguous range of cells, kept in the block's shared memory when it fits.
 B > G goes to the one-block-per-row kernel. The choice follows from B, nC
-and G alone. K3 has the one-block-per-row kernel only.
+and G alone.
 """
 
 from __future__ import annotations
@@ -76,8 +76,8 @@ _WORK = {"pcg": 3, "bicgstab": 8, "smooth": 1}
 
 # the grid-wide kernels: index in csrc (ffk_coop_blocks' `which`) and the
 # vectors of L cells a block keeps in shared memory besides the 2K
-# off-diagonals (d, x and the kernel's Krylov vectors)
-_GRID = {"pcg": (0, 5), "bicgstab": (1, 10)}
+# off-diagonals (d, x and the kernel's Krylov vectors; K3: d, b and x)
+_GRID = {"pcg": (0, 5), "bicgstab": (1, 10), "smooth": (2, 3)}
 _SLOTS = 16  # partial sums per block (kSlots in csrc)
 # A block (1024 threads) gets at least this many cells where the row has
 # them. On an H100 the grid barrier costs the same for 9 or 132 blocks, and
@@ -169,9 +169,8 @@ def signatures() -> dict:
         for name in LAUNCHES:
             extra = [cd, ci] if name == "smooth" else []  # omega, check_every
             sig[f"ffk_{name}_{suf}"] = common + extra + [vp]  # ..., stream
-        for name in _GRID:
             # ..., slots, flags, blocks per row, cells per block, smem bytes, stream
-            sig[f"ffk_{name}_grid_{suf}"] = common + [vp, vp, ci, ci, ci, vp]
+            sig[f"ffk_{name}_grid_{suf}"] = common + extra + [vp, vp, ci, ci, ci, vp]
     return sig
 
 
@@ -268,10 +267,11 @@ def grid_sync_seconds(blocks: int, n: int = 2000) -> float:
 
 # ---------------------------------------------------------------- launcher
 def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, extra=(),
-            resident=True, min_cells=MIN_CELLS):
-    """Check the operands and launch kernel `name` on them. `resident` and
-    `min_cells` exist for measurements (chip_smoke.py times a grid-wide
-    kernel with its slices streamed from L2, and other block counts)."""
+            resident=True, min_cells=MIN_CELLS, grid_wide=True):
+    """Check the operands and launch kernel `name` on them. `resident`,
+    `min_cells` and `grid_wide` exist for measurements and tests (a
+    grid-wide kernel with its slices streamed from L2, with other block
+    counts, and against the one-block-per-row kernel on the same rows)."""
     dtype = x0.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dia_{name}: dtype {dtype} not supported")
@@ -307,14 +307,14 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
     offs = (ctypes.c_int * K)(*[int(o) for o in offsets])
     suf = "f32" if dtype == torch.float32 else "f64"
     fn_name = f"ffk_{name}_{suf}"
-    if name in _GRID:
+    if grid_wide:
         plan, smem = _grid_launch_plan(name, dtype, B, nC, K, x0.element_size(), min_cells)
         if plan.grid_wide:
             fn_name = f"ffk_{name}_grid_{suf}"
             slots = torch.empty((_SLOTS, B * plan.blocks_per_row), dtype=dtype, device=dev)
             flags = torch.empty((B,), dtype=torch.int32, device=dev)
-            extra = (slots.data_ptr(), flags.data_ptr(), plan.blocks_per_row,
-                     plan.cells_per_block, smem if resident else 0)
+            extra = tuple(extra) + (slots.data_ptr(), flags.data_ptr(), plan.blocks_per_row,
+                                    plan.cells_per_block, smem if resident else 0)
     fn = getattr(_load(), fn_name)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(

@@ -9,6 +9,12 @@
 * The `extern "C"` entry points of csrc/dia_krylov.cu, parsed from the
   source (macros expanded), against the ctypes argtypes the wrapper sets: a
   mismatch would otherwise show only as a crash on the card.
+* `_launch` itself, with the library, the occupancy query and the stream
+  replaced by recorders: which entry point each kernel's launch picks, and
+  that the arguments it passes match that entry point's argtypes in number
+  and kind (K3's damping and sweeps per check before the grid's extras).
+* The shared-memory rule of `_grid_launch_plan`: K3 keeps 3 + 2K vectors of
+  a block's cells resident, and streams them when that is over the limit.
 """
 
 import ctypes
@@ -16,6 +22,7 @@ import os
 import re
 
 import pytest
+import torch
 
 from firefoam_torch.solvers import dia_krylov
 
@@ -135,7 +142,7 @@ def test_c_entry_points_match_the_wrappers_argtypes():
     parsed = _c_entry_points()
     declared = dia_krylov.signatures()
     assert set(parsed) == set(declared)
-    assert len(parsed) == 12  # 3 kernels + 2 grid-wide, in f32 and f64; 2 helpers
+    assert len(parsed) == 14  # 3 kernels + 3 grid-wide, in f32 and f64; 2 helpers
     for name, argtypes in declared.items():
         assert parsed[name] == argtypes, name
 
@@ -148,3 +155,107 @@ def test_launch_arguments_match_the_signatures():
     assert len(sig["ffk_smooth_f64"]) == 24  # + omega, check_every
     assert len(sig["ffk_bicgstab_grid_f32"]) == 27  # + slots, flags, bpr, L, smem
     assert sig["ffk_pcg_grid_f64"] == sig["ffk_bicgstab_grid_f32"]
+    assert len(sig["ffk_smooth_grid_f32"]) == 29  # + omega, check_every, then the grid's five
+    assert sig["ffk_smooth_grid_f64"][:24] == sig["ffk_smooth_f64"][:-1] + [ctypes.c_void_p]
+    assert sig["ffk_smooth_grid_f64"][21:23] == [ctypes.c_double, ctypes.c_int]
+
+
+# --------------------------------------------- K3's plan and shared memory
+MAX_SMEM_H100 = 232_448 - 1_024  # the opt-in limit less a kernel's static 1 KB (f64)
+
+
+class _FakeCard:
+    """Stands in for the library, the occupancy query and the stream, so
+    that `_launch` runs on CPU tensors and its call can be read."""
+
+    def __init__(self, monkeypatch, G=G_H100, max_smem=MAX_SMEM_H100):
+        self.calls = []
+        self.G, self.max_smem = G, max_smem
+        monkeypatch.setattr(dia_krylov, "_load", lambda: self)
+        monkeypatch.setattr(dia_krylov, "_coop_blocks", self.coop_blocks)
+        monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: self)
+
+    cuda_stream = 0
+
+    def coop_blocks(self, name, dtype, smem):
+        return (self.G if smem <= self.max_smem else 0), self.max_smem
+
+    def __getattr__(self, fn_name):
+        if not fn_name.startswith("ffk_"):
+            raise AttributeError(fn_name)
+
+        def fn(*args):
+            self.calls.append((fn_name, args))
+            return 0
+
+        return fn
+
+
+@pytest.mark.parametrize("B,nC,bpr,L", [
+    (1, 100_000, 131, 768), (4, 100_000, 33, 3040),  # h or k, and the Yi batch
+    (1, 9_000, 18, 512), (4, 9_000, 18, 512),
+])
+def test_smooth_plan_on_the_main_path(monkeypatch, B, nC, bpr, L):
+    _FakeCard(monkeypatch)
+    for dtype, esize in ((torch.float32, 4), (torch.float64, 8)):
+        plan, smem = dia_krylov._grid_launch_plan("smooth", dtype, B, nC, 3, esize)
+        assert plan.grid_wide and (plan.blocks_per_row, plan.cells_per_block) == (bpr, L)
+        assert smem == 9 * L * esize  # d, b, x and 2·3 off-diagonals, resident
+
+
+def test_smooth_slices_are_streamed_when_they_do_not_fit(monkeypatch):
+    """9 vectors of a block's cells over the limit: the same plan with 0
+    dynamic shared bytes. K2 keeps 11 and K1 16 vectors, so at one L they
+    give up residency sooner."""
+    _FakeCard(monkeypatch)
+    fits = dia_krylov._grid_launch_plan("smooth", torch.float64, 4, 100_000, 3, 8)
+    assert fits[1] == 9 * 3040 * 8 <= MAX_SMEM_H100
+    assert dia_krylov._grid_launch_plan("bicgstab", torch.float64, 4, 100_000, 3, 8)[1] == 0
+    plan, smem = dia_krylov._grid_launch_plan("smooth", torch.float64, 1, 500_000, 3, 8)
+    assert plan.grid_wide and plan.cells_per_block == 3808 and smem == 0
+    _FakeCard(monkeypatch, max_smem=200_000)
+    plan, smem = dia_krylov._grid_launch_plan("smooth", torch.float64, 4, 100_000, 3, 8)
+    assert plan == fits[0] and smem == 0
+
+
+def _cpu_system(B, nC, dtype):
+    g = torch.Generator().manual_seed(5)
+    r = lambda *shape: torch.rand(*shape, generator=g, dtype=dtype)
+    return (4.0 + r(B, nC), -r(B, 3 * nC), -r(B, 3 * nC), r(B, nC), r(B, nC)), (1, 10, 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("grid_wide", [True, False])
+@pytest.mark.parametrize("name", ["pcg", "bicgstab", "smooth"])
+def test_launch_passes_what_the_entry_point_takes(monkeypatch, name, grid_wide, dtype):
+    card = _FakeCard(monkeypatch)
+    ops, offs = _cpu_system(2, 1000, dtype)
+    extra = (0.8, 4) if name == "smooth" else ()
+    before = dia_krylov.LAUNCHES[name]
+    dia_krylov._launch(name, *ops, offs, 1e-6, 0.0, 50, extra=extra, grid_wide=grid_wide)
+    assert dia_krylov.LAUNCHES[name] == before + 1
+    (fn_name, args), = card.calls
+    suf = "f32" if dtype == torch.float32 else "f64"
+    assert fn_name == f"ffk_{name}_{'grid_' if grid_wide else ''}{suf}"
+    argtypes = dia_krylov.signatures()[fn_name]
+    assert len(args) == len(argtypes)
+    for a, t in zip(args, argtypes):
+        if t is ctypes.c_double:
+            assert isinstance(a, float), (a, t)
+        elif t in (ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p):
+            assert isinstance(a, int) and not isinstance(a, bool), (a, t)
+        else:
+            assert isinstance(a, ctypes.Array), (a, t)  # the offsets
+    if name == "smooth":
+        assert args[21:23] == (0.8, 4)
+    if grid_wide:
+        bpr, L, smem = args[-4:-1]
+        assert (bpr, L) == (2, 512)
+        assert smem == (dia_krylov._GRID[name][1] + 6) * L * ops[0].element_size()
+
+
+def test_launch_takes_one_block_per_row_when_rows_outnumber_blocks(monkeypatch):
+    card = _FakeCard(monkeypatch, G=3)
+    ops, offs = _cpu_system(4, 1000, torch.float32)
+    dia_krylov._launch("smooth", *ops, offs, 1e-6, 0.0, 50, extra=(0.8, 4))
+    assert card.calls[0][0] == "ffk_smooth_f32" and len(card.calls[0][1]) == 24
