@@ -32,7 +32,29 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      function-object and rtis rows, the written T and U against the
      checkpoint, and the repeated and resumed rows against the
      uninterrupted run (equal: the step is bit-reproducible on the card);
-  7. the kernels' JSON line, the card line, and the final JSON line.
+  7. the p_rgh solver family in float32: the lattice multigrid on the main
+     path at 100k cells (FireFoamSolver(device="cuda", gmg=True)) from the
+     developed state of phase 4 beside the K2 run of the same steps: every
+     logged number finite, the gas heating, K2 launched by the hydrostatic
+     init only and K1 as in phase 4, two multigrid runs bitwise equal, U of
+     the two runs within 0.5 m/s and T within 0.05 relative (a K2 run with
+     p_rgh in float64 beside it as the yardstick); the same pair from t = 0
+     at 100k and at 500k cells (100, 50, 100), T and U within 0.5 K and 0.5
+     m/s; then, at 9k, 100k and
+     500k cells, one p_rgh system captured from a step and solved by K2 and
+     gmg_pcg (at 9k also amg_pcg): ms, iterations, kernel launches and host
+     reads per solve (torch.profiler), each x's normalised residual within
+     the solve's tolerance;
+  8. the exact solvers on the card, 9k cells in float64 with
+     exact_solvers=True: the box fire (DIC-PCG on p_rgh) and the smoothSolver
+     case (symGaussSeidel on Yi, h, k) over 10 steps against the CPU's
+     float64 run of the same configuration (T and U within 1e-6 relative for
+     the box fire and 1e-3 for the smoothSolver case, whose start-up
+     amplifies last-bit differences), the last of these steps from the CPU's
+     state within 1e-9 with equal iteration counts, iteration counts
+     printed, ms per dic_pcg and per sgs_solve, two runs on the card bitwise
+     equal;
+  9. the kernels' JSON line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
@@ -57,12 +79,25 @@ sys.path.insert(0, ROOT)
 
 from firefoam_torch.io import read_field_file  # noqa: E402
 from firefoam_torch.models import run as run_cli  # noqa: E402
+from firefoam_torch.models import firefoam as firefoam_mod  # noqa: E402
 from firefoam_torch.models.firefoam import FireFoamSolver  # noqa: E402
-from firefoam_torch.solvers import dia_krylov, linear  # noqa: E402
+from firefoam_torch.solvers import dia_krylov, dic, linear  # noqa: E402
 from firefoam_torch.utils.synthcase import write_box_fire_case, write_smooth_fire_case  # noqa: E402
 
 N_MAIN = (50, 40, 50)  # 100,000 cells
 N_SMALL = (30, 15, 20)  # 9,000 cells
+N_LARGE = (100, 50, 100)  # 500,000 cells
+GMG_STEPS = 5  # steps of each run of a K2/multigrid pair
+# T [K] and U [m/s] of a multigrid run against the K2 run of the same steps
+# from t = 0 (the comparison and the bound of the JAX package's multigrid
+# test): both solves stop at the same dictionary tolerance
+GMG_TOL = 0.5
+# from a burning state T is held to the float32 drift band instead (phase
+# 5's 0.05 relative): the two solvers leave different error modes at the
+# same stated tolerance, and a flame front of 1000 K a cell turns a shift of
+# a thousandth of a cell into kelvins. A K2 run with its p_rgh solve in
+# float64 is printed beside it as the yardstick of that sensitivity
+GMG_T_DRIFT = 0.05
 CHUNK = 20
 DRIFT_STEPS = 10
 SOURCE = "firefoam_torch/csrc/dia_krylov.cu"
@@ -108,6 +143,13 @@ RESUME_TOL = 0.0
 # card f64 vs CPU f64 after DRIFT_STEPS steps: the fvDOM ray solves stop at
 # a residual of 1e-4, and where they stop depends on summation order
 CPU_TOL = 1e-6
+# one step on the card from the CPU's float64 state, against the CPU's step
+STEP_TOL = 1e-9
+# the smoothSolver case over DRIFT_STEPS steps from t = 0, card f64 vs CPU
+# f64: its start-up amplifies last-bit differences tenfold a step from step 5
+# on whatever solves Yi, h and k (with K3 and its twin U reads 6.1e-05 after
+# 10 steps, with symGaussSeidel 7.9e-05, iteration counts equal throughout)
+SMOOTH_CHAIN_TOL = 1e-3
 
 
 def say(phase, msg):
@@ -383,7 +425,289 @@ def phase_main(dev, case):
         raise SystemExit("phase 4: the fire released heat but the gas did not heat up")
     if launches["bicgstab"] != exp_k1 or launches["pcg"] != exp_k2:
         raise SystemExit("phase 4: kernel launch counts do not match the solves")
-    return launches, ms, n
+    return solver, state
+
+
+# ---------------------------------------------------------------- phase 7
+def norm_residual(m, x, x0):
+    """OpenFOAM's normalised residual Σ|b − A·x| / normFactor(x0) of a p_rgh
+    system, as every solver of the family computes it."""
+    diag, b = m.totals()
+    mv = lambda v: dia_krylov.dia_matvec(diag, m.upper, m.lower, m.geom.offsets, v)
+    _, norm = linear._norm_factor(mv, x0, b)
+    return float(torch.sum(torch.abs(b - mv(x))) / norm)
+
+
+def capture(obj, attr, call):
+    """The argument tuples `obj.attr` receives while `call()` runs."""
+    got, orig = [], getattr(obj, attr)
+
+    def shim(*a, **k):
+        got.append(a)
+        return orig(*a, **k)
+
+    setattr(obj, attr, shim)
+    try:
+        call()
+    finally:
+        setattr(obj, attr, orig)
+    return got
+
+
+def launches_and_reads(fn):
+    """(CUDA kernels launched, host reads of a device scalar) of one call,
+    from torch.profiler; None for the kernels if it saw no device event."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    kernels = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.lower().startswith("memcpy") and not e.key.lower().startswith("memset"))
+    reads = sum(e.count for e in avgs if e.key == "aten::_local_scalar_dense")
+    return (kernels or None), reads
+
+
+def p_rgh_solver_times(phase, solvers, state, what):
+    """One p_rgh system (the last corrector of a step of the first solver
+    from `state`) through each solver's own p_rgh solve: ms, iterations,
+    kernel launches and host reads per solve, and x's distance from the
+    converged solution (K2 in float64 to 1e-12); every x's normalised
+    residual must be within the tolerance the solve stopped at. Returns
+    {name: (ms, iterations)}."""
+    first = next(iter(solvers.values()))
+    m, x0, final = capture(first, "_solve_p_rgh", lambda: first.step(state))[-1]
+    c = firefoam_mod._solver_controls(first.fv_solution, "p_rghFinal", "p_rgh")
+    f8 = torch.float64
+    diag, b = m.totals()
+    exact = dia_krylov.dia_pcg(diag.to(f8), m.upper.to(f8), m.lower.to(f8), b.to(f8), x0.to(f8),
+                               m.geom.offsets, tol=1e-12, max_iter=20000).x
+    moved = float((exact - x0.to(f8)).abs().max())  # how far the solve has to move x0
+    out = {}
+    for name, solver in solvers.items():
+        solve = lambda: solver._solve_p_rgh(m, x0, final)
+        res = solve()
+        torch.cuda.synchronize()
+        it, res0 = int(res.n_iterations), float(res.initial_residual)
+        true_res = norm_residual(m, res.x, x0)
+        err = float((res.x.to(f8) - exact).abs().max()) / moved
+        limit = max(linear.tol_floor(c["tolerance"], x0.dtype), c["relTol"] * res0)
+        ms = time_ms(solve, reps=5)
+        kernels, reads = launches_and_reads(solve)
+        out[name] = (ms, it)
+        say(phase, f"{what} p_rgh system, {name}: {ms:.3f} ms per solve, {it} iterations, "
+                   f"{kernels if kernels is not None else 'not measured'} kernel launches and "
+                   f"{reads} host reads per solve; residual {res0:.3e} -> {true_res:.3e} "
+                   f"(stops at {limit:.3e}); max |x - converged x| {err:.3e} of max "
+                   f"|converged x - x0|")
+        # recomputed from x in this dtype: twice the stopping value at most
+        if not (np.isfinite(true_res) and true_res <= 2.0 * limit and it > 0):
+            raise SystemExit(f"phase {phase}: {name} left a residual beyond its tolerance")
+    return out
+
+
+def gmg_pair(dev, case, k2, state, what, burning=False):
+    """GMG_STEPS steps from `state` with K2 on p_rgh (solver `k2`) and with
+    the lattice multigrid (a new solver, built and initialised inside the
+    launch count); returns the multigrid solver and the pair's numbers.
+    `burning`: the state holds a flame (T to GMG_T_DRIFT relative, and the
+    float64-p_rgh yardstick run)."""
+    n = k2.geom.n_cells
+    count0 = int(state["rad"]["count"]) if "rad" in state else 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_k2, logs_k2 = k2.make_chunk(GMG_STEPS)(state)
+    torch.cuda.synchronize()
+    ms_k2 = 1e3 * (time.perf_counter() - t0) / GMG_STEPS
+
+    dia_krylov.reset_counts()
+    mg = FireFoamSolver(case, device=dev, gmg=True)
+    if mg.gmg is None or mg._ldu is not None or mg.amg is not None:
+        raise SystemExit("phase 7: gmg=True did not put the lattice multigrid on p_rgh")
+    mg.initial_state()  # the hydrostatic init's solves are K2's
+    init_k2 = dia_krylov.LAUNCHES["pcg"]
+    chunk = mg.make_chunk(GMG_STEPS)
+    st_mg, logs_mg = chunk(state)
+    torch.cuda.synchronize()
+    launches = dict(dia_krylov.LAUNCHES)
+    # the same steps again: timed (the first run's solves allocate), and
+    # held against the first run bit for bit
+    t0 = time.perf_counter()
+    repeat = chunk(state)[0]
+    torch.cuda.synchronize()
+    ms_mg = 1e3 * (time.perf_counter() - t0) / GMG_STEPS
+    exp_k1, _ = expected_launches(mg.radiation, count0, GMG_STEPS)
+
+    its = lambda logs: [[int(a), int(b)] for a, b in
+                        zip(logs["p_rgh_iters_0"], logs["p_rgh_iters_1"])]
+    bad = [k for k, v in logs_mg.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    dT = float((st_mg["T"].i - st_k2["T"].i).abs().max())
+    dT_rel = float(((st_mg["T"].i - st_k2["T"].i).abs() / st_k2["T"].i).max())
+    dU = float((st_mg["U"].i - st_k2["U"].i).abs().max())
+    T_max = float(st_mg["T"].i.max())
+    same = all(torch.equal(repeat[f].i, st_mg[f].i) for f in ("T", "U", "p_rgh", "Y", "k"))
+    say(7, f"{what} ({n} cells float32), {GMG_STEPS} steps from the same state: K2 "
+           f"{ms_k2:.3f} ms/step, multigrid {ms_mg:.3f} ms/step; multigrid vs K2 max |dT| "
+           f"{dT:.3e} K ({dT_rel:.3e} relative), max |dU| {dU:.3e} m/s; T max {T_max:.3f} K; "
+           f"non-finite log entries {bad}; two multigrid runs bitwise equal: {same}")
+    if burning:
+        p64 = FireFoamSolver(case, device=dev, gmg=False, p_rgh_f64=True)
+        st_64, _ = p64.make_chunk(GMG_STEPS)(state)
+        say(7, f"{what} yardstick, K2 with p_rgh solved in float64 vs K2: max |dT| "
+               f"{float((st_64['T'].i - st_k2['T'].i).abs().max()):.3e} K, max |dU| "
+               f"{float((st_64['U'].i - st_k2['U'].i).abs().max()):.3e} m/s")
+    say(7, f"{what} p_rgh iterations per corrector: K2 {its(logs_k2)}, multigrid {its(logs_mg)}")
+    say(7, f"{what} launches with the multigrid on p_rgh: K2 {launches['pcg']} (the hydrostatic "
+           f"init's {init_k2}), K1 {launches['bicgstab']} (expected {exp_k1}), K3 "
+           f"{launches['smooth']}")
+    if bad or not bool(torch.isfinite(st_mg["T"].i).all() and torch.isfinite(st_mg["U"].i).all()):
+        raise SystemExit("phase 7: the multigrid run is not finite")
+    if not (dU <= GMG_TOL and (dT_rel <= GMG_T_DRIFT if burning else dT <= GMG_TOL)):
+        raise SystemExit("phase 7: the multigrid run leaves the K2 run beyond the bound")
+    if not same:
+        raise SystemExit("phase 7: two multigrid runs differ")
+    if launches["pcg"] != init_k2 or init_k2 < 1 or launches["bicgstab"] != exp_k1:
+        raise SystemExit("phase 7: kernel launch counts do not match the solves")
+    return mg, st_k2, T_max, launches
+
+
+def phase_gmg(dev, tmp, main_case, main_solver, main_state, small_case):
+    """The lattice multigrid beside K2 (see the module docstring); returns the
+    main path's launch counts with the multigrid on and the solve times
+    {cells: {solver: (ms, iterations)}}."""
+    times = {}
+    T0_max = float(main_state["T"].i.max())
+    gmg_pair(dev, main_case, main_solver, main_solver.initial_state(), "box fire from t = 0")
+    mg, _, T_max, launches = gmg_pair(dev, main_case, main_solver, main_state,
+                                      "box fire, burning", burning=True)
+    if not T_max > T0_max:
+        raise SystemExit("phase 7: the gas stopped heating with the multigrid on")
+    times[main_solver.geom.n_cells] = p_rgh_solver_times(
+        7, {"K2": main_solver, "gmg_pcg": mg}, main_state, "100k-cell")
+    del mg
+
+    t0 = time.perf_counter()
+    large_case = write_box_fire_case(os.path.join(tmp, "large"), n=N_LARGE)
+    k2 = FireFoamSolver(large_case, device=dev, gmg=False)
+    state = k2.initial_state()
+    state, _ = k2.step(state)
+    torch.cuda.synchronize()
+    say(7, f"500k cells: case, mesh, solver, initial state and one step in "
+           f"{time.perf_counter() - t0:.1f} s")
+    mg, state, _, _ = gmg_pair(dev, large_case, k2, state, "500k box fire")
+    times[k2.geom.n_cells] = p_rgh_solver_times(7, {"K2": k2, "gmg_pcg": mg}, state, "500k-cell")
+    del mg, k2, state
+
+    k2 = FireFoamSolver(small_case, device=dev, gmg=False)
+    state, _ = k2.make_chunk(DRIFT_STEPS)(k2.initial_state())
+    solvers = {"K2": k2, "gmg_pcg": FireFoamSolver(small_case, device=dev, gmg=True),
+               "amg_pcg": FireFoamSolver(small_case, device=dev, amg=True)}
+    if solvers["amg_pcg"].amg is None or solvers["amg_pcg"].gmg is not None:
+        raise SystemExit("phase 7: amg=True did not put AMG on p_rgh")
+    times[k2.geom.n_cells] = p_rgh_solver_times(7, solvers, state, "9k-cell")
+    faster = sorted(n for n, t in times.items() if t["gmg_pcg"][0] < t["K2"][0])
+    say(7, "ms per p_rgh solve, K2 / gmg_pcg: " + "; ".join(
+        f"{n} cells {t['K2'][0]:.3f} / {t['gmg_pcg'][0]:.3f}" for n, t in sorted(times.items()))
+        + f"; the multigrid is faster at {faster if faster else 'no measured size'} "
+          f"(the card's automatic threshold: {firefoam_mod.GMG_MIN_CELLS['cuda']})")
+    return launches, times
+
+
+# ---------------------------------------------------------------- phase 8
+def timed(obj, attr, totals):
+    """Replace obj.attr by a version that adds (1 call, its seconds between
+    two device synchronisations) to `totals` and leaves its last call there
+    as a function to call again; returns the undo."""
+    orig = getattr(obj, attr)
+
+    def shim(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        totals[0] += 1
+        totals[1] += time.perf_counter() - t0
+        totals[2] = lambda: orig(*a, **k)
+        return out
+
+    setattr(obj, attr, shim)
+    return lambda: setattr(obj, attr, orig)
+
+
+def phase_exact(dev, tmp, box_case):
+    """The OpenFOAM-exact solvers on the card against the CPU, float64."""
+    smooth_case = write_smooth_fire_case(os.path.join(tmp, "small_smooth"), n=N_SMALL)
+    fields = ("T", "U", "p_rgh")
+    rel = lambda a, b: {f: float((a[f].i.cpu() - b[f].i.cpu()).abs().max() /
+                                 b[f].i.abs().max()) for f in ("T", "U")}
+    for what, case, keys, chain_tol in (
+        ("box fire (DIC-PCG on p_rgh)", box_case, ("p_rgh_iters_0", "p_rgh_iters_1"), CPU_TOL),
+        ("smoothSolver case (symGaussSeidel on Yi, h, k)", smooth_case,
+         ("p_rgh_iters_1", "h_iters", "k_iters", "O2_iters"), SMOOTH_CHAIN_TOL),
+    ):
+        end, its, ms, solvers = {}, {}, {}, {}
+        for run, d in (("cpu", torch.device("cpu")), ("card", dev), ("card again", dev)):
+            dia_krylov.reset_counts()
+            solver = FireFoamSolver(case, device=d, dtype=torch.float64, exact_solvers=True)
+            if solver._ldu is None or solver.gmg is not None or solver.amg is not None:
+                raise SystemExit("phase 8: exact_solvers=True did not build the schedule alone")
+            state = solver.initial_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if run == "cpu":  # the last step apart: the card repeats it from the same state
+                before, _ = solver.make_chunk(DRIFT_STEPS - 1)(state)
+                state, last = solver.step(before)
+                logs = None
+            else:
+                state, logs = solver.make_chunk(DRIFT_STEPS)(state)
+            torch.cuda.synchronize()
+            ms[run] = 1e3 * (time.perf_counter() - t0) / DRIFT_STEPS
+            end[run], solvers[run] = state, solver
+            if logs is not None:
+                its[run] = {k: [int(v) for v in logs[k]] for k in keys}
+            if run == "card":
+                launches = dict(dia_krylov.LAUNCHES)
+        # one step on the card from the CPU's state, every exact solve of it
+        # timed between two device synchronisations
+        t_dic, t_sgs = [0, 0.0, None], [0, 0.0, None]
+        undo = [timed(firefoam_mod, "dic_pcg", t_dic), timed(dic, "dic_pcg", t_dic),
+                timed(firefoam_mod, "sgs_solve", t_sgs), timed(dic, "sgs_solve", t_sgs)]
+        try:
+            stepped, log = solvers["card"].step(firefoam_mod.state_from_numpy(
+                firefoam_mod.state_to_numpy(before), device=dev, dtype=torch.float64))
+        finally:
+            for u in undo:
+                u()
+        one, chain = rel(stepped, end["cpu"]), rel(end["card"], end["cpu"])
+        same_its = all(int(log[k]) == int(last[k]) for k in log
+                       if k.endswith("_iters") or "iters_" in k)
+        same = all(torch.equal(end["card"][f].i, end["card again"][f].i) for f in fields)
+        say(8, f"{what}, {end['cpu']['T'].i.numel()} cells float64, {DRIFT_STEPS} steps: card "
+               f"{ms['card']:.1f} ms/step, CPU {ms['cpu']:.1f} ms/step; card vs CPU after the "
+               f"chain: T {chain['T']:.3e}, U {chain['U']:.3e} relative; the last step from the "
+               f"CPU's state: T {one['T']:.3e}, U {one['U']:.3e}, iteration counts equal "
+               f"{same_its}; two card runs bitwise equal: {same}; other launches K1 "
+               f"{launches['bicgstab']}, K2 {launches['pcg']}, K3 {launches['smooth']}")
+        say(8, f"iterations per step on the card {its['card']}")
+        def per(t):
+            if not t[0]:
+                return "none"
+            kernels, reads = launches_and_reads(t[2])
+            return (f"{1e3 * t[1] / t[0]:.3f} ms each over {t[0]}; the last of them "
+                    f"{kernels if kernels is not None else 'not measured'} kernel launches and "
+                    f"{reads} host reads")
+
+        say(8, f"one step on the card: dic_pcg {per(t_dic)}; sgs_solve {per(t_sgs)}")
+        if not bool(torch.isfinite(end["card"]["T"].i).all()):
+            raise SystemExit("phase 8: the card's run is not finite")
+        if not (max(one.values()) <= STEP_TOL and same_its and max(chain.values()) <= chain_tol):
+            raise SystemExit("phase 8: the card's run differs from the CPU's beyond the bounds")
+        if not same or its["card"] != its["card again"]:
+            raise SystemExit("phase 8: two runs on the card differ")
+        if t_dic[0] < 2 or launches["pcg"] != 0:
+            raise SystemExit("phase 8: p_rgh did not go through dic_pcg")
+        if case is smooth_case and (t_sgs[0] != 3 or launches["smooth"] != 0):
+            raise SystemExit("phase 8: Yi, h and k did not go through sgs_solve")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -502,7 +826,10 @@ def phase_drift(dev, case):
     ms = {}
     for run, d, dtype in (("f32", dev, torch.float32), ("f64", dev, torch.float64),
                           ("cpu", torch.device("cpu"), torch.float64)):
-        solver = FireFoamSolver(case, device=d, dtype=dtype)
+        # the kernels' float64 instantiations and their twins: not the exact
+        # solvers float64 picks by itself (phase 8), nor the CPU's AMG
+        solver = FireFoamSolver(case, device=d, dtype=dtype, exact_solvers=False, gmg=False,
+                                amg=False)
         state = solver.initial_state()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -544,10 +871,14 @@ def main():
 
     with tempfile.TemporaryDirectory(prefix="firefoam_smoke_") as tmp:
         main_case = write_box_fire_case(os.path.join(tmp, "main"), n=N_MAIN)
-        phase_main(dev, main_case)
+        main_solver, main_state = phase_main(dev, main_case)
         small_case = write_box_fire_case(os.path.join(tmp, "small"), n=N_SMALL)
         phase_drift(dev, small_case)
         launches = phase_cli(tmp)
+        gmg_launches, solve_ms = phase_gmg(dev, tmp, main_case, main_solver, main_state,
+                                           small_case)
+        del main_solver, main_state
+        phase_exact(dev, tmp, small_case)
 
     kernels = [
         {
@@ -555,7 +886,8 @@ def main():
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES[name_k],
-            "launches": launches[name_k],
+            "launches": launches[name_k],  # the slice through the run CLI (phase 6)
+            "launches_multigrid_path": gmg_launches[name_k],  # phase 7's 100k-cell run
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],
@@ -571,6 +903,9 @@ def main():
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the slice was never launched")
+    p_rgh = {str(n): {k: {"ms": v[0], "iterations": v[1]} for k, v in t.items()}
+             for n, t in sorted(solve_ms.items())}
+    print(json.dumps({"p_rgh_solve": p_rgh}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

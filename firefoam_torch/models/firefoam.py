@@ -11,11 +11,16 @@ with adaptive Δt, matching the reference equation set:
   solver/phrghEqn.H:1-62  hydrostatic initialisation
   solver/setMultiRegionDeltaT.H:34-63  Courant-limited Δt growth
 
-Every linear solve of the step is a DIA system solved by the whole-solve
-kernels of solvers/dia_krylov.py (the plain PyTorch twins on CPU): U (3
-rows), the species (one row each), h, k, the fvDOM rays and both p_rgh
-correctors, hydrostatic init included; each fvSolution entry picks K1
-(PBiCGStab), K2 (PCG) or K3 (smoothSolver, damped Jacobi).
+Every linear solve of the step is a DIA system: U (3 rows), the species
+(one row each), h, k, the fvDOM rays and both p_rgh correctors, hydrostatic
+init included. The solver is picked as the JAX package picks it. With the
+wavefront LDU schedule (`exact_solvers`: automatic in float64), PCG+DIC and
+smoothSolver+*GaussSeidel entries run the OpenFOAM-exact solvers of
+solvers/dic.py. p_rgh then goes, in this order, to the lattice multigrid
+(`gmg`, solvers/gmg.py), the agglomeration multigrid (`amg`,
+solvers/amg.py) or the Jacobi-preconditioned CG. Every other solve goes to
+the whole-solve kernels of solvers/dia_krylov.py (their plain PyTorch twins
+on the CPU): K1 (PBiCGStab), K2 (PCG) or K3 (smoothSolver, damped Jacobi).
 
 The run features come along: fvOptions sources in UEqn and EEqn, the
 controlDict function objects (reduced into the step log), the RTI probes
@@ -24,9 +29,9 @@ of system/rtisDict and the cell-wise RTI links of constant/rtiProperties
 writing and checkpointing.
 
 Not ported: Lagrangian spray, surface film, pyrolysis regions, wall
-functions, the DIC/AMG/GMG/PairMG pressure solvers, the SPMD `local=` path
-and the hoisted-jit entry points. A case that needs one of them raises at
-construction.
+functions, the PairMG pressure solver, the SPMD `local=` path (and its
+sharded multigrid) and the hoisted-jit entry points. A case that needs one
+of them raises at construction.
 """
 
 from __future__ import annotations
@@ -50,12 +55,23 @@ from ..ops import bcs as bcmod
 from ..ops import fvc, fvm
 from ..ops.bcs import initial_boundary, make_field_bcs
 from ..solvers import dia_krylov
+from ..solvers.amg import AMGHierarchy, amg_pcg
+from ..solvers.dic import build_schedule, dic_pcg, sgs_solve
+from ..solvers.gmg import LatticeMG, gmg_pcg
 from ..solvers.linear import smooth_sweeps, solve_scalar
 from ..thermo import GasThermo, SingleStepReaction
 from ..turbulence.kEqn import KEqnLES
 from .fvoptions import FvOptions
 
-__all__ = ["FireFoamSolver", "state_from_numpy", "state_to_numpy"]
+__all__ = ["FireFoamSolver", "state_from_numpy", "state_to_numpy", "GMG_MIN_CELLS"]
+
+# From this many cells of a DIA mesh the lattice multigrid takes p_rgh when
+# the caller leaves `gmg` to the automatic rule; None: never. The CPU's entry
+# is the JAX package's crossover, so that an unpinned solver of either
+# package picks alike there. The card's entry is set from the measurement
+# of chip_smoke.py (ms per p_rgh solve of gmg_pcg against K2 at 9k, 100k and
+# 500k cells on an H100; PERF.md has the times).
+GMG_MIN_CELLS = {"cpu": 50000, "cuda": None}
 
 
 def _solver_controls(fv_solution: FoamDict, *names: str) -> dict:
@@ -73,6 +89,9 @@ def _solver_controls(fv_solution: FoamDict, *names: str) -> dict:
         "tolerance": d.get_scalar("tolerance", 1e-6),
         "relTol": d.get_scalar("relTol", 0.0),
         "maxIter": int(d.get_scalar("maxIter", 1000)),
+        "preconditioner": str(d.lookup("preconditioner", "") or ""),
+        "smoother": str(d.lookup("smoother", "") or ""),
+        "nSweeps": int(d.get_scalar("nSweeps", 1)),
     }
 
 
@@ -95,7 +114,14 @@ class Controls:
 class FireFoamSolver:
     """Host-side case setup + the eager step."""
 
-    def __init__(self, case_dir: str, device=None, dtype=None, radiation: bool = True):
+    def __init__(self, case_dir: str, device=None, dtype=None, radiation: bool = True,
+                 exact_solvers: Optional[bool] = None, gmg: Optional[bool] = None,
+                 gmg_coarsest: int = 64, amg: Optional[bool] = None,
+                 p_rgh_f64: bool = False):
+        """exact_solvers, gmg, amg: True forces, False forbids, None leaves
+        the choice to the automatic rule of `_pick_solvers`. gmg_coarsest:
+        the lattice multigrid stops coarsening at this many cells.
+        p_rgh_f64: solve p_rgh in float64 inside a float32 step."""
         self.device = torch.device(device) if device is not None else default_device()
         self.dtype = dtype or real_dtype(self.device)
         self.case = Case(case_dir)
@@ -183,6 +209,8 @@ class FireFoamSolver:
         self.fv_solution = self.case.fv_solution
         self.u_div_scheme = self._parse_div_scheme("div(phi,U)", ("LUST",))
         self.turb.div_scheme = self._parse_div_scheme("div(phi,k)", ("limitedLinear", 1.0))
+        self._pick_solvers(exact_solvers, gmg, int(gmg_coarsest), amg)
+        self.p_rgh_f64 = bool(p_rgh_f64)
         rf = self.fv_solution.get_dict("relaxationFactors", FoamDict())
         self._eq_relax = rf.get_dict("equations", None)
 
@@ -202,6 +230,51 @@ class FireFoamSolver:
     # ------------------------------------------------------------------
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype, device=self.device)
+
+    def _pick_solvers(self, exact_solvers, gmg, gmg_coarsest, amg):
+        """Build what the p_rgh solver family needs, by the JAX package's
+        rule; each argument is True (force), False (forbid) or None:
+
+          * `_ldu`, the wavefront schedule of the OpenFOAM-exact DIC-PCG and
+            symGaussSeidel: automatic in float64 (the fidelity path), off in
+            float32;
+          * `gmg`, the lattice multigrid: automatic on a DIA mesh of at
+            least GMG_MIN_CELLS[device type] cells;
+          * `amg`, the agglomeration multigrid: never beside `gmg`; on the
+            CPU automatic from 50000 cells, or when the dictionary says
+            GAMG, or when the schedule is off. On the card the whole-solve
+            kernels K1-K3 serve both dtypes (as the JAX package's fused
+            kernels serve float32 on its accelerator), so there AMG is on
+            only when forced."""
+        g = self.geom
+        self._ldu = None
+        if exact_solvers or (exact_solvers is None and self.dtype == torch.float64):
+            n_int = self.cm.mesh.n_internal_faces
+            self._ldu = build_schedule(
+                np.asarray(self.cm.mesh.owner[:n_int]), np.asarray(self.cm.mesh.neighbour),
+                g.n_cells, perm=g.face_perm,
+            )
+        self.gmg = None
+        gmg_min = GMG_MIN_CELLS.get(self.device.type)
+        if gmg is not False and g.layout == "dia" and (
+            gmg or (gmg_min is not None and g.n_cells >= gmg_min)
+        ):
+            self.gmg = LatticeMG.build(g.offsets, g.n_cells, n_coarsest=gmg_coarsest)
+        self.amg = None
+        try:
+            p_solver = _solver_controls(self.fv_solution, "p_rgh")["solver"]
+            fused = g.layout == "dia" and self.device.type == "cuda"
+            want_amg = bool(amg) or (
+                amg is not False and not fused
+                and (g.n_cells >= 50000 or p_solver == "GAMG" or self._ldu is None)
+            )
+        except KeyError:
+            want_amg = False
+        if want_amg and self.gmg is None:
+            self.amg = AMGHierarchy.build(
+                g.own.cpu().numpy(), g.nei.cpu().numpy(), g.magSf.double().cpu().numpy(),
+                g.n_cells, device=self.device,
+            )
 
     def _check_supported(self):
         """Raise on the case features the port does not carry."""
@@ -403,7 +476,8 @@ class FireFoamSolver:
                 m.internal_coeffs, m.boundary_coeffs, m.psi,
             )
             res = solve_scalar(m, ph.i, solver=ctl["solver"], tol=ctl["tolerance"],
-                               rel_tol=ctl["relTol"])
+                               rel_tol=ctl["relTol"], sched=self._ldu,
+                               preconditioner=ctl["preconditioner"])
             ph_b = f * 0.0 + (1.0 - f) * (g.cell_to_boundary(res.x) + rg / g.b_dc)
             ph = VolField(res.x, ph_b)
             p = VolField(
@@ -512,19 +586,30 @@ class FireFoamSolver:
         return fvm.limited_linear_weights(g, phi.i, psi, k=scheme[1], bound01=name.endswith("01"))
 
     def _lin_fn(self, ctl):
-        """fn(diag, upper, lower, b, x0) → SolverResult for the controls:
-        PCG/GAMG → K2 (dia_pcg); smoothSolver → K3 (dia_smooth, damped
-        Jacobi: the JAX package's path without the DIC/GaussSeidel schedule,
-        whose smoother and nSweeps it does not read); every other Krylov
-        solver → K1 (dia_bicgstab)."""
+        """fn(diag, upper, lower, b, x0) → SolverResult for the controls,
+        honouring fvSolution as the JAX package does: with the schedule,
+        PCG+DIC → dic_pcg and smoothSolver+*GaussSeidel → sgs_solve (the
+        dictionary's own maxIter and nSweeps); otherwise PCG/GAMG → K2
+        (dia_pcg), smoothSolver → K3 (dia_smooth, damped Jacobi), every
+        other Krylov solver → K1 (dia_bicgstab)."""
         sol, tol, rel, mx = ctl["solver"], ctl["tolerance"], ctl["relTol"], ctl["maxIter"]
+        offsets = self.geom.offsets
+        if self._ldu is not None:
+            def mv(d, up, lo):
+                return lambda x: dia_krylov.dia_matvec(d, up, lo, offsets, x)
+
+            if sol == "PCG" and ctl["preconditioner"] == "DIC":
+                return lambda d, up, lo, b, x0: dic_pcg(
+                    self._ldu, mv(d, up, lo), d, up, b, x0, tol, rel, mx)
+            if sol == "smoothSolver" and ctl["smoother"].endswith("GaussSeidel"):
+                return lambda d, up, lo, b, x0: sgs_solve(
+                    self._ldu, mv(d, up, lo), d, lo, up, b, x0, tol, rel, mx, ctl["nSweeps"])
         if sol in ("PCG", "GAMG"):
             kern = dia_krylov.dia_pcg
         elif sol == "smoothSolver":
             kern, mx = dia_krylov.dia_smooth, smooth_sweeps(mx)
         else:
             kern = dia_krylov.dia_bicgstab
-        offsets = self.geom.offsets
 
         def fn(d, up, lo, b, x0):
             return kern(d, up, lo, b, x0, offsets, tol=tol, rel_tol=rel, max_iter=mx)
@@ -725,7 +810,9 @@ class FireFoamSolver:
             m = m.relax(rf)
         ctl = _solver_controls(self.fv_solution, "h", "hs")
         res = solve_scalar(m, hs.i, solver=ctl["solver"], tol=ctl["tolerance"],
-                           rel_tol=ctl["relTol"], max_iter=ctl["maxIter"])
+                           rel_tol=ctl["relTol"], max_iter=ctl["maxIter"],
+                           sched=self._ldu, preconditioner=ctl["preconditioner"],
+                           smoother=ctl["smoother"], n_sweeps=ctl["nSweeps"])
         log["h_res0"] = res.initial_residual
         log["h_iters"] = res.n_iterations
 
@@ -823,13 +910,7 @@ class FireFoamSolver:
             m.boundary_coeffs,
             m.psi,
         )
-        c = _solver_controls(self.fv_solution, "p_rghFinal", "p_rgh") if final \
-            else _solver_controls(self.fv_solution, "p_rgh")
-        dtot, b = m.totals()
-        res = dia_krylov.dia_pcg(
-            dtot, m.upper, m.lower, b, p_rgh.i, g.offsets,
-            tol=c["tolerance"], rel_tol=c["relTol"], max_iter=1000,
-        )
+        res = self._solve_p_rgh(m, p_rgh.i, final)
         info = {"res0": res.initial_residual, "iters": res.n_iterations}
 
         # boundary update + flux reconstruction
@@ -870,6 +951,42 @@ class FireFoamSolver:
         info["cont_local"] = g.rsum(torch.abs(rho_cont - thermo_rho) * g.V) / total_mass
         info["cont_global"] = g.rsum((rho_cont - thermo_rho) * g.V) / total_mass
         return p_rgh_new, p_new, rho_new, phi_new, U_new, info
+
+    def _solve_p_rgh(self, m, x0, final: bool):
+        """The p_rgh solve of one corrector, by the JAX package's order:
+        `p_rgh_f64` (the solve in float64 inside a float32 step: the
+        Jacobi-CG, K2's float64 kernel on the card) → the OpenFOAM-exact
+        DIC-PCG (the fidelity path comes first: a multigrid solve at the
+        same stated tolerance leaves other error modes) → the lattice
+        multigrid → AMG → the Jacobi-CG (K2). The tolerances are
+        p_rghFinal's on the last corrector; solver, preconditioner and
+        maxIter are p_rgh's."""
+        g = self.geom
+        c0 = _solver_controls(self.fv_solution, "p_rgh")
+        c = _solver_controls(self.fv_solution, "p_rghFinal", "p_rgh") if final else c0
+        tol, rel = c["tolerance"], c["relTol"]
+        dtot, b = m.totals()
+        if self.p_rgh_f64 and self.dtype != torch.float64:
+            # the tolerances pass through the step's dtype first
+            tol, rel = (float(torch.tensor(v, dtype=self.dtype)) for v in (tol, rel))
+            f8 = torch.float64
+            res = dia_krylov.dia_pcg(
+                dtot.to(f8), m.upper.to(f8), m.lower.to(f8), b.to(f8), x0.to(f8), g.offsets,
+                tol=tol, rel_tol=rel, max_iter=1000,
+            )
+            return res._replace(x=res.x.to(self.dtype))
+        if self._ldu is not None and c0["solver"] == "PCG" and c0["preconditioner"] == "DIC":
+            return dic_pcg(
+                self._ldu, lambda x: dia_krylov.dia_matvec(dtot, m.upper, m.lower, g.offsets, x),
+                dtot, m.upper, b, x0, tol=tol, rel_tol=rel, max_iter=c0["maxIter"],
+            )
+        if self.gmg is not None:
+            return gmg_pcg(self.gmg, dtot, m.lower, m.upper, b, x0, tol=tol, rel_tol=rel)
+        if self.amg is not None:
+            return amg_pcg(self.amg, dtot, m.lower, m.upper, b, x0, tol=tol, rel_tol=rel)
+        return dia_krylov.dia_pcg(
+            dtot, m.upper, m.lower, b, x0, g.offsets, tol=tol, rel_tol=rel, max_iter=1000,
+        )
 
     # ------------------------------------------------------------------
     def _zero_sources(self):
@@ -949,6 +1066,7 @@ class FireFoamSolver:
             # ---- turbulence ----
             ctx = self._ctx(state, srcs.get("_ov"))
             ctl_k = _solver_controls(self.fv_solution, "k", "kFinal")
+            ctl_k["sched"] = self._ldu
             k_new, nut_i, res_k = self.turb.correct(
                 state["k"], self.k_bcs, state["U"], state["rho"],
                 state["rho_old_i"], state["phi"], state["mu"], dt, ctx, ctl_k,

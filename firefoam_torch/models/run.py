@@ -68,6 +68,11 @@ def run_case(
     chunk: int = 1,
     device=None,
     stats: Optional[Dict[str, float]] = None,
+    exact_solvers: Optional[bool] = None,
+    gmg: Optional[bool] = None,
+    gmg_coarsest: int = 64,
+    amg: Optional[bool] = None,
+    p_rgh_f64: bool = False,
 ):
     """Run a case to end_time (or max_steps); returns (solver, final_state,
     step_logs), the logs as numpy. A non-finite number in a step's log
@@ -80,12 +85,16 @@ def run_case(
     step; writes are checked after each call. `stats`, if given, receives
     the step seconds (host clock around the step calls and the host copy of
     their logs, which waits for the device), the steps and the write
-    seconds.
+    seconds. exact_solvers, gmg, gmg_coarsest, amg and p_rgh_f64 choose the
+    linear solvers (FireFoamSolver's arguments; None: its automatic rule).
     """
     if verbose:
         print(f"firefoam_torch {__version__}")
     if solver is None:
-        solver = FireFoamSolver(case_dir, device=device, radiation=radiation)
+        solver = FireFoamSolver(
+            case_dir, device=device, radiation=radiation, exact_solvers=exact_solvers,
+            gmg=gmg, gmg_coarsest=gmg_coarsest, amg=amg, p_rgh_f64=p_rgh_f64,
+        )
     state = solver.initial_state()
     if resume:
         ckpt = resume
@@ -155,6 +164,9 @@ def run_case(
     return solver, state, logs
 
 
+_TRISTATE = {"0": False, "1": True, "auto": None}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="fireFoam on PyTorch/CUDA")
     ap.add_argument("--case", required=True)
@@ -175,6 +187,19 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="record a torch.profiler trace of the run into DIR/trace.json "
                          "(Chrome trace format)")
+    for flag, what in (
+        ("--exact-solvers", "the OpenFOAM-exact DIC-PCG and symGaussSeidel where fvSolution "
+                            "names them (auto: in float64)"),
+        ("--gmg", "the lattice multigrid on p_rgh (auto: from the device's measured size)"),
+        ("--amg", "the agglomeration multigrid on p_rgh (auto: the CPU's rule; never on the "
+                  "card)"),
+    ):
+        ap.add_argument(flag, choices=sorted(_TRISTATE), default="auto",
+                        help=f"{what}; 1 forces, 0 forbids")
+    ap.add_argument("--gmg-coarsest", type=int, default=64,
+                    help="the lattice multigrid stops coarsening at this many cells")
+    ap.add_argument("--p-rgh-f64", choices=("0", "1"), default="0",
+                    help="solve p_rgh in float64 inside a float32 step")
     args = ap.parse_args(argv)
 
     device = "cpu" if args.cpu else None
@@ -191,6 +216,9 @@ def main(argv=None) -> int:
             verbose=not args.quiet, radiation=not args.no_radiation,
             output_dir=args.output, write_fields=args.write or args.output is not None,
             resume=args.resume, chunk=args.chunk, device=device, stats=stats,
+            exact_solvers=_TRISTATE[args.exact_solvers], gmg=_TRISTATE[args.gmg],
+            gmg_coarsest=args.gmg_coarsest, amg=_TRISTATE[args.amg],
+            p_rgh_f64=args.p_rgh_f64 == "1",
         )
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)

@@ -1,9 +1,10 @@
 """Profile the port's box-fire step on a CUDA card with torch.profiler.
 
-    python -m firefoam_torch.profile_step [--n 50 40 50] [--steps 3] [--smooth]
+    python -m firefoam_torch.profile_step [--n 50 40 50] [--steps 3] [--smooth] [--gmg]
 
 Builds write_box_fire_case(n) (with --smooth, write_smooth_fire_case(n):
-smoothSolver for Yi, h and k, and the run features), runs initial_state()
+smoothSolver for Yi, h and k, and the run features; with --gmg the lattice
+multigrid solves p_rgh instead of K2), runs initial_state()
 and 12 warm-up steps, then profiles `--steps` steps. Prints their solver
 iterations, the device time per kernel (top 25), the port's own CUDA
 kernels (csrc/) whatever their rank, and the device-busy share of the
@@ -53,13 +54,15 @@ def main():
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--smooth", action="store_true",
                     help="the smoothSolver case with the run features")
+    ap.add_argument("--gmg", action="store_true",
+                    help="p_rgh through the lattice multigrid (gmg=True)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     with tempfile.TemporaryDirectory(prefix="firefoam_prof_") as tmp:
         write = write_smooth_fire_case if args.smooth else write_box_fire_case
         case = write(tmp, n=tuple(args.n))
-        solver = FireFoamSolver(case, device="cuda")
+        solver = FireFoamSolver(case, device="cuda", gmg=True if args.gmg else None)
         state = solver.initial_state()
         step = solver.make_step()
         for _ in range(WARMUP):
@@ -86,6 +89,12 @@ def main():
             kernel = e.key.split("::", 1)[1].split("(", 1)[0]
             print(f"{kernel}: {e.count} launches, {e.self_device_time_total / e.count / 1e3:.4f} "
                   f"ms each, {e.self_device_time_total / args.steps / 1e3:.4f} ms/step")
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.lower().startswith(("memcpy", "memset")))
+    reads = sum(e.count for e in prof.key_averages() if e.key == "aten::_local_scalar_dense")
+    print(f"{kernels / args.steps:.0f} kernel launches and {reads / args.steps:.1f} host reads "
+          f"of a device scalar per step")
     busy = _busy_us(prof)
     print(f"{n} cells, {args.steps} steps: wall {wall_us / args.steps / 1e3:.3f} ms/step, "
           f"device busy {busy / args.steps / 1e3:.3f} ms/step "

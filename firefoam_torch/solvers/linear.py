@@ -17,8 +17,10 @@ a Python loop that reads the stop test on the host each iteration: these
 twins are the CPU path and the reference the CUDA kernels
 (solvers/dia_krylov.py) are held against, not the GPU path.
 
-`solve_scalar` routes a DIA FvMatrix system to dia_krylov, which launches
-the hand-written kernel for CUDA tensors and runs these twins for CPU ones.
+`solve_scalar` routes a DIA FvMatrix system to the OpenFOAM-exact solvers of
+solvers/dic.py when the caller holds their schedule and the dictionary names
+them, else to dia_krylov, which launches the hand-written kernel for CUDA
+tensors and runs these twins for CPU ones.
 """
 
 from __future__ import annotations
@@ -215,17 +217,31 @@ def jacobi_smooth(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
 
 
 def solve_scalar(m, x0: torch.Tensor, solver: str = "PCG", tol: float = 1e-6,
-                 rel_tol: float = 0.0, max_iter: int = 1000) -> SolverResult:
-    """Solve one scalar FvMatrix system on the DIA layout. PCG/GAMG,
-    PBiCGStab/PBiCG and smoothSolver go to the whole-solve kernels of
-    dia_krylov (plain twins on the CPU). smoothSolver is damped Jacobi with
-    max(maxIter, 200) rounds of 4 sweeps, as in the JAX package
-    (linear.py:285-290, 302-307); the dict's smoother and nSweeps are not
-    read."""
+                 rel_tol: float = 0.0, max_iter: int = 1000, sched=None,
+                 preconditioner: str = None, smoother: str = None,
+                 n_sweeps: int = 1) -> SolverResult:
+    """Solve one scalar FvMatrix system on the DIA layout. With an
+    LduSchedule, PCG+DIC and smoothSolver+*GaussSeidel run the
+    OpenFOAM-exact wavefront solvers of solvers/dic.py, so that iteration
+    counts and left-over error modes track the reference's. Otherwise
+    PCG/GAMG, PBiCGStab/PBiCG and smoothSolver go to the whole-solve kernels
+    of dia_krylov (plain twins on the CPU); smoothSolver is then damped
+    Jacobi with max(maxIter, 200) rounds of 4 sweeps, as in the JAX package."""
     from . import dia_krylov
 
     diag_t, b = m.totals()
     g = m.geom
+    if sched is not None:
+        from .dic import dic_pcg, sgs_solve
+
+        def matvec(x):
+            return dia_krylov.dia_matvec(diag_t, m.upper, m.lower, g.offsets, x)
+
+        if solver == "PCG" and preconditioner == "DIC":
+            return dic_pcg(sched, matvec, diag_t, m.upper, b, x0, tol, rel_tol, max_iter)
+        if solver == "smoothSolver" and (smoother or "").endswith("GaussSeidel"):
+            return sgs_solve(sched, matvec, diag_t, m.lower, m.upper, b, x0,
+                             tol, rel_tol, max_iter, n_sweeps)
     if solver in ("PCG", "GAMG"):
         return dia_krylov.dia_pcg(
             diag_t, m.upper, m.lower, b, x0, g.offsets,

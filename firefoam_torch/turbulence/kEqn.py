@@ -136,6 +136,10 @@ class KEqnLES:
             tol=solver_ctl.get("tolerance", 1e-8),
             rel_tol=solver_ctl.get("relTol", 0.0),
             max_iter=int(solver_ctl.get("maxIter", 1000)),
+            sched=solver_ctl.get("sched"),
+            preconditioner=solver_ctl.get("preconditioner"),
+            smoother=solver_ctl.get("smoother"),
+            n_sweeps=int(solver_ctl.get("nSweeps", 1)),
         )
         k_new_i = torch.clamp(res.x, min=self.k_min)  # bound k
         k_new = bcmod.evaluate(k_bcs, g, VolField(k_new_i, k.b), ctx)

@@ -25,6 +25,10 @@ JAX, so it also runs on a machine that has only PyTorch:
 * One box-fire step on CUDA against the same step on the CPU in float64
   (the kernels against the CPU twins inside the real step), with the
   PBiCGStab and with the smoothSolver fvSolution.
+* The p_rgh solver family (gmg_pcg, amg_pcg, dic_pcg, sgs_solve: plain
+  PyTorch ops) on the card against the CPU run of the same function, two
+  solves on the card bitwise equal, and three steps of the fire with each of
+  them on against the CPU's.
 """
 
 import numpy as np
@@ -309,8 +313,9 @@ def test_box_fire_step_on_cuda_matches_cpu(tmp_path, smooth):
     _need_cuda()
     write = write_smooth_fire_case if smooth else write_box_fire_case
     root = write(str(tmp_path / "box"), n=(8, 8, 8))
-    cpu = FireFoamSolver(root, device="cpu", dtype=torch.float64)
-    gpu = FireFoamSolver(root, device="cuda", dtype=torch.float64)
+    # K1 and K2 in float64: not the exact solvers that float64 picks by itself
+    cpu = FireFoamSolver(root, device="cpu", dtype=torch.float64, exact_solvers=False, amg=False)
+    gpu = FireFoamSolver(root, device="cuda", dtype=torch.float64, exact_solvers=False)
     st_c, st_g = cpu.initial_state(), gpu.initial_state()
     for f in ("p_rgh", "rho"):
         a, b = st_g[f].i.cpu().numpy(), st_c[f].i.numpy()
@@ -349,3 +354,99 @@ def test_step_is_reproducible_on_cuda(tmp_path):
         runs.append(state_to_numpy(st))
     for f in ("T", "U", "p_rgh", "Y", "k"):
         np.testing.assert_array_equal(runs[0][f].i, runs[1][f].i, err_msg=f)
+
+
+# ------------------------------------------------------------------------
+# The p_rgh solver family (plain PyTorch ops: no kernel of their own) on the
+# card against the CPU run of the same function, and twice on the card
+# ------------------------------------------------------------------------
+FAMILY = ["gmg_pcg", "amg_pcg", "dic_pcg", "sgs_solve"]
+FAMILY_LATTICE = (15, 9, 7)  # odd extents: the multigrid pads every level
+
+
+def _family_solve(name, dtype, dev):
+    """One solve of `name` on a symmetric (sgs_solve: asymmetric) lattice
+    system, everything on `dev`."""
+    from firefoam_torch.solvers import amg, dic, gmg
+
+    nxyz = FAMILY_LATTICE
+    offs, n = _offs(nxyz), int(np.prod(nxyz))
+    d, up, lo, b, x0 = (a[0] if a.ndim == 2 else a for a in _system(
+        11, 1, name != "sgs_solve", True, dtype, dev, nxyz=nxyz,
+        shift=3.0 if name == "sgs_solve" else 0.05))
+    tol = 1e-9 if dtype == torch.float64 else 1e-6
+    if name == "gmg_pcg":
+        return gmg.gmg_pcg(gmg.LatticeMG.build(offs, n), d, lo, up, b, x0, tol=tol)
+    c = np.arange(n)
+    own, nei = np.tile(c, 3), np.concatenate([np.where(  # the port's padded DIA face layout
+        e, c + o, c) for o, e in zip(offs, (c % nxyz[0] + 1 < nxyz[0],
+                                            (c // nxyz[0]) % nxyz[1] + 1 < nxyz[1],
+                                            c // (nxyz[0] * nxyz[1]) + 1 < nxyz[2]))])
+    if name == "amg_pcg":
+        hier = amg.AMGHierarchy.build(own, nei, (own != nei).astype(float), n, device=dev)
+        return amg.amg_pcg(hier, d, lo, up, b, x0, tol=tol)
+    real = own != nei
+    sch = dic.build_schedule(own[real], nei[real], n, perm=np.nonzero(real)[0])
+    mv = lambda v: dia_krylov.dia_matvec(d, up, lo, offs, v)
+    if name == "dic_pcg":
+        return dic.dic_pcg(sch, mv, d, up, b, x0, tol=tol)
+    return dic.sgs_solve(sch, mv, d, lo, up, b, x0, tol=tol, max_iter=200, n_sweeps=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", FAMILY)
+def test_solver_family_on_cuda_matches_cpu(name, dtype):
+    """float64: x to 1e-9 relative and equal iteration counts; float32: x to
+    1e-3 relative (both stop on a float32 residual) and counts within 2
+    (sgs_solve: within one round of 2 sweeps more)."""
+    _need_cuda()
+    gpu, cpu = _family_solve(name, dtype, "cuda"), _family_solve(name, dtype, "cpu")
+    assert gpu.x.is_cuda and gpu.x.dtype == dtype
+    rel = float((gpu.x.cpu() - cpu.x).abs().max() / cpu.x.abs().max())
+    slack, xtol = (0, 1e-9) if dtype == torch.float64 else (4 if name == "sgs_solve" else 2, 1e-3)
+    assert int(cpu.n_iterations) > 0
+    assert abs(int(gpu.n_iterations) - int(cpu.n_iterations)) <= slack
+    assert rel <= xtol, rel
+
+
+@pytest.mark.parametrize("name", FAMILY)
+def test_solver_family_is_bitwise_repeatable_on_cuda(name):
+    """Two solves on the card give the same bits: no sum of the family adds
+    into colliding indices."""
+    _need_cuda()
+    a, b = _family_solve(name, torch.float32, "cuda"), _family_solve(name, torch.float32, "cuda")
+    assert torch.equal(a.x, b.x) and int(a.n_iterations) == int(b.n_iterations)
+    assert torch.equal(a.final_residual, b.final_residual)
+
+
+@pytest.mark.parametrize("config", ["gmg", "amg", "exact-box", "exact-smooth"])
+def test_step_with_the_solver_family_on_cuda(tmp_path, config):
+    """Three steps from t = 0 in float64 on the card against the CPU's, with
+    the lattice multigrid, AMG, DIC-PCG (box fire) or symGaussSeidel
+    (smoothSolver case) on: equal iteration counts, fields to 1e-9 relative;
+    a second run on the card is bitwise equal. K2 is launched by the
+    hydrostatic init only (never with the exact solvers)."""
+    _need_cuda()
+    write = write_smooth_fire_case if config == "exact-smooth" else write_box_fire_case
+    root = write(str(tmp_path / "box"), n=(8, 8, 8))
+    kw = {"gmg": dict(gmg=True, exact_solvers=False), "amg": dict(amg=True, exact_solvers=False),
+          "exact-box": dict(exact_solvers=True), "exact-smooth": dict(exact_solvers=True)}[config]
+    runs = {}
+    for run, dev in (("cpu", "cpu"), ("gpu", "cuda"), ("again", "cuda")):
+        dia_krylov.reset_counts()
+        solver = FireFoamSolver(root, device=dev, dtype=torch.float64, **kw)
+        st = solver.initial_state()
+        init_k2 = dia_krylov.LAUNCHES["pcg"]
+        st, logs = solver.make_chunk(3)(st)
+        if dev == "cuda":
+            assert dia_krylov.LAUNCHES["pcg"] == init_k2
+            assert (init_k2 == 0) == config.startswith("exact")
+            assert dia_krylov.LAUNCHES["smooth"] == 0
+        runs[run] = (state_to_numpy(st), {k: v.cpu().numpy() for k, v in logs.items()})
+    for k, v in runs["cpu"][1].items():
+        if k.endswith("_iters") or "iters_" in k:
+            np.testing.assert_array_equal(runs["gpu"][1][k], v, err_msg=k)
+    for f in ("T", "U", "p_rgh", "Y", "k"):
+        a, b = runs["gpu"][0][f].i, runs["cpu"][0][f].i
+        assert np.max(np.abs(a - b)) / np.max(np.abs(b)) <= 1e-9, f
+        np.testing.assert_array_equal(runs["again"][0][f].i, a, err_msg=f)

@@ -99,11 +99,13 @@ def runs(tmp_path_factory):
         js.function_objects.write()
         js.rtis.write(js.function_objects.out_dir)
         jstate = jax.device_get(jstate)
+    # the port pinned as the JAX package is
+    pins = dict(exact_solvers=False, gmg=False, amg=False)
     ta, _, _ = trun.run_case(roots["a"], max_steps=WARMUP + STEPS, verbose=False, device="cpu",
-                             output_dir=out["a"], write_fields=True)
+                             output_dir=out["a"], write_fields=True, **pins)
     jckpt = latest_checkpoint(out["jax"])
     tb, tstate, tlogs = trun.run_case(roots["b"], max_steps=STEPS, verbose=False, device="cpu",
-                                      resume=jckpt)
+                                      resume=jckpt, **pins)
     tb.function_objects.write()
     tb.rtis.write(tb.function_objects.out_dir)
     return dict(base=base, roots=roots, out=out, js=js, jstate=jstate, jlogs=jlogs, ta=ta,

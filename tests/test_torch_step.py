@@ -3,10 +3,13 @@
 float64, through the normal entry points (initial_state, make_step,
 make_chunk). Radiation is on, so step 1 runs the fvDOM ray solve.
 
-The JAX side is pinned to the flat Krylov solvers the port carries:
+Both sides are pinned to the flat Krylov solvers (the twins of the kernels
+K1 and K2), which this file is about: on the JAX side
 FIREFOAM_TPU_EXACT_SOLVERS=0 (no wavefront DIC-PCG), FIREFOAM_TPU_AMG=0
 (AMG is otherwise switched on because the DIC schedule is off),
-FIREFOAM_TPU_GMG=0 and FIREFOAM_TPU_PALLAS=0.
+FIREFOAM_TPU_GMG=0 and FIREFOAM_TPU_PALLAS=0; on the port's side
+exact_solvers=False, gmg=False, amg=False. tests/test_torch_step_default.py
+holds the two packages against each other with nothing pinned.
 
 Tolerances (max-norm of the difference over the field's max-abs):
   * initial_state, hydrostatic init included: 1e-12 (denominator floored
@@ -76,7 +79,9 @@ def run(tmp_path_factory):
             st, log = step(st)
             states.append(jax.device_get(st))
             logs.append(jax.device_get(log))
-    ts = TSolver(root, device="cpu", dtype=torch.float64)
+    ts = TSolver(root, device="cpu", dtype=torch.float64, exact_solvers=False, gmg=False,
+                 amg=False)
+    assert ts._ldu is None and ts.amg is None and ts.gmg is None
     return ts, states, logs
 
 
