@@ -54,7 +54,19 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      state within 1e-9 with equal iteration counts, iteration counts
      printed, ms per dic_pcg and per sgs_solve, two runs on the card bitwise
      equal;
-  9. the kernels' JSON line, the card line, and the final JSON line.
+  9. the gas-phase variants on the wall-fire case (write_wall_fire_case: a
+     sheared lattice with the limited non-orthogonal correction,
+     filteredLinear2V, WALE, eddyDissipationBertExtModel with an Fstar
+     specie, the fire wall functions): at 100k cells in float32,
+     make_chunk(20) from t = 0 with the launch counters checked (K1 and K2 as
+     in phase 4, the species batch a K1 launch of 5 rows each step), fields
+     and logs finite and the gas heating; the same 20 steps again, bitwise
+     equal; launches and device-busy ms per step beside phase 4's box fire
+     (torch.profiler); then the 9k-cell case with the ceiling baffle
+     (thermalBaffle1D) over 10 steps, float64 on the card against float64
+     on the CPU within CPU_TOL and float32 against float64 within the T
+     drift band;
+ 10. the kernels' JSON line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
@@ -82,7 +94,9 @@ from firefoam_torch.models import run as run_cli  # noqa: E402
 from firefoam_torch.models import firefoam as firefoam_mod  # noqa: E402
 from firefoam_torch.models.firefoam import FireFoamSolver  # noqa: E402
 from firefoam_torch.solvers import dia_krylov, dic, linear  # noqa: E402
-from firefoam_torch.utils.synthcase import write_box_fire_case, write_smooth_fire_case  # noqa: E402
+from firefoam_torch.profile_step import _busy_us  # noqa: E402
+from firefoam_torch.utils.synthcase import (  # noqa: E402
+    write_box_fire_case, write_smooth_fire_case, write_wall_fire_case)
 
 N_MAIN = (50, 40, 50)  # 100,000 cells
 N_SMALL = (30, 15, 20)  # 9,000 cells
@@ -98,6 +112,13 @@ GMG_TOL = 0.5
 # a thousandth of a cell into kelvins. A K2 run with its p_rgh solve in
 # float64 is printed beside it as the yardstick of that sensitivity
 GMG_T_DRIFT = 0.05
+# phase 9: float32 T against float64 (phase 5's band), and the steps whose
+# launches and device time the profiler reads
+T_DRIFT = 0.05
+PROFILE_STEPS = 3
+# above propane's adiabatic flame temperature in air (about 2,270 K) and
+# below the thermo's upper clip: a diverged run sits at the clip
+T_FLAME_MAX = 3000.0
 CHUNK = 20
 DRIFT_STEPS = 10
 SOURCE = "firefoam_torch/csrc/dia_krylov.cu"
@@ -257,13 +278,15 @@ def phase_kernels(dev, G, sync_s):
     # (lattice, B, per-row matrices, rows stop apart)
     main = tuple((N_MAIN, B, pr, False)
                  for B, pr in ((1, False), (3, False), (4, True), (16, True)))
+    # the wall fire's species batch (Fstar makes it 5 rows): K1 only
+    wall = ((N_MAIN, 5, True, False),)
     extra = ((N_SMALL, 1, False, False), (N_SMALL, 4, True, False), (N_SMALL, 4, True, True),
              (N_SMALL, G + 68, False, False))  # more rows than blocks: 200 on an H100
     for name, plain, kern, sym, shapes in (
         ("pcg", lambda *a, **k: dia_krylov.plain(linear.pcg, *a, **k), dia_krylov.dia_pcg, True,
          main + extra),
         ("bicgstab", lambda *a, **k: dia_krylov.plain(linear.bicgstab, *a, **k),
-         dia_krylov.dia_bicgstab, False, main + extra),
+         dia_krylov.dia_bicgstab, False, main + wall + extra),
         ("smooth", dia_krylov.plain_smooth, dia_krylov.dia_smooth, False,
          ((N_MAIN, 1, False, False), (N_MAIN, 4, True, False)) + extra),
     ):
@@ -350,6 +373,12 @@ def phase_kernels(dev, G, sync_s):
                            f"{ms_laid_out(resident=False):.3f} ms; with at least 256 cells "
                            f"a block {ms_laid_out(min_cells=256):.3f} ms, 1024 cells "
                            f"{ms_laid_out(min_cells=1024):.3f} ms")
+                if name == "bicgstab" and nxyz == N_MAIN and B == 5 and dtype == torch.float32:
+                    st["ms_B5"], st["plain_ms_B5"] = ms_k, ms_p
+                    st["bound_ms_B5"], _ = bound(name, dtype, (d, up, lo, b, x0), it_k)
+                    say(3, f"bicgstab B=5 (the wall fire's species batch) bound "
+                           f"{st['bound_ms_B5']:.4f} ms; {1e3 * ms_k / float(np.max(it_k)):.3f} us "
+                           f"per iteration")
                 if name == "smooth" and nxyz == N_MAIN and B in (1, 4):
                     # the main path's h/k and Yi shapes through the kernel that
                     # takes B > G: a sweep is the same expression in both
@@ -425,7 +454,7 @@ def phase_main(dev, case):
         raise SystemExit("phase 4: the fire released heat but the gas did not heat up")
     if launches["bicgstab"] != exp_k1 or launches["pcg"] != exp_k2:
         raise SystemExit("phase 4: kernel launch counts do not match the solves")
-    return solver, state
+    return solver, state, ms
 
 
 # ---------------------------------------------------------------- phase 7
@@ -611,6 +640,129 @@ def phase_gmg(dev, tmp, main_case, main_solver, main_state, small_case):
         + f"; the multigrid is faster at {faster if faster else 'no measured size'} "
           f"(the card's automatic threshold: {firefoam_mod.GMG_MIN_CELLS['cuda']})")
     return launches, times
+
+
+# ---------------------------------------------------------------- phase 9
+def step_profile(step, state, n_steps):
+    """(state, kernel launches per step, device-busy ms per step) over
+    n_steps steps, from torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n_steps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.lower().startswith(("memcpy", "memset")))
+    return state, kernels / n_steps, _busy_us(prof) / 1e3 / n_steps
+
+
+def phase_wall(dev, tmp, box_solver, box_state, box_ms):
+    """The gas-phase variants on the 100k-cell wall-fire case (see the
+    module docstring); returns its launch counts."""
+    case = write_wall_fire_case(os.path.join(tmp, "wall"), n=N_MAIN)
+    t0 = time.perf_counter()
+    solver = FireFoamSolver(case, device=dev)
+    if not (solver.lap_limiter == 0.5 and solver.u_div_scheme[0] == "filteredLinear2"
+            and solver.turb.model == "WALE"
+            and solver.combustion.variant == "eddyDissipationBertExtModel"):
+        raise SystemExit("phase 9: the wall-fire case did not select its variants")
+    state0 = solver.initial_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    T0_max = float(state0["T"].i.max())
+    rows, launch = [], dia_krylov._launch
+
+    def recording(name, diag, upper, lower, b, x0, *a, **k):
+        rows.append((name, x0.shape[0] if x0.ndim == 2 else 1))
+        return launch(name, diag, upper, lower, b, x0, *a, **k)
+
+    chunk = solver.make_chunk(CHUNK)
+    dia_krylov._launch = recording
+    try:
+        dia_krylov.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logs = chunk(state0)
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        launches = dict(dia_krylov.LAUNCHES)
+    finally:
+        dia_krylov._launch = launch
+    exp_k1, exp_k2 = expected_launches(solver.radiation, 0, CHUNK)
+    b5 = sum(1 for name, B in rows if name == "bicgstab" and B == 5)
+    ms = 1e3 * dt_s / CHUNK
+    n = solver.geom.n_cells
+    fields = ("T", "U", "p_rgh", "Y", "k", "nut", "alphat")
+    finite = all(bool(torch.isfinite(state[f].i).all() and torch.isfinite(state[f].b).all())
+                 for f in fields)
+    bad_logs = [k for k, v in logs.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    rays_finite = bool(torch.isfinite(state["rad"]["I"]).all()) if "rad" in state else True
+    T_max = float(state["T"].i.max())
+    wall = solver.geom.patch("wall").slice
+    fstar = float(state["Y"].i[:, solver.combustion.fstar_index].max())
+    say(9, f"wall fire {n} cells float32: {ms:.3f} ms/step (setup {setup_s:.1f} s), T max "
+           f"{T_max:.3f} K (initially {T0_max:.3f} K) at t = {float(state['t']):.4f} s, "
+           f"Qdot_total {float(logs['Qdot_total'][-1]):.6e} W, Fstar max {fstar:.3e}, wall "
+           f"alphat max {float(state['alphat'].b[wall].max()):.3e}; fields finite {finite}, "
+           f"non-finite log entries {bad_logs}, ray intensities finite {rays_finite}")
+    say(9, f"launches K1 {launches['bicgstab']} (expected {exp_k1}, {b5} of them on the 5 "
+           f"species rows), K2 {launches['pcg']} (expected {exp_k2}), K3 {launches['smooth']}")
+    if not finite or bad_logs or not rays_finite:
+        raise SystemExit("phase 9: the wall fire is not finite")
+    if not T0_max + 1.0 < T_max < T_FLAME_MAX:
+        raise SystemExit("phase 9: the wall fire did not heat the gas, or ran away")
+    if (launches["bicgstab"], launches["pcg"], launches["smooth"], b5) != (exp_k1, exp_k2, 0, CHUNK):
+        raise SystemExit("phase 9: kernel launch counts do not match the solves")
+    again, logs2 = chunk(state0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(again[f].i, state[f].i) and torch.equal(again[f].b, state[f].b)
+               for f in fields) and all(torch.equal(logs2[k], logs[k]) for k in logs)
+    say(9, f"the same {CHUNK} steps again: states and logs bitwise equal: {same}")
+    if not same:
+        raise SystemExit("phase 9: two runs of the wall fire differ")
+    _, k_wall, busy_wall = step_profile(solver.make_step(), state, PROFILE_STEPS)
+    _, k_box, busy_box = step_profile(box_solver.make_step(), box_state, PROFILE_STEPS)
+    say(9, f"per step at {n} cells float32: box fire {box_ms:.3f} ms (phase 4), "
+           f"{k_box:.0f} kernel launches, device busy {busy_box:.3f} ms; wall fire {ms:.3f} ms, "
+           f"{k_wall:.0f} kernel launches, device busy {busy_wall:.3f} ms (torch.profiler over "
+           f"{PROFILE_STEPS} steps)")
+    return launches
+
+
+def phase_wall_baffle(dev, tmp):
+    """The 9k-cell wall fire with the ceiling baffle: float64 on the card
+    against the CPU's, float32 against float64."""
+    small = write_wall_fire_case(os.path.join(tmp, "wall_baffle"), n=N_SMALL, baffle=True)
+    out, ms_run = {}, {}
+    for run, d, dtype in (("f32", dev, torch.float32), ("f64", dev, torch.float64),
+                          ("cpu", torch.device("cpu"), torch.float64)):
+        # the kernels' float64 instantiations against their twins (phase 5)
+        s = FireFoamSolver(small, device=d, dtype=dtype, exact_solvers=False, gmg=False,
+                           amg=False)
+        if "baffle_master" not in [p.name for p in s.geom.patches]:
+            raise SystemExit("phase 9: the baffle was not made")
+        st = s.initial_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = s.make_chunk(DRIFT_STEPS)(st)
+        torch.cuda.synchronize()
+        ms_run[run] = 1e3 * (time.perf_counter() - t0) / DRIFT_STEPS
+        out[run] = {f: torch.cat([st[f].i.reshape(-1), st[f].b.reshape(-1)]).double().cpu().numpy()
+                    for f in ("T", "U")}
+    T32, T64 = out["f32"]["T"], out["f64"]["T"]
+    drift = float(np.max(np.abs(T32 - T64) / np.maximum(T64, 1.0)))
+    vs_cpu = {f: float(np.max(np.abs(out["f64"][f] - out["cpu"][f])) /
+                       np.max(np.abs(out["cpu"][f]))) for f in ("T", "U")}
+    say(9, f"baffled wall fire {int(np.prod(N_SMALL))} cells, {DRIFT_STEPS} steps (cells and "
+           f"faces): float32 {ms_run['f32']:.3f} ms/step, float64 {ms_run['f64']:.3f} ms/step, "
+           f"CPU float64 {ms_run['cpu']:.1f} ms/step; max relative T drift float32 vs float64 "
+           f"{drift:.6e}; float64 card vs CPU: T {vs_cpu['T']:.3e}, U {vs_cpu['U']:.3e}")
+    if not np.all(np.isfinite(T32)) or not drift <= T_DRIFT:
+        raise SystemExit("phase 9: float32 drifts from float64 beyond the band")
+    if not max(vs_cpu.values()) <= CPU_TOL:
+        raise SystemExit(f"phase 9: the card's float64 run differs from the CPU's beyond {CPU_TOL}")
 
 
 # ---------------------------------------------------------------- phase 8
@@ -871,14 +1023,16 @@ def main():
 
     with tempfile.TemporaryDirectory(prefix="firefoam_smoke_") as tmp:
         main_case = write_box_fire_case(os.path.join(tmp, "main"), n=N_MAIN)
-        main_solver, main_state = phase_main(dev, main_case)
+        main_solver, main_state, main_ms = phase_main(dev, main_case)
         small_case = write_box_fire_case(os.path.join(tmp, "small"), n=N_SMALL)
         phase_drift(dev, small_case)
         launches = phase_cli(tmp)
         gmg_launches, solve_ms = phase_gmg(dev, tmp, main_case, main_solver, main_state,
                                            small_case)
-        del main_solver, main_state
         phase_exact(dev, tmp, small_case)
+        wall_launches = phase_wall(dev, tmp, main_solver, main_state, main_ms)
+        del main_solver, main_state
+        phase_wall_baffle(dev, tmp)
 
     kernels = [
         {
@@ -888,6 +1042,7 @@ def main():
             "replaces": REPLACES[name_k],
             "launches": launches[name_k],  # the slice through the run CLI (phase 6)
             "launches_multigrid_path": gmg_launches[name_k],  # phase 7's 100k-cell run
+            "launches_wall_fire_path": wall_launches[name_k],  # phase 9's 100k-cell run
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],
@@ -901,6 +1056,10 @@ def main():
         }
         for name_k in ("bicgstab", "pcg", "smooth")
     ]
+    # K1 on the wall fire's 5-row species batch (phase 3)
+    kernels[0].update(ms_B5=stats["bicgstab"]["ms_B5"],
+                      plain_ms_B5=stats["bicgstab"]["plain_ms_B5"],
+                      bound_ms_B5=stats["bicgstab"]["bound_ms_B5"])
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the slice was never launched")
     p_rgh = {str(n): {k: {"ms": v[0], "iterations": v[1]} for k, v in t.items()}

@@ -109,18 +109,26 @@ class InfoFields:
         g = s.geom
         T = state["T"]
         qc_b = torch.zeros(g.n_boundary, dtype=T.i.dtype, device=T.i.device)
+        cfl_b = self._convective_flux_L_boundary(state)
         for pch in g.patches:
             if pch.ptype != "mappedWall":
                 continue
             sl = pch.slice
-            cp_b = s.gas.cp(T.b, state["Y"].b)
-            cfl_b = -state["alpha"].b * cp_b * (T.b - g.cell_to_boundary(T.i)) * g.b_dc
             mlr = -state["phi"].b[sl] / g.b_magSf[sl] * 2.5 * 1000.0  # g/m²/s
             low = torch.clamp(cfl_b[sl], 0.0, self.Qc_threshold) / self.Qc_threshold * self.Qc_flame
             x = mlr / 10.0
             high = self.Qc_flame * (x / (torch.exp(torch.clamp(x, max=500.0)) - 1.0))
             qc_b[sl] = torch.where(mlr < 0.1, low, high)
         return VolField(torch.zeros(g.n_cells, dtype=T.i.dtype, device=T.i.device), qc_b)
+
+    def _convective_flux_L_boundary(self, state) -> torch.Tensor:
+        """Boundary part of convectiveHeatFlux_L = −α·Cp·snGrad(T)."""
+        s = self.solver
+        g = s.geom
+        T = state["T"]
+        cp_b = s.gas.cp(T.b, state["Y"].b)
+        sg = (T.b - g.cell_to_boundary(T.i)) * g.b_dc
+        return -state["alpha"].b * cp_b * sg
 
     # ------------------------------------------------------------------
     def surface_fields(self, state) -> Dict[str, SurfaceField]:

@@ -28,10 +28,18 @@ of system/rtisDict and the cell-wise RTI links of constant/rtiProperties
 (advanced in the state each step). models/run.py drives the time loop,
 writing and checkpointing.
 
-Not ported: Lagrangian spray, surface film, pyrolysis regions, wall
-functions, the PairMG pressure solver, the SPMD `local=` path (and its
-sharded multigrid) and the hoisted-jit entry points. A case that needs one
-of them raises at construction.
+The gas-phase variants of the reference cases come along too: the
+div(phi,U) schemes (LUST, linear, upwind, limitedLinear[V|01],
+filteredLinear2[V]), the laplacianSchemes' non-orthogonal correction
+(corrected, limited α) on every implicit laplacian, the LES models kEqn,
+WALE, WALE2 and SIGMA2, the EDM family (combustion/edm.py, edm_ext.py),
+the wall functions (spalding_utau, the alphat and nut passes after kEqn)
+and constant/additionalControls.
+
+Not ported: Lagrangian spray, surface film, pyrolysis regions (and the
+solid-only step of `solvePrimaryRegion false`), the PairMG pressure solver,
+the SPMD `local=` path (and its sharded multigrid) and the hoisted-jit
+entry points. A case that needs one of them raises at construction.
 """
 
 from __future__ import annotations
@@ -72,6 +80,25 @@ __all__ = ["FireFoamSolver", "state_from_numpy", "state_to_numpy", "GMG_MIN_CELL
 # of chip_smoke.py (ms per p_rgh solve of gmg_pcg against K2 at 9k, 100k and
 # 500k cells on an H100; PERF.md has the times).
 GMG_MIN_CELLS = {"cpu": 50000, "cuda": None}
+
+
+def spalding_utau(mag_up, mag_grad_u, nuw, y, kappa=0.41, E=9.8):
+    """u_τ from Spalding's unified wall law by Newton iteration
+    (nutUSpaldingWallFunctionFvPatchScalarField::calcUTau), a fixed 30
+    steps as in the JAX package. The guard is the JAX package's
+    finfo.tiny·1e6 in float64; in float32 its square underflows and a face
+    with |ΔU| = 0 would divide 0 by 0, so float32 guards with 1e-18."""
+    dtype = mag_up.dtype
+    tiny = torch.finfo(dtype).tiny * 1e6 if dtype == torch.float64 else 1e-18
+    ut = torch.sqrt(nuw * mag_grad_u)
+    for _ in range(30):
+        ut_s = torch.clamp(ut, min=tiny)
+        kuu = torch.clamp(kappa * mag_up / ut_s, max=50.0)
+        fkuu = torch.exp(kuu) - 1.0 - kuu * (1.0 + 0.5 * kuu)
+        f = -ut_s * y / nuw + mag_up / ut_s + 1.0 / E * (fkuu - kuu ** 3 / 6.0)
+        df = y / nuw + mag_up / ut_s ** 2 + 1.0 / E * kuu * fkuu / ut_s
+        ut = torch.clamp(ut_s + f / torch.clamp(df, min=tiny), min=0.0)
+    return ut
 
 
 def _solver_controls(fv_solution: FoamDict, *names: str) -> dict:
@@ -146,6 +173,12 @@ class FireFoamSolver:
         self.combustion = EddyDissipationModel.from_case(
             self.case.constant("combustionProperties"), self.reaction
         )
+        # cells next to wall patches (BertExt's nearWallCells gate)
+        near_wall = torch.zeros(g.n_cells, dtype=torch.bool, device=self.device)
+        for pch in g.patches:
+            if "wall" in (pch.ptype or "").lower():
+                near_wall[g.b_own[pch.slice]] = True
+        self._near_wall_mask = near_wall
 
         # ---- turbulence ----
         self.turb = KEqnLES.from_case(
@@ -207,6 +240,18 @@ class FireFoamSolver:
             n_hydrostatic=pimple.get_int("nHydrostaticCorrectors", 5),
         )
         self.fv_solution = self.case.fv_solution
+        # laplacianSchemes default: '... uncorrected' (None), '... corrected'
+        # (1.0) or '... limited α' (α): the deferred non-orthogonal
+        # correction on every implicit laplacian of the step
+        self.lap_limiter: Optional[float] = None
+        lsch = self.case.fv_schemes.get_dict("laplacianSchemes", FoamDict()).lookup("default", "")
+        toks = [str(t) for t in lsch] if isinstance(lsch, list) else [str(lsch)]
+        if "corrected" in toks:
+            self.lap_limiter = 1.0
+        elif "limited" in toks:
+            i = toks.index("limited")
+            self.lap_limiter = float(toks[i + 1]) if i + 1 < len(toks) else 1.0
+        self.turb.lap_limiter = self.lap_limiter
         self.u_div_scheme = self._parse_div_scheme("div(phi,U)", ("LUST",))
         self.turb.div_scheme = self._parse_div_scheme("div(phi,k)", ("limitedLinear", 1.0))
         self._pick_solvers(exact_solvers, gmg, int(gmg_coarsest), amg)
@@ -218,6 +263,16 @@ class FireFoamSolver:
         self.t0_name = self.case.start_time()
         self.t0 = float(self.t0_name)
         self._read_initial_fields()
+        if self.combustion.variant == "eddyDissipationIgnModel" and (
+                self.case.has_field("dQI") or self.case.has_field("dQI", self.t0_name)):
+            # pilot heat field dQI masked to the 'igniter' cellZone
+            # (eddyDissipationIgnModel::correct)
+            dqi, _ = self._read_field("dQI")
+            mask = torch.zeros(g.n_cells, dtype=self.dtype, device=self.device)
+            zone = self.cm.sets.cell_zones.get("igniter")
+            if zone is not None:
+                mask[torch.as_tensor(np.asarray(zone), dtype=torch.int64, device=self.device)] = 1.0
+            self.combustion.ign_dQI = dqi.i * mask
 
         # ---- fvOptions, function objects, RTI probes and links ----
         self.fv_options = FvOptions(case_dir, g, self.cm.sets.cell_zones)
@@ -277,22 +332,28 @@ class FireFoamSolver:
             )
 
     def _check_supported(self):
-        """Raise on the case features the port does not carry."""
+        """Read constant/additionalControls and raise on the case features
+        the port does not carry. With `solvePyrolysisRegion false` the
+        reference skips constant/pyrolysisZones, and so does the port."""
         case = self.case
+        ac = case.constant("additionalControls") if case.has_constant(
+            "additionalControls") else FoamDict()
+        self.solve_primary = ac.get_bool("solvePrimaryRegion", True)
+        self.solve_pyrolysis = ac.get_bool("solvePyrolysisRegion", True)
+        if not self.solve_primary:
+            raise NotImplementedError(
+                "solvePrimaryRegion false: the solid-only step waits for the region "
+                "models (ROADMAP P13)")
         if case.has_constant("reactingCloud1Properties"):
             props = case.constant("reactingCloud1Properties")
             if props.get_dict("solution").get_bool("active", True):
                 raise NotImplementedError("Lagrangian spray cloud")
-        if case.has_constant("pyrolysisZones"):
+        if self.solve_pyrolysis and case.has_constant("pyrolysisZones"):
             raise NotImplementedError("pyrolysis regions")
         if case.has_constant("surfaceFilmProperties"):
             sfp = case.constant("surfaceFilmProperties")
             if sfp.get_bool("active", False) and sfp.get_word("surfaceFilmModel", "none") != "none":
                 raise NotImplementedError("surface film region")
-        lsch = case.fv_schemes.get_dict("laplacianSchemes").lookup("default", "")
-        toks = [str(t) for t in lsch] if isinstance(lsch, list) else [str(lsch)]
-        if "corrected" in toks or "limited" in toks:
-            raise NotImplementedError("non-orthogonal laplacian correction")
 
     def _read_field(self, name: str, default_name: Optional[str] = None):
         t0 = self.t0_name
@@ -317,10 +378,6 @@ class FireFoamSolver:
         self.k, self.k_bcs = self._read_field("k")
         self.alphat, self.alphat_bcs = self._read_field("alphat")
         self.nut, self.nut_bcs = self._read_field("nut")
-        for fb in (self.alphat_bcs, self.nut_bcs):
-            for bc in fb.bcs:
-                if "WallFunction" in bc.kind:
-                    raise NotImplementedError(f"wall function {bc.kind}")
         Yi, Yb, self.Y_bcs = [], [], []
         for sp in self.species:
             f, b = self._read_field(sp, default_name="Ydefault")
@@ -395,6 +452,8 @@ class FireFoamSolver:
         }
         if self.radiation is not None:
             state["rad"] = self.radiation.initial_state()
+        if self.combustion.stream_rad_fracs:
+            state["localRadFrac"] = z_c
         if self.rtis is not None and self.rtis.n > 0:
             state["rtis"] = self.rtis.initial_state()
         if self.rti_links.active:
@@ -470,7 +529,7 @@ class FireFoamSolver:
             # buoyancy flux cancels (constrainPressure)
             rg = phig.b / (rho_f.b * g.b_magSf)
             gic, gbc = fvm.mixed_gradient_coeffs(z_b, rg, f, g.b_dc)
-            m = -fvm.laplacian(g, rho_f, ph, gic, gbc)
+            m = -fvm.laplacian(g, rho_f, ph, gic, gbc, corr=self._lap_corr(ph))
             m = fvm.FvMatrix(
                 g, m.diag, m.lower, m.upper, m.source - rhs,
                 m.internal_coeffs, m.boundary_coeffs, m.psi,
@@ -557,7 +616,8 @@ class FireFoamSolver:
 
     def _parse_div_scheme(self, key: str, default: tuple) -> tuple:
         """fvSchemes.divSchemes[key] → ('LUST',) | ('linear',) | ('upwind',)
-        | ('limitedLinear'|'limitedLinear01', k). Other schemes raise."""
+        | ('limitedLinear'|'limitedLinear01', k) | ('filteredLinear2', k, l)
+        (filteredLinear2 and filteredLinear2V alike). Other schemes raise."""
         v = self.case.fv_schemes.get_dict("divSchemes").lookup(key, None)
         if v is None:
             return default
@@ -574,16 +634,33 @@ class FireFoamSolver:
         if name in ("limitedLinear", "limitedLinearV", "limitedLinear01"):
             k = float(toks[1]) if len(toks) > 1 else 1.0
             return ("limitedLinear01" if name.endswith("01") else "limitedLinear", k)
+        if name in ("filteredLinear2", "filteredLinear2V"):
+            k = float(toks[1]) if len(toks) > 1 else 1.0
+            l = float(toks[2]) if len(toks) > 2 else 0.0
+            return ("filteredLinear2", k, l)
         raise NotImplementedError(f"divSchemes {key}: scheme '{name}'")
 
-    def _div_weights(self, scheme: tuple, phi, psi):
+    def _div_weights(self, scheme: tuple, phi, psi, grad_psi=None):
+        """Per-face interpolation weights of a parsed div scheme (LUST is
+        handled at the call site)."""
         g = self.geom
         name = scheme[0]
         if name == "linear":
             return g.w
         if name == "upwind":
             return fvm.upwind_weights(g, phi.i)
+        if name == "filteredLinear2":
+            lim = fvm.filtered_linear2_limiter(g, psi, grad_psi, k=scheme[1], l=scheme[2])
+            return fvm.limiter_weights(g, phi.i, lim)
         return fvm.limited_linear_weights(g, phi.i, psi, k=scheme[1], bound01=name.endswith("01"))
+
+    def _lap_corr(self, psi) -> Optional[torch.Tensor]:
+        """The deferred non-orthogonal laplacian correction of the
+        laplacianSchemes default (None under 'uncorrected')."""
+        if self.lap_limiter is None:
+            return None
+        lim = None if self.lap_limiter >= 1.0 else self.lap_limiter
+        return fvc.non_orth_correction(self.geom, psi, limiter=lim)
 
     def _lin_fn(self, ctl):
         """fn(diag, upper, lower, b, x0) → SolverResult for the controls,
@@ -634,11 +711,11 @@ class FireFoamSolver:
         if self.u_div_scheme[0] == "LUST":
             conv = fvm.lust_div(g, phi, U, vic, vbc, gradU)
         else:
-            conv = fvm.div(g, phi, U, self._div_weights(self.u_div_scheme, phi, U), vic, vbc)
+            conv = fvm.div(g, phi, U, self._div_weights(self.u_div_scheme, phi, U, gradU), vic, vbc)
         m = (
             fvm.ddt(g, rho.i, U, U.i, state["rho_old_i"], state["dt"])
             + conv
-            - fvm.laplacian(g, mu_eff_f, U, gic, gbc)
+            - fvm.laplacian(g, mu_eff_f, U, gic, gbc, corr=self._lap_corr(U))
         )
         div_tau = self.turb.div_dev_rho_reff(U, mu_eff, gradU)
         m = m.add_source(div_tau + srcs["SU"])
@@ -698,9 +775,14 @@ class FireFoamSolver:
         rho, phi, Y, dt = state["rho"], state["phi"], state["Y"], state["dt"]
         rates = self.combustion.rates(
             rho.i, Y.i, state["k"].i, self.turb.epsilon(state["k"].i),
-            state["alpha"].i, self.turb.delta, dt,
+            state["alpha"].i, self.turb.delta, dt, T=state["T"].i, p=state["p"].i,
+            near_wall=self._near_wall_mask, t=state["t"],
+            nu=state["mu"].i / rho.i, nut=state["nut"].i,
         )
         qdot = self.combustion.qdot(rates)
+        if "localRadFrac" in rates:
+            # consumed by localFuelRadFractionEmission (ECont = lrf·Qdot)
+            state["localRadFrac"] = rates["localRadFrac"]
 
         # species effective diffusivity dEff (YEEqn.H:12-25)
         if self.const_D:
@@ -729,7 +811,7 @@ class FireFoamSolver:
             m = (
                 fvm.ddt(g, rho.i, Ysf, Ysf.i, state["rho_old_i"], dt)
                 + fvm.div(g, phi, Ysf, w_mv, vic, vbc)
-                - fvm.laplacian(g, alpha_eff_f, Ysf, gic, gbc)
+                - fvm.laplacian(g, alpha_eff_f, Ysf, gic, gbc, corr=self._lap_corr(Ysf))
             )
             m = m.add_source(self.combustion.R(rates, s))
             if relax_f is not None:
@@ -795,7 +877,7 @@ class FireFoamSolver:
         m = (
             fvm.ddt(g, rho.i, hs, hs.i, state["rho_old_i"], dt)
             + fvm.div(g, phi, hs, w_mv, vic, vbc)
-            - fvm.laplacian(g, alpha_eff_f, hs, gic, gbc)
+            - fvm.laplacian(g, alpha_eff_f, hs, gic, gbc, corr=self._lap_corr(hs))
         )
         m = m.add_source(qdot + sh_rad + srcs["Sh"] + state["dpdt"] - ddtK - divK)
         if self.fv_options is not None:
@@ -853,7 +935,7 @@ class FireFoamSolver:
             if bc.kind != "flowRateInletVelocity":
                 continue
             sl = g.patch(bc.patch).slice
-            mdot = float(bc.params.get("massFlowRate", 0.0))
+            mdot = bcmod.mass_flow_rate(bc, state["t"])
             A = g.bsum(g.b_magSf, sl)
             n = g.b_Sf[sl] / g.b_magSf[sl, None]
             u_met = -n * (mdot / (rho.b[sl] * A))[:, None]
@@ -889,7 +971,8 @@ class FireFoamSolver:
         ctx = self._ctx(state, overrides)
         rv, rg, f = bcmod.resolve(self.p_rgh_bcs, g, p_rgh, ctx)
         gic, gbc = fvm.mixed_gradient_coeffs(rv, rg, f, g.b_dc)
-        m_lap = fvm.laplacian(g, rho_rAU_f, p_rgh, gic, gbc)
+        corr = self._lap_corr(p_rgh)
+        m_lap = fvm.laplacian(g, rho_rAU_f, p_rgh, gic, gbc, corr=corr)
 
         # p_rghEqn (pEqn.H:26-38) with old-time values in every ddt
         psi_old = state["psi_old_i"]
@@ -920,6 +1003,13 @@ class FireFoamSolver:
             g, m_lap.diag, m_lap.lower, m_lap.upper, m_lap.source,
             m_lap.internal_coeffs, m_lap.boundary_coeffs, p_rgh_new,
         ).flux()
+        if corr is not None:
+            # p_rghEqn.flux() carries the deferred correction's face flux
+            # (fvMatrix::flux adds faceFluxCorrectionPtr), so phi balances
+            # the equation just solved. The JAX package leaves it out; on a
+            # non-orthogonal mesh its phi then breaks continuity and the
+            # wall fire diverges (ROADMAP, reference fault R3)
+            lap_flux = SurfaceField(lap_flux.i + rho_rAU_f.i * g.magSf * corr, lap_flux.b)
         phi_new = SurfaceField(phi_hbya.i - lap_flux.i, phi_hbya.b - lap_flux.b)
 
         # velocity correction; U.correctBoundaryConditions() (pEqn.H:46)
@@ -960,11 +1050,15 @@ class FireFoamSolver:
         same stated tolerance leaves other error modes) → the lattice
         multigrid → AMG → the Jacobi-CG (K2). The tolerances are
         p_rghFinal's on the last corrector; solver, preconditioner and
-        maxIter are p_rgh's."""
+        maxIter are p_rgh's. On the card K2 (also in float64 for
+        `p_rgh_f64`) stops at the dictionary's maxIter, as the JAX package's
+        fused kernel does; on the CPU the Jacobi-CG twin stops at 1000, as
+        the JAX package's flat CG does."""
         g = self.geom
         c0 = _solver_controls(self.fv_solution, "p_rgh")
         c = _solver_controls(self.fv_solution, "p_rghFinal", "p_rgh") if final else c0
         tol, rel = c["tolerance"], c["relTol"]
+        k2_max_iter = c0["maxIter"] if self.device.type == "cuda" else 1000
         dtot, b = m.totals()
         if self.p_rgh_f64 and self.dtype != torch.float64:
             # the tolerances pass through the step's dtype first
@@ -972,7 +1066,7 @@ class FireFoamSolver:
             f8 = torch.float64
             res = dia_krylov.dia_pcg(
                 dtot.to(f8), m.upper.to(f8), m.lower.to(f8), b.to(f8), x0.to(f8), g.offsets,
-                tol=tol, rel_tol=rel, max_iter=1000,
+                tol=tol, rel_tol=rel, max_iter=k2_max_iter,
             )
             return res._replace(x=res.x.to(self.dtype))
         if self._ldu is not None and c0["solver"] == "PCG" and c0["preconditioner"] == "DIC":
@@ -985,7 +1079,8 @@ class FireFoamSolver:
         if self.amg is not None:
             return amg_pcg(self.amg, dtot, m.lower, m.upper, b, x0, tol=tol, rel_tol=rel)
         return dia_krylov.dia_pcg(
-            dtot, m.upper, m.lower, b, x0, g.offsets, tol=tol, rel_tol=rel, max_iter=1000,
+            dtot, m.upper, m.lower, b, x0, g.offsets, tol=tol, rel_tol=rel,
+            max_iter=k2_max_iter,
         )
 
     # ------------------------------------------------------------------
@@ -1078,6 +1173,19 @@ class FireFoamSolver:
                 state["rho"].i * nut_i / self.turb.Prt,
                 state["rho"].b * nut_b / self.turb.Prt,
             )
+            # the wall functions: the fire alphat first, then the nut family
+            # (nutFire consumes the fire-corrected alphat), then
+            # compressible::alphatWallFunction from the new nut
+            state = self._apply_wall_functions(state)
+            nut_b = self._nut_wall_functions(state, k_new, nut_b)
+            state["nut"] = VolField(nut_i, nut_b)
+            alphat_b = state["alphat"].b
+            for bc, p in zip(self.alphat_bcs.bcs, g.patches):
+                if bc.kind == "compressible::alphatWallFunction":
+                    if alphat_b is state["alphat"].b:
+                        alphat_b = alphat_b.clone()
+                    alphat_b[p.slice] = state["rho"].b[p.slice] * nut_b[p.slice] / self.turb.Prt
+            state["alphat"] = VolField(state["alphat"].i, alphat_b)
             log["k_res0"] = res_k.initial_residual
             log["k_iters"] = res_k.n_iterations
 
@@ -1132,6 +1240,101 @@ class FireFoamSolver:
         log["dt"] = dt
         log.update(self.function_objects.compute(state))
         return state, log
+
+    # ------------------------------------------------------------------
+    def _apply_wall_functions(self, state: Dict) -> Dict:
+        """alphatFireWallFunction: the gas-side turbulent thermal
+        diffusivity on burning walls from the QcWallFunction flame-heat-flux
+        correlation (alphatFireWallFunctionFvPatchScalarField.C:218-249):
+          qwL = −α_w·Cp_w·∂T/∂n  (laminar flux into the wall)
+          ṁ″ = −φ_w/|Sf|·2.5·1000 [g/m²/s fuel-equivalent]
+          qw = ṁ″<0.1 ? clamp(qwL,0,QcThr)/QcThr·QcFlame
+                       : QcFlame·(ṁ″/10)/(e^{ṁ″/10}−1)
+          alphat_w = min(1, qw/(Cp_w·(−∂T/∂n)) − α_w)"""
+        g = self.geom
+        fire = [(bc, p) for bc, p in zip(self.alphat_bcs.bcs, g.patches)
+                if bc.kind == "alphatFireWallFunction"]
+        if not fire:
+            return state
+        state = dict(state)
+        T, Y = state["T"], state["Y"]
+        alphat_b = state["alphat"].b.clone()
+        tiny = torch.finfo(self.dtype).tiny * 1e6
+        T_c = g.cell_to_boundary(T.i)
+        for bc, p in fire:
+            sl = p.slice
+            cp_w = self.gas.cp(T.b[sl], Y.b[sl])
+            alpha_w = state["alpha"].b[sl]
+            grad_tw = g.b_dc[sl] * (T.b[sl] - T_c[sl])
+            qwl = -alpha_w * cp_w * grad_tw
+            fmf = -state["phi"].b[sl] / g.b_magSf[sl] * 2.5 * 1000.0
+            qc_flame = float(bc.params.get("QcFlame", 20000.0))
+            qc_thr = float(bc.params.get("QcThreshold", 2000.0))
+            expn = torch.clamp(fmf / 10.0, max=50.0)
+            qw = torch.where(
+                fmf < 0.1,
+                torch.clamp(qwl, 0.0, qc_thr) / qc_thr * qc_flame,
+                qc_flame * (fmf / 10.0) / torch.clamp(torch.expm1(expn), min=tiny),
+            )
+            a_eff = qw / cp_w / torch.clamp(-grad_tw, min=tiny)
+            a_t = torch.clamp(a_eff - alpha_w, max=1.0)
+            alphat_b[sl] = torch.where(qwl <= tiny, torch.zeros_like(a_t), a_t)
+        state["alphat"] = VolField(state["alphat"].i, alphat_b)
+        return state
+
+    def _nut_wall_functions(self, state: Dict, k_new, nut_b) -> torch.Tensor:
+        """The nut wall-function family:
+
+        * nutkWallFunction: log-law from k, y⁺ = Cμ^¼√k·y/ν,
+          νt = ν·(y⁺κ/ln(Ey⁺) − 1) above the laminar y⁺;
+        * nutUSpaldingWallFunction: u_τ from Spalding's law (spalding_utau),
+          νt = u_τ²/|∂U/∂n| − ν;
+        * nutUSpaldingBlowingWallFunction: the same u_τ attenuated by the
+          transpiration factor min(1, (ṁ″/hOCp)/(e^{ṁ″/hOCp}−1));
+        * nutFireWallFunction: νt = αt·ν/α from the fire-corrected alphat."""
+        g = self.geom
+        kinds = {"nutkWallFunction", "nutUSpaldingWallFunction",
+                 "nutUSpaldingBlowingWallFunction", "nutFireWallFunction"}
+        wf = [(bc, p) for bc, p in zip(self.nut_bcs.bcs, g.patches) if bc.kind in kinds]
+        if not wf:
+            return nut_b
+        kappa, E, cmu25 = 0.41, 9.8, 0.09 ** 0.25
+        ypl = 11.0  # yPlusLam: the fixed point of y⁺ = ln(E y⁺)/κ
+        for _ in range(10):
+            ypl = np.log(E * ypl) / kappa
+        U, rho, mu = state["U"], state["rho"], state["mu"]
+        tiny = torch.finfo(self.dtype).tiny * 1e6
+        nut_b = nut_b.clone()
+        for bc, p in wf:
+            sl = p.slice
+            nuw = mu.b[sl] / rho.b[sl]
+            y = 1.0 / g.b_dc[sl]
+            if bc.kind == "nutkWallFunction":
+                k_c = g.cell_to_boundary(k_new.i)[sl]
+                yp = cmu25 * torch.sqrt(torch.clamp(k_c, min=0.0)) * y / nuw
+                val = torch.where(
+                    yp > ypl,
+                    nuw * (yp * kappa / torch.log(torch.clamp(E * yp, min=1.0 + 1e-12)) - 1.0),
+                    torch.zeros_like(yp),
+                )
+            elif bc.kind == "nutFireWallFunction":
+                val = state["alphat"].b[sl] * nuw / torch.clamp(state["alpha"].b[sl], min=tiny)
+            else:  # nutUSpalding[Blowing]
+                du = g.cell_to_boundary(U.i)[sl] - U.b[sl]
+                mag_up = torch.linalg.norm(du, dim=1)
+                mag_grad = mag_up * g.b_dc[sl]
+                ut = spalding_utau(mag_up, mag_grad, nuw, y, kappa, E)
+                val = ut ** 2 / torch.clamp(mag_grad, min=tiny)
+                if bc.kind == "nutUSpaldingBlowingWallFunction":
+                    h_ocp = float(bc.params.get("hOCp", 10.0))
+                    r_phi = float(bc.params.get("rPhi", 2.5))
+                    x = -state["phi"].b[sl] / g.b_magSf[sl] * r_phi * 1000.0 / h_ocp
+                    atten = torch.clamp(
+                        (x + 1e-15) / (torch.expm1(torch.clamp(x, -50.0, 50.0)) + 1e-15), max=1.0)
+                    val = val * atten
+                val = val - nuw
+            nut_b[sl] = torch.clamp(val, min=0.0)
+        return nut_b
 
     # ------------------------------------------------------------------
     def make_step(self):

@@ -16,6 +16,9 @@ __all__ = [
     "interpolate",
     "interpolate_weighted",
     "sn_grad",
+    "sn_grad_corrected",
+    "non_orth_correction",
+    "dot_sf",
     "grad",
     "grad_scalar",
     "div_flux",
@@ -56,6 +59,53 @@ def sn_grad(geom: MeshGeometry, f: VolField, b_grad: torch.Tensor = None) -> Sur
     """Surface-normal gradient (uncorrected). Boundary snGrad defaults to
     dc*(b_value - cell_value); pass b_grad to override."""
     gi = _wmul(geom.dc, geom.gather_nei(f.i) - geom.gather_own(f.i))
+    if b_grad is None:
+        b_grad = _wmul(geom.b_dc, f.b - geom.cell_to_boundary(f.i))
+    return SurfaceField(gi, b_grad)
+
+
+def non_orth_correction(
+    geom: MeshGeometry,
+    f: VolField,
+    grad_i: torch.Tensor = None,
+    limiter: float = None,
+) -> torch.Tensor:
+    """Explicit non-orthogonal snGrad correction on internal faces:
+    corr_f = k_f·(∇ψ)_f with k = n̂ − Δ·nodc (correctedSnGrad::correction).
+
+    limiter=None → full 'corrected'; limiter=α ∈ (0,1) → limitedSnGrad:
+    corr clipped to α/(1−α)·|orthogonal part| per face.
+    Scalar ψ → [nI]; vector ψ → [nI,3] (corr_j = Σ_d k_d·∂_d ψ_j)."""
+    if grad_i is None:
+        grad_i = grad(geom, f)
+    k = geom.kvec()
+    go = geom.gather_own(grad_i)
+    gn = geom.gather_nei(grad_i)
+    if grad_i.ndim == 3:  # vector field gradient [nC,3,3]
+        gf = geom.w[:, None, None] * go + (1.0 - geom.w)[:, None, None] * gn
+        corr = torch.einsum("fd,fdj->fj", k, gf)
+    else:
+        gf = geom.w[:, None] * go + (1.0 - geom.w)[:, None] * gn
+        corr = torch.einsum("fd,fd->f", k, gf)
+    if limiter is not None and limiter < 1.0:
+        orth = _wmul(geom.nodc, geom.gather_nei(f.i) - geom.gather_own(f.i))
+        lim = (limiter / (1.0 - limiter)) * torch.abs(orth)
+        corr = torch.clamp(corr, -lim, lim)
+    return corr
+
+
+def sn_grad_corrected(
+    geom: MeshGeometry,
+    f: VolField,
+    b_grad: torch.Tensor = None,
+    grad_i: torch.Tensor = None,
+    limiter: float = None,
+) -> SurfaceField:
+    """Corrected/limited surface-normal gradient: nodc·(ψ_N − ψ_P) +
+    k·(∇ψ)_f (correctedSnGrad/limitedSnGrad). Boundary part as sn_grad
+    (one-sided, uncorrected)."""
+    gi = _wmul(geom.nodc, geom.gather_nei(f.i) - geom.gather_own(f.i))
+    gi = gi + non_orth_correction(geom, f, grad_i, limiter)
     if b_grad is None:
         b_grad = _wmul(geom.b_dc, f.b - geom.cell_to_boundary(f.i))
     return SurfaceField(gi, b_grad)
@@ -118,6 +168,14 @@ def flux(geom: MeshGeometry, u: VolField) -> SurfaceField:
     return SurfaceField(
         torch.sum(geom.Sf * uf.i, dim=1),
         torch.sum(geom.b_Sf * uf.b, dim=1),
+    )
+
+
+def dot_sf(geom: MeshGeometry, sf_vec: SurfaceField) -> SurfaceField:
+    """Contract a vector surface field with Sf."""
+    return SurfaceField(
+        torch.einsum("fd,fd->f", geom.Sf, sf_vec.i),
+        torch.einsum("fd,fd->f", geom.b_Sf, sf_vec.b),
     )
 
 

@@ -20,12 +20,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..config import small
 from .fields import SurfaceField, VolField
 from .geometry import MeshGeometry
 
 __all__ = [
     "FvMatrix",
     "ddt",
+    "ddt_scalar",
     "div",
     "laplacian",
     "Sp",
@@ -33,6 +35,7 @@ __all__ = [
     "mixed_value_coeffs",
     "mixed_gradient_coeffs",
     "upwind_weights",
+    "filtered_linear2_limiter",
     "limited_linear_weights",
     "limited_linear_limiter",
     "limiter_weights",
@@ -90,6 +93,10 @@ class FvMatrix:
         """Add an explicit per-volume source (RHS of `==`): source += s*V."""
         V = self.geom.V
         return replace(self, source=self.source + _bcol(V, per_volume) * per_volume)
+
+    def add_sp(self, sp: torch.Tensor) -> "FvMatrix":
+        """Implicit source fvm::Sp: diag += sp·V (the caller minds the sign)."""
+        return replace(self, diag=self.diag + sp * self.geom.V)
 
     # --------------------------------------------------------- solve pieces
     def diag_total(self) -> torch.Tensor:
@@ -169,6 +176,15 @@ class FvMatrix:
         d = torch.maximum(torch.abs(d0), s) / alpha
         src = self.source + _bcol(d - d0, self.source) * self.psi.i
         return replace(self, diag=d - bdiag, source=src)
+
+    def residual_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """OpenFOAM-normalised initial residual for a scalar component."""
+        dt = self.diag_total()
+        b = self.rhs_total()
+        Ax = self.matvec(x, dt)
+        Aref = self.matvec(torch.mean(x).expand_as(x), dt)
+        norm = torch.sum(torch.abs(Ax - Aref) + torch.abs(b - Aref)) + torch.finfo(x.dtype).tiny * 1e6
+        return torch.sum(torch.abs(b - Ax)) / norm
 
 
 def empty_matrix(geom: MeshGeometry, psi: VolField) -> FvMatrix:
@@ -265,6 +281,46 @@ def limited_linear_weights(
     return limiter_weights(geom, phi_i, limited_linear_limiter(geom, phi_i, psi, k, bound01))
 
 
+def filtered_linear2_limiter(
+    geom: MeshGeometry,
+    psi: VolField,
+    grad_psi: Optional[torch.Tensor] = None,
+    k: float = 1.0,
+    l: float = 0.0,
+) -> torch.Tensor:
+    """filteredLinear2 / filteredLinear2V limiter (fvSchemes
+    `Gauss filteredLinear2V k l`, the pyrolysis1D and wallFireSpread2D
+    reference cases' div(phi,U)): damps high-frequency "staggering" modes by
+    comparing the face difference with both neighbouring cell gradients:
+
+      df = ψ_N − ψ_P          (V variant: |Δψ|², projections along Δψ)
+      dP = d·(∇ψ)_P,  dN = d·(∇ψ)_N
+      λ  = clip((l+1) − k·max(|df−dP|, |df−dN|)/(|df| + SMALL), 0, 1)
+
+    The JAX package's reconstruction from the published scheme, copied
+    operation for operation."""
+    from . import fvc
+
+    if grad_psi is None:
+        grad_psi = fvc.grad(geom, psi) if psi.i.ndim == 2 else fvc.grad_scalar(geom, psi)
+    d = geom.d_face
+    psi_o, psi_n = geom.gather_own(psi.i), geom.gather_nei(psi.i)
+    g_o, g_n = geom.gather_own(grad_psi), geom.gather_nei(grad_psi)
+    if psi.i.ndim == 2:  # filteredLinear2V: along the face difference
+        dfV = psi_n - psi_o
+        df = torch.einsum("fi,fi->f", dfV, dfV)
+        dP = torch.einsum("fi,fi->f", dfV, torch.einsum("fi,fij->fj", d, g_o))
+        dN = torch.einsum("fi,fi->f", dfV, torch.einsum("fi,fij->fj", d, g_n))
+    else:
+        df = psi_n - psi_o
+        dP = torch.einsum("fd,fd->f", d, g_o)
+        dN = torch.einsum("fd,fd->f", d, g_n)
+    ratio = torch.maximum(torch.abs(df - dP), torch.abs(df - dN)) / (
+        torch.abs(df) + small(psi.i.dtype)
+    )
+    return torch.clamp((l + 1.0) - k * ratio, 0.0, 1.0)
+
+
 def lust_div(
     geom: MeshGeometry,
     phi,
@@ -306,6 +362,12 @@ def ddt(geom: MeshGeometry, rho, psi: VolField, psi_old_i, rho_old, dt) -> FvMat
     return replace(m, diag=diag, source=src)
 
 
+def ddt_scalar(geom: MeshGeometry, psi: VolField, psi_old_i, dt) -> FvMatrix:
+    """fvm::ddt(psi) (Euler, no density)."""
+    one = torch.ones((), dtype=psi.i.dtype, device=psi.i.device)
+    return ddt(geom, one, psi, psi_old_i, one, dt)
+
+
 def div(
     geom: MeshGeometry,
     phi: SurfaceField,
@@ -340,19 +402,31 @@ def laplacian(
     psi: VolField,
     gic: torch.Tensor,
     gbc: torch.Tensor,
+    corr: torch.Tensor = None,
 ) -> FvMatrix:
-    """fvm::laplacian(gamma, psi), Gauss linear uncorrected:
+    """fvm::laplacian(gamma, psi), Gauss:
       upper = lower = gamma_f·|Sf|·deltaCoeff ; negSumDiag;
-      internalCoeffs = gamma_b·|Sf|·gic ; boundaryCoeffs = −gamma_b·|Sf|·gbc."""
+      internalCoeffs = gamma_b·|Sf|·gic ; boundaryCoeffs = −gamma_b·|Sf|·gbc.
+
+    corr (from fvc.non_orth_correction) selects the corrected/limited
+    scheme: the implicit part takes the stabilised nonOrthDeltaCoeffs and the
+    deferred face-flux correction Γ_f|Sf|·k·(∇ψ)_f enters the source.
+    corr=None is 'Gauss <interp> uncorrected'."""
     m = empty_matrix(geom, psi)
-    gmsf = gamma.i * geom.magSf * geom.dc
+    gmsf = gamma.i * geom.magSf * (geom.dc if corr is None else geom.nodc)
     diag = -geom.face_to_both_sum(gmsf, gmsf)
     gb = gamma.b * geom.b_magSf
     ic = _bcol(gb, gic) * gic
     bc = -_bcol(gb, gbc) * gbc
-    return replace(
+    m = replace(
         m, lower=gmsf, upper=gmsf, diag=diag, internal_coeffs=ic, boundary_coeffs=bc
     )
+    if corr is not None:
+        flux_i = _bcol(gamma.i * geom.magSf, corr) * corr
+        zero_b = torch.zeros((geom.n_boundary,) + tuple(corr.shape[1:]), dtype=corr.dtype,
+                             device=corr.device)
+        m = replace(m, source=m.source - geom.surface_sum(flux_i, zero_b))
+    return m
 
 
 def Sp(geom: MeshGeometry, sp, psi: VolField) -> FvMatrix:

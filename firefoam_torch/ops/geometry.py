@@ -220,6 +220,16 @@ class MeshGeometry:
     def device(self) -> torch.device:
         return self.V.device
 
+    def kvec(self) -> torch.Tensor:
+        """Non-orthogonal correction vectors k_f = n̂_f − Δ_f·nodc_f
+        (surfaceInterpolation::makeNonOrthCorrectionVectors, consumed by the
+        corrected/limited snGrad and laplacian schemes). Exactly zero on
+        orthogonal meshes and at pad slots."""
+        tiny = torch.finfo(self.dtype).tiny * 1e6
+        nhat = self.Sf / torch.clamp(self.magSf, min=tiny)[:, None]
+        k = nhat - self.d_face * self.nodc[:, None]
+        return k * self.face_mask[:, None]
+
     # -------------------------------------------------- layout primitives
     def _shift_down(self, x: torch.Tensor, o: int) -> torch.Tensor:
         """y[c] = x[c−o] (zero before the start)."""

@@ -1,10 +1,13 @@
 """Profile the port's box-fire step on a CUDA card with torch.profiler.
 
-    python -m firefoam_torch.profile_step [--n 50 40 50] [--steps 3] [--smooth] [--gmg]
+    python -m firefoam_torch.profile_step [--n 50 40 50] [--steps 3] [--smooth | --wall]
+        [--gmg]
 
 Builds write_box_fire_case(n) (with --smooth, write_smooth_fire_case(n):
-smoothSolver for Yi, h and k, and the run features; with --gmg the lattice
-multigrid solves p_rgh instead of K2), runs initial_state()
+smoothSolver for Yi, h and k, and the run features; with --wall,
+write_wall_fire_case(n): the gas-phase variants, the non-orthogonal
+correction, WALE, BertExt with Fstar and the wall functions; with --gmg the
+lattice multigrid solves p_rgh instead of K2), runs initial_state()
 and 12 warm-up steps, then profiles `--steps` steps. Prints their solver
 iterations, the device time per kernel (top 25), the port's own CUDA
 kernels (csrc/) whatever their rank, and the device-busy share of the
@@ -21,7 +24,7 @@ import time
 import torch
 
 from .models.firefoam import FireFoamSolver
-from .utils.synthcase import write_box_fire_case, write_smooth_fire_case
+from .utils.synthcase import write_box_fire_case, write_smooth_fire_case, write_wall_fire_case
 
 # the box fire ignites around step 3 and solves its fvDOM rays on steps 1,
 # 11, 21, ...: steps 13-20 are a burning fire between two ray solves
@@ -54,13 +57,16 @@ def main():
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--smooth", action="store_true",
                     help="the smoothSolver case with the run features")
+    ap.add_argument("--wall", action="store_true",
+                    help="the wall-fire case with the gas-phase variants")
     ap.add_argument("--gmg", action="store_true",
                     help="p_rgh through the lattice multigrid (gmg=True)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     with tempfile.TemporaryDirectory(prefix="firefoam_prof_") as tmp:
-        write = write_smooth_fire_case if args.smooth else write_box_fire_case
+        write = (write_smooth_fire_case if args.smooth
+                 else write_wall_fire_case if args.wall else write_box_fire_case)
         case = write(tmp, n=tuple(args.n))
         solver = FireFoamSolver(case, device="cuda", gmg=True if args.gmg else None)
         state = solver.initial_state()

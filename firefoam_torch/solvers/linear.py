@@ -217,20 +217,29 @@ def jacobi_smooth(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
 
 
 def solve_scalar(m, x0: torch.Tensor, solver: str = "PCG", tol: float = 1e-6,
-                 rel_tol: float = 0.0, max_iter: int = 1000, sched=None,
-                 preconditioner: str = None, smoother: str = None,
+                 rel_tol: float = 0.0, max_iter: int = 1000, component: int = None,
+                 sched=None, preconditioner: str = None, smoother: str = None,
                  n_sweeps: int = 1) -> SolverResult:
-    """Solve one scalar FvMatrix system on the DIA layout. With an
-    LduSchedule, PCG+DIC and smoothSolver+*GaussSeidel run the
-    OpenFOAM-exact wavefront solvers of solvers/dic.py, so that iteration
-    counts and left-over error modes track the reference's. Otherwise
-    PCG/GAMG, PBiCGStab/PBiCG and smoothSolver go to the whole-solve kernels
-    of dia_krylov (plain twins on the CPU); smoothSolver is then damped
-    Jacobi with max(maxIter, 200) rounds of 4 sweeps, as in the JAX package."""
+    """Solve one scalar FvMatrix system (or one `component` of a vector
+    system) on the DIA layout. With an LduSchedule, PCG+DIC and
+    smoothSolver+*GaussSeidel run the OpenFOAM-exact wavefront solvers of
+    solvers/dic.py, so that iteration counts and left-over error modes track
+    the reference's. Otherwise PCG/GAMG, PBiCGStab/PBiCG and smoothSolver go
+    to the whole-solve kernels of dia_krylov (plain twins on the CPU);
+    smoothSolver is then damped Jacobi with max(maxIter, 200) rounds of 4
+    sweeps, as in the JAX package. "diagonal" divides the source by the
+    diagonal (the rhoEqn solver)."""
     from . import dia_krylov
 
     diag_t, b = m.totals()
+    if component is not None:
+        diag_t = (diag_t[:, component] if diag_t.ndim == 2 else diag_t).contiguous()
+        b = b[:, component].contiguous()
     g = m.geom
+    if solver == "diagonal":
+        x = b / diag_t
+        z = torch.zeros((), dtype=x.dtype, device=x.device)
+        return SolverResult(x, z, z, torch.zeros((), dtype=torch.int32, device=x.device))
     if sched is not None:
         from .dic import dic_pcg, sgs_solve
 

@@ -1,20 +1,28 @@
-"""LES SGS model kEqn (+ cubeRootVol delta).
+"""LES SGS models kEqn, WALE/WALE2 and SIGMA2 (+ cubeRootVol delta).
 
+kEqn:
   nut  = Ck·sqrt(k)·Δ
   k-eqn: ddt(ρk) + div(φ,k) − lap(ρ·DkEff,k) =
          ρ·G − (2/3)ρ·divU·k − Ce·ρ·k^1.5/Δ
   G    = nut·(dev(2·symm(∇U)) : ∇U)
   ε    = Ce·k^1.5/Δ   (used by the EDM combustion rate)
 
+WALE / WALE2 (WALE.C:120-133): the same k transport with the WALE eddy
+viscosity in the production and the diffusivity,
+  nuSgs = (cw·Δ)²·(Sd:Sd)^{3/2} / ((S:S)^{5/2} + (Sd:Sd)^{5/4} + ε),
+  Sd = dev(symm(g·g)),  g = ∇U.
+SIGMA2 (SIGMA2.C): algebraic σ-model from the singular values of ∇U (the
+closed-form eigenvalues of ∇Uᵀ∇U), no k transport: k = (nuSgs/(Ck·Δ))².
+
 Also provides divDevRhoReff's explicit part for the momentum equation:
-−div(muEff·dev2(∇Uᵀ)). The JAX package's WALE/WALE2/SIGMA2 models are not
-ported; selecting one raises.
+−div(muEff·dev2(∇Uᵀ)).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,7 +43,13 @@ class KEqnLES:
     Ce: float = 1.048
     Prt: float = 1.0
     k_min: float = 1e-14
+    model: str = "kEqn"  # kEqn | WALE | WALE2 | SIGMA2
+    cw: float = 0.5  # WALE coefficient
+    cx: float = 1.35  # SIGMA coefficient
     div_scheme: tuple = ("limitedLinear", 1.0)
+    # laplacianSchemes' non-orthogonal correction (set by FireFoamSolver):
+    # None uncorrected, 1.0 corrected, α < 1 limited α
+    lap_limiter: Optional[float] = None
 
     @classmethod
     def from_case(cls, geom: MeshGeometry, turb_dict, les_props=None) -> "KEqnLES":
@@ -62,11 +76,49 @@ class KEqnLES:
             kw["Ck"] = coeffs.get_scalar("Ck", coeffs.get_scalar("ck", ck_default))
             kw["Ce"] = coeffs.get_scalar("Ce", coeffs.get_scalar("ce", ce_default))
             kw["Prt"] = coeffs.get_scalar("Prt", 1.0)
+            kw["cw"] = coeffs.get_scalar("cw", 0.5)
+            kw["cx"] = coeffs.get_scalar("cx", 1.35)
         if model == "oneEqEddy":
             model = "kEqn"  # 2.4.x name for the same one-equation SGS model
-        if model in ("WALE", "WALE2", "SIGMA2"):
-            raise NotImplementedError(f"LESModel {model}")
-        return cls(geom=geom, delta=delta, **kw)
+        if model not in ("kEqn", "WALE", "WALE2", "SIGMA2"):
+            model = "kEqn"  # stock core models default to kEqn behaviour
+        return cls(geom=geom, delta=delta, model=model, **kw)
+
+    # --------------------------------------------- gradU-based viscosities
+    def _nut_wale(self, gradU: torch.Tensor) -> torch.Tensor:
+        """WALE operator (WALE.C:120-129)."""
+        S = 0.5 * (gradU + gradU.transpose(-1, -2))
+        gg = torch.einsum("cij,cjk->cik", gradU, gradU)
+        sym_gg = 0.5 * (gg + gg.transpose(-1, -2))
+        tr = torch.diagonal(sym_gg, dim1=-2, dim2=-1).sum(-1)
+        eye = torch.eye(3, dtype=gradU.dtype, device=gradU.device)
+        Sd = sym_gg - (tr / 3.0)[:, None, None] * eye
+        SdSd = torch.einsum("cij,cij->c", Sd, Sd)
+        SuSu = torch.einsum("cij,cij->c", S, S)
+        eps = torch.finfo(gradU.dtype).tiny * 1e6
+        return (self.cw * self.delta) ** 2 * SdSd ** 1.5 / (SuSu ** 2.5 + SdSd ** 1.25 + eps)
+
+    def _nut_sigma(self, gradU: torch.Tensor) -> torch.Tensor:
+        """σ-model via the closed-form eigenvalues of ∇Uᵀ∇U (SIGMA2.C)."""
+        G = torch.einsum("cji,cjk->cik", gradU, gradU)  # gradU.T & gradU
+        L1 = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
+        GG = torch.einsum("cij,cjk->cik", G, G)
+        L2 = 0.5 * (L1 ** 2 - torch.diagonal(GG, dim1=-2, dim2=-1).sum(-1))
+        L3 = torch.linalg.det(G)
+        eps = torch.finfo(gradU.dtype).tiny * 1e6
+        A1 = torch.clamp(L1 ** 2 / 9.0 - L2 / 3.0, min=0.0) + eps
+        A2 = L1 ** 3 / 27.0 - L1 * L2 / 6.0 + L3 / 2.0
+        R12 = torch.clamp(A2 / (A1 ** 1.5 + eps), -1.0, 1.0)
+        A3 = torch.arccos(0.9999 * R12) / 3.0
+        sq = torch.sqrt(A1)
+        ss1 = L1 / 3.0 + 2.0 * sq * torch.cos(A3)
+        ss2 = L1 / 3.0 - 2.0 * sq * torch.cos(math.pi / 3.0 + A3)
+        ss3 = L1 / 3.0 - 2.0 * sq * torch.cos(math.pi / 3.0 - A3)
+        S1 = torch.sqrt(torch.abs(ss1))
+        S2 = torch.sqrt(torch.abs(ss2))
+        S3 = torch.sqrt(torch.abs(ss3))
+        nut = (self.cx * self.delta) ** 2 * (S3 * (S1 - S2) * (S2 - S3)) / (S1 ** 2 + eps)
+        return torch.abs(nut)
 
     # ------------------------------------------------------------- algebra
     def nut(self, k: torch.Tensor) -> torch.Tensor:
@@ -94,7 +146,18 @@ class KEqnLES:
         """Advance k one step; returns (k_new, nut_internal, solver stats)."""
         g = self.geom
         gradU = fvc.grad(g, U)
-        nut_i = self.nut(k.i)
+        if self.model in ("WALE", "WALE2"):
+            nut_i = self._nut_wale(gradU)
+        elif self.model == "SIGMA2":
+            nut_i = self._nut_sigma(gradU)
+            # algebraic model: no k transport (SIGMA2.C: k from muSgs)
+            k_i = (nut_i / (self.Ck * self.delta)) ** 2
+            k_new = bcmod.evaluate(k_bcs, g, VolField(k_i, k.b), ctx)
+            zero = torch.zeros((), dtype=k.i.dtype, device=k.i.device)
+            return k_new, nut_i, SolverResult(
+                k_i, zero, zero, torch.zeros((), dtype=torch.int32, device=k.i.device))
+        else:
+            nut_i = self.nut(k.i)
         G = self.production(nut_i, gradU)
         divU = fvc.div_flux(g, fvc.flux(g, U))
 
@@ -116,13 +179,20 @@ class KEqnLES:
             w = g.w
         elif sch[0] == "upwind":
             w = fvm.upwind_weights(g, phi.i)
+        elif sch[0] == "filteredLinear2":
+            lim = fvm.filtered_linear2_limiter(g, k, None, k=sch[1], l=sch[2])
+            w = fvm.limiter_weights(g, phi.i, lim)
         else:
             raise NotImplementedError(f"div(phi,k) scheme '{sch[0]}'")
 
+        corr = None
+        if self.lap_limiter is not None:
+            corr = fvc.non_orth_correction(
+                g, k, limiter=None if self.lap_limiter >= 1.0 else self.lap_limiter)
         m = (
             fvm.ddt(g, rho.i, k, k.i, rho_old, dt)
             + fvm.div(g, phi, k, w, vic, vbc)
-            - fvm.laplacian(g, dk_eff_rho, k, gic, gbc)
+            - fvm.laplacian(g, dk_eff_rho, k, gic, gbc, corr=corr)
             + fvm.Sp(g, self.Ce * rho.i * torch.sqrt(torch.clamp(k.i, min=0.0)) / self.delta, k)
         )
         # −(2/3)ρ·divU·k: SuSp — implicit where the coefficient is positive

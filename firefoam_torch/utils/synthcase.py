@@ -10,8 +10,10 @@ family (buoyant LES + EDM + burner inlet) at configurable size.
 from __future__ import annotations
 
 import os
+import re
 
-__all__ = ["write_box_fire_case", "write_smooth_fire_case", "write_castellated_fire_case"]
+__all__ = ["write_box_fire_case", "write_smooth_fire_case", "write_wall_fire_case",
+           "write_castellated_fire_case"]
 
 
 def _w(path, text):
@@ -431,6 +433,196 @@ RTI 50; C 0.5; initialTemperature 298.15; activationTemperature 330;
         "FoamFile { version 2.0; format ascii; class dictionary; object rtiProperties; }\n"
         f"active true;\n{links}\n",
     )
+    return root
+
+
+def _set_patch(root: str, field: str, patch: str, spec: str):
+    """Replace patch `patch`'s entry in 0/<field> by `spec`, or append it."""
+    path = f"{root}/0/{field}"
+    with open(path) as f:
+        txt = f.read()
+    block = f"    {patch} {{\n        {spec}\n    }}"
+    pat = re.compile(rf"^    {re.escape(patch)} \{{\n.*?\n    \}}", re.S | re.M)
+    if pat.search(txt):
+        txt = pat.sub(lambda _: block, txt, count=1)
+    else:
+        txt = txt.rstrip()
+        assert txt.endswith("}")
+        txt = txt[:-1] + block + "\n}\n"
+    _w(path, txt)
+
+
+def _replace(path: str, old: str, new: str):
+    with open(path) as f:
+        txt = f.read()
+    if old not in txt:
+        raise ValueError(f"{path}: the box fire's text has changed")
+    _w(path, txt.replace(old, new))
+
+
+def write_wall_fire_case(
+    root: str,
+    n=(8, 8, 8),
+    shear: float = 0.1,
+    baffle: bool = False,
+    size=(1.0, 1.0, 1.0),
+    **kw,
+) -> str:
+    """The box fire (write_box_fire_case) turned into a wall fire that runs
+    the gas-phase variants of the reference cases:
+
+      * the block sheared, x += shear·y: still a lattice (DIA) but
+        non-orthogonal, with `laplacianSchemes default Gauss linear limited
+        0.5` (the deferred correction on every implicit laplacian) and
+        `div(phi,U) Gauss filteredLinear2V 0.2 0.05`;
+      * the x = 0 side split off as patch `wall` (type wall): U noSlip, T
+        fixedValue, nut nutFireWallFunction, alphat alphatFireWallFunction
+        (QcFlame 20000, QcThreshold 2000), k kqRWallFunction; on `base`
+        nutUSpaldingWallFunction, compressible::alphatWallFunction and
+        kqRWallFunction;
+      * LESModel WALE, and eddyDissipationBertExtModel with an Fstar specie
+        (its thermo a clone of C3H8's; extinction from 0.3 s on);
+      * baffle=True: a steckler-style ceiling baffle, the faceZone of the
+        horizontal faces nearest 0.8·ly over the burner made into the wall
+        patches baffle_master/baffle_slave by createBaffles, with
+        compressible::thermalBaffle1D<hConstSolidThermoPhysics> on T and
+        compressible::alphatWallFunction on alphat.
+
+    Everything else (solvers, fvDOM, burner) is the box fire's."""
+    write_box_fire_case(root, n=n, size=size, **kw)
+    nx, ny, nz = n
+    lx, ly, lz = size
+    hb = 0.25 * lx  # the box fire's burner half-width
+    sy = shear * ly
+    _w(
+        f"{root}/constant/polyMesh/blockMeshDict",
+        f"""FoamFile {{ version 2.0; format ascii; class dictionary; object blockMeshDict; }}
+convertToMeters 1;
+vertices (
+    (0 0 0) ({lx} 0 0) ({lx + sy} {ly} 0) ({sy} {ly} 0)
+    (0 0 {lz}) ({lx} 0 {lz}) ({lx + sy} {ly} {lz}) ({sy} {ly} {lz})
+);
+blocks ( hex (0 1 2 3 4 5 6 7) ({nx} {ny} {nz}) simpleGrading (1 1 1) );
+edges ();
+boundary (
+    top   {{ type patch; faces ( (3 7 6 2) ); }}
+    wall  {{ type wall;  faces ( (0 4 7 3) ); }}
+    sides {{ type patch; faces ( (1 2 6 5) (0 3 2 1) (4 5 6 7) ); }}
+    base  {{ type wall;  faces ( (0 1 5 4) ); }}
+);
+mergePatchPairs ();
+""",
+    )
+    _replace(f"{root}/system/fvSchemes", "div(phi,U) Gauss LUST grad(U);",
+             "div(phi,U) Gauss filteredLinear2V 0.2 0.05;")
+    _replace(f"{root}/system/fvSchemes", "CO2 limitedLinear01 1;",
+             "CO2 limitedLinear01 1; Fstar limitedLinear01 1;")
+    _replace(f"{root}/system/fvSchemes", "laplacianSchemes { default Gauss linear uncorrected; }",
+             "laplacianSchemes { default Gauss linear limited 0.5; }")
+    _replace(f"{root}/system/fvSchemes", "snGradSchemes { default uncorrected; }",
+             "snGradSchemes { default limited 0.5; }")
+    _replace(f"{root}/constant/reactions", "species ( O2 H2O C3H8 CO2 N2 );",
+             "species ( O2 H2O C3H8 CO2 N2 Fstar );")
+    c3h8 = re.search(r"^C3H8 \{.*?^\}\n", _THERMO_GAS, re.S | re.M).group(0)
+    _w(f"{root}/constant/thermo.gas", _THERMO_GAS + "Fstar" + c3h8[len("C3H8"):])
+    _w(
+        f"{root}/constant/turbulenceProperties",
+        """FoamFile { version 2.0; format ascii; class dictionary; object turbulenceProperties; }
+simulationType LES;
+LES {
+    LESModel WALE; delta cubeRootVol; turbulence on; printCoeffs off;
+    WALECoeffs { Ck 0.094; Ce 1.048; cw 0.325; Prt 1; }
+    cubeRootVolCoeffs { deltaCoeff 1; }
+}
+""",
+    )
+    _w(
+        f"{root}/constant/combustionProperties",
+        f"""FoamFile {{ version 2.0; format ascii; class dictionary; object combustionProperties; }}
+combustionModel eddyDissipationBertExtModel<psiThermoCombustion,gasHThermoPhysics>;
+eddyDissipationBertExtModelCoeffs {{
+    semiImplicit no; C_EDC 4.0; C_Diff 0; C_Stiff 1; active on;
+    ExtinctionStart 0.3; FuelExtTemp 400; FuelStarExtTemp 1000;
+    Cstrain 0.25; XrExtinction 0.05; nearWallExtinction false; radiativeHeatLoss false;
+}}
+""",
+    )
+    walls = {
+        "U": "type noSlip;",
+        "T": "type fixedValue;\n        value uniform 298.15;",
+        "p_rgh": "type fixedFluxPressure;\n        value uniform 0;",
+        "p": "type calculated;\n        value uniform 101325;",
+        "k": "type kqRWallFunction;\n        value uniform 1e-4;",
+        "alphat": ("type alphatFireWallFunction;\n        QcFlame 20000;\n"
+                   "        QcThreshold 2000;\n        value uniform 0;"),
+        "nut": "type nutFireWallFunction;\n        value uniform 0;",
+        "O2": "type zeroGradient;",
+        "C3H8": "type zeroGradient;",
+        "Ydefault": "type zeroGradient;",
+        "IDefault": ("type greyDiffusiveRadiation;\n        T T;\n        emissivityMode lookup;\n"
+                     "        emissivity uniform 1;\n        value uniform 0;"),
+    }
+    for field, spec in walls.items():
+        _set_patch(root, field, "wall", spec)
+    _set_patch(root, "nut", "base", "type nutUSpaldingWallFunction;\n        value uniform 0;")
+    _set_patch(root, "alphat", "base",
+               "type compressible::alphatWallFunction;\n        Prt 1;\n        value uniform 0;")
+    _set_patch(root, "k", "base", "type kqRWallFunction;\n        value uniform 1e-4;")
+    if not baffle:
+        return root
+
+    # the horizontal faces of the lattice plane nearest 0.8·ly, over the
+    # burner (sheared along with the block)
+    j = max(1, min(ny - 1, round(0.8 * ny)))
+    yb = j * ly / ny
+    eps = 0.25 * ly / ny
+    hw = 1.2 * hb
+    x0 = lx / 2 + shear * yb
+    _w(
+        f"{root}/system/topoSetDictBaffle",
+        f"""FoamFile {{ version 2.0; format ascii; class dictionary; object topoSetDict; }}
+actions (
+    {{ name baffleFaceSet; type faceSet; action new; source boxToFace;
+      sourceInfo {{ box ({x0 - hw} {yb - eps} {lz / 2 - hw}) ({x0 + hw} {yb + eps} {lz / 2 + hw}); }} }}
+    {{ name baffleFaces; type faceZoneSet; action new; source setToFaceZone;
+      sourceInfo {{ faceSet baffleFaceSet; }} }}
+);
+""",
+    )
+    _w(
+        f"{root}/system/createBafflesDict",
+        """FoamFile { version 2.0; format ascii; class dictionary; object createBafflesDict; }
+internalFacesOnly true;
+baffles {
+    baffleFaces {
+        type faceZone; zoneName baffleFaces;
+        patches {
+            master { name baffle_master; type wall; }
+            slave  { name baffle_slave;  type wall; }
+        }
+    }
+}
+""",
+    )
+    with open(f"{root}/mesh.sh", "a") as f:
+        f.write("runApplication topoSet -dict system/topoSetDictBaffle\n"
+                "runApplication createBaffles -overwrite\n")
+    tb = "type compressible::thermalBaffle1D<hConstSolidThermoPhysics>;"
+    sides = {
+        "baffle_master": (f"{tb}\n        samplePatch baffle_slave;\n"
+                          "        thickness uniform 0.005;\n        Qs uniform 0;\n"
+                          "        transport { kappa 0.2; }\n        value uniform 298.15;"),
+        "baffle_slave": f"{tb}\n        samplePatch baffle_master;\n        value uniform 298.15;",
+    }
+    for side, t_spec in sides.items():
+        for field, spec in walls.items():
+            if field == "T":
+                spec = t_spec
+            elif field == "alphat":
+                spec = "type compressible::alphatWallFunction;\n        Prt 1;\n        value uniform 0;"
+            elif field == "nut":
+                spec = "type zeroGradient;"
+            _set_patch(root, field, side, spec)
     return root
 
 

@@ -37,7 +37,8 @@ import torch
 
 from firefoam_torch.models.firefoam import FireFoamSolver, state_from_numpy, state_to_numpy
 from firefoam_torch.solvers import dia_krylov, linear
-from firefoam_torch.utils.synthcase import write_box_fire_case, write_smooth_fire_case
+from firefoam_torch.utils.synthcase import (write_box_fire_case, write_smooth_fire_case,
+                                             write_wall_fire_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -57,6 +58,7 @@ SHAPES = {
     "9k": ((30, 15, 20), 1),
     "9kx3": ((30, 15, 20), 3),
     "100k": ((50, 40, 50), 1),
+    "100kx5": ((50, 40, 50), 5),  # the Yi batch with an Fstar specie
     "960x150": (NXYZ, 150),
 }
 
@@ -334,6 +336,35 @@ def test_box_fire_step_on_cuda_matches_cpu(tmp_path, smooth):
         if k.endswith("_iters") or "iters_" in k:
             assert int(log_g[k]) == int(log_c[k]), (k, int(log_g[k]), int(log_c[k]))
     for f in ("T", "U", "p_rgh", "Y", "k"):
+        a, b = st_g[f].i.cpu().numpy(), st_c[f].i.numpy()
+        rel = np.max(np.abs(a - b)) / np.max(np.abs(b))
+        assert rel <= 1e-9, (f, rel)
+
+
+@pytest.mark.parametrize("baffle", [False, True])
+def test_wall_fire_step_on_cuda_matches_cpu(tmp_path, baffle):
+    """The wall-fire case (non-orthogonal correction, filteredLinear2V,
+    WALE, BertExt with Fstar, the wall functions; with the ceiling baffle)
+    on the card in float64 through K1/K2 against the CPU twins: one step
+    from the same state to 1e-9 with equal iteration counts, the species
+    batch a K1 launch of 5 rows."""
+    _need_cuda()
+    root = write_wall_fire_case(str(tmp_path / "wall"), n=(10, 8, 10), baffle=baffle)
+    cpu = FireFoamSolver(root, device="cpu", dtype=torch.float64, exact_solvers=False, amg=False)
+    gpu = FireFoamSolver(root, device="cuda", dtype=torch.float64, exact_solvers=False)
+    st_c, _ = cpu.make_chunk(12)(cpu.initial_state())
+    st_g = state_from_numpy(state_to_numpy(st_c), device="cuda", dtype=torch.float64)
+    dia_krylov.reset_counts()
+    st_c, log_c = cpu.step(st_c)
+    st_g, log_g = gpu.step(st_g)
+    torch.cuda.synchronize()
+    assert dia_krylov.LAUNCHES["pcg"] == 2 and dia_krylov.LAUNCHES["bicgstab"] >= 4
+    for k in log_c:
+        if k.endswith("_iters") or "iters_" in k:
+            assert int(log_g[k]) == int(log_c[k]), (k, int(log_g[k]), int(log_c[k]))
+    for f in ("T", "U", "p_rgh", "Y", "k", "nut", "alphat"):
+        a, b = st_g[f].b.cpu().numpy(), st_c[f].b.numpy()
+        assert np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300) <= 1e-9, (f, "b")
         a, b = st_g[f].i.cpu().numpy(), st_c[f].i.numpy()
         rel = np.max(np.abs(a - b)) / np.max(np.abs(b))
         assert rel <= 1e-9, (f, rel)
