@@ -13,7 +13,9 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      grid-wide kernels), on the 9k-cell lattice, on a batch whose rows stop
      at different iterations, and on more rows than the card has blocks
      (the one-block-per-row kernels); K3's main-path solve is also timed
-     through its one-block-per-row kernel, whose x must be bit-equal;
+     through its one-block-per-row kernel, whose x must be bit-equal; K1 at
+     the banded fvDOM's shapes, 128 and 160 rows of 100k cells with a
+     matrix each (grid-wide with one block a row, and one block per row);
   4. the main path at 100k cells in float32: write_box_fire_case(50,40,50)
      → FireFoamSolver(device="cuda") → initial_state() → one warm-up step →
      make_chunk(20), with the kernels' launch counters checked, every logged
@@ -66,7 +68,27 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      (thermalBaffle1D) over 10 steps, float64 on the card against float64
      on the CPU within CPU_TOL and float32 against float64 within the T
      drift band;
- 10. the kernels' JSON line, the card line, and the final JSON line.
+ 10. the radiation family (write_radiation_fire_case): at 100k cells in
+     float32, make_chunk(20) from t = 0 of grey-mean fvDOM (16 rays,
+     greyMeanAbsorptionEmission with the ft table, constantScatter,
+     maxIter 3, an absorptivityMode lookup wall, mixtureFractionSoot), of
+     banded fvDOM (32 rays x Smith's 4 wsggmAbsorptionEmissionSmithBand
+     bands: K1 gets 128 rows with a matrix each) and of P1 (one K1 row a
+     radiation step), each with its launch counts checked against the
+     solves (ray sweeps included), fields and logs finite, the gas heating
+     below T_FLAME_MAX, and a second run bitwise equal; the radiation
+     step's launches and device-busy ms beside a step without radiation
+     (torch.profiler); its K1 launch captured and run again alone beside the
+     plain version on the same operands, x within RAD_X_TOL and each row's
+     true residual within RAD_RES_FACTOR of the plain version's; then at 9k
+     cells 10 steps of each of the three, float64 on the card against
+     float64 on the CPU (T and U within CPU_TOL, G within G_TOL) and float32
+     against float64 within the T drift band, and one radiation solve from
+     the CPU's float64 state at a tight tolerance on both sides, G within
+     CPU_TOL; and viewFactor and opaqueSolid at 9k cells: an isothermal
+     enclosure gives qr of about 0, and walls from 300 K to 1200 K give the
+     card's float64 qr within CPU_TOL of the CPU's largest |qr|;
+ 11. the kernels' JSON line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
@@ -96,7 +118,8 @@ from firefoam_torch.models.firefoam import FireFoamSolver  # noqa: E402
 from firefoam_torch.solvers import dia_krylov, dic, linear  # noqa: E402
 from firefoam_torch.profile_step import _busy_us  # noqa: E402
 from firefoam_torch.utils.synthcase import (  # noqa: E402
-    write_box_fire_case, write_smooth_fire_case, write_wall_fire_case)
+    write_box_fire_case, write_radiation_fire_case, write_smooth_fire_case,
+    write_wall_fire_case)
 
 N_MAIN = (50, 40, 50)  # 100,000 cells
 N_SMALL = (30, 15, 20)  # 9,000 cells
@@ -121,6 +144,15 @@ PROFILE_STEPS = 3
 T_FLAME_MAX = 3000.0
 CHUNK = 20
 DRIFT_STEPS = 10
+# K1 rows of the banded fvDOM: 32 rays x 4 bands (grid-wide, one block a
+# row on a 132-SM card) and x 5 bands (more rows than blocks)
+BANDED_ROWS = (128, 160)
+# isothermal enclosure: |qr| against σT⁴ of the walls (the view factors'
+# closure comes from 50 scaling passes, not an exact normalisation)
+QR_ISO_TOL = 1e-3
+# the grey-mean absorption in float32 against float64 from the same state:
+# its T-polynomials in 1/T cancel about twentyfold
+FT_TABLE_TOL = 1e-4
 SOURCE = "firefoam_torch/csrc/dia_krylov.cu"
 REPLACES = {
     "bicgstab": "firefoam_tpu/solvers/pallas_cg.py:281",
@@ -164,6 +196,25 @@ RESUME_TOL = 0.0
 # card f64 vs CPU f64 after DRIFT_STEPS steps: the fvDOM ray solves stop at
 # a residual of 1e-4, and where they stop depends on summation order
 CPU_TOL = 1e-6
+# the radiation field itself (G) after DRIFT_STEPS steps, card f64 vs CPU
+# f64: BiCGStab carries a 1e-16 relative perturbation of a ray batch's
+# right-hand side into G at 4e-6..6e-6 (9k-cell grey-mean batch on the CPU),
+# and P1's G solve into 45..53 iterations and 1.3e-7; G is held to the ray
+# solve's tolerance. What this run's G owes to its solves' stopping points
+# alone is held to CPU_TOL by one solve at RAD_TIGHT_TOL from one state
+G_TOL = 1e-4
+RAD_TIGHT_TOL = 1e-12
+# the radiation's K1 launch captured in the step and run again alone: x of
+# the kernel against the plain version's (measured 4.9e-05..2.2e-04 in
+# float32, where the two stop some iterations apart), and each row's true
+# normalised residual against max(the plain version's, the tolerance). Both
+# residuals are recomputed in float64 with float64's normFactor: where a
+# row's intensity is nearly uniform that normFactor is small and float32's
+# own is rounding noise, so a float32 solve that stopped at 1e-4 by its own
+# measure can read far above 1e-4 here (Smith's transparent band at (8,6,7)
+# on the CPU reads 0.86 for both versions alike)
+RAD_X_TOL = 1e-2
+RAD_RES_FACTOR = 10.0
 # one step on the card from the CPU's float64 state, against the CPU's step
 STEP_TOL = 1e-9
 # the smoothSolver case over DRIFT_STEPS steps from t = 0, card f64 vs CPU
@@ -278,8 +329,9 @@ def phase_kernels(dev, G, sync_s):
     # (lattice, B, per-row matrices, rows stop apart)
     main = tuple((N_MAIN, B, pr, False)
                  for B, pr in ((1, False), (3, False), (4, True), (16, True)))
-    # the wall fire's species batch (Fstar makes it 5 rows): K1 only
-    wall = ((N_MAIN, 5, True, False),)
+    # the wall fire's species batch (Fstar makes it 5 rows) and the banded
+    # fvDOM's (ray x band) batches, 32 x 4 and 32 x 5 rows: K1 only
+    wall = ((N_MAIN, 5, True, False),) + tuple((N_MAIN, B, True, False) for B in BANDED_ROWS)
     extra = ((N_SMALL, 1, False, False), (N_SMALL, 4, True, False), (N_SMALL, 4, True, True),
              (N_SMALL, G + 68, False, False))  # more rows than blocks: 200 on an H100
     for name, plain, kern, sym, shapes in (
@@ -373,12 +425,22 @@ def phase_kernels(dev, G, sync_s):
                            f"{ms_laid_out(resident=False):.3f} ms; with at least 256 cells "
                            f"a block {ms_laid_out(min_cells=256):.3f} ms, 1024 cells "
                            f"{ms_laid_out(min_cells=1024):.3f} ms")
-                if name == "bicgstab" and nxyz == N_MAIN and B == 5 and dtype == torch.float32:
-                    st["ms_B5"], st["plain_ms_B5"] = ms_k, ms_p
-                    st["bound_ms_B5"], _ = bound(name, dtype, (d, up, lo, b, x0), it_k)
-                    say(3, f"bicgstab B=5 (the wall fire's species batch) bound "
-                           f"{st['bound_ms_B5']:.4f} ms; {1e3 * ms_k / float(np.max(it_k)):.3f} us "
-                           f"per iteration")
+                if (name == "bicgstab" and nxyz == N_MAIN and dtype == torch.float32
+                        and B in (5,) + BANDED_ROWS):
+                    row = {"ms": ms_k, "plain_ms": ms_p, "iterations": int(np.max(it_k)),
+                           "us_per_iteration": 1e3 * ms_k / float(np.max(it_k)),
+                           "bound_ms": bound(name, dtype, (d, up, lo, b, x0), it_k)[0],
+                           "streamed_ms": streamed_ms(name, dtype, nC, it_k),
+                           # one block per row: block barriers, no grid barrier
+                           "latency_ms": latency_ms(name, it_k, sync_s) if plan.grid_wide else None,
+                           "blocks": B * plan.blocks_per_row if plan.grid_wide else B}
+                    st[f"B{B}"] = row
+                    batch = "the wall fire's species" if B == 5 else "the banded fvDOM's"
+                    say(3, f"bicgstab B={B} per-row ({batch} batch): "
+                           f"{row['iterations']} iterations, {row['us_per_iteration']:.3f} us each, "
+                           f"{row['blocks']} blocks; bound {row['bound_ms']:.4f} ms; streamed "
+                           f"{row['streamed_ms']:.4f} ms; grid barriers alone "
+                           f"{'n/a' if row['latency_ms'] is None else format(row['latency_ms'], '.4f')} ms")
                 if name == "smooth" and nxyz == N_MAIN and B in (1, 4):
                     # the main path's h/k and Yi shapes through the kernel that
                     # takes B > G: a sweep is the same expression in both
@@ -765,6 +827,362 @@ def phase_wall_baffle(dev, tmp):
         raise SystemExit(f"phase 9: the card's float64 run differs from the CPU's beyond {CPU_TOL}")
 
 
+# ---------------------------------------------------------------- phase 10
+def rad_launches(rad) -> int:
+    """K1 launches the radiation model made since it was built: fvDOM's ray
+    sweeps, P1's G solves."""
+    return getattr(rad, "sweeps", getattr(rad, "solves", 0))
+
+
+def radiation_leaves(state):
+    return [v for v in state["rad"].values() if torch.is_tensor(v)]
+
+
+def radiation_run(dev, case, what):
+    """make_chunk(CHUNK) from t = 0 at 100k cells in float32 with the
+    launch counters and the K1 row counts recorded; the same steps again,
+    bitwise equal. Returns (solver, state, launches, ms/step)."""
+    t0 = time.perf_counter()
+    solver = FireFoamSolver(case, device=dev)
+    rad = solver.radiation
+    state0 = solver.initial_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    T0_max = float(state0["T"].i.max())
+    rows, launch = [], dia_krylov._launch
+
+    def recording(name, diag, upper, lower, b, x0, *a, **k):
+        rows.append((name, x0.shape[0] if x0.ndim == 2 else 1))
+        return launch(name, diag, upper, lower, b, x0, *a, **k)
+
+    chunk = solver.make_chunk(CHUNK)
+    before = rad_launches(rad)
+    dia_krylov._launch = recording
+    try:
+        dia_krylov.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logs = chunk(state0)
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        launches = dict(dia_krylov.LAUNCHES)
+    finally:
+        dia_krylov._launch = launch
+    n_rad = rad_launches(rad) - before
+    opportunities = expected_launches(rad, 0, CHUNK)[0] - 4 * CHUNK
+    batch = rad.n_rays * rad.n_lambda if hasattr(rad, "n_lambda") else 1
+    on_batch = sum(1 for name, B in rows if name == "bicgstab" and B == batch)
+    ms = 1e3 * dt_s / CHUNK
+    fields = ("T", "U", "p_rgh", "Y", "k")
+    finite = all(bool(torch.isfinite(state[f].i).all() and torch.isfinite(state[f].b).all())
+                 for f in fields) and all(bool(torch.isfinite(v).all())
+                                          for v in radiation_leaves(state))
+    bad_logs = [k for k, v in logs.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    T_max = float(state["T"].i.max())
+    soot = float(solver.soot.soot(state["Y"].i).max()) if solver.soot is not None else None
+    say(10, f"{what}, {solver.geom.n_cells} cells float32: {ms:.3f} ms/step (setup "
+            f"{setup_s:.1f} s), T max {T_max:.3f} K (initially {T0_max:.3f} K) at t = "
+            f"{float(state['t']):.4f} s, Qdot_total {float(logs['Qdot_total'][-1]):.6e} W, "
+            f"G max {float(state['rad']['G'].max()):.6e} W/m2, soot max {soot:.3e}; fields "
+            f"finite {finite}, non-finite log entries {bad_logs}")
+    if rad.last_iters is not None:
+        its = rad.last_iters.cpu()
+        say(10, f"{what}: {n_rad} radiation launches; the last one's rows took "
+                f"{int(its.min())}..{int(its.max())} iterations (mean {float(its.float().mean()):.1f})")
+    say(10, f"{what}: launches K1 {launches['bicgstab']} (expected {4 * CHUNK} + {n_rad} "
+            f"radiation launches in {opportunities} radiation steps, {on_batch} of them with "
+            f"{batch} rows), K2 {launches['pcg']} (expected {2 * CHUNK}), K3 "
+            f"{launches['smooth']}")
+    if not finite or bad_logs:
+        raise SystemExit(f"phase 10: the {what} run is not finite")
+    if not T0_max + 1.0 < T_max < T_FLAME_MAX:
+        raise SystemExit(f"phase 10: the {what} run did not heat the gas, or ran away")
+    max_sweeps = getattr(rad, "max_iter", 1)
+    # fvDOM's ray batches are the only K1 launches of nR·nL > 4 rows; P1's
+    # G solve has one row, as h and k do
+    counts = (launches["bicgstab"], launches["pcg"], launches["smooth"])
+    if not (opportunities <= n_rad <= max_sweeps * opportunities
+            and (batch == 1 or on_batch == n_rad) and counts == (4 * CHUNK + n_rad, 2 * CHUNK, 0)):
+        raise SystemExit(f"phase 10: the {what} run's kernel launch counts do not match its solves")
+    again, logs2 = chunk(state0)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(again[f].i, state[f].i) and torch.equal(again[f].b, state[f].b)
+                for f in fields)
+            and all(torch.equal(a, b) for a, b in zip(radiation_leaves(again),
+                                                      radiation_leaves(state)))
+            and all(torch.equal(logs2[k], logs[k]) for k in logs))
+    say(10, f"{what}: the same {CHUNK} steps again, states and logs bitwise equal: {same}")
+    if not same:
+        raise SystemExit(f"phase 10: two runs of the {what} case differ")
+    return solver, state, launches, ms
+
+
+def profiled(step, state, n_steps):
+    """(state, kernel launches, device-busy ms, K1 device ms, K1 launches),
+    each per step, over n_steps steps (torch.profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n_steps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.lower().startswith(("memcpy", "memset")))
+    k1 = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "bicgstab" in e.name]
+    k1_us = sum(e.time_range.end - e.time_range.start for e in k1)
+    return (state, kernels / n_steps, _busy_us(prof) / 1e3 / n_steps,
+            k1_us / 1e3 / n_steps, len(k1) / n_steps)
+
+
+def small_radiation_runs(dev, tmp, models):
+    """10 steps of each model at 9k cells: float64 on the card against the
+    CPU's float64, float32 against float64."""
+    for model, kw in models:
+        # a solve on steps 1 and 6: the second one sees the burning gas, and
+        # its absorption feeds back into the steps after it
+        case = write_radiation_fire_case(os.path.join(tmp, f"rad9k_{model}"), n=N_SMALL,
+                                         model=model, solver_freq=5, **kw)
+        out, ms_run, sweeps, its = {}, {}, {}, {}
+        for run, d, dtype in (("f32", dev, torch.float32), ("f64", dev, torch.float64),
+                              ("cpu", torch.device("cpu"), torch.float64)):
+            s = FireFoamSolver(case, device=d, dtype=dtype, exact_solvers=False, gmg=False,
+                               amg=False)
+            st = s.initial_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = s.make_chunk(DRIFT_STEPS)(st)
+            torch.cuda.synchronize()
+            ms_run[run] = 1e3 * (time.perf_counter() - t0) / DRIFT_STEPS
+            sweeps[run] = rad_launches(s.radiation)
+            its[run] = s.radiation.last_iters.cpu()
+            out[run] = {f: torch.cat([st[f].i.reshape(-1), st[f].b.reshape(-1)]).double().cpu().numpy()
+                        for f in ("T", "U")}
+            out[run]["G"] = st["rad"]["G"].double().cpu().numpy()
+            if run == "cpu" and model == "greyMean":
+                ft_table_on_card(dev, case, st)
+        T32, T64 = out["f32"]["T"], out["f64"]["T"]
+        drift = float(np.max(np.abs(T32 - T64) / np.maximum(T64, 1.0)))
+        vs_cpu = {f: float(np.max(np.abs(out["f64"][f] - out["cpu"][f])) /
+                           np.max(np.abs(out["cpu"][f]))) for f in ("T", "U", "G")}
+        g32 = float(np.max(np.abs(out["f32"]["G"] - out["f64"]["G"])) / np.max(np.abs(out["f64"]["G"])))
+        other = int((its["f64"] != its["cpu"]).sum())
+        say(10, f"{model} {int(np.prod(N_SMALL))} cells, {DRIFT_STEPS} steps: float32 "
+                f"{ms_run['f32']:.3f} ms/step, float64 {ms_run['f64']:.3f} ms/step, CPU float64 "
+                f"{ms_run['cpu']:.1f} ms/step; radiation launches {sweeps}; max relative T drift "
+                f"float32 vs float64 {drift:.6e}; float64 card vs CPU: T {vs_cpu['T']:.3e}, "
+                f"U {vs_cpu['U']:.3e}, G {vs_cpu['G']:.3e}; the last radiation launch's rows "
+                f"with other iteration counts on the card: {other} of {its['cpu'].numel()}; "
+                f"G float32 vs float64 {g32:.3e}")
+        tight = radiation_solve_vs_cpu(dev, case, model)
+        if not np.all(np.isfinite(T32)) or not drift <= T_DRIFT:
+            raise SystemExit(f"phase 10: {model} float32 drifts from float64 beyond the band")
+        if not (max(vs_cpu["T"], vs_cpu["U"]) <= CPU_TOL and vs_cpu["G"] <= G_TOL
+                and sweeps["f64"] == sweeps["cpu"] and tight <= CPU_TOL):
+            raise SystemExit(f"phase 10: {model} on the card in float64 differs from the CPU's")
+
+
+def radiation_solve_vs_cpu(dev, case, model):
+    """One radiation solve from the CPU's float64 state after 5 steps (the
+    solve that first sees the flame), on the card and on the CPU in float64
+    with the solve's tolerance at RAD_TIGHT_TOL: max |ΔG| / max |G|."""
+    G, its, host = {}, {}, None
+    for run, d in (("cpu", torch.device("cpu")), ("f64", dev)):
+        s = FireFoamSolver(case, device=d, dtype=torch.float64, exact_solvers=False, gmg=False,
+                           amg=False)
+        if host is None:
+            st, _ = s.make_chunk(5)(s.initial_state())
+            host = firefoam_mod.state_to_numpy(st)
+        st = firefoam_mod.state_from_numpy(host, device=d, dtype=torch.float64)
+        s.radiation.tol = RAD_TIGHT_TOL
+        before = rad_launches(s.radiation)
+        G[run] = s.radiation.maybe_correct(st, s.gas)["G"].cpu().numpy()
+        if rad_launches(s.radiation) == before:
+            raise SystemExit(f"phase 10: {model}'s radiation did not solve after 5 steps")
+        its[run] = int(s.radiation.last_iters.max())
+    rel = float(np.max(np.abs(G["f64"] - G["cpu"])) / np.max(np.abs(G["cpu"])))
+    say(10, f"{model}: one radiation solve from the CPU's float64 state after 5 steps at "
+            f"tolerance {RAD_TIGHT_TOL:.0e} (up to {its['f64']} iterations on the card, "
+            f"{its['cpu']} on the CPU): G card vs CPU {rel:.3e}")
+    return rel
+
+
+def ft_table_on_card(dev, case, state):
+    """The grey-mean absorption (its ft-table interpolation included) on the
+    card in float32 and float64 from the same state, against float64."""
+    a = {}
+    for dtype in (torch.float32, torch.float64):
+        s = FireFoamSolver(case, device=dev, dtype=dtype, exact_solvers=False, gmg=False,
+                           amg=False)
+        st = firefoam_mod.state_from_numpy(firefoam_mod.state_to_numpy(state), device=dev,
+                                           dtype=dtype)
+        a[dtype] = torch.cat(s.radiation.absorption(st, s.gas)).double().cpu().numpy()
+    if not np.max(a[torch.float64]) > 0.0:
+        raise SystemExit("phase 10: the grey-mean state holds no absorbing gas")
+    rel = float(np.max(np.abs(a[torch.float32] - a[torch.float64])) /
+                np.max(np.abs(a[torch.float64])))
+    say(10, f"grey-mean absorption with the ft table on the card, float32 vs float64 from the "
+            f"same state: max {rel:.3e} of max a {np.max(a[torch.float64]):.4e} 1/m")
+    if not rel <= FT_TABLE_TOL:
+        raise SystemExit("phase 10: the ft-table absorption in float32 leaves float64's")
+
+
+def view_factor_runs(dev, tmp):
+    """viewFactor and opaqueSolid at 9k cells (see the module docstring)."""
+    case = write_radiation_fire_case(os.path.join(tmp, "rad9k_vf"), n=N_SMALL,
+                                     model="viewFactor", solver_freq=1)
+    qr = {}
+    for run, d, dtype in (("f32", dev, torch.float32), ("f64", dev, torch.float64),
+                          ("cpu", torch.device("cpu"), torch.float64)):
+        t0 = time.perf_counter()
+        s = FireFoamSolver(case, device=d, dtype=dtype, exact_solvers=False, gmg=False, amg=False)
+        build_s = time.perf_counter() - t0
+        vf = s.radiation
+        st = s.initial_state()
+        # the isothermal enclosure: every wall at 600 K
+        q_iso, _ = vf._solve(torch.full_like(st["T"].b, 600.0))
+        iso_rel = float(q_iso.abs().max()) / (5.670367e-8 * 600.0**4)
+        # walls from 300 K at the base to 1200 K at the top: qr of the
+        # order of sigma T^4
+        z = vf.geom.b_Cf[:, 2]
+        T_wall = 300.0 + 900.0 * (z - z.min()) / (z.max() - z.min())
+        qr[run] = vf._solve(T_wall)[0].double().cpu().numpy()
+        st, _ = s.make_chunk(DRIFT_STEPS)(st)
+        torch.cuda.synchronize()
+        q10 = vf.qr_boundary(st["rad"])
+        say(10, f"viewFactor {run}: {len(vf.sel)} wall faces, F built in {build_s:.1f} s (with "
+                f"the solver); isothermal enclosure max |qr| / sigma T^4 {iso_rel:.3e}; walls "
+                f"300-1200 K qr in [{qr[run].min():.4e}, {qr[run].max():.4e}] W/m2; after "
+                f"{DRIFT_STEPS} steps of the fire qr in [{float(q10.min()):.4e}, "
+                f"{float(q10.max()):.4e}] W/m2")
+        if not iso_rel <= QR_ISO_TOL:
+            raise SystemExit("phase 10: the isothermal enclosure exchanges net radiation")
+        if not bool(torch.isfinite(q10).all() and torch.isfinite(st["T"].i).all()):
+            raise SystemExit("phase 10: the viewFactor fire is not finite")
+    scale = float(np.max(np.abs(qr["cpu"])))
+    vs_cpu = {run: float(np.max(np.abs(qr[run] - qr["cpu"]))) / scale for run in ("f64", "f32")}
+    say(10, f"viewFactor qr, walls 300-1200 K, card vs CPU float64: float64 {vs_cpu['f64']:.3e}, "
+            f"float32 {vs_cpu['f32']:.3e} of the CPU's largest |qr| ({scale:.4e} W/m2)")
+    if not vs_cpu["f64"] <= CPU_TOL:
+        raise SystemExit("phase 10: the viewFactor qr on the card differs from the CPU's")
+    rp = os.path.join(case, "constant", "radiationProperties")
+    with open(rp) as f:
+        txt = f.read()
+    with open(rp, "w") as f:
+        f.write(txt.replace("radiationModel viewFactor;", "radiationModel opaqueSolid;"))
+    s = FireFoamSolver(case, device=dev)
+    st, logs = s.make_chunk(3)(s.initial_state())
+    zero = float(s.radiation.qr_boundary(st["rad"]).abs().max())
+    say(10, f"opaqueSolid ({type(s.radiation).__name__}) 3 steps: T max "
+            f"{float(st['T'].i.max()):.3f} K, max |qr| {zero:.1e}")
+    if type(s.radiation).__name__ != "OpaqueSolid" or zero != 0.0 or not bool(
+            torch.isfinite(st["T"].i).all()):
+        raise SystemExit("phase 10: opaqueSolid did not run as a transparent, inert model")
+
+
+def radiation_solve(solver, step, state, sync_s, what):
+    """The K1 launch of the radiation step from `state` (fvDOM's last ray
+    sweep; P1's G solve) captured and run again alone: kernel and plain
+    version on the same operands (ms, iterations, max relative difference
+    of x), and its bounds from this run's operands and iteration counts."""
+    got, orig = [], dia_krylov.dia_bicgstab
+
+    def shim(*a, **k):
+        got.append((a, k))
+        return orig(*a, **k)
+
+    dia_krylov.dia_bicgstab = shim
+    try:
+        step(state)
+    finally:
+        dia_krylov.dia_bicgstab = orig
+    rad = solver.radiation
+    rows = rad.n_rays * rad.n_lambda if hasattr(rad, "n_lambda") else 1
+    a, k = [(a, k) for a, k in got if k.get("max_iter") in (500, 1000)
+            and (a[4].shape[0] if a[4].ndim == 2 else 1) == rows][-1]
+    ops, x0 = a[:5], a[4]
+    run_k = lambda: orig(*a, **k)
+    run_p = lambda: dia_krylov.plain(linear.bicgstab, *a, **k)
+    rk, rp = run_k(), run_p()
+    torch.cuda.synchronize()
+    its = rk.n_iterations.reshape(-1).cpu().numpy()
+    its_p = rp.n_iterations.reshape(-1).cpu().numpy()
+    rel = float(((rk.x - rp.x).abs().max() / rp.x.abs().max()))
+    res_k, res_p = (true_residual(*ops, a[5], x) for x in (rk.x, rp.x))
+    worst = float(torch.max(res_k / torch.clamp(res_p, min=k["tol"])))
+    plan, _ = dia_krylov._grid_launch_plan("bicgstab", x0.dtype, rows, x0.shape[-1],
+                                           len(a[5]), x0.element_size())
+    out = {"ms": time_ms(run_k, reps=3), "plain_ms": time_ms(run_p, reps=1),
+           "iterations": int(its.max()), "rows": rows,
+           "bound_ms": bound("bicgstab", x0.dtype, ops, its)[0],
+           "streamed_ms": streamed_ms("bicgstab", x0.dtype, x0.shape[-1], its),
+           "latency_ms": latency_ms("bicgstab", its, sync_s) if plan.grid_wide else None,
+           "blocks": rows * plan.blocks_per_row if plan.grid_wide else rows}
+    say(10, f"{what}: its radiation solve ({rows} rows, captured in the step) alone: kernel "
+            f"{out['ms']:.3f} ms, {int(its.min())}..{int(its.max())} iterations; plain "
+            f"{out['plain_ms']:.3f} ms, {int(its_p.min())}..{int(its_p.max())} iterations; max rel "
+            f"difference of x {rel:.3e}; {out['blocks']} blocks; bound {out['bound_ms']:.4f} ms, "
+            f"streamed {out['streamed_ms']:.4f} ms, grid barriers alone "
+            f"{'n/a' if out['latency_ms'] is None else format(out['latency_ms'], '.4f')} ms")
+    say(10, f"{what}: true normalised residuals (float64) kernel {float(res_k.max()):.3e}, "
+            f"plain {float(res_p.max()):.3e} at tolerance {k['tol']:.0e}; the kernel's "
+            f"largest row against max(plain, tolerance): {worst:.3f}")
+    if not bool(torch.isfinite(rk.x).all()):
+        raise SystemExit(f"phase 10: the {what} radiation solve is not finite alone")
+    if not (rel <= RAD_X_TOL and worst <= RAD_RES_FACTOR):
+        raise SystemExit(f"phase 10: K1 disagrees with its plain version on the {what} "
+                         "radiation solve")
+    return out
+
+
+def true_residual(diag, upper, lower, b, x0, offsets, x):
+    """Σ|b − A·x| / normFactor(x0) of each row, in float64: OpenFOAM's
+    normalised residual, recomputed from the operands."""
+    d, u, lo, bb, xx0, xx = (v.double() for v in (diag, upper, lower, b, x0, x))
+    mv = lambda v: dia_krylov.dia_matvec(d, u, lo, offsets, v)
+    _, norm = linear._norm_factor(mv, xx0, bb)
+    return torch.sum(torch.abs(bb - mv(xx)), dim=-1) / norm
+
+
+def phase_radiation(dev, tmp, box_solver, box_state, box_ms, sync_s):
+    """The radiation family (see the module docstring); returns, per model,
+    the 100k run's launch counts, the in-step K1 ms per radiation launch and
+    the captured radiation solve's numbers."""
+    runs = {}
+    for what, model, kw in (("grey-mean fvDOM", "greyMean", {}),
+                            ("banded fvDOM", "wsggBand", dict(n_theta=4, n_phi=2)),
+                            ("P1", "P1", {})):
+        case = write_radiation_fire_case(os.path.join(tmp, f"rad_{model}"), n=N_MAIN,
+                                         model=model, **kw)
+        solver, state, launches, ms = radiation_run(dev, case, what)
+        step = solver.make_step()
+        # the chunk ended at a radiation opportunity: the next step solves
+        # the radiation, the two after it do not
+        before = rad_launches(solver.radiation)
+        st, k_rad, busy_rad, k1_ms, k1_n = profiled(step, state, 1)
+        n_rad = rad_launches(solver.radiation) - before
+        _, k_no, busy_no, k1_ms_no, k1_n_no = profiled(step, st, 2)
+        runs[model] = {"launches": launches, "k1_step_ms": (k1_ms - k1_ms_no) / n_rad,
+                       "solve": radiation_solve(solver, step, state, sync_s, what)}
+        say(10, f"{what} per step at {solver.geom.n_cells} cells float32: the radiation step "
+                f"{k_rad:.0f} kernel launches, device busy {busy_rad:.3f} ms (K1 {k1_ms:.3f} ms "
+                f"over {k1_n:.0f} launches, {n_rad} of them the radiation's: "
+                f"{runs[model]['k1_step_ms']:.3f} ms each); a step without radiation "
+                f"{k_no:.0f} launches, {busy_no:.3f} ms (K1 {k1_ms_no:.3f} ms over "
+                f"{k1_n_no:.0f}); the radiation adds {k_rad - k_no:.0f} launches and "
+                f"{busy_rad - busy_no:.3f} ms of device work")
+        del solver, state, st
+    _, k_box, busy_box, _, _ = profiled(box_solver.make_step(), box_state, PROFILE_STEPS)
+    say(10, f"box fire (phase 4) {box_ms:.3f} ms/step, {k_box:.0f} kernel launches and "
+            f"{busy_box:.3f} ms device busy a step")
+    small_radiation_runs(dev, tmp, (("greyMean", {}), ("wsggBand", dict(n_theta=4, n_phi=2)),
+                                    ("P1", {})))
+    view_factor_runs(dev, tmp)
+    return runs
+
+
+
 # ---------------------------------------------------------------- phase 8
 def timed(obj, attr, totals):
     """Replace obj.attr by a version that adds (1 call, its seconds between
@@ -1031,8 +1449,10 @@ def main():
                                            small_case)
         phase_exact(dev, tmp, small_case)
         wall_launches = phase_wall(dev, tmp, main_solver, main_state, main_ms)
-        del main_solver, main_state
         phase_wall_baffle(dev, tmp)
+        rad_runs = phase_radiation(dev, tmp, main_solver, main_state, main_ms, sync_s)
+        banded = rad_runs["wsggBand"]
+        del main_solver, main_state
 
     kernels = [
         {
@@ -1043,6 +1463,8 @@ def main():
             "launches": launches[name_k],  # the slice through the run CLI (phase 6)
             "launches_multigrid_path": gmg_launches[name_k],  # phase 7's 100k-cell run
             "launches_wall_fire_path": wall_launches[name_k],  # phase 9's 100k-cell run
+            # phase 10's 100k-cell banded fvDOM run
+            "launches_radiation_path": banded["launches"][name_k],
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],
@@ -1056,10 +1478,12 @@ def main():
         }
         for name_k in ("bicgstab", "pcg", "smooth")
     ]
-    # K1 on the wall fire's 5-row species batch (phase 3)
-    kernels[0].update(ms_B5=stats["bicgstab"]["ms_B5"],
-                      plain_ms_B5=stats["bicgstab"]["plain_ms_B5"],
-                      bound_ms_B5=stats["bicgstab"]["bound_ms_B5"])
+    # K1 on the wall fire's 5-row species batch and the banded fvDOM's 128
+    # and 160 rows (phase 3), and in the banded radiation step (phase 10)
+    for B in (5,) + BANDED_ROWS:
+        kernels[0].update({f"{k}_B{B}": v for k, v in stats["bicgstab"][f"B{B}"].items()})
+    kernels[0].update(radiation_solves={
+        m: dict(r["solve"], in_step_ms=r["k1_step_ms"]) for m, r in rad_runs.items()})
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the slice was never launched")
     p_rgh = {str(n): {k: {"ms": v[0], "iterations": v[1]} for k, v in t.items()}

@@ -183,8 +183,11 @@ def write_time_dir(out_root: str, time_value: float, solver, state: Dict,
             put(name, VolField(state["Y"].i[:, s], state["Y"].b[:, s]), _DIMS["Y"])
         elif name in state:
             put(name, state[name])
-    if solver.radiation is not None and "rad" in state:
+    # viewFactor and opaqueSolid carry no G (the JAX writer raises there)
+    if solver.radiation is not None and "G" in state.get("rad", {}):
         put("G", state["rad"]["G"])
+    if getattr(solver, "soot", None) is not None:
+        put("soot", solver.soot.soot(state["Y"].i), "[0 0 0 0 0 0 0]")
 
     # cell-wise RTI link fields (solver/rti.H / createRTI.H AUTO_WRITE)
     if "rti_links" in state:

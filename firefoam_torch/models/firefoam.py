@@ -191,16 +191,24 @@ class FireFoamSolver:
             ),
         )
 
-        # ---- radiation (fvDOM, grey) ----
+        # ---- radiation (fvDOM/P1/viewFactor, from constant/radiationProperties) ----
         rad_props = (
             self.case.constant("radiationProperties")
             if self.case.has_constant("radiationProperties")
             else FoamDict()
         )
-        from ..radiation import make_radiation
+        from ..radiation import make_radiation, make_soot_model
 
         # radiation=False runs without the radiation model (run --no-radiation)
         self.radiation = make_radiation(rad_props, g, self.case) if radiation else None
+        if hasattr(self.radiation, "epsilon_fn"):
+            # fvDOM's ft table and spSootRadFracEmission's strain-rate lookup
+            # need the reaction and the SGS dissipation
+            self.radiation.reaction = self.reaction
+            self.radiation.epsilon_fn = lambda st: self.turb.epsilon(st["k"].i)
+        # the soot model belongs to the radiation model (radiationModel.C:
+        # 222-225) and is built whether radiation is on or not
+        self.soot = make_soot_model(rad_props, self.reaction)
         aec = rad_props.get_dict("constRadFractionEmissionCoeffs", FoamDict())
         self.ehrr = aec.get_scalar("Ehrr2", aec.get_scalar("EhrrCoeff", 0.2))
 
@@ -870,7 +878,7 @@ class FireFoamSolver:
         ddtK = (rho.i * K.i - state["rho_old_i"] * state["K_old_i"]) / dt
         divK = fvc.div_flux_psi(g, phi, fvc.interpolate(g, K))
         if self.radiation is not None:
-            sh_rad = self.radiation.Sh(state)
+            sh_rad = self.radiation.Sh(state, self.gas)
         else:
             sh_rad = -self.ehrr * qdot  # optically-thin fallback
 
@@ -1127,9 +1135,9 @@ class FireFoamSolver:
             Y_new, qdot = self._y_eqns(state, log, srcs, w_mv)
             state["Qdot"] = qdot
 
-            # fvDOM: first step + every solverFreq steps, after combustion
+            # radiation: first step + every solverFreq steps, after combustion
             if self.radiation is not None:
-                state["rad"] = self.radiation.maybe_correct(state)
+                state["rad"] = self.radiation.maybe_correct(state, self.gas)
             hs_new, T_new, psi_new, mu_new, alpha_new = self._e_eqn(
                 state, Y_new, qdot, log, srcs, w_mv
             )

@@ -1,9 +1,12 @@
 """Radiation models (radiationModel::New — reference radiationModel.C):
-the grey fvDOM path."""
+fvDOM (batched (ray × band) discrete ordinates), P1, viewFactor,
+opaqueSolid, none."""
 
-from .fvdom import FvDOM, SIGMA
+from .fvdom import SIGMA, FvDOM
+from .p1 import P1
+from .soot import MixtureFractionSoot, make_soot_model
 
-__all__ = ["FvDOM", "SIGMA", "make_radiation"]
+__all__ = ["FvDOM", "P1", "SIGMA", "MixtureFractionSoot", "make_soot_model", "make_radiation"]
 
 
 def make_radiation(rp, geom, case):
@@ -13,6 +16,14 @@ def make_radiation(rp, geom, case):
     name = str(rp.lookup("radiationModel", "none"))
     if name == "fvDOM":
         return FvDOM.from_case_dict(rp, geom, case)
-    if name == "none":
-        return None
-    raise NotImplementedError(f"radiationModel {name}")
+    if name == "P1":
+        return P1.from_case_dict(rp, geom, case)
+    if name == "viewFactor":
+        from .viewfactor import ViewFactorRadiation
+
+        return ViewFactorRadiation.from_case_dict(rp, geom, case)
+    if name == "opaqueSolid":
+        from .viewfactor import OpaqueSolid
+
+        return OpaqueSolid.from_case_dict(rp, geom, case)
+    return None

@@ -13,7 +13,7 @@ import os
 import re
 
 __all__ = ["write_box_fire_case", "write_smooth_fire_case", "write_wall_fire_case",
-           "write_castellated_fire_case"]
+           "write_radiation_fire_case", "write_castellated_fire_case"]
 
 
 def _w(path, text):
@@ -624,6 +624,161 @@ baffles {
                 spec = "type zeroGradient;"
             _set_patch(root, field, side, spec)
     return root
+
+
+# greyMeanAbsorptionEmission species. CO2 is the set the JAX package's
+# ft-table test carries (tests/test_radiation.py:154). H2O, CO and the
+# constant soot absorption per unit mole fraction are made-up inputs: no file
+# of the repository carries them. CO and soot are not transported; their mole
+# fractions come from the ft table, whose CO and soot columns (below) are
+# made up as well (steckler's own table has them all zero).
+_GREY_SPECIES = {
+    "CO2": ("true", "18.741 -121.31e3 273.5e6 -194.05e9 56.31e12 -5.8169e15"),
+    "H2O": ("true", "-0.23093 -1.12390e3 9.4153e6 -2.99885e9 0.51382e12 -1.868e10"),
+    "CO": ("false", "4.7869 -0.06953 2.95775e-4 -4.25732e-7 2.02894e-10 0"),
+    "soot": ("false", "1000 0 0 0 0 0"),
+}
+# wideBandAbsorptionEmission: band limits [m] and per-band CO2/H2O
+# absorption per atm, constant in T, band 0 a transparent window. Made-up
+# inputs for the parity tests; no file of the repository carries a wideBand
+# set, so no measurement rests on them
+_WIDE_BANDS = (
+    ((1.0e-6, 2.63e-6), 0.0, 0.0),
+    ((2.63e-6, 4.13e-6), 1.0, 0.5),
+    ((4.13e-6, 1.0e-5), 0.2, 2.0),
+    ((1.0e-5, 200e-6), 0.05, 0.3),
+)
+# wsggmAbsorptionEmissionSmithBand: the coefficients of the JAX package's
+# banded-WSGG test (tests/test_spectral.py:169-180; k per atm, then the
+# weight polynomial's b1..b4): Smith, Shen & Friedman's (1982) gray gases
+# for p_H2O/p_CO2 = 2, the last band the transparent remainder
+_SMITH_BANDS = (
+    "0.4201 6.508 -5.551 3.029 -5.353 0",
+    "6.516 -0.2504 6.112 -3.882 6.528 0",
+    "131.9 2.718 -3.118 1.221 -1.612 0",
+    "0 6.508 -5.551 3.029 -5.353 0",
+)
+RADIATION_MODELS = ("greyMean", "wideBand", "wsggBand", "spSoot", "P1", "viewFactor")
+
+
+def write_radiation_fire_case(
+    root: str,
+    n=(8, 8, 8),
+    model: str = "greyMean",
+    n_theta: int = 2,
+    n_phi: int = 2,
+    n_bands: int = 4,
+    max_iter: int = 3,
+    convergence: float = 1e-3,
+    solver_freq: int = 10,
+    **kw,
+) -> str:
+    """The box fire (write_box_fire_case) with one radiationProperties
+    variant per `model` (RADIATION_MODELS), every one with the
+    mixtureFractionSoot soot model, plus the files the variant reads:
+
+      * greyMean: fvDOM (nTheta·nPhi·4 rays, maxIter/convergence as given),
+        greyMeanAbsorptionEmission over CO2, H2O and the untransported CO
+        and soot, whose mole fractions come from the mixture-fraction table
+        constant/SpeciesTable; constantScatter σ 0.01;
+      * wideBand: fvDOM with wideBandAbsorptionEmission, n_bands (2-4) bands
+        of CO2/H2O absorption, band 0 transparent (made-up coefficients);
+      * wsggBand: fvDOM with wsggmAbsorptionEmissionSmithBand, Smith's 4
+        bands (the banded model whose coefficients have a source);
+      * spSoot: fvDOM with spSootRadFracEmission and its flamelet table
+        constant/spSootTable (SR, Hp, two oxidiser tables: the JAX package's
+        layout, made-up values);
+      * P1: P1 with constantAbsorptionEmission (a = e = 0.05 1/m);
+      * viewFactor: viewFactor (emissivity 0.8) with the top and sides made
+        wall patches, so the walls enclose the fire.
+
+    0/IDefault gives the fvDOM variants grey diffusive walls: the base
+    emissivity 0.9 with absorptivityMode lookup (absorptivity 0.7), every
+    other patch black."""
+    if model not in RADIATION_MODELS:
+        raise ValueError(f"model {model!r} is not one of {RADIATION_MODELS}")
+    write_box_fire_case(root, n=n, **kw)
+    fvdom = (f"radiationModel fvDOM;\n"
+             f"fvDOMCoeffs {{ nPhi {n_phi}; nTheta {n_theta}; convergence {convergence}; "
+             f"maxIter {max_iter}; }}\n")
+    scatter = "scatterModel none;\n"
+
+    def grey(names):
+        return "\n".join(
+            f"    {nm} {{ Tcommon 300; invTemp {inv}; Tlow 300; Thigh 2500;\n"
+            f"        loTcoeffs (0 0 0 0 0 0); hiTcoeffs ({hi}); }}"
+            for nm, (inv, hi) in _GREY_SPECIES.items() if nm in names)
+
+    if model == "greyMean":
+        body = (fvdom + "absorptionEmissionModel greyMeanAbsorptionEmission;\n"
+                "greyMeanAbsorptionEmissionCoeffs {\n    lookUpTableFileName \"SpeciesTable\";\n"
+                "    EhrrCoeff 0.2;\n" + grey(_GREY_SPECIES) + "\n}\n")
+        scatter = ("scatterModel constantScatter;\nconstantScatterCoeffs { sigma sigma "
+                   "[0 -1 0 0 0 0 0] 0.01; C C [0 0 0 0 0 0 0] 0; }\n")
+        ft = [i / 100.0 for i in range(101)]
+        col = lambda peak: " ".join(f"{peak * 4.0 * f * (1.0 - f):.10g}" for f in ft)
+        _w(f"{root}/constant/SpeciesTable",
+           "FoamFile { version 2.0; format ascii; class dictionary; object SpeciesTable; }\n"
+           "fields 1 ( { name ft; min 0; max 1; N 100; } );\n"
+           "output 2 ( { name CO; } { name soot; } );\n"
+           f"values 3 ( 101 ( {' '.join(f'{f:.10g}' for f in ft)} )\n"
+           f"    101 ( {col(0.05)} )\n    101 ( {col(1e-4)} ) );\n")
+    elif model == "wideBand":
+        if not 2 <= n_bands <= len(_WIDE_BANDS):
+            raise ValueError(f"wideBand takes 2-{len(_WIDE_BANDS)} bands, not {n_bands}")
+        bands = []
+        for b, ((lo, hi), k_co2, k_h2o) in enumerate(_WIDE_BANDS[:n_bands]):
+            hi = _WIDE_BANDS[-1][0][1] if b == n_bands - 1 else hi
+            sp = " ".join(
+                f"{nm} {{ Tcommon 300; Tlow 200; Thigh 2500; invTemp false; "
+                f"loTcoeffs ({k} 0 0 0 0 0); hiTcoeffs ({k} 0 0 0 0 0); }}"
+                for nm, k in (("CO2", k_co2), ("H2O", k_h2o)))
+            bands.append(f"    band{b} {{ bandLimits ({lo} {hi}); EhrrCoeff 0.2; "
+                         f"species {{ {sp} }} }}")
+        body = (fvdom + "absorptionEmissionModel wideBandAbsorptionEmission;\n"
+                "wideBandAbsorptionEmissionCoeffs {\n" + "\n".join(bands) + "\n}\n")
+    elif model == "wsggBand":
+        bands = "\n".join(
+            f"    band{b} {{ species {{ mix {{ Tcommon 300; Tlow 300; Thigh 2500; "
+            f"invTemp false; loTcoeffs ({c}); hiTcoeffs ({c}); }} }} }}"
+            for b, c in enumerate(_SMITH_BANDS))
+        body = (fvdom + "absorptionEmissionModel wsggmAbsorptionEmissionSmithBand;\n"
+                "wsggmAbsorptionEmissionSmithBandCoeffs {\n    Csoot 0;\n" + bands + "\n}\n")
+    elif model == "spSoot":
+        body = (fvdom + "absorptionEmissionModel spSootRadFracEmission;\n"
+                "spSootRadFracEmissionCoeffs { EhrrCoeff 0.2; Ceta0 4.0; YO2Inf 0.23301; "
+                "globalYO2 true; lookupTableCoeffs { tableName spSootTable; } }\n")
+        sr, hp = (0.01, 0.1, 1.0, 10.0), (0.0, 0.25, 0.5)
+        table = lambda base: " ".join(f"{base + 0.02 * i - 0.05 * j:.6g}"
+                                      for i in range(len(sr)) for j in range(len(hp)))
+        _w(f"{root}/constant/spSootTable",
+           "FoamFile { version 2.0; format ascii; class dictionary; object spSootTable; }\n"
+           f"fuel C3H8;\nSR ({' '.join(map(str, sr))});\nHp ({' '.join(map(str, hp))});\n"
+           "oxyMassFracs {\n"
+           f"    rich {{ oxyMassFrac 0.25; PsiR ({table(0.3)}); }}\n"
+           f"    lean {{ oxyMassFrac 0.2; PsiR ({table(0.15)}); }}\n}}\n")
+    elif model == "P1":
+        # constant absorption: with greyMean the cold gas has a = 0 and
+        # gamma = 1/(3a + 1e-8) = 1e8, a nearly singular system
+        body = ("radiationModel P1;\nabsorptionEmissionModel constantAbsorptionEmission;\n"
+                "constantAbsorptionEmissionCoeffs { a 0.05; e 0.05; E 0; EhrrCoeff 0.2; }\n")
+    else:  # viewFactor
+        body = ("radiationModel viewFactor;\nviewFactorCoeffs { emissivity 0.8; }\n"
+                "absorptionEmissionModel constRadFractionEmission;\n"
+                "constRadFractionEmissionCoeffs { EhrrCoeff 0.2; }\n")
+        for p in ("top   { type patch;", "sides { type patch;"):
+            _replace(f"{root}/constant/polyMesh/blockMeshDict", p, p.replace("patch;", "wall;"))
+    _w(f"{root}/constant/radiationProperties",
+       "FoamFile { version 2.0; format ascii; class dictionary; object radiationProperties; }\n"
+       f"radiation on;\n{body}solverFreq {solver_freq};\n{scatter}"
+       "sootModel mixtureFractionSoot<gasHThermoPhysics>;\n"
+       "mixtureFractionSootCoeffs { nuSoot 0.055; Wsoot 12; mappingField CO2; }\n")
+    wall = ("type greyDiffusiveRadiation;\n        T T;\n        emissivityMode lookup;\n"
+            "        emissivity uniform {e};\n{extra}        value uniform 0;")
+    _set_patch(root, "IDefault", "base", wall.format(
+        e=0.9, extra="        absorptivityMode lookup;\n        absorptivity uniform 0.7;\n"))
+    return root
+
 
 
 def write_castellated_fire_case(

@@ -29,6 +29,11 @@ JAX, so it also runs on a machine that has only PyTorch:
   PyTorch ops) on the card against the CPU run of the same function, two
   solves on the card bitwise equal, and three steps of the fire with each of
   them on against the CPU's.
+* K1 at the banded fvDOM's shapes, 128 and 160 rows of 100k cells with a
+  matrix each (grid-wide with one block a row; one block per row), against
+  its plain version; the banded (ray × band) ray solve, P1's G solve and one
+  step of each radiation case (write_radiation_fire_case) on the card in
+  float64 against the CPU.
 """
 
 import numpy as np
@@ -37,7 +42,8 @@ import torch
 
 from firefoam_torch.models.firefoam import FireFoamSolver, state_from_numpy, state_to_numpy
 from firefoam_torch.solvers import dia_krylov, linear
-from firefoam_torch.utils.synthcase import (write_box_fire_case, write_smooth_fire_case,
+from firefoam_torch.utils.synthcase import (RADIATION_MODELS, write_box_fire_case,
+                                             write_radiation_fire_case, write_smooth_fire_case,
                                              write_wall_fire_case)
 
 pytestmark = pytest.mark.gpu
@@ -481,3 +487,80 @@ def test_step_with_the_solver_family_on_cuda(tmp_path, config):
         a, b = runs["gpu"][0][f].i, runs["cpu"][0][f].i
         assert np.max(np.abs(a - b)) / np.max(np.abs(b)) <= 1e-9, f
         np.testing.assert_array_equal(runs["again"][0][f].i, a, err_msg=f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("rows", [128, 160])
+def test_bicgstab_at_the_banded_shapes(rows, dtype):
+    """K1 on 128 (grid-wide, one block a row) and 160 (one block per row)
+    per-row systems of 100k cells, the banded fvDOM's batches, against
+    its plain version."""
+    _need_cuda()
+    nxyz = (50, 40, 50)
+    offs = _offs(nxyz)
+    ops = _system(43, rows, False, False, dtype, torch.device("cuda"), nxyz, 1.0)
+    plan, _ = dia_krylov._grid_launch_plan("bicgstab", dtype, rows, ops[0].shape[-1], 3,
+                                           ops[0].element_size())
+    G, _ = dia_krylov._coop_blocks("bicgstab", dtype, 0)
+    assert plan.grid_wide == (rows <= G)
+    before = dia_krylov.LAUNCHES["bicgstab"]
+    got = dia_krylov.dia_bicgstab(*ops, offs, tol=1e-8, max_iter=500)
+    torch.cuda.synchronize()
+    assert dia_krylov.LAUNCHES["bicgstab"] == before + 1
+    ref = _plain("bicgstab", *ops, offs, tol=1e-8, max_iter=500)
+    slack, xtol = _tolerances("bicgstab", dtype)
+    its = (got.n_iterations.cpu().numpy(), ref.n_iterations.cpu().numpy())
+    assert np.all(np.abs(its[0] - its[1]) <= slack), its
+    rel = float((got.x - ref.x).abs().max() / ref.x.abs().max())
+    assert rel <= xtol, rel
+
+
+@pytest.mark.parametrize("model", RADIATION_MODELS)
+def test_radiation_step_on_cuda_matches_cpu(tmp_path, model):
+    """One step with a radiation solve of each radiation case on the card in
+    float64 against the CPU, from the same developed state: the fields and
+    the radiation state to 1e-9, equal iteration counts; the fvDOM (ray ×
+    band) solves are K1 launches of nR·nL rows, P1's one of one row."""
+    _need_cuda()
+    root = write_radiation_fire_case(str(tmp_path / model), n=(10, 8, 10), model=model,
+                                     n_theta=2, n_phi=1, n_bands=3, solver_freq=1)
+    kw = dict(dtype=torch.float64, exact_solvers=False, gmg=False, amg=False)
+    cpu = FireFoamSolver(root, device="cpu", **kw)
+    gpu = FireFoamSolver(root, device="cuda", **kw)
+    st_c, _ = cpu.make_chunk(12)(cpu.initial_state())
+    st_g = state_from_numpy(state_to_numpy(st_c), device="cuda", dtype=torch.float64)
+    rows, launch = [], dia_krylov._launch
+
+    def recording(name, diag, upper, lower, b, x0, *a, **k):
+        rows.append((name, x0.shape[0] if x0.ndim == 2 else 1))
+        return launch(name, diag, upper, lower, b, x0, *a, **k)
+
+    dia_krylov._launch = recording
+    try:
+        st_c, log_c = cpu.step(st_c)
+        st_g, log_g = gpu.step(st_g)
+        torch.cuda.synchronize()
+    finally:
+        dia_krylov._launch = launch
+    rad = gpu.radiation
+    if hasattr(rad, "n_lambda"):
+        batch = rad.n_rays * rad.n_lambda
+        assert sum(1 for nm, B in rows if nm == "bicgstab" and B == batch) == rad.sweeps >= 1
+        assert torch.equal(rad.last_iters.cpu(), cpu.radiation.last_iters)
+    for k in log_c:
+        if k.endswith("_iters") or "iters_" in k:
+            assert int(log_g[k]) == int(log_c[k]), (k, int(log_g[k]), int(log_c[k]))
+    for f in ("T", "U", "p_rgh", "Y", "k"):
+        a, b = st_g[f].i.cpu().numpy(), st_c[f].i.numpy()
+        assert np.max(np.abs(a - b)) / np.max(np.abs(b)) <= 1e-9, f
+    # P1's G solve is chaotic on this system: a 1e-16 relative perturbation
+    # of its right-hand side takes BiCGStab from 45 to 47..53 iterations and
+    # moves G by 1.3e-7 (measured on the CPU), so G and its boundary values
+    # are held to ten times the solve's tolerance, and the iteration count
+    # is not compared
+    p1 = model == "P1"
+    for k, v in st_c["rad"].items():
+        a, b = st_g["rad"][k].cpu().numpy(), v.numpy()
+        tol = 1e-5 if p1 and k in ("G", "G_b") else 1e-9
+        assert np.max(np.abs(a - b)) <= tol * max(np.max(np.abs(b)), 1.0), k
+

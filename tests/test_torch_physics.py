@@ -200,18 +200,18 @@ def test_fvdom_ray_sweep_matches(case):
     jst = state(JVF, JSF, jnp.asarray, jrad)
     tst = state(TVF, TSF, torch.as_tensor, trad)
     jout = jdom._solve_rays(jrad, jst, case["jgas"])
-    tout = tdom._solve_rays(trad, tst)
+    tout = tdom._solve_rays(trad, tst, case["tgas"])
     for name in ("I", "G", "E", "aG", "aEn"):
         assert _rel(tout[name], jout[name]) <= TOL, name
     assert int(tout["count"]) == int(jout["count"]) == 1
     jst["rad"], tst["rad"] = jout, tout
-    assert _rel(tdom.Sh(tst), jdom.Sh(jst, case["jgas"])) <= TOL
+    assert _rel(tdom.Sh(tst, case["tgas"]), jdom.Sh(jst, case["jgas"])) <= TOL
     # gating: solve on the first call, then every solverFreq calls
     counts = []
     rad = tdom.initial_state()
     for _ in range(12):
         tst["rad"] = rad
-        new = tdom.maybe_correct(tst)
+        new = tdom.maybe_correct(tst, case["tgas"])
         counts.append(new["I"] is not rad["I"])
         rad = new
     assert counts == [True] + [False] * 9 + [True, False]
