@@ -88,7 +88,26 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      CPU_TOL; and viewFactor and opaqueSolid at 9k cells: an isothermal
      enclosure gives qr of about 0, and walls from 300 K to 1200 K give the
      card's float64 qr within CPU_TOL of the CPU's largest |qr|;
- 11. the kernels' JSON line, the card line, and the final JSON line.
+ 11. unstructured meshes on the SEG layout (no kernel serves them; the
+     solves run the plain twins and AMG): the castellated fire of the JAX
+     package's unstructured scale row (write_castellated_fire_case
+     (54,40,54), 2.0 x 1.5 x 2.0 m, mdot 0.01: about 117k cells) in
+     float32, make_chunk(20) from t = 0 with no K1-K3 launch, fields and
+     logs finite, the gas heating, a second run bitwise equal (the SEG sums
+     are order-fixed); its ms/step, launches, host reads and device-busy ms
+     per step, the host's seconds for the castellation, the geometry tables
+     and the AMG build, ms and iterations per amg_pcg (and per Jacobi-CG twin
+     on the same p_rgh system) and per twin BiCGStab solve, and the SEG
+     sum's padded table beside a dense-plus-tail split and index_add_; then
+     the 100k box fire with layout="seg" (the twins) beside phase 4's DIA
+     run: T and U within GMG_TOL after GMG_STEPS steps from t = 0, T within
+     GMG_T_DRIFT relative and U within GMG_TOL after phase 4's 1 + 20 steps
+     (a flame: float32 round-off grows there, phase 7), and the same 1 + 20
+     steps in float64, SEG against DIA within CPU_TOL;
+     then the castellated fire at 10k cells, 10 steps, float64 on the card
+     against float64 on the CPU within CPU_TOL and float32 against float64
+     within the T drift band;
+ 12. the kernels' JSON line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
@@ -96,6 +115,7 @@ Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -117,13 +137,19 @@ from firefoam_torch.models import firefoam as firefoam_mod  # noqa: E402
 from firefoam_torch.models.firefoam import FireFoamSolver  # noqa: E402
 from firefoam_torch.solvers import dia_krylov, dic, linear  # noqa: E402
 from firefoam_torch.profile_step import _busy_us  # noqa: E402
+from firefoam_torch.radiation import fvdom as fvdom_mod  # noqa: E402
 from firefoam_torch.utils.synthcase import (  # noqa: E402
-    write_box_fire_case, write_radiation_fire_case, write_smooth_fire_case,
-    write_wall_fire_case)
+    write_box_fire_case, write_castellated_fire_case, write_radiation_fire_case,
+    write_smooth_fire_case, write_wall_fire_case)
 
 N_MAIN = (50, 40, 50)  # 100,000 cells
 N_SMALL = (30, 15, 20)  # 9,000 cells
 N_LARGE = (100, 50, 100)  # 500,000 cells
+# the castellated fire of the JAX package's unstructured scale row
+# (bench.py:189-193): about 117k cells, 343k internal faces
+N_CASTEL = (54, 40, 54)
+CASTEL_KW = dict(size=(2.0, 1.5, 2.0), mdot=0.01)
+N_CASTEL_SMALL = (24, 16, 24)  # 10,064 cells
 GMG_STEPS = 5  # steps of each run of a K2/multigrid pair
 # T [K] and U [m/s] of a multigrid run against the K2 run of the same steps
 # from t = 0 (the comparison and the bound of the JAX package's multigrid
@@ -224,8 +250,13 @@ STEP_TOL = 1e-9
 SMOOTH_CHAIN_TOL = 1e-3
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of phase `phase`, with the seconds since the script started
+    (the run has a time limit: the next slice reads where it went)."""
+    print(f"[{phase}] {msg} (+{time.perf_counter() - _T0:.0f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -524,7 +555,7 @@ def norm_residual(m, x, x0):
     """OpenFOAM's normalised residual Σ|b − A·x| / normFactor(x0) of a p_rgh
     system, as every solver of the family computes it."""
     diag, b = m.totals()
-    mv = lambda v: dia_krylov.dia_matvec(diag, m.upper, m.lower, m.geom.offsets, v)
+    mv = linear.ldu_matvec(m.geom, diag, m.upper, m.lower)
     _, norm = linear._norm_factor(mv, x0, b)
     return float(torch.sum(torch.abs(b - mv(x))) / norm)
 
@@ -563,7 +594,8 @@ def p_rgh_solver_times(phase, solvers, state, what):
     """One p_rgh system (the last corrector of a step of the first solver
     from `state`) through each solver's own p_rgh solve: ms, iterations,
     kernel launches and host reads per solve, and x's distance from the
-    converged solution (K2 in float64 to 1e-12); every x's normalised
+    converged solution (CG in float64 to 1e-12: K2 on DIA, the twin on
+    SEG); every x's normalised
     residual must be within the tolerance the solve stopped at. Returns
     {name: (ms, iterations)}."""
     first = next(iter(solvers.values()))
@@ -571,8 +603,8 @@ def p_rgh_solver_times(phase, solvers, state, what):
     c = firefoam_mod._solver_controls(first.fv_solution, "p_rghFinal", "p_rgh")
     f8 = torch.float64
     diag, b = m.totals()
-    exact = dia_krylov.dia_pcg(diag.to(f8), m.upper.to(f8), m.lower.to(f8), b.to(f8), x0.to(f8),
-                               m.geom.offsets, tol=1e-12, max_iter=20000).x
+    exact = linear.solve_ldu(m.geom, "PCG", diag.to(f8), m.upper.to(f8), m.lower.to(f8),
+                             b.to(f8), x0.to(f8), tol=1e-12, max_iter=20000).x
     moved = float((exact - x0.to(f8)).abs().max())  # how far the solve has to move x0
     out = {}
     for name, solver in solvers.items():
@@ -706,18 +738,19 @@ def phase_gmg(dev, tmp, main_case, main_solver, main_state, small_case):
 
 # ---------------------------------------------------------------- phase 9
 def step_profile(step, state, n_steps):
-    """(state, kernel launches per step, device-busy ms per step) over
-    n_steps steps, from torch.profiler."""
+    """(state, kernel launches, host reads of a device scalar, device-busy
+    ms) per step over n_steps steps, from torch.profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(n_steps):
             state, _ = step(state)
         torch.cuda.synchronize()
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
+    avgs = prof.key_averages()
+    kernels = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.key.lower().startswith(("memcpy", "memset")))
-    return state, kernels / n_steps, _busy_us(prof) / 1e3 / n_steps
+    reads = sum(e.count for e in avgs if e.key == "aten::_local_scalar_dense")
+    return state, kernels / n_steps, reads / n_steps, _busy_us(prof) / 1e3 / n_steps
 
 
 def phase_wall(dev, tmp, box_solver, box_state, box_ms):
@@ -784,8 +817,8 @@ def phase_wall(dev, tmp, box_solver, box_state, box_ms):
     say(9, f"the same {CHUNK} steps again: states and logs bitwise equal: {same}")
     if not same:
         raise SystemExit("phase 9: two runs of the wall fire differ")
-    _, k_wall, busy_wall = step_profile(solver.make_step(), state, PROFILE_STEPS)
-    _, k_box, busy_box = step_profile(box_solver.make_step(), box_state, PROFILE_STEPS)
+    _, k_wall, _, busy_wall = step_profile(solver.make_step(), state, PROFILE_STEPS)
+    _, k_box, _, busy_box = step_profile(box_solver.make_step(), box_state, PROFILE_STEPS)
     say(9, f"per step at {n} cells float32: box fire {box_ms:.3f} ms (phase 4), "
            f"{k_box:.0f} kernel launches, device busy {busy_box:.3f} ms; wall fire {ms:.3f} ms, "
            f"{k_wall:.0f} kernel launches, device busy {busy_wall:.3f} ms (torch.profiler over "
@@ -1423,6 +1456,257 @@ def phase_drift(dev, case):
         raise SystemExit(f"phase 5: the card's float64 run differs from the CPU's beyond {CPU_TOL}")
 
 
+# ---------------------------------------------------------------- phase 11
+def seg_sum_layouts(g):
+    """The SEG face→cell sum (face_to_both_sum, the matvec's and the
+    divergence's) on the 117k mesh three ways, float32, [nI] and [nI, 3]:
+    the port's padded table; the same table split into its first `dense`
+    columns and a tail of the longer rows; and index_add_ (atomics: not
+    order-fixed, timed as the library's call only). Returns the numbers."""
+    nI, nC = g.n_internal, g.n_cells
+    tab = g.seg_both.table
+    deg = (tab != 2 * nI).sum(dim=1)
+    dense = int(torch.quantile(deg.double(), 0.9))
+    rows = torch.nonzero(deg > dense).squeeze(1)
+    head, tail = tab[:, :dense].contiguous(), tab[rows, dense:].contiguous()
+
+    def split(a, b):
+        ext = torch.cat([a, b, a.new_zeros((1,) + tuple(a.shape[1:]))])
+        out = ext[head].sum(dim=1)
+        return out.index_add_(0, rows, ext[tail].sum(dim=1))  # rows distinct: no collision
+
+    def library(a, b):
+        out = a.new_zeros((nC,) + tuple(a.shape[1:]))
+        return out.index_add_(0, g.own, a).index_add_(0, g.nei, b)
+
+    out = {"max_faces": int(deg.max()), "mean_faces": float(deg.double().mean()),
+           "table_slots_per_face": tab.numel() / (2.0 * nI), "dense_columns": dense,
+           "tail_rows": int(rows.numel())}
+    gen = torch.Generator(device=g.device).manual_seed(0)
+    for width in (1, 3):
+        shape = (nI,) if width == 1 else (nI, 3)
+        a = torch.randn(shape, generator=gen, device=g.device, dtype=torch.float32)
+        b = torch.randn(shape, generator=gen, device=g.device, dtype=torch.float32)
+        ref = g.face_to_both_sum(a, b)
+        if not (torch.allclose(split(a, b), ref, rtol=1e-5, atol=1e-5)
+                and torch.allclose(library(a, b), ref, rtol=1e-5, atol=1e-5)):
+            raise SystemExit("phase 11: the three SEG sums disagree")
+        same = all(torch.equal(g.face_to_both_sum(a, b), ref) for _ in range(3))
+        out[f"w{width}"] = {"padded_ms": time_ms(lambda: g.face_to_both_sum(a, b), reps=20),
+                            "split_ms": time_ms(lambda: split(a, b), reps=20),
+                            "index_add_ms": time_ms(lambda: library(a, b), reps=20),
+                            "repeat_equal": same}
+        if not same:
+            raise SystemExit("phase 11: the SEG sum is not bitwise repeatable")
+    return out
+
+
+def twin_solves(solver, state):
+    """The BiCGStab solves of one step (U, Yi, h, k and, on a radiation
+    step, the fvDOM rays: solve_ldu's twins on SEG), captured and run again
+    alone: ms, iterations (the largest row's), kernel launches and host
+    reads per solve."""
+    calls, orig = [], linear.solve_ldu
+    mods = (firefoam_mod, linear, fvdom_mod)
+
+    def shim(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    for mod in mods:
+        mod.solve_ldu = shim
+    try:
+        solver.step(state)
+    finally:
+        for mod in mods:
+            mod.solve_ldu = orig
+    out = []
+    for a, k in calls:
+        if a[1] != "PBiCGStab":
+            continue
+        run = lambda: orig(*a, **k)
+        res = run()
+        ms = time_ms(run, reps=3)
+        kernels, reads = launches_and_reads(run)
+        rows = a[6].shape[0] if a[6].ndim == 2 else 1
+        out.append({"rows": rows, "ms": ms, "iterations": int(res.n_iterations.max()),
+                    "launches": kernels, "host_reads": reads})
+    return out
+
+
+def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
+    """Unstructured meshes on the SEG layout (see the module docstring);
+    returns the castellated path's launch counts and its numbers."""
+    # ---- the 117k-cell castellated fire, float32
+    t0 = time.perf_counter()
+    case = write_castellated_fire_case(os.path.join(tmp, "castel"), n=N_CASTEL, **CASTEL_KW)
+    solver = FireFoamSolver(case, device=dev)
+    build_s = time.perf_counter() - t0
+    g = solver.geom
+    if g.layout != "seg" or solver.amg is None or solver._ldu is not None:
+        raise SystemExit("phase 11: the castellated fire did not take SEG with AMG on p_rgh")
+    n, host = g.n_cells, solver.setup_seconds
+    dia_krylov.reset_counts()
+    state0 = solver.initial_state()
+    init = sum(dia_krylov.LAUNCHES.values())
+    T0_max = float(state0["T"].i.max())
+    say(11, f"castellated fire {n} cells, {g.n_internal} internal faces, {g.n_boundary} "
+            f"boundary faces, layout {g.layout}, {len(solver.amg.levels)} AMG levels; host "
+            f"seconds: mesh (blockMesh, castellation, topoSet, createPatch) "
+            f"{host['mesh']:.2f}, geometry and SEG tables {host['geometry']:.2f}, AMG "
+            f"hierarchy {host['solvers']:.2f}; case and solver {build_s:.1f} s")
+    chunk = solver.make_chunk(CHUNK)
+    dia_krylov.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logs = chunk(state0)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / CHUNK
+    launches = dict(dia_krylov.LAUNCHES)
+    fields = ("T", "U", "p_rgh", "Y", "k", "phi")
+    finite = all(bool(torch.isfinite(state[f].i).all() and torch.isfinite(state[f].b).all())
+                 for f in fields)
+    bad_logs = [k for k, v in logs.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    rays_finite = bool(torch.isfinite(state["rad"]["I"]).all())
+    T_max = float(state["T"].i.max())
+    p_its = [[int(a), int(b)] for a, b in zip(logs["p_rgh_iters_0"], logs["p_rgh_iters_1"])]
+    say(11, f"castellated fire float32, make_chunk({CHUNK}) from t = 0: {ms:.3f} ms/step, "
+            f"{n / (ms * 1e-3):.6e} cell-updates/s; T max {T_max:.3f} K (initially "
+            f"{T0_max:.3f} K), Qdot_total {float(logs['Qdot_total'][-1]):.6e} W; fields finite "
+            f"{finite}, non-finite log entries {bad_logs}, ray intensities finite {rays_finite}")
+    say(11, f"castellated fire launches K1 {launches['bicgstab']}, K2 {launches['pcg']}, K3 "
+            f"{launches['smooth']} (the hydrostatic init {init}; expected 0: no kernel serves "
+            f"SEG); amg_pcg iterations per corrector {p_its}")
+    if not finite or bad_logs or not rays_finite:
+        raise SystemExit("phase 11: the castellated fire is not finite")
+    if not T0_max + 1.0 < T_max < T_FLAME_MAX:
+        raise SystemExit("phase 11: the castellated fire did not heat the gas, or ran away")
+    if sum(launches.values()) or init:
+        raise SystemExit("phase 11: a DIA kernel was launched on a SEG mesh")
+    again, logs2 = chunk(state0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(again[f].i, state[f].i) and torch.equal(again[f].b, state[f].b)
+               for f in fields) and all(torch.equal(logs2[k], logs[k]) for k in logs)
+    say(11, f"the same {CHUNK} castellated steps again: states and logs bitwise equal: {same}")
+    if not same:
+        raise SystemExit("phase 11: two runs of the castellated fire differ")
+    _, k_step, r_step, busy = step_profile(solver.make_step(), state, PROFILE_STEPS)
+    say(11, f"castellated fire per step (torch.profiler, {PROFILE_STEPS} steps after the "
+            f"chunk): {k_step:.0f} kernel launches, {r_step:.0f} host reads, device busy "
+            f"{busy:.3f} ms of {ms:.3f} ms ({100.0 * (1.0 - busy / ms):.1f} % idle)")
+    flat = copy.copy(solver)
+    flat.amg = None  # the same solver with the Jacobi-CG twin on p_rgh
+    p_rgh = p_rgh_solver_times(11, {"amg_pcg": solver, "CG twin": flat}, state,
+                               "117k castellated")
+    twins = twin_solves(solver, state)
+    for t in twins:
+        say(11, f"castellated twin BiCGStab solve of {t['rows']} row(s): {t['ms']:.3f} ms, "
+                f"{t['iterations']} iterations, {t['launches']} kernel launches and "
+                f"{t['host_reads']} host reads per solve")
+    sums = seg_sum_layouts(g)
+    say(11, f"SEG face-to-cell sum at {n} cells ({sums['mean_faces']:.2f} faces a cell, up to "
+            f"{sums['max_faces']}; {sums['table_slots_per_face']:.2f} table slots a face): "
+            + "; ".join(f"{'[nI]' if w == 'w1' else '[nI, 3]'} padded table "
+                        f"{sums[w]['padded_ms']:.4f} ms, split ({sums['dense_columns']} dense "
+                        f"columns + {sums['tail_rows']} tail rows) {sums[w]['split_ms']:.4f} "
+                        f"ms, index_add_ {sums[w]['index_add_ms']:.4f} ms"
+                        for w in ("w1", "w3")))
+    castel = {"cells": n, "ms_per_step": ms, "launches_per_step": k_step,
+              "host_reads_per_step": r_step, "device_busy_ms": busy, "host_seconds": host,
+              "p_rgh": {k: {"ms": v[0], "iterations": v[1]} for k, v in p_rgh.items()},
+              "twin_bicgstab": twins,
+              "seg_sum": sums}
+    del solver, flat, state, again, state0
+
+    # ---- the 100k box fire on SEG beside phase 4's DIA run of the same steps
+    seg = FireFoamSolver(box_case, device=dev, layout="seg", amg=False)
+    if seg.geom.layout != "seg" or seg.amg is not None:
+        raise SystemExit("phase 11: layout='seg' did not give the flat twins on SEG")
+    dia_krylov.reset_counts()
+    st5, _ = seg.make_chunk(GMG_STEPS)(seg.initial_state())
+    seg_launches = sum(dia_krylov.LAUNCHES.values())
+    ref5, _ = box_solver.make_chunk(GMG_STEPS)(box_solver.initial_state())
+    dT5 = float((st5["T"].i - ref5["T"].i).abs().max())
+    dU5 = float((st5["U"].i - ref5["U"].i).abs().max())
+    dia_krylov.reset_counts()
+    st = seg.initial_state()
+    st, _ = seg.step(st)  # phase 4's warm-up step
+    chunk = seg.make_chunk(CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, logs = chunk(st)
+    torch.cuda.synchronize()
+    ms_seg = 1e3 * (time.perf_counter() - t0) / CHUNK
+    seg_launches += sum(dia_krylov.LAUNCHES.values())
+    dT = float(((st["T"].i - box_state["T"].i).abs() / box_state["T"].i).max())
+    dU = float((st["U"].i - box_state["U"].i).abs().max())
+    _, k_seg, r_seg, busy_seg = step_profile(seg.make_step(), st, PROFILE_STEPS)
+    _, k_dia, r_dia, busy_dia = step_profile(box_solver.make_step(), box_state, PROFILE_STEPS)
+    del seg, st, st5, ref5
+    # the same 1 + CHUNK steps in float64, both layouts on the same solvers
+    out64 = {}
+    for layout in ("dia", "seg"):
+        s64 = FireFoamSolver(box_case, device=dev, dtype=torch.float64, layout=layout,
+                             exact_solvers=False, gmg=False, amg=False)
+        st64, _ = s64.make_chunk(1 + CHUNK)(s64.initial_state())
+        out64[layout] = {f: st64[f].i for f in ("T", "U")}
+        del s64, st64
+    vs64 = {f: float((out64["seg"][f] - out64["dia"][f]).abs().max()
+                     / out64["dia"][f].abs().max()) for f in ("T", "U")}
+    say(11, f"box fire {box_state['T'].i.numel()} cells float32, 1 + {CHUNK} steps from t = 0: "
+            f"DIA (phase 4, K1/K2) {box_ms:.3f} ms/step, {k_dia:.0f} launches, {r_dia:.0f} host "
+            f"reads, device busy {busy_dia:.3f} ms a step; SEG (the twins) {ms_seg:.3f} "
+            f"ms/step, {k_seg:.0f} launches, {r_seg:.0f} host reads, device busy "
+            f"{busy_seg:.3f} ms a step; kernel launches on SEG {seg_launches}")
+    say(11, f"box fire SEG vs DIA: after {GMG_STEPS} steps from t = 0 max |dT| {dT5:.3e} K, "
+            f"max |dU| {dU5:.3e} m/s; after 1 + {CHUNK} steps (burning) max relative dT "
+            f"{dT:.3e}, max |dU| {dU:.3e} m/s; the same 1 + {CHUNK} steps in float64: T "
+            f"{vs64['T']:.3e}, U {vs64['U']:.3e} relative")
+    if seg_launches:
+        raise SystemExit("phase 11: the box fire on SEG launched a kernel")
+    if not (dT5 <= GMG_TOL and dU5 <= GMG_TOL and dT <= GMG_T_DRIFT and dU <= GMG_TOL):
+        raise SystemExit("phase 11: the box fire on SEG leaves the DIA run beyond the bound")
+    if not max(vs64.values()) <= CPU_TOL:
+        raise SystemExit(f"phase 11: in float64 SEG leaves DIA beyond {CPU_TOL}")
+    castel["box_fire_seg"] = {"ms_per_step": ms_seg, "launches_per_step": k_seg,
+                              "host_reads_per_step": r_seg, "device_busy_ms": busy_seg,
+                              "dia_ms_per_step": box_ms, "dia_launches_per_step": k_dia,
+                              "dia_device_busy_ms": busy_dia, "dT_5": dT5, "dU_5": dU5,
+                              "dT_rel": dT, "dU": dU, "f64_vs_dia": vs64}
+
+    # ---- the castellated fire at about 10k cells: card against CPU
+    small = write_castellated_fire_case(os.path.join(tmp, "castel_small"), n=N_CASTEL_SMALL)
+    out, ms_run = {}, {}
+    for run, d, dtype in (("f32", dev, torch.float32), ("f64", dev, torch.float64),
+                          ("cpu", torch.device("cpu"), torch.float64)):
+        s = FireFoamSolver(small, device=d, dtype=dtype)  # the automatic rule
+        st = s.initial_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = s.make_chunk(DRIFT_STEPS)(st)
+        torch.cuda.synchronize()
+        ms_run[run] = 1e3 * (time.perf_counter() - t0) / DRIFT_STEPS
+        out[run] = {f: st[f].i.double().cpu().numpy() for f in ("T", "U")}
+        picks = "AMG" if s.amg is not None else "DIC-PCG" if s._ldu is not None else "CG"
+        out[run]["picks"] = picks
+    T32, T64 = out["f32"]["T"], out["f64"]["T"]
+    drift = float(np.max(np.abs(T32 - T64) / np.maximum(T64, 1.0)))
+    vs_cpu = {f: float(np.max(np.abs(out["f64"][f] - out["cpu"][f])) /
+                       np.max(np.abs(out["cpu"][f]))) for f in ("T", "U")}
+    say(11, f"castellated fire {T64.size} cells, {DRIFT_STEPS} steps: float32 ({out['f32']['picks']} "
+            f"on p_rgh) {ms_run['f32']:.3f} ms/step, float64 ({out['f64']['picks']}) "
+            f"{ms_run['f64']:.3f} ms/step, CPU float64 ({out['cpu']['picks']}) "
+            f"{ms_run['cpu']:.1f} ms/step; max relative T drift float32 vs float64 "
+            f"{drift:.6e}; float64 card vs CPU: T {vs_cpu['T']:.3e}, U {vs_cpu['U']:.3e}")
+    if not np.all(np.isfinite(T32)) or not drift <= T_DRIFT:
+        raise SystemExit("phase 11: float32 drifts from float64 beyond the band")
+    if not max(vs_cpu.values()) <= CPU_TOL:
+        raise SystemExit(f"phase 11: the card's float64 run differs from the CPU's beyond "
+                         f"{CPU_TOL}")
+    castel["small"] = {"cells": int(T64.size), "drift": drift, "vs_cpu": vs_cpu, "ms": ms_run}
+    return launches, castel
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1452,6 +1736,8 @@ def main():
         phase_wall_baffle(dev, tmp)
         rad_runs = phase_radiation(dev, tmp, main_solver, main_state, main_ms, sync_s)
         banded = rad_runs["wsggBand"]
+        castel_launches, castel = phase_castellated(dev, tmp, main_case, main_solver,
+                                                    main_state, main_ms)
         del main_solver, main_state
 
     kernels = [
@@ -1465,6 +1751,8 @@ def main():
             "launches_wall_fire_path": wall_launches[name_k],  # phase 9's 100k-cell run
             # phase 10's 100k-cell banded fvDOM run
             "launches_radiation_path": banded["launches"][name_k],
+            # phase 11's 117k-cell castellated run: no kernel serves SEG
+            "launches_castellated_path": castel_launches[name_k],
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],
@@ -1489,6 +1777,7 @@ def main():
     p_rgh = {str(n): {k: {"ms": v[0], "iterations": v[1]} for k, v in t.items()}
              for n, t in sorted(solve_ms.items())}
     print(json.dumps({"p_rgh_solve": p_rgh}))
+    print(json.dumps({"castellated": castel}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -129,9 +129,15 @@ def build_case_mesh(case_dir: str, mesh_script: str = "mesh.sh") -> CaseMesh:
             st.extrude_dicts.append(d)
             _extrude_adapt_mesh(st, d)
         elif cmd == "snappyHexMesh":
-            # castellated (unstructured) meshes are not DIA: the port
-            # serves lattice meshes only
-            raise NotImplementedError("snappyHexMesh meshes")
+            from .snappy import snappy_castellated
+
+            bpath = _find_dict(case_dir, "blockMeshDict")
+            spath = _find_dict(case_dir, "snappyHexMeshDict")
+            mesh = snappy_castellated(
+                parse_file(bpath, case_dir=case_dir),
+                parse_file(spath, case_dir=case_dir),
+            )
+            state = CaseMesh(mesh=mesh, sets=TopoSets(mesh))
         else:
             continue  # surfaceTransformPoints, cp, mv, rm, echo, mktemp, ...
 

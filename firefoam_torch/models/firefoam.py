@@ -11,16 +11,21 @@ with adaptive Δt, matching the reference equation set:
   solver/phrghEqn.H:1-62  hydrostatic initialisation
   solver/setMultiRegionDeltaT.H:34-63  Courant-limited Δt growth
 
-Every linear solve of the step is a DIA system: U (3 rows), the species
-(one row each), h, k, the fvDOM rays and both p_rgh correctors, hydrostatic
-init included. The solver is picked as the JAX package picks it. With the
-wavefront LDU schedule (`exact_solvers`: automatic in float64), PCG+DIC and
-smoothSolver+*GaussSeidel entries run the OpenFOAM-exact solvers of
-solvers/dic.py. p_rgh then goes, in this order, to the lattice multigrid
-(`gmg`, solvers/gmg.py), the agglomeration multigrid (`amg`,
-solvers/amg.py) or the Jacobi-preconditioned CG. Every other solve goes to
-the whole-solve kernels of solvers/dia_krylov.py (their plain PyTorch twins
-on the CPU): K1 (PBiCGStab), K2 (PCG) or K3 (smoothSolver, damped Jacobi).
+The mesh takes the DIA layout where it fits (a lattice) and the SEG layout
+otherwise (a snappyHexMesh castellation; `layout=` forces either, as the
+JAX package's FIREFOAM_TPU_LAYOUT does). The linear solves of the step are
+U (3 rows), the species (one row each), h, k, the fvDOM rays and both
+p_rgh correctors, hydrostatic init included. The solver is picked as the
+JAX package picks it. With the wavefront LDU schedule (`exact_solvers`:
+automatic in float64), PCG+DIC and smoothSolver+*GaussSeidel entries run
+the OpenFOAM-exact solvers of solvers/dic.py. p_rgh then goes, in this
+order, to the lattice multigrid (`gmg`, solvers/gmg.py, DIA only), the
+agglomeration multigrid (`amg`, solvers/amg.py) or the
+Jacobi-preconditioned CG. Every other solve goes through
+solvers/linear.py's `solve_ldu`: on DIA to the whole-solve kernels of
+solvers/dia_krylov.py (their plain PyTorch twins on the CPU), K1
+(PBiCGStab), K2 (PCG) or K3 (smoothSolver, damped Jacobi); on SEG to the
+twins on either device, as the JAX package runs its flat solvers there.
 
 The run features come along: fvOptions sources in UEqn and EEqn, the
 controlDict function objects (reduced into the step log), the RTI probes
@@ -47,6 +52,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import time
+
 import numpy as np
 import torch
 
@@ -62,11 +69,10 @@ from ..ops import MeshGeometry, SurfaceField, VolField
 from ..ops import bcs as bcmod
 from ..ops import fvc, fvm
 from ..ops.bcs import initial_boundary, make_field_bcs
-from ..solvers import dia_krylov
 from ..solvers.amg import AMGHierarchy, amg_pcg
 from ..solvers.dic import build_schedule, dic_pcg, sgs_solve
 from ..solvers.gmg import LatticeMG, gmg_pcg
-from ..solvers.linear import smooth_sweeps, solve_scalar
+from ..solvers.linear import ldu_matvec, solve_ldu, solve_scalar
 from ..thermo import GasThermo, SingleStepReaction
 from ..turbulence.kEqn import KEqnLES
 from .fvoptions import FvOptions
@@ -144,16 +150,23 @@ class FireFoamSolver:
     def __init__(self, case_dir: str, device=None, dtype=None, radiation: bool = True,
                  exact_solvers: Optional[bool] = None, gmg: Optional[bool] = None,
                  gmg_coarsest: int = 64, amg: Optional[bool] = None,
-                 p_rgh_f64: bool = False):
+                 p_rgh_f64: bool = False, layout: Optional[str] = None):
         """exact_solvers, gmg, amg: True forces, False forbids, None leaves
         the choice to the automatic rule of `_pick_solvers`. gmg_coarsest:
         the lattice multigrid stops coarsening at this many cells.
-        p_rgh_f64: solve p_rgh in float64 inside a float32 step."""
+        p_rgh_f64: solve p_rgh in float64 inside a float32 step. layout:
+        None/"auto" (DIA where the mesh fits, else SEG), "dia" or "seg"
+        (MeshGeometry.from_polymesh). `setup_seconds` holds the host's
+        seconds for the mesh, the geometry and the solver tables."""
         self.device = torch.device(device) if device is not None else default_device()
         self.dtype = dtype or real_dtype(self.device)
         self.case = Case(case_dir)
+        t0 = time.perf_counter()
         self.cm = build_case_mesh(case_dir)
-        self.geom = MeshGeometry.from_polymesh(self.cm.mesh, dtype=self.dtype, device=self.device)
+        t1 = time.perf_counter()
+        self.geom = MeshGeometry.from_polymesh(self.cm.mesh, dtype=self.dtype, device=self.device,
+                                               layout=layout)
+        self.setup_seconds = {"mesh": t1 - t0, "geometry": time.perf_counter() - t1}
         g = self.geom
         self._check_supported()
 
@@ -262,7 +275,9 @@ class FireFoamSolver:
         self.turb.lap_limiter = self.lap_limiter
         self.u_div_scheme = self._parse_div_scheme("div(phi,U)", ("LUST",))
         self.turb.div_scheme = self._parse_div_scheme("div(phi,k)", ("limitedLinear", 1.0))
+        t0 = time.perf_counter()
         self._pick_solvers(exact_solvers, gmg, int(gmg_coarsest), amg)
+        self.setup_seconds["solvers"] = time.perf_counter() - t0
         self.p_rgh_f64 = bool(p_rgh_f64)
         rf = self.fv_solution.get_dict("relaxationFactors", FoamDict())
         self._eq_relax = rf.get_dict("equations", None)
@@ -304,11 +319,11 @@ class FireFoamSolver:
           * `gmg`, the lattice multigrid: automatic on a DIA mesh of at
             least GMG_MIN_CELLS[device type] cells;
           * `amg`, the agglomeration multigrid: never beside `gmg`; on the
-            CPU automatic from 50000 cells, or when the dictionary says
-            GAMG, or when the schedule is off. On the card the whole-solve
-            kernels K1-K3 serve both dtypes (as the JAX package's fused
-            kernels serve float32 on its accelerator), so there AMG is on
-            only when forced."""
+            CPU, and on a SEG mesh on the card, automatic from 50000 cells,
+            or when the dictionary says GAMG, or when the schedule is off.
+            On a DIA mesh on the card the whole-solve kernels K1-K3 serve
+            both dtypes (as the JAX package's fused kernels serve float32
+            on its accelerator), so there AMG is on only when forced."""
         g = self.geom
         self._ldu = None
         if exact_solvers or (exact_solvers is None and self.dtype == torch.float64):
@@ -674,30 +689,23 @@ class FireFoamSolver:
         """fn(diag, upper, lower, b, x0) → SolverResult for the controls,
         honouring fvSolution as the JAX package does: with the schedule,
         PCG+DIC → dic_pcg and smoothSolver+*GaussSeidel → sgs_solve (the
-        dictionary's own maxIter and nSweeps); otherwise PCG/GAMG → K2
-        (dia_pcg), smoothSolver → K3 (dia_smooth, damped Jacobi), every
-        other Krylov solver → K1 (dia_bicgstab)."""
+        dictionary's own maxIter and nSweeps); otherwise `solve_ldu`: on DIA
+        PCG/GAMG → K2 (dia_pcg), smoothSolver → K3 (dia_smooth, damped
+        Jacobi), every other Krylov solver → K1 (dia_bicgstab); on SEG the
+        same solvers' twins with the JAX package's flat budgets."""
         sol, tol, rel, mx = ctl["solver"], ctl["tolerance"], ctl["relTol"], ctl["maxIter"]
-        offsets = self.geom.offsets
+        g = self.geom
         if self._ldu is not None:
-            def mv(d, up, lo):
-                return lambda x: dia_krylov.dia_matvec(d, up, lo, offsets, x)
-
             if sol == "PCG" and ctl["preconditioner"] == "DIC":
                 return lambda d, up, lo, b, x0: dic_pcg(
-                    self._ldu, mv(d, up, lo), d, up, b, x0, tol, rel, mx)
+                    self._ldu, ldu_matvec(g, d, up, lo), d, up, b, x0, tol, rel, mx)
             if sol == "smoothSolver" and ctl["smoother"].endswith("GaussSeidel"):
                 return lambda d, up, lo, b, x0: sgs_solve(
-                    self._ldu, mv(d, up, lo), d, lo, up, b, x0, tol, rel, mx, ctl["nSweeps"])
-        if sol in ("PCG", "GAMG"):
-            kern = dia_krylov.dia_pcg
-        elif sol == "smoothSolver":
-            kern, mx = dia_krylov.dia_smooth, smooth_sweeps(mx)
-        else:
-            kern = dia_krylov.dia_bicgstab
+                    self._ldu, ldu_matvec(g, d, up, lo), d, lo, up, b, x0, tol, rel, mx,
+                    ctl["nSweeps"])
 
         def fn(d, up, lo, b, x0):
-            return kern(d, up, lo, b, x0, offsets, tol=tol, rel_tol=rel, max_iter=mx)
+            return solve_ldu(g, sol, d, up, lo, b, x0, tol=tol, rel_tol=rel, max_iter=mx)
 
         return fn
 
@@ -1056,40 +1064,39 @@ class FireFoamSolver:
         Jacobi-CG, K2's float64 kernel on the card) → the OpenFOAM-exact
         DIC-PCG (the fidelity path comes first: a multigrid solve at the
         same stated tolerance leaves other error modes) → the lattice
-        multigrid → AMG → the Jacobi-CG (K2). The tolerances are
+        multigrid → AMG → the Jacobi-CG (K2 on DIA). The tolerances are
         p_rghFinal's on the last corrector; solver, preconditioner and
         maxIter are p_rgh's. On the card K2 (also in float64 for
         `p_rgh_f64`) stops at the dictionary's maxIter, as the JAX package's
-        fused kernel does; on the CPU the Jacobi-CG twin stops at 1000, as
-        the JAX package's flat CG does."""
+        fused kernel does; the Jacobi-CG twin (the CPU's, and SEG's on
+        either device) stops at 1000, as the JAX package's flat CG does."""
         g = self.geom
         c0 = _solver_controls(self.fv_solution, "p_rgh")
         c = _solver_controls(self.fv_solution, "p_rghFinal", "p_rgh") if final else c0
         tol, rel = c["tolerance"], c["relTol"]
-        k2_max_iter = c0["maxIter"] if self.device.type == "cuda" else 1000
+        fused = self.device.type == "cuda" and g.layout == "dia"
+        cg_max_iter = c0["maxIter"] if fused else 1000
         dtot, b = m.totals()
         if self.p_rgh_f64 and self.dtype != torch.float64:
             # the tolerances pass through the step's dtype first
             tol, rel = (float(torch.tensor(v, dtype=self.dtype)) for v in (tol, rel))
             f8 = torch.float64
-            res = dia_krylov.dia_pcg(
-                dtot.to(f8), m.upper.to(f8), m.lower.to(f8), b.to(f8), x0.to(f8), g.offsets,
-                tol=tol, rel_tol=rel, max_iter=k2_max_iter,
+            res = solve_ldu(
+                g, "PCG", dtot.to(f8), m.upper.to(f8), m.lower.to(f8), b.to(f8), x0.to(f8),
+                tol=tol, rel_tol=rel, max_iter=cg_max_iter,
             )
             return res._replace(x=res.x.to(self.dtype))
         if self._ldu is not None and c0["solver"] == "PCG" and c0["preconditioner"] == "DIC":
             return dic_pcg(
-                self._ldu, lambda x: dia_krylov.dia_matvec(dtot, m.upper, m.lower, g.offsets, x),
+                self._ldu, ldu_matvec(g, dtot, m.upper, m.lower),
                 dtot, m.upper, b, x0, tol=tol, rel_tol=rel, max_iter=c0["maxIter"],
             )
         if self.gmg is not None:
             return gmg_pcg(self.gmg, dtot, m.lower, m.upper, b, x0, tol=tol, rel_tol=rel)
         if self.amg is not None:
             return amg_pcg(self.amg, dtot, m.lower, m.upper, b, x0, tol=tol, rel_tol=rel)
-        return dia_krylov.dia_pcg(
-            dtot, m.upper, m.lower, b, x0, g.offsets, tol=tol, rel_tol=rel,
-            max_iter=k2_max_iter,
-        )
+        return solve_ldu(g, "PCG", dtot, m.upper, m.lower, b, x0, tol=tol, rel_tol=rel,
+                         max_iter=cg_max_iter)
 
     # ------------------------------------------------------------------
     def _zero_sources(self):

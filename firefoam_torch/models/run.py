@@ -73,6 +73,7 @@ def run_case(
     gmg_coarsest: int = 64,
     amg: Optional[bool] = None,
     p_rgh_f64: bool = False,
+    layout: Optional[str] = None,
 ):
     """Run a case to end_time (or max_steps); returns (solver, final_state,
     step_logs), the logs as numpy. A non-finite number in a step's log
@@ -86,7 +87,8 @@ def run_case(
     the step seconds (host clock around the step calls and the host copy of
     their logs, which waits for the device), the steps and the write
     seconds. exact_solvers, gmg, gmg_coarsest, amg and p_rgh_f64 choose the
-    linear solvers (FireFoamSolver's arguments; None: its automatic rule).
+    linear solvers (FireFoamSolver's arguments; None: its automatic rule);
+    layout the mesh layout (None/"auto", "dia" or "seg").
     """
     if verbose:
         print(f"firefoam_torch {__version__}")
@@ -94,6 +96,7 @@ def run_case(
         solver = FireFoamSolver(
             case_dir, device=device, radiation=radiation, exact_solvers=exact_solvers,
             gmg=gmg, gmg_coarsest=gmg_coarsest, amg=amg, p_rgh_f64=p_rgh_f64,
+            layout=layout,
         )
     state = solver.initial_state()
     if resume:
@@ -191,8 +194,8 @@ def main(argv=None) -> int:
         ("--exact-solvers", "the OpenFOAM-exact DIC-PCG and symGaussSeidel where fvSolution "
                             "names them (auto: in float64)"),
         ("--gmg", "the lattice multigrid on p_rgh (auto: from the device's measured size)"),
-        ("--amg", "the agglomeration multigrid on p_rgh (auto: the CPU's rule; never on the "
-                  "card)"),
+        ("--amg", "the agglomeration multigrid on p_rgh (auto: the CPU's rule; on the card "
+                  "only on a SEG mesh)"),
     ):
         ap.add_argument(flag, choices=sorted(_TRISTATE), default="auto",
                         help=f"{what}; 1 forces, 0 forbids")
@@ -200,6 +203,9 @@ def main(argv=None) -> int:
                     help="the lattice multigrid stops coarsening at this many cells")
     ap.add_argument("--p-rgh-f64", choices=("0", "1"), default="0",
                     help="solve p_rgh in float64 inside a float32 step")
+    ap.add_argument("--layout", choices=("auto", "dia", "seg"), default="auto",
+                    help="the mesh layout: DIA where the mesh fits and SEG otherwise (auto), "
+                         "or forced")
     args = ap.parse_args(argv)
 
     device = "cpu" if args.cpu else None
@@ -218,7 +224,7 @@ def main(argv=None) -> int:
             resume=args.resume, chunk=args.chunk, device=device, stats=stats,
             exact_solvers=_TRISTATE[args.exact_solvers], gmg=_TRISTATE[args.gmg],
             gmg_coarsest=args.gmg_coarsest, amg=_TRISTATE[args.amg],
-            p_rgh_f64=args.p_rgh_f64 == "1",
+            p_rgh_f64=args.p_rgh_f64 == "1", layout=args.layout,
         )
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)

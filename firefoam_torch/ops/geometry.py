@@ -1,18 +1,25 @@
 """Device-side mesh geometry for the port: tensors for the step.
 
-Extracted once from the host-side PolyMesh. Only the DIA (offset-stencil)
-layout is served: internal faces live in a padded array of nO·nC slots;
-slot (o, c) holds the face from cell c to cell c + offsets[o] (zero
-coefficients where absent). blockMesh lattices are lexicographic, so they
-fit with 3 offsets (1, nx, nx·ny). Face↔cell motion is then a roll or a
-shift plus elementwise math; boundary↔cell motion is an index_add_ / an
-index_select over the owner cells. The index_add_ runs in groups whose
-owner cells are distinct, so no two additions collide: on the card (where
-index_add_ adds with atomics) the sums are bitwise reproducible, and on the
-CPU they keep the face order of one index_add_.
+Extracted once from the host-side PolyMesh, in one of two layouts (the JAX
+package's `dia` and `seg`; its hybrid, banded and lattice-slab layouts are
+TPU work and are not ported):
 
-A mesh that does not fit the DIA layout raises: the JAX package's SEG,
-hybrid and banded layouts are not ported.
+  * DIA (offset stencil): internal faces live in a padded array of nO·nC
+    slots; slot (o, c) holds the face from cell c to cell c + offsets[o]
+    (zero coefficients where absent). blockMesh lattices are lexicographic,
+    so they fit with 3 offsets (1, nx, nx·ny). Face↔cell motion is a roll
+    or a shift plus elementwise math.
+  * SEG (any mesh, e.g. a snappyHexMesh castellation): internal faces in
+    the mesh's own order, unpadded. Cell→face motion is a gather x[own] /
+    x[nei]; face→cell sums go through tables the host sorted once
+    (`SegSum`): row c lists the faces of cell c in ascending face order,
+    padded with a slot that holds 0, and the device sums along the row.
+
+Boundary↔cell motion is an index_add_ / an index_select over the owner
+cells; the index_add_ runs in groups whose owner cells are distinct. So no
+sum of either layout adds into colliding indices: on the card (where
+index_add_ adds with atomics) every sum is bitwise reproducible, and on the
+CPU the sums keep face order.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 from ..config import INT_DTYPE, default_device, real_dtype
 from ..mesh.polymesh import PolyMesh
 
-__all__ = ["PatchInfo", "MeshGeometry"]
+__all__ = ["PatchInfo", "MeshGeometry", "SegSum"]
 
 _MAX_OFFSETS = 16
 
@@ -43,15 +50,51 @@ class PatchInfo:
         return slice(self.start, self.start + self.n)
 
 
+class SegSum:
+    """Σ of sources into segments through a host-sorted table: row s lists
+    the sources with segment id s in source order, padded with a slot that
+    holds 0. `keep` restricts the sources that enter; segments ≥ n_seg are
+    dropped. Called with several source arrays, their concatenation is the
+    source list. No addition collides, so the sum is order-fixed on any
+    device."""
+
+    def __init__(self, seg_ids: np.ndarray, n_seg: int, device, keep=None):
+        seg_ids = np.asarray(seg_ids, np.int64)
+        srcs = np.arange(len(seg_ids)) if keep is None else np.nonzero(keep)[0]
+        srcs = srcs[seg_ids[srcs] < n_seg]
+        ids = seg_ids[srcs]
+        order = np.argsort(ids, kind="stable")
+        ids_s, srcs_s = ids[order], srcs[order]
+        rank = np.arange(len(ids_s)) - np.searchsorted(ids_s, ids_s, side="left")
+        deg = int(rank.max()) + 1 if len(rank) else 1
+        table = np.full((n_seg, deg), len(seg_ids), np.int64)
+        table[ids_s, rank] = srcs_s
+        self.table = torch.as_tensor(table, device=device)
+
+    def __call__(self, *parts: torch.Tensor) -> torch.Tensor:
+        """[n_src(, d)] sources along the leading axis → [n_seg(, d)]."""
+        v = parts[0]
+        zero = v.new_zeros((1,) + tuple(v.shape[1:]))
+        return torch.sum(torch.cat(parts + (zero,))[self.table], dim=1)
+
+    def last(self, *parts: torch.Tensor) -> torch.Tensor:
+        """[..., n_src] sources along the last axis → [..., n_seg]."""
+        v = parts[0]
+        zero = v.new_zeros(tuple(v.shape[:-1]) + (1,))
+        return torch.sum(torch.cat(parts + (zero,), dim=-1)[..., self.table], dim=-1)
+
+
 @dataclass
 class MeshGeometry:
     """All arrays are tensors on one device; metadata is plain Python.
 
-    The internal-face arrays are padded to n_internal = nO·n_cells slots;
-    `face_mask` marks real faces."""
+    DIA: the internal-face arrays are padded to n_internal = nO·n_cells
+    slots and `face_mask` marks real faces. SEG: n_internal is the mesh's
+    internal-face count, `face_mask` is all ones and `face_perm` the
+    identity."""
 
     n_cells: int
-    n_internal: int  # allocated internal-face slots (padded)
+    n_internal: int  # internal-face slots (DIA: padded)
     n_boundary: int
 
     own: torch.Tensor  # [nI] int64
@@ -88,11 +131,25 @@ class MeshGeometry:
     d_face: Optional[torch.Tensor] = None
     recon_inv: Optional[torch.Tensor] = None  # [nC,3,3]
 
+    # SEG face→cell sums: owned faces, neighbouring faces, and both in one
+    # table (the owned faces first, then the neighbouring ones)
+    seg_own: Optional[SegSum] = None
+    seg_nei: Optional[SegSum] = None
+    seg_both: Optional[SegSum] = None
+
     # ---------------------------------------------------------------- build
     @classmethod
-    def from_polymesh(cls, mesh: PolyMesh, dtype=None, device=None) -> "MeshGeometry":
+    def from_polymesh(cls, mesh: PolyMesh, dtype=None, device=None,
+                      layout: Optional[str] = None) -> "MeshGeometry":
+        """`layout`: None or "auto" takes DIA where the mesh fits and SEG
+        otherwise; "seg" forces SEG on any mesh; "dia" raises where the mesh
+        does not fit."""
         device = torch.device(device) if device is not None else default_device()
         dtype = dtype or real_dtype(device)
+        layout = layout or "auto"
+        if layout not in ("auto", "dia", "seg"):
+            raise ValueError(f"layout {layout!r}: 'auto', 'dia' or 'seg' (the JAX "
+                             "package's hybrid and banded layouts are not ported)")
         n_int = mesh.n_internal_faces
         nC = mesh.n_cells
         w = mesh.weights()
@@ -108,7 +165,7 @@ class MeshGeometry:
 
         offs = ()
         use_dia = False
-        if n_int > 0:
+        if layout != "seg" and n_int > 0:
             d = nei - own
             uniq = np.unique(d)
             if (uniq > 0).all() and len(uniq) <= _MAX_OFFSETS:
@@ -117,11 +174,8 @@ class MeshGeometry:
                 if len(np.unique(key)) == n_int:
                     use_dia = True
                     offs = tuple(int(o) for o in uniq)
-        if not use_dia:
-            raise ValueError(
-                "mesh is not DIA-compatible (offset stencil); the port serves "
-                "lattice meshes only"
-            )
+        if layout == "dia" and not use_dia:
+            raise ValueError("mesh is not DIA-compatible (offset stencil)")
 
         def r(a):
             return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=device)
@@ -129,20 +183,26 @@ class MeshGeometry:
         def ix(a):
             return torch.as_tensor(np.asarray(a, np.int64), dtype=INT_DTYPE, device=device)
 
-        nO = len(offs)
-        nIp = nO * nC
-        slot = o_idx.astype(np.int64) * nC + own
+        if use_dia:
+            nO = len(offs)
+            nIp = nO * nC
+            slot = o_idx.astype(np.int64) * nC + own
+            own_p = np.tile(np.arange(nC, dtype=np.int64), nO)
+            nei_p = own_p.copy()
+            nei_p[slot] = nei
+        else:
+            nIp = n_int
+            slot = np.arange(n_int, dtype=np.int64)
+            own_p = np.asarray(own, np.int64)
+            nei_p = np.asarray(nei, np.int64)
 
         def pack(a, pad=0.0):
             out = np.full((nIp,) + a.shape[1:], pad, dtype=np.float64)
             out[slot] = a
             return out
 
-        own_p = np.tile(np.arange(nC, dtype=np.int64), nO)
-        nei_p = own_p.copy()
         mask = np.zeros(nIp)
         mask[slot] = 1.0
-        nei_p[slot] = nei
         cf_p = pack(mesh.Cf[:n_int])
         # pad Cf with the owner cell centre (finite, unused)
         cf_p[mask == 0.0] = mesh.C[own_p[mask == 0.0]]
@@ -175,6 +235,13 @@ class MeshGeometry:
             for f in (np.nonzero(rank == k)[0] for k in range(int(rank.max(initial=-1)) + 1))
         )
 
+        seg = {}
+        if not use_dia:
+            seg = dict(
+                seg_own=SegSum(own_p, nC, device),
+                seg_nei=SegSum(nei_p, nC, device),
+                seg_both=SegSum(np.concatenate([own_p, nei_p]), nC, device),
+            )
         return cls(
             n_cells=nC,
             n_internal=nIp,
@@ -200,10 +267,12 @@ class MeshGeometry:
             patches=patches,
             offsets=offs,
             face_perm=slot,
+            layout="dia" if use_dia else "seg",
             C_own_f=r(C[own_p]),
             C_nei_f=r(C[nei_p]),
             d_face=r(C[nei_p] - C[own_p]),
             recon_inv=r(recon),
+            **seg,
         )
 
     def patch(self, name: str) -> PatchInfo:
@@ -238,23 +307,31 @@ class MeshGeometry:
 
     def gather_own(self, x: torch.Tensor) -> torch.Tensor:
         """Face array of the owner-cell values of x ([nC(,d)] → [nI(,d)])."""
+        if self.layout == "seg":
+            return x.index_select(0, self.own)
         reps = (len(self.offsets),) + (1,) * (x.ndim - 1)
         return x.repeat(*reps)
 
     def gather_nei(self, x: torch.Tensor) -> torch.Tensor:
-        """Face array of the neighbour-cell values of x. Pad slots receive a
-        wrapped (finite, in-range) cell value — consumers mask with the
-        zeroed face coefficients."""
+        """Face array of the neighbour-cell values of x. DIA pad slots
+        receive a wrapped (finite, in-range) cell value — consumers mask
+        with the zeroed face coefficients."""
+        if self.layout == "seg":
+            return x.index_select(0, self.nei)
         return torch.cat([torch.roll(x, -o, dims=0) for o in self.offsets], dim=0)
 
     def face_to_own_sum(self, fv: torch.Tensor) -> torch.Tensor:
         """Σ over each cell's owned faces of fv ([nI(,d)] → [nC(,d)]).
-        Pad-slot values must be zero."""
+        DIA pad-slot values must be zero."""
+        if self.layout == "seg":
+            return self.seg_own(fv)
         parts = fv.reshape((len(self.offsets), self.n_cells) + tuple(fv.shape[1:]))
         return torch.sum(parts, dim=0)
 
     def face_to_nei_sum(self, fv: torch.Tensor) -> torch.Tensor:
         """Σ over each cell's neighbouring faces of fv."""
+        if self.layout == "seg":
+            return self.seg_nei(fv)
         parts = fv.reshape((len(self.offsets), self.n_cells) + tuple(fv.shape[1:]))
         return sum(
             self._shift_down(parts[k], o) for k, o in enumerate(self.offsets)
@@ -276,6 +353,10 @@ class MeshGeometry:
 
     # ------------------------------------------------------ scatter helpers
     def face_to_both_sum(self, fv_own: torch.Tensor, fv_nei: torch.Tensor):
+        """Σ over owned faces of fv_own + Σ over neighbouring faces of
+        fv_nei (SEG: one table over both)."""
+        if self.layout == "seg":
+            return self.seg_both(fv_own, fv_nei)
         return self.face_to_own_sum(fv_own) + self.face_to_nei_sum(fv_nei)
 
     def cell_sum_internal(self, face_vals: torch.Tensor) -> torch.Tensor:

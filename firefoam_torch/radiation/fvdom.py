@@ -4,7 +4,8 @@ The reference fvDOM stack (fvDOM.C:549-586 calculate,
 radiativeIntensityRay.C:267-322 per-ray per-band RTE, radiationModel.C:
 209-244 correct/Sh) as ONE batched solve over the flattened (ray ×
 wavelength-band) axis: every (ray, band) pair is one row of the whole-solve
-BiCGStab (solvers/dia_krylov.py, K1 on CUDA) with its own upwind matrix.
+BiCGStab (solvers/linear.py `solve_ldu`: K1 on a DIA mesh on CUDA, the
+twin on SEG) with its own upwind matrix.
 
 Ray discretisation (θ ∈ nTheta bands of π (z polar), φ ∈ 4·nPhi sectors):
   ω_r   = (cosθ₁ − cosθ₂)·Δφ
@@ -45,7 +46,7 @@ from ..config import small
 from ..io import Case
 from ..io.foamdict import FoamDict
 from ..ops.geometry import MeshGeometry
-from ..solvers import dia_krylov
+from ..solvers.linear import solve_ldu
 
 __all__ = ["FvDOM", "SIGMA", "parse_grey_species", "read_ft_table", "grey_absorption"]
 
@@ -281,7 +282,8 @@ class FvDOM(RadiantFractionGate):
     # while the wall emits ε·σT⁴ (radiationCoupledBaseFF absorptivityMode,
     # greyDiffusiveRadiationFF...C:199-210); equal to ε by default
     absorptivity: Optional[torch.Tensor] = None  # [nB]
-    # ray sweeps run since construction (each one K1 launch on the card):
+    # ray sweeps run since construction (each one K1 launch on a DIA mesh
+    # on the card):
     # host-side bookkeeping, not part of the state
     sweeps: int = 0
     last_iters: Optional[torch.Tensor] = None  # [nR·nL] iterations of the last sweep
@@ -487,7 +489,7 @@ class FvDOM(RadiantFractionGate):
         return self._rays
 
     def _sweep(self, I, k_tot, sig_eff, src_emit, emis, absorp, enf_b, sigT4_w):
-        """One sweep of every (ray × band) intensity as ONE batched K1 solve.
+        """One sweep of every (ray × band) intensity as ONE batched solve.
         Returns (I_new [nR, nL, nC], the largest initial residual)."""
         g = self.geom
         nR, nL, nC = I.shape
@@ -507,10 +509,10 @@ class FvDOM(RadiantFractionGate):
         bc = -self.phi_ray_b[:, None] * (ops["f"][:, None] * I_wall[None])  # [nR, nL, nB]
         rhs = g.V * (om * (src_emit[None] + scat)) + g.boundary_to_cell_sum(
             bc.reshape(nR * nL, -1).T).T.reshape(nR, nL, nC)
-        res = dia_krylov.dia_bicgstab(
-            diag.reshape(nR * nL, nC).contiguous(), ops["upper"], ops["lower"],
+        res = solve_ldu(
+            g, "PBiCGStab", diag.reshape(nR * nL, nC).contiguous(), ops["upper"], ops["lower"],
             rhs.reshape(nR * nL, nC).contiguous(), I.reshape(nR * nL, nC).contiguous(),
-            g.offsets, tol=self.tol, rel_tol=0.0, max_iter=500,
+            tol=self.tol, rel_tol=0.0, max_iter=500,
         )
         self.sweeps += 1
         self.last_iters = res.n_iterations

@@ -10,8 +10,8 @@ with MarshakRadiation walls (MarshakRadiationFvPatchScalarField.C:156-188):
 mixed BC, refValue = 4σT_w⁴, refGrad = 0, valueFraction
 f = 1/(1 + gamma·Δc/Ep), Ep = ε/(2(2−ε)).
 
-The system is one row of the whole-solve BiCGStab (solvers/dia_krylov.py,
-K1 on CUDA). Absorption/emission submodels are shared with fvDOM
+The system is one row of the whole-solve BiCGStab (solvers/linear.py
+`solve_ldu`: K1 on a DIA mesh on CUDA, the twin on SEG). Absorption/emission submodels are shared with fvDOM
 (fvdom.grey_absorption): constRadFractionEmission (a = 0, E = χ_r·Qdot),
 constantAbsorptionEmission, greyMeanAbsorptionEmission (e = a,
 greyMeanAbsorptionEmission.C:259-262), the grey WSGG models. Energy
@@ -31,7 +31,7 @@ from ..io.foamdict import FoamDict
 from ..ops import fvm
 from ..ops.fields import SurfaceField, VolField
 from ..ops.geometry import MeshGeometry
-from ..solvers import dia_krylov
+from ..solvers.linear import solve_ldu
 from .fvdom import (_GREY_MEAN, SIGMA, RadiantFractionGate, _aslist, grey_absorption,
                     parse_grey_species)
 
@@ -56,7 +56,8 @@ class P1(RadiantFractionGate):
     emissivity: torch.Tensor  # [nB]
     tol: float = 1e-6
     wsggm: object = None
-    # G solves run since construction (each one K1 launch on the card):
+    # G solves run since construction (each one K1 launch on a DIA mesh on
+    # the card):
     # host-side bookkeeping, not part of the state
     solves: int = 0
     last_iters: Optional[torch.Tensor] = None
@@ -152,8 +153,8 @@ class P1(RadiantFractionGate):
         m = m + fvm.Sp(g, a, psi)
         m = m.add_source(4.0 * e * SIGMA * T.i**4 + E_tot)
         diag, b = m.totals()
-        res = dia_krylov.dia_bicgstab(diag, m.upper, m.lower, b, rad["G"].contiguous(),
-                                      g.offsets, tol=self.tol, rel_tol=0.0, max_iter=1000)
+        res = solve_ldu(g, "PBiCGStab", diag, m.upper, m.lower, b, rad["G"].contiguous(),
+                        tol=self.tol, rel_tol=0.0, max_iter=1000)
         self.solves += 1
         self.last_iters = res.n_iterations
         G = torch.clamp(res.x, min=0.0)

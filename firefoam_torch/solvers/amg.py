@@ -31,6 +31,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..ops.geometry import SegSum
 from .linear import SolverResult, _norm_factor, tol_floor
 
 __all__ = ["AMGHierarchy", "amg_pcg"]
@@ -70,28 +71,6 @@ def _pair_agglomerate(own, nei, w, n_cells):
     return coarse, next_id + int(iso.sum())
 
 
-class _SegSum:
-    """Σ of sources into segments through a host-sorted table: row s lists
-    the sources with segment id s in source order (pad: a slot holding 0).
-    `keep` restricts the sources that enter; segments ≥ n_seg are dropped."""
-
-    def __init__(self, seg_ids: np.ndarray, n_seg: int, device, keep=None):
-        seg_ids = np.asarray(seg_ids, np.int64)
-        srcs = np.arange(len(seg_ids)) if keep is None else np.nonzero(keep)[0]
-        srcs = srcs[seg_ids[srcs] < n_seg]
-        ids = seg_ids[srcs]
-        order = np.argsort(ids, kind="stable")
-        ids_s, srcs_s = ids[order], srcs[order]
-        rank = np.arange(len(ids_s)) - np.searchsorted(ids_s, ids_s, side="left")
-        deg = int(rank.max()) + 1 if len(rank) else 1
-        table = np.full((n_seg, deg), len(seg_ids), np.int64)
-        table[ids_s, rank] = srcs_s
-        self.table = torch.as_tensor(table, device=device)
-
-    def __call__(self, v):
-        return torch.sum(torch.cat([v, v.new_zeros(1)])[self.table], dim=-1)
-
-
 @dataclass
 class _Level:
     restrict: torch.Tensor  # [n_fine] → coarse cell
@@ -105,9 +84,9 @@ class _Level:
     c_nei: torch.Tensor  # [nFc]
     n_cfaces: int
     # order-fixed segment sums
-    sum_cells: _SegSum = None  # fine cells → coarse cells
-    sum_diag_faces: _SegSum = None  # collapsed fine faces → coarse cell of their owner
-    sum_faces: _SegSum = None  # surviving fine faces → coarse faces
+    sum_cells: SegSum = None  # fine cells → coarse cells
+    sum_diag_faces: SegSum = None  # collapsed fine faces → coarse cell of their owner
+    sum_faces: SegSum = None  # surviving fine faces → coarse faces
 
 
 @dataclass
@@ -117,13 +96,13 @@ class _Graph:
     own: torch.Tensor
     nei: torch.Tensor
     n: int
-    to_own: _SegSum
-    to_nei: _SegSum
+    to_own: SegSum
+    to_nei: SegSum
 
     @classmethod
     def build(cls, own, nei, n, device):
         ix = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
-        return cls(ix(own), ix(nei), n, _SegSum(own, n, device), _SegSum(nei, n, device))
+        return cls(ix(own), ix(nei), n, SegSum(own, n, device), SegSum(nei, n, device))
 
 
 @dataclass
@@ -195,9 +174,9 @@ class AMGHierarchy:
                     c_own=ix(c_own),
                     c_nei=ix(c_nei),
                     n_cfaces=n_cf,
-                    sum_cells=_SegSum(coarse, nc, device),
-                    sum_diag_faces=_SegSum(coarse[own], nc, device, keep=diag),
-                    sum_faces=_SegSum(face_coarse, n_cf, device),
+                    sum_cells=SegSum(coarse, nc, device),
+                    sum_diag_faces=SegSum(coarse[own], nc, device, keep=diag),
+                    sum_faces=SegSum(face_coarse, n_cf, device),
                 )
             )
             # coarse weights for the next agglomeration level: summed areas

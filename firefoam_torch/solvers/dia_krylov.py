@@ -17,6 +17,10 @@ semantics of a jax.vmap over linear.py — the Pallas kernel instead keeps
 updating every row until the last converges), and `n_iterations` is per
 row; callers take the max where they want one count.
 
+These are DIA systems only: a system whose off-diagonals are not K·nC
+long (a SEG mesh's, for one) raises before anything is launched or solved.
+solvers/linear.py's `solve_ldu` sends SEG systems to the twins instead.
+
 A CUDA tensor goes to the kernel or raises; a CPU tensor runs the plain
 twin of solvers/linear.py on the same operands. The kernels are compiled
 with nvcc for sm_90a at first use, from the sources in csrc/, into
@@ -96,11 +100,22 @@ def reset_counts():
 
 
 # ------------------------------------------------------------------ K0 twin
+def _check_dia(name, upper, lower, offsets, nC):
+    """Raise unless upper and lower are DIA off-diagonals: K·nC long with
+    K ≥ 1 offsets."""
+    K = len(offsets)
+    if K < 1 or upper.shape[-1] != K * nC or lower.shape[-1] != K * nC:
+        raise ValueError(
+            f"dia_{name}: not a DIA system ({K} offsets, nC={nC}, off-diagonals of "
+            f"{upper.shape[-1]} and {lower.shape[-1]}; expected K·nC with K ≥ 1)")
+
+
 def dia_matvec(diag, upper, lower, offsets: Sequence[int], x):
     """M·x on the DIA layout for x [B, nC] (the plain version of the
     kernels' `dia_row`): d·x + (Σ_k u_k·x[c+o_k] + Σ_k l_k[c−o_k]·x[c−o_k]),
     summed in FvMatrix.matvec's order."""
     nC = x.shape[-1]
+    _check_dia("matvec", upper, lower, offsets, nC)
     K = len(offsets)
     up = upper.reshape(upper.shape[:-1] + (K, nC))
     lo = lower.reshape(lower.shape[:-1] + (K, nC))
@@ -364,6 +379,7 @@ def _on_cpu(name, x0):
 
 
 def _dispatch(name, twin, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter):
+    _check_dia(name, upper, lower, offsets, x0.shape[-1])
     if x0.is_cuda:
         return _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter)
     _on_cpu(name, x0)
@@ -388,6 +404,7 @@ def dia_smooth(diag, upper, lower, b, x0, offsets, tol=1e-6, rel_tol=0.0,
                max_iter=1000, omega=0.8, check_every=4) -> SolverResult:
     """Whole-solve damped-Jacobi smoother (smoothSolver role); K3.
     `max_iter` and `n_iterations` count sweeps, as in the Pallas kernel."""
+    _check_dia("smooth", upper, lower, offsets, x0.shape[-1])
     if x0.is_cuda:
         return _launch("smooth", diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter,
                        extra=(float(omega), int(check_every)))

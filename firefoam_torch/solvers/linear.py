@@ -13,14 +13,16 @@ the L1 residual over it, and a stopping tolerance floored at
 Each twin takes vectors of shape [nC] or [B, nC] (a leading batch axis)
 and freezes every row at its own stop — the semantics of `jax.vmap` over
 the JAX solvers — so `n_iterations` is per row. The data-dependent loop is
-a Python loop that reads the stop test on the host each iteration: these
-twins are the CPU path and the reference the CUDA kernels
-(solvers/dia_krylov.py) are held against, not the GPU path.
+a Python loop that reads the stop test on the host each iteration. On a
+DIA mesh the twins are the CPU path and the reference the CUDA kernels
+(solvers/dia_krylov.py) are held against; on a SEG mesh they are the path
+on either device, as the JAX package's flat solvers are there.
 
-`solve_scalar` routes a DIA FvMatrix system to the OpenFOAM-exact solvers of
+`solve_scalar` routes an FvMatrix system to the OpenFOAM-exact solvers of
 solvers/dic.py when the caller holds their schedule and the dictionary names
-them, else to dia_krylov, which launches the hand-written kernel for CUDA
-tensors and runs these twins for CPU ones.
+them, else to `solve_ldu`: on DIA to dia_krylov, which launches the
+hand-written kernel for CUDA tensors and runs these twins for CPU ones; on
+SEG to these twins with `ldu_matvec`'s product.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from ..config import TOL_FLOOR_EPS
 
-__all__ = ["SolverResult", "solve_scalar", "smooth_sweeps", "pcg", "bicgstab",
+__all__ = ["SolverResult", "solve_scalar", "solve_ldu", "ldu_matvec", "pcg", "bicgstab",
            "jacobi_smooth"]
 
 
@@ -216,21 +218,60 @@ def jacobi_smooth(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
     return _finish(x, res0, res, it * n_sweeps, squeeze)
 
 
+def ldu_matvec(g, diag, upper, lower):
+    """x ↦ M·x for raw LDU coefficients on the layout of geometry g, for x
+    [nC] or [B, nC]; upper/lower are shared [nI] or per row [B, nI]. DIA:
+    the product of dia_krylov.dia_matvec (K0's plain version). SEG:
+    d·x + Σ_owned upper·x[nei] + Σ_neighbouring lower·x[own] through the
+    geometry's order-fixed tables."""
+    if g.layout == "dia":
+        from . import dia_krylov
+
+        return lambda x: dia_krylov.dia_matvec(diag, upper, lower, g.offsets, x)
+    own, nei = g.own, g.nei
+    return lambda x: diag * x + g.seg_both.last(
+        upper * x.index_select(-1, nei), lower * x.index_select(-1, own))
+
+
+def solve_ldu(g, solver: str, diag, upper, lower, b, x0, tol: float = 1e-6,
+              rel_tol: float = 0.0, max_iter: int = 1000) -> SolverResult:
+    """One Krylov solve of raw LDU coefficients (rows as in `ldu_matvec`)
+    by the fvSolution `solver` name: PCG/GAMG → CG, smoothSolver → damped
+    Jacobi with max(maxIter, 200) rounds of 4 sweeps, any other → BiCGStab.
+    DIA: the whole-solve kernels of dia_krylov (K2, K3, K1 on the card; the
+    twins on the CPU). SEG: the twins with the SEG product on either device,
+    as the JAX package runs its flat solvers there; no kernel is launched."""
+    if g.layout == "dia":
+        from . import dia_krylov
+
+        if solver in ("PCG", "GAMG"):
+            kern = dia_krylov.dia_pcg
+        elif solver == "smoothSolver":
+            # K3 counts sweeps: the same max(maxIter, 200) rounds of 4
+            kern, max_iter = dia_krylov.dia_smooth, max(int(max_iter), 200) * 4
+        else:
+            kern = dia_krylov.dia_bicgstab
+        return kern(diag, upper, lower, b, x0, g.offsets, tol=tol, rel_tol=rel_tol,
+                    max_iter=max_iter)
+    mv = ldu_matvec(g, diag, upper, lower)
+    if solver in ("PCG", "GAMG"):
+        return pcg(mv, x0, b, diag, tol, rel_tol, max_iter)
+    if solver == "smoothSolver":
+        return jacobi_smooth(mv, x0, b, diag, tol, rel_tol, max(int(max_iter), 200))
+    return bicgstab(mv, x0, b, diag, tol, rel_tol, max_iter)
+
+
 def solve_scalar(m, x0: torch.Tensor, solver: str = "PCG", tol: float = 1e-6,
                  rel_tol: float = 0.0, max_iter: int = 1000, component: int = None,
                  sched=None, preconditioner: str = None, smoother: str = None,
                  n_sweeps: int = 1) -> SolverResult:
     """Solve one scalar FvMatrix system (or one `component` of a vector
-    system) on the DIA layout. With an LduSchedule, PCG+DIC and
-    smoothSolver+*GaussSeidel run the OpenFOAM-exact wavefront solvers of
-    solvers/dic.py, so that iteration counts and left-over error modes track
-    the reference's. Otherwise PCG/GAMG, PBiCGStab/PBiCG and smoothSolver go
-    to the whole-solve kernels of dia_krylov (plain twins on the CPU);
-    smoothSolver is then damped Jacobi with max(maxIter, 200) rounds of 4
-    sweeps, as in the JAX package. "diagonal" divides the source by the
-    diagonal (the rhoEqn solver)."""
-    from . import dia_krylov
-
+    system). With an LduSchedule, PCG+DIC and smoothSolver+*GaussSeidel run
+    the OpenFOAM-exact wavefront solvers of solvers/dic.py, so that
+    iteration counts and left-over error modes track the reference's.
+    Otherwise PCG/GAMG, PBiCGStab/PBiCG and smoothSolver go to `solve_ldu`:
+    the whole-solve kernels on a DIA mesh, the twins on SEG. "diagonal"
+    divides the source by the diagonal (the rhoEqn solver)."""
     diag_t, b = m.totals()
     if component is not None:
         diag_t = (diag_t[:, component] if diag_t.ndim == 2 else diag_t).contiguous()
@@ -243,34 +284,12 @@ def solve_scalar(m, x0: torch.Tensor, solver: str = "PCG", tol: float = 1e-6,
     if sched is not None:
         from .dic import dic_pcg, sgs_solve
 
-        def matvec(x):
-            return dia_krylov.dia_matvec(diag_t, m.upper, m.lower, g.offsets, x)
-
+        matvec = ldu_matvec(g, diag_t, m.upper, m.lower)
         if solver == "PCG" and preconditioner == "DIC":
             return dic_pcg(sched, matvec, diag_t, m.upper, b, x0, tol, rel_tol, max_iter)
         if solver == "smoothSolver" and (smoother or "").endswith("GaussSeidel"):
             return sgs_solve(sched, matvec, diag_t, m.lower, m.upper, b, x0,
                              tol, rel_tol, max_iter, n_sweeps)
-    if solver in ("PCG", "GAMG"):
-        return dia_krylov.dia_pcg(
-            diag_t, m.upper, m.lower, b, x0, g.offsets,
-            tol=tol, rel_tol=rel_tol, max_iter=max_iter,
-        )
-    if solver in ("PBiCGStab", "PBiCG"):
-        return dia_krylov.dia_bicgstab(
-            diag_t, m.upper, m.lower, b, x0, g.offsets,
-            tol=tol, rel_tol=rel_tol, max_iter=max_iter,
-        )
-    if solver == "smoothSolver":
-        return dia_krylov.dia_smooth(
-            diag_t, m.upper, m.lower, b, x0, g.offsets,
-            tol=tol, rel_tol=rel_tol, max_iter=smooth_sweeps(max_iter),
-        )
+    if solver in ("PCG", "GAMG", "PBiCGStab", "PBiCG", "smoothSolver"):
+        return solve_ldu(g, solver, diag_t, m.upper, m.lower, b, x0, tol, rel_tol, max_iter)
     raise NotImplementedError(f"linear solver '{solver}'")
-
-
-def smooth_sweeps(max_iter: int) -> int:
-    """The sweep budget of a smoothSolver entry: damped Jacobi needs
-    headroom beyond the dict's maxIter, so max(maxIter, 200) rounds of 4
-    sweeps (firefoam_tpu solve_scalar and _lin_fn)."""
-    return max(int(max_iter), 200) * 4

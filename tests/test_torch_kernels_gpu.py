@@ -34,6 +34,9 @@ JAX, so it also runs on a machine that has only PyTorch:
   its plain version; the banded (ray × band) ray solve, P1's G solve and one
   step of each radiation case (write_radiation_fire_case) on the card in
   float64 against the CPU.
+* The SEG layout (castellated meshes, no kernel): its face→cell sums
+  bitwise repeatable on the card, its matvec within 1e-12 of the CPU's in
+  float64, and three castellated steps on the card against the CPU.
 """
 
 import numpy as np
@@ -564,3 +567,81 @@ def test_radiation_step_on_cuda_matches_cpu(tmp_path, model):
         tol = 1e-5 if p1 and k in ("G", "G_b") else 1e-9
         assert np.max(np.abs(a - b)) <= tol * max(np.max(np.abs(b)), 1.0), k
 
+
+
+# ------------------------------------------------------------------------
+# The SEG layout on the card (plain PyTorch ops: no kernel serves it)
+# ------------------------------------------------------------------------
+def _castellated_geoms(tmp_path, n=(16, 12, 16)):
+    from firefoam_torch.mesh import build_case_mesh
+    from firefoam_torch.ops import MeshGeometry
+    from firefoam_torch.utils.synthcase import write_castellated_fire_case
+
+    mesh = build_case_mesh(write_castellated_fire_case(str(tmp_path / "castel"), n=n)).mesh
+    return tuple(MeshGeometry.from_polymesh(mesh, dtype=torch.float64, device=d)
+                 for d in ("cuda", "cpu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_seg_sums_are_bitwise_repeatable_on_cuda(tmp_path, dtype):
+    """The SEG face→cell sums go through host-sorted tables, not atomics:
+    repeats on the card are bitwise equal; index_add_ is timed beside them
+    in chip_smoke.py, not used."""
+    _need_cuda()
+    g, _ = _castellated_geoms(tmp_path)
+    assert g.layout == "seg"
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for shape in ((g.n_internal,), (g.n_internal, 3)):
+        a = torch.randn(shape, generator=gen, device="cuda", dtype=dtype) * 1e3
+        b = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+        first = (g.face_to_own_sum(a), g.face_to_nei_sum(b), g.face_to_both_sum(a, b))
+        for _ in range(5):
+            again = (g.face_to_own_sum(a), g.face_to_nei_sum(b), g.face_to_both_sum(a, b))
+            assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_seg_matvec_on_cuda_matches_cpu(tmp_path):
+    """The SEG product of raw (diag, upper, lower), shared and per row, on
+    the card within 1e-12 of the CPU's in float64, and no K1-K3 launch."""
+    _need_cuda()
+    gg, gc = _castellated_geoms(tmp_path)
+    rng = np.random.RandomState(4)
+    dia_krylov.reset_counts()
+    for rows in (None, 4):
+        sf = (gc.n_internal,) if rows is None else (rows, gc.n_internal)
+        sc = (gc.n_cells,) if rows is None else (rows, gc.n_cells)
+        ops = [rng.rand(*sc) + 6.0, -rng.rand(*sf), -rng.rand(*sf), rng.randn(*sc)]
+        on = lambda d: [torch.as_tensor(a, device=d) for a in ops]
+        dg, ug, lg, xg = on("cuda")
+        dc, uc, lc, xc = on("cpu")
+        yg = linear.ldu_matvec(gg, dg, ug, lg)(xg).cpu().numpy()
+        yc = linear.ldu_matvec(gc, dc, uc, lc)(xc).numpy()
+        assert np.max(np.abs(yg - yc)) <= 1e-12 * np.max(np.abs(yc))
+    assert sum(dia_krylov.LAUNCHES.values()) == 0
+
+
+def test_castellated_step_on_cuda_matches_cpu(tmp_path):
+    """One castellated step (the automatic rule: the exact solvers in
+    float64) on the card from the CPU's state after 10 steps, against the
+    CPU's step: 1e-9, equal counts, no K1-K3 launch. (From t = 0 the first
+    solves sit at their tolerance and a count may part.)"""
+    _need_cuda()
+    from firefoam_torch.utils.synthcase import write_castellated_fire_case
+
+    root = write_castellated_fire_case(str(tmp_path / "castel"), n=(10, 8, 10))
+    cpu = FireFoamSolver(root, device="cpu", dtype=torch.float64)
+    card = FireFoamSolver(root, device="cuda", dtype=torch.float64)
+    assert cpu.geom.layout == card.geom.layout == "seg"
+    state, _ = cpu.make_chunk(10)(cpu.initial_state())
+    st_c, log_c = cpu.step(state)
+    dia_krylov.reset_counts()
+    st_g, log_g = card.step(state_from_numpy(state_to_numpy(state), device="cuda",
+                                             dtype=torch.float64))
+    assert sum(dia_krylov.LAUNCHES.values()) == 0
+    for k in log_c:
+        if k.endswith("_iters") or "iters_" in k:
+            assert int(log_g[k]) == int(log_c[k]), (k, int(log_g[k]), int(log_c[k]))
+    for f in ("T", "U", "p_rgh", "Y", "k"):
+        a, b = st_g[f].i.cpu().numpy(), st_c[f].i.numpy()
+        rel = np.max(np.abs(a - b)) / np.max(np.abs(b))
+        assert rel <= 1e-9, (f, rel)
