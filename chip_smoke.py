@@ -107,7 +107,28 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      then the castellated fire at 10k cells, 10 steps, float64 on the card
      against float64 on the CPU within CPU_TOL and float32 against float64
      within the T drift band;
- 12. the kernels' JSON line, the card line, and the final JSON line.
+ 12. the Lagrangian sprinkler spray (write_spray_fire_case: the box fire with
+     a detailed-sprinkler head spraying from t = 0, cloud radiation in
+     fvDOM, a collector; the JAX package's capacity, 262,144 parcel slots;
+     the cloud is plain PyTorch ops, no kernel of its own): at 100k cells
+     in float32, make_chunk(20) after one warm-up step with the K1/K2 launch
+     counts checked against the solves (fvDOM's sweeps with the spray's
+     terms included, no K3), every field, parcel field and log finite,
+     parcels alive, the mass bookkeeping (injected + the mass a parcel gains
+     or loses as its density follows its temperature at a fixed diameter =
+     in the system + evaporated + escaped + collected + dropped at
+     minParticleMass, within SPRAY_MASS_TOL), a second run bitwise equal
+     (cloud and random key
+     included); ms/step, launches, host reads and device-busy ms per step
+     beside phase 4's box fire, and the cloud's share of them; the run
+     CLI's engine (run_case) writing a time directory and a checkpoint (the
+     cloud's SoA, lists and key) and resuming bitwise equal to the
+     uninterrupted run; then at 9k cells 10 steps in lockstep: float64 on
+     the card against float64 on the CPU step by step (parcels and
+     iteration counts equal; T and U within SPRAY_CHAIN_TOL, ROADMAP R10),
+     the last step from the CPU's state within STEP_TOL with equal counts,
+     float32 within the T drift band;
+ 13. the kernels' JSON line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
@@ -140,7 +161,7 @@ from firefoam_torch.profile_step import _busy_us  # noqa: E402
 from firefoam_torch.radiation import fvdom as fvdom_mod  # noqa: E402
 from firefoam_torch.utils.synthcase import (  # noqa: E402
     write_box_fire_case, write_castellated_fire_case, write_radiation_fire_case,
-    write_smooth_fire_case, write_wall_fire_case)
+    write_smooth_fire_case, write_spray_fire_case, write_wall_fire_case)
 
 N_MAIN = (50, 40, 50)  # 100,000 cells
 N_SMALL = (30, 15, 20)  # 9,000 cells
@@ -179,6 +200,26 @@ QR_ISO_TOL = 1e-3
 # the grey-mean absorption in float32 against float64 from the same state:
 # its T-polynomials in 1/T cancel about twentyfold
 FT_TABLE_TOL = 1e-4
+# phase 12: the sprinkler head's parcels a second at 100k cells, enough for
+# the JAX package's largest capacity (ceil(pps·maxDeltaT) + 1 parcels a step
+# × 2048 steps, capped at 262,144); at 9k cells fewer (43,008 slots), as
+# the CPU runs the same steps
+SPRAY_PPS = 20000.0
+SPRAY_CAPACITY = 262144
+SPRAY_PPS_SMALL = 2000.0
+SPRAY_PROFILE_STEPS = 2  # the profiler's steps (it costs about 6 s a 100k step)
+# the 9k sprinkler fire's float64 card-vs-CPU chain after DRIFT_STEPS steps:
+# the species' shared convection weight takes the minimum of every species'
+# limiter, and those of species at 1e-70 flip with the last bit, so the
+# chain departs at step 5 (ROADMAP R10; firefoam_torch/spray_sensitivity.py).
+# Measured after 10 steps: card vs CPU T 1.472e-06, U 2.162e-06; a 1e-14 m/s
+# nudge of U on the CPU alone T 3.002e-06, U 3.655e-06. One step from the
+# CPU's state is held to STEP_TOL with equal iteration counts
+SPRAY_CHAIN_TOL = 1e-5
+# injected + expansion = in the system + evaporated + escaped + collected +
+# dropped at minParticleMass, relative to injected; each term summed in
+# float32 over the 262,144 slots (set from the readings: see PERF.md)
+SPRAY_MASS_TOL = 1e-5
 SOURCE = "firefoam_torch/csrc/dia_krylov.cu"
 REPLACES = {
     "bicgstab": "firefoam_tpu/solvers/pallas_cg.py:281",
@@ -1707,6 +1748,280 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
     return launches, castel
 
 
+
+# ---------------------------------------------------------------- phase 12
+def spray_leaves(state):
+    """Every tensor of a state (fields, radiation, the cloud's SoA, its
+    injector/collector lists and its random key), by key path."""
+    out = {}
+
+    def walk(x, key):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{key}/{k}")
+        elif isinstance(x, list):
+            for i, v in enumerate(x):
+                walk(v, f"{key}[{i}]")
+        elif isinstance(x, tuple):
+            walk(x.i, key + ".i")
+            walk(x.b, key + ".b")
+        elif torch.is_tensor(x):
+            out[key] = x
+
+    walk(state, "")
+    return out
+
+
+def states_equal(a, b):
+    la, lb = spray_leaves(a), spray_leaves(b)
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
+
+
+def injected_mass(solver, state, elapsed):
+    """The mass the sprinkler heads released by `state`: the K-factor flow
+    of every head over `elapsed`, the sum of the steps' dt as each step
+    accrued it (the float32 t carries its own rounding), less what each
+    head still owes."""
+    m = 0.0
+    for inj, ist in zip(solver.cloud.injectors, state["cloud"]["inj"]):
+        m += inj.n_spr * inj.Q * 1000.0 * elapsed - float(ist["m_owed"].sum())
+    return m
+
+
+def profiled_call(fn):
+    """(kernel launches, host reads, device-busy ms) of one call."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    kernels = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.lower().startswith(("memcpy", "memset")))
+    reads = sum(e.count for e in avgs if e.key == "aten::_local_scalar_dense")
+    return kernels, reads, _busy_us(prof) / 1e3
+
+
+def phase_spray(dev, tmp, box_solver, box_state, box_ms):
+    """The sprinkler fire (see the module docstring); returns the launch
+    counts of its 100k-cell run."""
+    case = write_spray_fire_case(os.path.join(tmp, "spray"), n=N_MAIN, pps=SPRAY_PPS,
+                                 end_time=100.0)
+    t0 = time.perf_counter()
+    solver = FireFoamSolver(case, device=dev)
+    cloud = solver.cloud
+    state0 = solver.initial_state()
+    step = solver.make_step()
+    state1, log1 = step(state0)  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = solver.geom.n_cells
+    if cloud is None or cloud.cfg.capacity != SPRAY_CAPACITY or "cloud_rad" not in state1:
+        raise SystemExit("phase 12: the sprinkler case did not build its cloud at the JAX "
+                         "package's capacity with cloud radiation")
+    count0 = int(state1["rad"]["count"])
+    chunk = solver.make_chunk(CHUNK)
+    sweeps0 = solver.radiation.sweeps
+    dia_krylov.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logs = chunk(state1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / CHUNK
+    launches = dict(dia_krylov.LAUNCHES)
+    exp_k1, exp_k2 = expected_launches(solver.radiation, count0, CHUNK)
+    sweeps = solver.radiation.sweeps - sweeps0
+    fields = ("T", "U", "p_rgh", "Y", "k")
+    finite = all(bool(torch.isfinite(state[f].i).all()) for f in fields) and all(
+        bool(torch.isfinite(v).all()) for v in spray_leaves(state["cloud"]).values()
+        if v.is_floating_point())
+    bad_logs = [k for k, v in logs.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    alive = int(logs["cloud_nParcels"][-1])
+    T_max = float(state["T"].i.max())
+    # mass bookkeeping from t = 0: injected + expansion = in the system +
+    # evaporated + escaped + collected (the collector removes what it
+    # catches) + dropped at minParticleMass
+    evap, esc, drop, expa = (float(log1[k]) + float(logs[k].sum()) for k in (
+        "cloud_massEvaporated", "cloud_massEscaped", "cloud_massDropped", "cloud_massExpansion"))
+    coll = sum(float(c["mass"].sum()) for c in state["cloud"]["coll"])
+    inside = float(logs["cloud_mass"][-1])
+    inj = injected_mass(solver, state, float(log1["dt"]) + float(logs["dt"].double().sum()))
+    book = abs(inj + expa - (inside + evap + esc + coll + drop)) / inj
+    say(12, f"sprinkler fire {n} cells float32 (capacity {cloud.cfg.capacity} parcels, "
+            f"{cloud.cfg.n_sub} substeps of a {cloud.cfg.walk_steps}-hop walk; setup + warm-up "
+            f"{setup_s:.1f} s): {ms:.3f} ms/step over make_chunk({CHUNK}), t = "
+            f"{float(state['t']):.4f} s, T max {T_max:.3f} K, parcels alive {alive}; fields, "
+            f"cloud and logs finite {finite and not bad_logs} {bad_logs}")
+    say(12, f"mass since t = 0 [kg]: injected {inj:.6e} + expansion {expa:.6e} = in system "
+            f"{inside:.6e} + evaporated {evap:.6e} + escaped {esc:.6e} + collected {coll:.6e} "
+            f"+ dropped {drop:.6e}; relative gap {book:.3e} (bound {SPRAY_MASS_TOL:g})")
+    say(12, f"launches K1 {launches['bicgstab']} (expected {exp_k1}; fvDOM ray sweeps with the "
+            f"spray's terms {sweeps}), K2 {launches['pcg']} (expected {exp_k2}), K3 "
+            f"{launches['smooth']}")
+    if not finite or bad_logs:
+        raise SystemExit("phase 12: the sprinkler fire is not finite")
+    if not alive > 0:
+        raise SystemExit("phase 12: no parcel alive")
+    if not book <= SPRAY_MASS_TOL:
+        raise SystemExit("phase 12: the spray's mass bookkeeping does not close")
+    if (launches["bicgstab"], launches["pcg"], launches["smooth"]) != (exp_k1, exp_k2, 0) or \
+            sweeps != exp_k1 - 4 * CHUNK:
+        raise SystemExit("phase 12: kernel launch counts do not match the solves")
+    again, logs2 = chunk(state1)
+    torch.cuda.synchronize()
+    same = states_equal(again, state) and all(torch.equal(logs2[k], logs[k]) for k in logs)
+    say(12, f"the same {CHUNK} steps again: states (cloud and key included) and logs bitwise "
+            f"equal: {same}")
+    if not same:
+        raise SystemExit("phase 12: two runs of the sprinkler fire differ")
+    _, k_spray, r_spray, busy_spray = step_profile(step, state, SPRAY_PROFILE_STEPS)
+    _, k_box, r_box, busy_box = step_profile(box_solver.make_step(), box_state,
+                                             SPRAY_PROFILE_STEPS)
+    k_cloud, r_cloud, busy_cloud = profiled_call(lambda: solver._evolve_cloud(state, {}))
+    k_spray = max(k_spray, 1)  # the profiler may see no device event (then 0)
+    busy_spray = max(busy_spray, 1e-9)
+    say(12, f"per step at {n} cells float32 (torch.profiler over {SPRAY_PROFILE_STEPS} steps): box fire "
+            f"{box_ms:.3f} ms (phase 4), {k_box:.0f} launches, {r_box:.1f} host reads, device "
+            f"busy {busy_box:.3f} ms; sprinkler fire {ms:.3f} ms, {k_spray:.0f} launches, "
+            f"{r_spray:.1f} host reads, device busy {busy_spray:.3f} ms "
+            f"({100.0 * (1.0 - busy_spray / ms):.1f} % idle); the cloud's evolve alone "
+            f"{k_cloud} launches ({100.0 * k_cloud / k_spray:.1f} %), {r_cloud} host reads, "
+            f"{busy_cloud:.3f} ms device busy ({100.0 * busy_cloud / busy_spray:.1f} %)")
+    del again, state0
+    phase_spray_cli(tmp)
+    phase_spray_small(dev, tmp)
+    return launches
+
+
+def phase_spray_cli(tmp):
+    """The sprinkler fire through the run CLI's engine (run_case): 15
+    uninterrupted steps; the same 10 steps writing once (time directory +
+    checkpoint with the cloud and its key); 5 steps resumed from that
+    checkpoint, bitwise equal to the uninterrupted run's."""
+    case = write_spray_fire_case(os.path.join(tmp, "spray_cli"), n=N_MAIN, pps=SPRAY_PPS,
+                                 end_time=100.0)
+    kw = dict(verbose=False, chunk=5, device="cuda")
+    path = os.path.join(case, "system", "controlDict")
+
+    def control(old, new):
+        with open(path) as f:
+            txt = f.read()
+        with open(path, "w") as f:
+            f.write(txt.replace(old, new))
+
+    # runTime writes do not change the steps (adjustableRunTime ones shorten
+    # them to land on the write time)
+    control("writeControl adjustableRunTime; writeInterval 1;",
+            "writeControl runTime; writeInterval 1000.0;")
+    _, full, logs = run_cli.run_case(case, max_steps=15, **kw)
+    t = [float(lg["t"]) for lg in logs]
+    control("writeInterval 1000.0;", f"writeInterval {0.5 * (t[8] + t[9])!r};")  # at step 10
+    out_dir = os.path.join(tmp, "spray_out")
+    stats = {}
+    _, ten, _ = run_cli.run_case(case, max_steps=10, output_dir=out_dir, write_fields=True,
+                                 stats=stats, **kw)
+    times = sorted(d for d in os.listdir(out_dir) if d[0].isdigit())
+    ckpt = run_cli.latest_checkpoint(out_dir)
+    if len(times) != 1 or ckpt is None:
+        raise SystemExit(f"phase 12: expected one write, found {times}")
+    with np.load(ckpt) as z:
+        keys = set(z.files)
+        rng = z["['cloud']['rng']"]
+    n_cloud = sum(1 for k in keys if k.startswith("['cloud']"))
+    if rng.dtype != np.uint32 or "['cloud']['alive']" not in keys or \
+            "['cloud']['inj'][0]['m_owed']" not in keys:
+        raise SystemExit("phase 12: the checkpoint lacks the cloud or its key")
+    _, resumed, _ = run_cli.run_case(case, max_steps=5, resume=ckpt, **kw)
+    same = states_equal(resumed, full)
+    say(12, f"run_case: 15 steps; 10 steps writing once ({stats['write_seconds']:.3f} s: time "
+            f"directory {times[0]} + checkpoint with {n_cloud} cloud leaves, key {rng.tolist()}); "
+            f"5 steps resumed: state bitwise equal to the uninterrupted run's {same} "
+            f"(parcels {int(full['cloud']['alive'].sum())})")
+    if not same:
+        raise SystemExit("phase 12: the resumed sprinkler run differs from the uninterrupted one")
+
+
+def phase_spray_small(dev, tmp):
+    """The 9k-cell sprinkler fire: DRIFT_STEPS steps in float32 and float64
+    on the card and in float64 on the CPU, in lockstep: each step the card's
+    float64 fields and parcels against the CPU's (the first step whose
+    parcels part, and whose iteration counts part, is printed); then the
+    last step again on the card from the CPU's state."""
+    case = write_spray_fire_case(os.path.join(tmp, "spray_small"), n=N_SMALL,
+                                 pps=SPRAY_PPS_SMALL)
+    cpu = torch.device("cpu")
+    runs = (("f32", dev, torch.float32), ("f64", dev, torch.float64),
+            ("cpu", cpu, torch.float64))
+    solvers, states, secs = {}, {}, {}
+    for run, d, dtype in runs:
+        solvers[run] = FireFoamSolver(case, device=d, dtype=dtype, exact_solvers=False,
+                                      gmg=False, amg=False)
+        states[run] = solvers[run].initial_state()
+        secs[run] = 0.0
+    rows, parted, iters_apart, before, last = [], None, None, None, None
+    for i in range(DRIFT_STEPS):
+        logs = {}
+        if i == DRIFT_STEPS - 1:
+            before = firefoam_mod.state_to_numpy(states["cpu"])
+        for run, _, _ in runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[run], logs[run] = solvers[run].step(states[run])
+            torch.cuda.synchronize()
+            secs[run] += time.perf_counter() - t0
+        last = logs["cpu"]
+        apart = [f"{k} {int(logs['f64'][k])}/{int(logs['cpu'][k])}" for k in logs["cpu"]
+                 if "iters" in k and int(logs["f64"][k]) != int(logs["cpu"][k])]
+        if apart and iters_apart is None:
+            iters_apart = f"step {i + 1}: " + ", ".join(apart)
+        a, b = states["f64"], states["cpu"]
+        ca, cb = a["cloud"], b["cloud"]
+        both = (ca["alive"].cpu() & cb["alive"]).numpy()
+        alive_diff = int((ca["alive"].cpu() != cb["alive"]).sum())
+        cell_diff = int((ca["cell"].cpu() != cb["cell"]).numpy()[both].sum())
+        x_diff = float((ca["x"].cpu() - cb["x"]).abs().numpy()[both].max()) if both.any() else 0.0
+        rel = {f: float((a[f].i.cpu() - b[f].i).abs().max() / b[f].i.abs().max())
+               for f in ("T", "U")}
+        rows.append(f"{i + 1}: T {rel['T']:.2e} U {rel['U']:.2e} x {x_diff:.1e} "
+                    f"cells {cell_diff} alive {alive_diff}")
+        if parted is None and (alive_diff or cell_diff):
+            parted = i + 1
+    out = {run: {f: states[run][f].i.double().cpu().numpy() for f in ("T", "U")}
+           for run, _, _ in runs}
+    alive = {run: int(states[run]["cloud"]["alive"].sum()) for run, _, _ in runs}
+    ms = {run: 1e3 * secs[run] / DRIFT_STEPS for run in secs}
+    T32, T64 = out["f32"]["T"], out["f64"]["T"]
+    drift = float(np.max(np.abs(T32 - T64) / np.maximum(T64, 1.0)))
+
+    vs_cpu = {f: float(np.max(np.abs(out["f64"][f] - out["cpu"][f])) /
+                       np.max(np.abs(out["cpu"][f]))) for f in ("T", "U")}
+    # the last step on the card from the CPU's state
+    stepped, log = solvers["f64"].step(firefoam_mod.state_from_numpy(before, device=dev,
+                                                                     dtype=torch.float64))
+    one = {f: float((stepped[f].i.cpu() - states["cpu"][f].i).abs().max() /
+                    states["cpu"][f].i.abs().max()) for f in ("T", "U")}
+    same_its = all(int(log[k]) == int(last[k]) for k in last if "iters" in k)
+    say(12, f"sprinkler fire {T64.size} cells, float64 card vs CPU step by step (relative T, U; "
+            f"largest parcel position gap [m]; parcels in other cells; alive flags apart): "
+            f"{'; '.join(rows)}; "
+            f"first step whose parcels part: {parted}; first solves whose iteration counts "
+            f"part (card/CPU): {iters_apart}")
+    say(12, f"sprinkler fire {T64.size} cells, {DRIFT_STEPS} steps: float32 {ms['f32']:.3f}, "
+            f"float64 {ms['f64']:.3f}, CPU float64 {ms['cpu']:.1f} ms/step; float64 card vs "
+            f"CPU: T {vs_cpu['T']:.3e}, U {vs_cpu['U']:.3e} relative (bound {SPRAY_CHAIN_TOL:g}); "
+            f"the last step from the CPU's state: T {one['T']:.3e}, U "
+            f"{one['U']:.3e}, iteration counts equal {same_its}; parcels alive {alive['f64']} "
+            f"vs {alive['cpu']} (float32 {alive['f32']}); float32 T drift {drift:.6e}")
+    if alive["f64"] != alive["cpu"] or parted is not None:
+        raise SystemExit("phase 12: the card's float64 parcels part from the CPU's")
+    if not (max(one.values()) <= STEP_TOL and same_its):
+        raise SystemExit("phase 12: the card's float64 step differs from the CPU's")
+    if not max(vs_cpu.values()) <= SPRAY_CHAIN_TOL:
+        raise SystemExit("phase 12: the card's float64 run differs from the CPU's beyond the bound")
+    if not np.all(np.isfinite(T32)) or not drift <= T_DRIFT:
+        raise SystemExit("phase 12: float32 drifts from float64 beyond the band")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1738,6 +2053,7 @@ def main():
         banded = rad_runs["wsggBand"]
         castel_launches, castel = phase_castellated(dev, tmp, main_case, main_solver,
                                                     main_state, main_ms)
+        spray_launches = phase_spray(dev, tmp, main_solver, main_state, main_ms)
         del main_solver, main_state
 
     kernels = [
@@ -1753,6 +2069,9 @@ def main():
             "launches_radiation_path": banded["launches"][name_k],
             # phase 11's 117k-cell castellated run: no kernel serves SEG
             "launches_castellated_path": castel_launches[name_k],
+            # phase 12's 100k-cell sprinkler fire: the spray runs no kernel of
+            # its own; K1 and K2 serve its gas step and its fvDOM rays
+            "launches_spray_path": spray_launches[name_k],
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],

@@ -98,6 +98,12 @@ class InfoFields:
         )
         out["B"] = VolField(comp, torch.zeros((g.n_boundary, 6), dtype=comp.dtype,
                                               device=comp.device))
+        # spray volume fraction theta() and equivalent water density
+        if getattr(s, "cloud", None) is not None and "cloud" in state:
+            theta = s.cloud.spray_volume(state["cloud"]) / g.V
+            zb = torch.zeros(g.n_boundary, dtype=comp.dtype, device=comp.device)
+            out["VFSpray"] = VolField(theta, zb)
+            out["rhoSpray"] = VolField(1000.0 * theta, zb)
         out["QcWallFunction"] = self._qc_wall_function(state)
         return out
 

@@ -7,8 +7,10 @@ intensities, RTI probe and link states) goes into one compressed npz, so a
 resumed run continues the trajectory bit for bit on the CPU.
 
 The npz keys are the JAX package's: `jax.tree_util.keystr` of each leaf's
-path, e.g. "['U'].i" for a field's cell values and "['rad']['G']" for a
-nested entry. A checkpoint written by either package loads into the other.
+path, e.g. "['U'].i" for a field's cell values, "['rad']['G']" for a
+nested entry and "['cloud']['inj'][0]['n_inj']" for a list element. Every
+leaf keeps its dtype (the cloud's random key is a uint32 pair in both
+packages), so a checkpoint written by either package loads into the other.
 """
 
 from __future__ import annotations
@@ -33,9 +35,10 @@ def _is_field(x) -> bool:
 
 def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
     """(key, leaf) pairs with the JAX package's key strings."""
-    for k, v in tree.items():
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
         key = f"{prefix}[{k!r}]"
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             yield from _leaves(v, key)
         elif _is_field(v):
             yield f"{key}.i", v.i
@@ -65,10 +68,10 @@ def load_checkpoint(path: str, template: Dict) -> Dict:
         data = {k: z[k] for k in z.files}
 
     def restore(tree, prefix=""):
-        out = {}
-        for k, v in tree.items():
+        out = {} if isinstance(tree, dict) else [None] * len(tree)
+        for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
             key = f"{prefix}[{k!r}]"
-            if isinstance(v, dict):
+            if isinstance(v, (dict, list)):
                 out[k] = restore(v, key)
             elif _is_field(v):
                 out[k] = type(v)(leaf(f"{key}.i", v.i), leaf(f"{key}.b", v.b))

@@ -41,10 +41,17 @@ WALE, WALE2 and SIGMA2, the EDM family (combustion/edm.py, edm_ext.py),
 the wall functions (spalding_utau, the alphat and nut passes after kEqn)
 and constant/additionalControls.
 
-Not ported: Lagrangian spray, surface film, pyrolysis regions (and the
+The Lagrangian spray (lagrangian/cloud.py, constant/reactingCloud1Properties):
+`_evolve_cloud` runs parcels.evolve() first in the step and turns the
+cloud's sources into Srho, SU, SYv/SY and Sh; the spray's equivalent water
+density reaches the EDM family and its radiation fields fvDOM.
+
+Not ported: the spray's stock injectors, MPPIC, DEM collisions and
+devolatilisation (ROADMAP P12b), surface film, pyrolysis regions (and the
 solid-only step of `solvePrimaryRegion false`), the PairMG pressure solver,
-the SPMD `local=` path (and its sharded multigrid) and the hoisted-jit
-entry points. A case that needs one of them raises at construction.
+the SPMD `local=` path (its sharded multigrid and parcel migration) and the
+hoisted-jit entry points. A case that needs one of them raises at
+construction.
 """
 
 from __future__ import annotations
@@ -282,6 +289,21 @@ class FireFoamSolver:
         rf = self.fv_solution.get_dict("relaxationFactors", FoamDict())
         self._eq_relax = rf.get_dict("equations", None)
 
+        # ---- Lagrangian spray cloud (solver/createClouds.H:1-9) ----
+        self.cloud = None
+        if self.case.has_constant("reactingCloud1Properties"):
+            props = self.case.constant("reactingCloud1Properties")
+            if props.get_dict("solution").get_bool("active", True):
+                from ..lagrangian.cloud import ReactingCloud
+                from ..lagrangian.tracking import WalkMesh
+
+                walk = WalkMesh.from_polymesh(self.cm.mesh, dtype=self.dtype, device=self.device)
+                self.cloud = ReactingCloud(
+                    "reactingCloud1", props, walk, g, self.case, self.gas,
+                    self.g_vec, dt_max=min(self.ctl.max_dt, 0.1), dtype=self.dtype,
+                    cell_zones=getattr(self.cm.sets, "cell_zones", None),
+                )
+
         # ---- fields & BCs ----
         self.t0_name = self.case.start_time()
         self.t0 = float(self.t0_name)
@@ -367,10 +389,6 @@ class FireFoamSolver:
             raise NotImplementedError(
                 "solvePrimaryRegion false: the solid-only step waits for the region "
                 "models (ROADMAP P13)")
-        if case.has_constant("reactingCloud1Properties"):
-            props = case.constant("reactingCloud1Properties")
-            if props.get_dict("solution").get_bool("active", True):
-                raise NotImplementedError("Lagrangian spray cloud")
         if self.solve_pyrolysis and case.has_constant("pyrolysisZones"):
             raise NotImplementedError("pyrolysis regions")
         if case.has_constant("surfaceFilmProperties"):
@@ -477,6 +495,12 @@ class FireFoamSolver:
             state["rad"] = self.radiation.initial_state()
         if self.combustion.stream_rad_fracs:
             state["localRadFrac"] = z_c
+        if self.cloud is not None:
+            state["cloud"] = self.cloud.initial_state()
+            if self.cloud.cfg.radiation:
+                z = torch.zeros((self.cloud.cfg.n_bands, g.n_cells), dtype=self.dtype,
+                                device=self.device)
+                state["cloud_rad"] = {"ap": z, "sigmap": z, "asy": z, "Ep": z}
         if self.rtis is not None and self.rtis.n > 0:
             state["rtis"] = self.rtis.initial_state()
         if self.rti_links.active:
@@ -789,10 +813,15 @@ class FireFoamSolver:
         """Species transport with EDM source (YEEqn.H:27-77)."""
         g = self.geom
         rho, phi, Y, dt = state["rho"], state["phi"], state["Y"], state["dt"]
+        spray_rho = None
+        if self.cloud is not None and "cloud" in state:
+            # the equivalent water density of the spray (the EDM family's
+            # suppression input)
+            spray_rho = 1000.0 * self.cloud.spray_volume(state["cloud"]) / g.V
         rates = self.combustion.rates(
             rho.i, Y.i, state["k"].i, self.turb.epsilon(state["k"].i),
             state["alpha"].i, self.turb.delta, dt, T=state["T"].i, p=state["p"].i,
-            near_wall=self._near_wall_mask, t=state["t"],
+            spray_rho=spray_rho, near_wall=self._near_wall_mask, t=state["t"],
             nu=state["mu"].i / rho.i, nut=state["nut"].i,
         )
         qdot = self.combustion.qdot(rates)
@@ -829,7 +858,18 @@ class FireFoamSolver:
                 + fvm.div(g, phi, Ysf, w_mv, vic, vbc)
                 - fvm.laplacian(g, alpha_eff_f, Ysf, gic, gbc, corr=self._lap_corr(Ysf))
             )
-            m = m.add_source(self.combustion.R(rates, s))
+            src_s = self.combustion.R(rates, s)
+            if self.cloud is not None:
+                # parcels.SYi (YEEqn.H:52): evaporated mass split over the
+                # liquid components' vapour species (SingleMixtureFraction
+                # multi-liquid → Raoult-weighted fractions; single → 1.0)
+                for vi, vf in zip(self.cloud.vapour_indices, self.cloud.vapour_fracs):
+                    if s == vi:
+                        src_s = src_s + vf * srcs["SYv"]
+            extra = srcs.get("SY", {}).get(s)  # per-component evaporation
+            if extra is not None:
+                src_s = src_s + extra
+            m = m.add_source(src_s)
             if relax_f is not None:
                 m = m.relax(relax_f)
             d, b = m.totals()
@@ -1099,15 +1139,93 @@ class FireFoamSolver:
                          max_iter=cg_max_iter)
 
     # ------------------------------------------------------------------
-    def _zero_sources(self):
-        """parcels.evolve() of a case without a cloud: zero gas sources."""
+    def _evolve_cloud(self, state: Dict, log) -> Tuple[Dict, Dict]:
+        """parcels.evolve() (fireFoam.C:88) → per-volume gas sources; zero
+        sources without a cloud. The conversion follows the explicit
+        sourceTerms schemes (reactingCloud1Properties solution.sourceTerms):
+        S = c·Trans/(V·Δt)."""
         g = self.geom
         kw = dict(dtype=self.dtype, device=self.device)
-        return {
-            "Srho": torch.zeros(g.n_cells, **kw),
-            "SU": torch.zeros((g.n_cells, 3), **kw),
-            "Sh": torch.zeros(g.n_cells, **kw),
+        if self.cloud is None:
+            return state, {
+                "Srho": torch.zeros(g.n_cells, **kw),
+                "SU": torch.zeros((g.n_cells, 3), **kw),
+                "Sh": torch.zeros(g.n_cells, **kw),
+            }
+        cloud = self.cloud
+        Y, T = state["Y"], state["T"]
+        gas_ctx = {
+            "t": state["t"],
+            "rho": state["rho"].i,
+            "U": state["U"].i,
+            "T": T.i,
+            "p": state["p"].i,
+            "mu": state["mu"].i,
+            "kappa": self.gas.kappa(T.i, Y.i),
+            "cp": self.gas.cp(T.i, Y.i),
+            "Yv": Y.i[:, cloud.vapour_index],
+            "W": 8314.47 / self.gas.R(Y.i),
         }
+        if cloud.multi_liq:
+            # per-component carrier vapour fractions for the per-component
+            # evaporation driving force (LiquidEvaporation.C Xc per liquid)
+            gas_ctx["YvC"] = Y.i[:, list(cloud.vapour_indices)]
+        if cloud.forces.needs_curl() or cloud.forces.needs_ddt():
+            gu = fvc.grad(g, state["U"])  # [nC,3,3], gu[c,i,j] = dU_j/dx_i
+        if cloud.forces.needs_curl():
+            gas_ctx["curlU"] = torch.stack(
+                [gu[:, 1, 2] - gu[:, 2, 1], gu[:, 2, 0] - gu[:, 0, 2], gu[:, 0, 1] - gu[:, 1, 0]],
+                dim=1,
+            )
+        if cloud.forces.needs_ddt():
+            # DUc/Dt ≈ ∂U/∂t + (U·∇)U from the stored old-time velocity
+            conv = torch.einsum("cd,cde->ce", state["U"].i, gu)
+            if "rhoU_old_i" in state:
+                u_old = state["rhoU_old_i"] / torch.clamp(
+                    state["rho_old_i"], min=small(self.dtype))[:, None]
+                gas_ctx["DUDt"] = (state["U"].i - u_old) / state["dt"] + conv
+            else:
+                gas_ctx["DUDt"] = conv
+        if cloud.cfg.radiation and self.radiation is not None and "rad" in state:
+            # stale per-band incident radiation for the parcel heating term
+            # (ThermoCloud::radCalc reads fvdomModel_.GLambda)
+            gas_ctx["G_bands"] = self.radiation.G_bands(state["rad"])
+        cst, src = cloud.evolve(state["cloud"], gas_ctx, state["dt"])
+        state = dict(state)
+        state["cloud"] = cst
+        if "cloud_rad" in src:
+            # spray aDisp/sigmap/Ep enter the next fvDOM solve
+            # (radiativeIntensityRay.C:296-303)
+            state["cloud_rad"] = src["cloud_rad"]
+        inv_vdt = 1.0 / (g.V * state["dt"])
+        cfg = cloud.cfg
+        out = {
+            "Srho": cfg.relax_rho * src["rhoTrans"] * inv_vdt,
+            "SU": cfg.relax_U * src["UTrans"] * inv_vdt[:, None],
+            "SYv": cfg.relax_Yi * src["rhoTrans"] * inv_vdt,
+            "Sh": cfg.relax_h * src["hsTrans"] * inv_vdt,
+        }
+        if "pcTrans" in src:
+            # per-component evaporation: each liquid's mass enters its OWN
+            # carrier species (ReactingParcel per-component dMassPC ->
+            # parcels.SYi, YEEqn.H:52), replacing the fixed-split SYv route
+            pc = src["pcTrans"]  # [nLiq, nC]
+            out["SYv"] = torch.zeros_like(out["SYv"])
+            sy = {}
+            for i, si in enumerate(cloud.vapour_indices):
+                sy[si] = sy.get(si, 0.0) + cfg.relax_Yi * pc[i] * inv_vdt
+            out["SY"] = sy
+        info = cloud.info(cst)
+        log["cloud_nParcels"] = info["nParcels"]
+        log["cloud_mass"] = info["massInSystem"]
+        # the step's mass bookkeeping: evaporated into the gas, escaped
+        # through open patches, dropped at minParticleMass, and the change of
+        # the parcels' mass with the liquid's density as they heat or cool
+        log["cloud_massEvaporated"] = torch.sum(src["rhoTrans"])
+        log["cloud_massEscaped"] = src["escapedMass"]
+        log["cloud_massDropped"] = src["droppedMass"]
+        log["cloud_massExpansion"] = src["expansionMass"]
+        return state, out
 
     def step(self, state: Dict) -> Tuple[Dict, Dict]:
         """One full time step."""
@@ -1125,7 +1243,7 @@ class FireFoamSolver:
         # boundary phi the species equations see now: the lagged refValue
         # gate of the next step's species inlet BCs
         phi_b_species = state["phi"].b
-        srcs = self._zero_sources()
+        state, srcs = self._evolve_cloud(state, log)
         srcs["_ov"] = {}
 
         # ---- rhoEqn (diagonal) ----
@@ -1380,8 +1498,11 @@ def _is_field(x) -> bool:
 def state_from_numpy(d, device=None, dtype=None):
     """The port's state from a numpy state dict — e.g. the JAX package's
     state after `jax.device_get`. VolField/SurfaceField (i, b) pairs of
-    either package map onto the port's classes; floating leaves take
-    `dtype`, integer leaves keep int32."""
+    either package map onto the port's classes; lists (the cloud's
+    per-injector and per-collector states) stay lists; floating leaves
+    take `dtype`, booleans stay bool, uint32 leaves (random keys) stay
+    uint32 on the host (lagrangian/prng.py), other integer leaves become
+    int32."""
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or real_dtype(device)
 
@@ -1391,7 +1512,13 @@ def state_from_numpy(d, device=None, dtype=None):
             return cls(conv(x.i), conv(x.b))
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
         a = np.asarray(x)
+        if a.dtype == np.bool_:
+            return torch.as_tensor(a, device=device)
+        if a.dtype == np.uint32:
+            return torch.as_tensor(a)
         if np.issubdtype(a.dtype, np.integer):
             return torch.as_tensor(a.astype(np.int32), device=device)
         return torch.as_tensor(a.astype(np.float64), dtype=dtype, device=device)
@@ -1408,6 +1535,8 @@ def state_to_numpy(state):
             return type(x)(conv(x.i), conv(x.b))
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [conv(v) for v in x]
         return x.detach().cpu().numpy()
 
     return {k: conv(v) for k, v in state.items()}

@@ -232,6 +232,11 @@ def main(argv=None) -> int:
     solver.function_objects.write()
     if solver.rtis is not None:
         solver.rtis.write(solver.function_objects.out_dir)
+    if solver.cloud is not None and "cloud" in state:
+        # the collectors' dat files and the per-sprinkler activation/flow
+        # logs (DetailedSprinklerInjection's master-only filePtr_ logs)
+        solver.cloud.write_collectors(state["cloud"], solver.function_objects.out_dir)
+        solver.cloud.write_sprinkler_logs(state["cloud"], solver.function_objects.out_dir)
     ms = 1e3 * stats["step_seconds"] / max(stats["steps"], 1)
     print(f"End: t = {float(state['t']):.6g}, steps = {len(logs)}, {ms:.3f} ms/step, "
           f"writing {stats['write_seconds']:.3f} s")

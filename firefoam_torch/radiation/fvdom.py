@@ -29,9 +29,15 @@ re-evaluated every step from the current Qdot and the absorbed terms stale
 between solverFreq ray solves. A solve sweeps the rays up to maxIter times
 while the largest initial residual is above `convergence`.
 
-Waiting for other slices (they raise NotImplementedError naming the item):
-the spray terms (`state["cloud_rad"]`, ROADMAP P12) and the solid-coupled
-wall emissivity/absorptivity modes (ROADMAP P13).
+Spray (state["cloud_rad"], the cloud's per-band accumulators): the
+spray's absorption aDisp joins the extinction, its emission Ep/4 the
+source (radiativeIntensityRay.C:296-303), its scattering sigmap the
+extinction and an anisotropic in-scatter with the asymmetry factor g
+clipped to ±0.999 (ThermoCloud::setCScatCoeffs); a cloud with another
+band count than nLambda is lumped to grey and split equally.
+
+Waiting for another slice (raises NotImplementedError naming the item):
+the solid-coupled wall emissivity/absorptivity modes (ROADMAP P13).
 """
 
 from __future__ import annotations
@@ -65,19 +71,21 @@ _SOLID_MODES = ("solidRadiation", "solidThermo", "pyrolysisModel")
 
 
 def _ray_geometry(n_theta: int, n_phi: int):
-    """(dAve [nRay, 3], ω [nRay]) for 4·nPhi·nTheta ordinates, float64
-    numpy. nTheta < 1 falls back to the reference's 2-D mode (a single
-    polar band of π)."""
+    """(dAve [nRay, 3], ω [nRay], unit bin-centre directions [nRay, 3]) for
+    4·nPhi·nTheta ordinates, float64 numpy. nTheta < 1 falls back to the
+    reference's 2-D mode (a single polar band of π)."""
     n_theta = max(int(n_theta), 1)
     n_phi = max(int(n_phi), 1)
     d_theta = np.pi / n_theta
     n_phi_tot = 4 * n_phi
     d_phi = 2.0 * np.pi / n_phi_tot
-    omegas, d_aves = [], []
+    omegas, d_aves, dirs = [], [], []
     for i in range(n_theta):
         t1, t2 = i * d_theta, (i + 1) * d_theta
+        tm = 0.5 * (t1 + t2)
         for j in range(n_phi_tot):
             p1, p2 = j * d_phi, (j + 1) * d_phi
+            pm = 0.5 * (p1 + p2)
             omega = (np.cos(t1) - np.cos(t2)) * d_phi
             st = 0.5 * (t2 - t1) - 0.25 * (np.sin(2 * t2) - np.sin(2 * t1))
             dx = st * (np.sin(p2) - np.sin(p1))
@@ -85,7 +93,8 @@ def _ray_geometry(n_theta: int, n_phi: int):
             dz = 0.5 * (np.sin(t2) ** 2 - np.sin(t1) ** 2) * d_phi
             omegas.append(omega)
             d_aves.append([dx, dy, dz])
-    return np.asarray(d_aves), np.asarray(omegas)
+            dirs.append([np.sin(tm) * np.cos(pm), np.sin(tm) * np.sin(pm), np.cos(tm)])
+    return np.asarray(d_aves), np.asarray(omegas), np.asarray(dirs)
 
 
 def parse_grey_species(aec: FoamDict) -> tuple:
@@ -268,6 +277,7 @@ class FvDOM(RadiantFractionGate):
     omega: torch.Tensor  # [nRay]
     phi_ray: torch.Tensor  # [nRay, nI] = dAve·Sf
     phi_ray_b: torch.Tensor  # [nRay, nB]
+    d_hat: torch.Tensor  # [nRay, 3] unit bin-centre directions
     tol: float = 1e-4
     wsggm: object = None  # WSGGMGreySmith / GreyCassol when selected
     sigma_s: float = 0.0  # constantScatter coefficient [1/m]
@@ -312,7 +322,7 @@ class FvDOM(RadiantFractionGate):
         kw = dict(dtype=geom.dtype, device=geom.device)
         n_theta = c.get_int("nTheta", 4)
         n_phi = c.get_int("nPhi", 2)
-        d_ave, omega = _ray_geometry(n_theta, n_phi)
+        d_ave, omega, d_hat = _ray_geometry(n_theta, n_phi)
         d_ave_t = torch.as_tensor(d_ave, **kw)
         # constRadFractionEmission: a = 0, e = 0 (transparent gas, pure
         # radiant-fraction emission); constantAbsorptionEmission: a from
@@ -385,6 +395,7 @@ class FvDOM(RadiantFractionGate):
             n_lambda=spectral.n_lambda if spectral is not None else 1,
             d_ave=d_ave_t,
             omega=torch.as_tensor(omega, **kw),
+            d_hat=torch.as_tensor(d_hat, **kw),
             phi_ray=torch.einsum("rd,fd->rf", d_ave_t, geom.Sf),
             phi_ray_b=torch.einsum("rd,fd->rf", d_ave_t, geom.b_Sf),
         )
@@ -455,12 +466,57 @@ class FvDOM(RadiantFractionGate):
 
     # ------------------------------------------------------------ solve
     def _cloud_terms(self, state):
-        """Spray radiation from the cloud's accumulators (aDisp, sigmap, Ep
-        and the scatter asymmetry): not ported yet."""
-        if state.get("cloud_rad") is not None:
-            raise NotImplementedError(
-                "fvDOM spray radiation (state['cloud_rad'], the cloud's absorption, "
-                "emission and anisotropic scatter): ROADMAP P12")
+        """Spray radiation fields from the cloud accumulators, per band:
+        aDisp (ThermoCloud::ap), sigmap, Ep (ThermoCloudI.H:377-492) and the
+        scatter asymmetry factor g = radAreaPScAsy/radAreaPSc. None when no
+        cloud radiation state is present."""
+        cr = state.get("cloud_rad")
+        if cr is None:
+            return None
+        # stored per band already divided by V and flow dt
+        ap, sigmap, asy, Ep = cr["ap"], cr["sigmap"], cr["asy"], cr["Ep"]
+        if ap.shape[0] != self.n_lambda:
+            # cloud nBands ≠ fvDOM nLambda: lump to grey, split equally
+            # (the reference's getQAbsQSct nBands==1 beam-length lumping)
+            nL = self.n_lambda
+            ap = torch.mean(ap, dim=0)[None].repeat(nL, 1)
+            sigmap = torch.mean(sigmap, dim=0)[None].repeat(nL, 1)
+            asy = torch.mean(asy, dim=0)[None].repeat(nL, 1)
+            Ep = (torch.sum(Ep, dim=0)[None] / nL).repeat(nL, 1)
+        g = asy / torch.clamp(sigmap, min=small(sigmap.dtype))
+        # static anisotropic-scatter geometry (ThermoCloud::setCScatCoeffs):
+        # Σ_{r≠s} (ŝ_r·ŝ_s)^k ω_r I_r as one [nR, nR] weight per power k
+        s_dot = self.d_hat @ self.d_hat.T  # [nR, nR]
+        nR = s_dot.shape[0]
+        off = 1.0 - torch.eye(nR, dtype=s_dot.dtype, device=s_dot.device)
+        c_geo = [torch.sum(self.omega[1:] * s_dot[0, 1:] ** k) / (4.0 * np.pi - self.omega[0])
+                 for k in range(1, 5)]
+        gf = torch.clamp(g, -0.999, 0.999)  # [nL, nC]
+        A = 2.0 * gf / (1.0 + gf * gf)
+        B = (1.0 - gf * gf) / (1.0 + gf * gf)
+        cscat = 1.0 / (
+            B * (1.0 + A * c_geo[0] + A**2 * c_geo[1] + A**3 * c_geo[2] + A**4 * c_geo[3])
+            + small(B.dtype)
+        )
+        return {
+            "ap": ap,
+            "sigmap": sigmap,
+            "Ep": Ep,
+            "A": A,
+            # the in-scatter's factor σp·cscat·B, and the ray weights
+            "scat_coef": sigmap * cscat * B,
+            "W": [off * s_dot**k for k in range(5)],
+        }
+
+    def _spray_scatter(self, I, cloud):
+        """The spray's anisotropic in-scatter [nR, nL, nC]:
+        σp·cscat·B·Σ_k A^k·Σ_{r≠s}(ŝ_r·ŝ_s)^k ω_r I_r / (4π − ω_s)."""
+        Iw = I * self.omega[:, None, None]
+        A = cloud["A"]
+        poly = torch.einsum("rs,rlc->slc", cloud["W"][0], Iw)
+        for k in range(1, 5):
+            poly = poly + (A[None] ** k) * torch.einsum("rs,rlc->slc", cloud["W"][k], Iw)
+        return (cloud["scat_coef"][None] * poly) / (4.0 * np.pi - self.omega[:, None, None])
 
     def _ray_operators(self):
         """The rays' upwind convection, which depends on the mesh only:
@@ -488,7 +544,7 @@ class FvDOM(RadiantFractionGate):
             }
         return self._rays
 
-    def _sweep(self, I, k_tot, sig_eff, src_emit, emis, absorp, enf_b, sigT4_w):
+    def _sweep(self, I, k_tot, sig_eff, src_emit, emis, absorp, enf_b, sigT4_w, cloud=None):
         """One sweep of every (ray × band) intensity as ONE batched solve.
         Returns (I_new [nR, nL, nC], the largest initial residual)."""
         g = self.geom
@@ -502,6 +558,8 @@ class FvDOM(RadiantFractionGate):
         if self.sigma_s != 0.0:
             G_band = torch.einsum("rlc,r->lc", I, self.omega)
             scat = (self.sigma_s / (4.0 * np.pi)) * G_band
+        if cloud is not None:
+            scat = scat + self._spray_scatter(I, cloud)
         om = self.omega[:, None, None]
         # each band's implicit extinction (k_λ + σ_eff)·ω·V on the ray's
         # upwind diagonal, and both sources with the ray's ω
@@ -530,15 +588,24 @@ class FvDOM(RadiantFractionGate):
         a_gas = sp["a"]  # [nL, nC]
         E_band = sp["E"]
         enf, enf_b = sp["enFrac"], sp["enFrac_b"]
-        self._cloud_terms(state)
+        cloud = self._cloud_terms(state)
         emis = self.emissivity
         absorp = self.absorptivity if self.absorptivity is not None else emis
         sigT4_w = SIGMA * T.b**4
-        # per-band emission source (per ω, per π): k·σT⁴·enFrac + E/4
-        src_emit = (a_gas * SIGMA * T.i**4 * enf + 0.25 * E_band) / np.pi  # [nL, nC]
         # constantScatter: the extinction uses sigmaEff = σs·(3−C)
         sig_eff = self.sigma_s * (3.0 - self.scatter_C)
-        args = (a_gas, sig_eff, src_emit, emis, absorp, enf_b, sigT4_w)
+        if cloud is None:
+            k_tot = a_gas
+            # per-band emission source (per ω, per π): k·σT⁴·enFrac + E/4
+            src_emit = (a_gas * SIGMA * T.i**4 * enf + 0.25 * E_band) / np.pi  # [nL, nC]
+        else:
+            # absorptionEmissionModel::a = aCont + aDisp; the source is
+            # (k − aDisp)·σT⁴·enFrac + E/4 + Ep/4 (radiativeIntensityRay.C:
+            # 296-303); the spray's sigmap joins the extinction
+            k_tot = a_gas + cloud["ap"]
+            src_emit = (a_gas * SIGMA * T.i**4 * enf + 0.25 * (E_band + cloud["Ep"])) / np.pi
+            sig_eff = sig_eff + cloud["sigmap"]
+        args = (k_tot, sig_eff, src_emit, emis, absorp, enf_b, sigT4_w, cloud)
         I, res = self._sweep(rad["I"], *args)
         it = 1
         while it < self.max_iter and float(res) > self.convergence:
@@ -627,7 +694,7 @@ def _build_spectral(aem: str, aec: FoamDict, rp: FoamDict):
         subs = []
         for m in (str(aec.lookup("model1", "none")), str(aec.lookup("model2", "none"))):
             # cloudAbsorptionEmission enters through the cloud's radiation
-            # state (state["cloud_rad"], P12), not the gas spectral model
+            # state (state["cloud_rad"]), not the gas spectral model
             if m in ("none", "cloudAbsorptionEmission"):
                 continue
             subs.append(_build_spectral(m, aec.get_dict(m + "Coeffs", FoamDict()), rp))

@@ -13,7 +13,8 @@ import os
 import re
 
 __all__ = ["write_box_fire_case", "write_smooth_fire_case", "write_wall_fire_case",
-           "write_radiation_fire_case", "write_castellated_fire_case", "castellate_case"]
+           "write_radiation_fire_case", "write_castellated_fire_case", "castellate_case",
+           "write_spray_fire_case"]
 
 
 def _w(path, text):
@@ -909,3 +910,113 @@ N2 {
     transport { As 1.67212e-06; Ts 170.672; }
 }
 """
+
+
+# The detailed-sprinkler table of write_spray_fire_case: the reference's v1
+# format (per-pressure azimuth/elevation bin centres, volume flux, dv50,
+# velocity), 4 azimuth × 3 elevation bins of one quadrant. The values are
+# MADE UP (no measured head stands behind them): a flux falling off from
+# the axis, 0.6-1.1 mm drops, 5-8 m/s.
+_SPRINKLER_PHI = (11.25, 33.75, 56.25, 78.75)  # azimuth, deg
+_SPRINKLER_THETA = (15.0, 45.0, 75.0)  # elevation from the axis, deg
+
+
+def _sprinkler_table(k_factor: float) -> str:
+    def row(vals):
+        return "( " + " ".join(f"{v:.6g}" for v in vals) + " )"
+
+    def entry(name, p, scale):
+        phi = [a for a in _SPRINKLER_PHI for _ in _SPRINKLER_THETA]
+        theta = [t for _ in _SPRINKLER_PHI for t in _SPRINKLER_THETA]
+        flux = [scale * (3.0 - 0.02 * t) * (1.0 + 0.002 * a) for a, t in zip(phi, theta)]
+        dv50 = [(1.1 - 0.005 * t) / scale**0.5 for t in theta]
+        vel = [scale**0.5 * (5.0 + 0.04 * t) for t in theta]
+        return (f"    {name}\n    {{\n        pressure {p};\n        velocityCorrection 1;\n"
+                f"        phi {row(phi)};\n        theta {row(theta)};\n"
+                f"        volFlux {row(flux)};\n        dv50 {row(dv50)};\n"
+                f"        velMag {row(vel)};\n    }}\n")
+
+    return ("FoamFile { version 2.0; format ascii; class dictionary; object sprinklerTable; }\n"
+            f"kFactor {k_factor};\nradius 0.2;\nnEle {len(_SPRINKLER_THETA)};\n"
+            f"nAzi {len(_SPRINKLER_PHI)};\npressures\n{{\n"
+            + entry("p7", 7.0, 0.8) + entry("p15", 15.0, 1.2) + "}\n")
+
+
+def write_spray_fire_case(
+    root: str,
+    n=(8, 8, 8),
+    injector: str = "detailedSprinkler",
+    radiation: bool = True,
+    collector: bool = True,
+    pps: float = 2000.0,
+    k_factor: float = 0.5,
+    operating_pressure: float = 10.0,
+    max_dt: float = 0.01,
+    **kw,
+) -> str:
+    """The box fire (write_box_fire_case, fvDOM 16 rays every 10th step)
+    with a Lagrangian water spray, constant/reactingCloud1Properties: H2O
+    parcels, sphereDrag + gravity, standardWallInteraction (rebound e 0.5 on
+    the base), Ranz-Marshall with the Bird correction, liquidEvaporationBoil,
+    and the cloud's radiation in fvDOM when `radiation` (constRad, one
+    band). `injector`:
+
+      * "detailedSprinkler": one detailed-sprinkler head 0.1 m below the top
+        above the burner, spraying down from t = 0 at `pps` parcels/s, the
+        K-factor flow k_factor·√p (gpm, psig); its table
+        constant/sprinklerTable is made up (_sprinkler_table);
+      * "cone": a cone injector at the same place (made-up cone and sizes).
+
+    `collector`: a ParticleCollectorFmg polygon 0.1 m above the base that
+    removes what it collects. The controlDict's maxDeltaT is `max_dt`,
+    which also sizes the cloud's capacity (the JAX package's rule: the
+    parcels of 2048 steps of max_dt, between 4096 and 262144 slots)."""
+    if injector not in ("detailedSprinkler", "cone"):
+        raise ValueError(f"injector {injector!r}: detailedSprinkler or cone")
+    write_box_fire_case(root, n=n, **kw)
+    lx, ly, lz = kw.get("size", (1.0, 1.0, 1.0))
+    _replace(f"{root}/system/controlDict", "maxDeltaT 0.1;", f"maxDeltaT {max_dt};")
+    head = f"({0.5 * lx} {ly - 0.1} {0.5 * lz})"
+    if injector == "detailedSprinkler":
+        _w(f"{root}/constant/sprinklerTable", _sprinkler_table(k_factor))
+        inj = (f"type detailedSprinklerInjection; SOI 0; duration 100; "
+               f"parcelsPerSecond {pps}; positionList ( {head} ); direction (0 -1 0); "
+               f"armDirection (1 0 0); radiusToSprinkler 0.02; "
+               f"lookupTableCoeffs {{ tableName sprinklerTable; "
+               f"operatingPressure {operating_pressure}; }} "
+               "rtiCoeffs { active false; }")
+    else:
+        inj = (f"type coneInjection; SOI 0; duration 100; massTotal 10; "
+               f"parcelsPerSecond {pps}; positionAxis ( ( {head} (0 -1 0) ) ); "
+               "flowRateProfile constant 1; Umag constant 5; thetaInner constant 0; "
+               "thetaOuter constant 40; sizeDistribution { type RosinRammler; "
+               "RosinRammlerDistribution { minValue 1e-4; maxValue 1e-3; d 5e-4; n 3; } }")
+    coll = ""
+    if collector:
+        y = 0.1
+        coll = ("cloudFunctions\n{\n    collector1\n    {\n        type particleCollectorFmg;\n"
+                "        mode polygon;\n        removeCollected yes;\n        normal (0 -1 0);\n"
+                f"        polygons ( ( ({0.2 * lx} {y} {0.2 * lz}) ({0.8 * lx} {y} {0.2 * lz}) "
+                f"({0.8 * lx} {y} {0.8 * lz}) ({0.2 * lx} {y} {0.8 * lz}) ) );\n    }}\n}}\n")
+    _w(f"{root}/constant/reactingCloud1Properties",
+       "FoamFile { version 2.0; format ascii; class dictionary; object reactingCloud1Properties; }\n"
+       "solution\n{\n    active true;\n    coupled true;\n    transient yes;\n    maxCo 0.3;\n"
+       "    sourceTerms { schemes { rho explicit 1; U explicit 1; Yi explicit 1; h explicit 1; } }\n"
+       "    integrationSchemes { U Euler; T analytical; }\n}\n"
+       "constantProperties\n{\n    rho0 1000; T0 300; Cp0 4187; TMin 200; Tvap 273; Tbp 373;\n"
+       "    Pr 0.7; epsilon0 1; f0 0.5; minParticleMass 1e-15;\n}\n"
+       "subModels\n{\n    particleForces { sphereDrag; gravity; }\n"
+       f"    injectionModels {{ model1 {{ {inj} }} }}\n"
+       "    dispersionModel none;\n    patchInteractionModel standardWallInteraction;\n"
+       "    standardWallInteractionCoeffs { type rebound; e 0.5; }\n"
+       "    heatTransferModel RanzMarshall;\n    RanzMarshallCoeffs { BirdCorrection true; }\n"
+       "    compositionModel singlePhaseMixture;\n"
+       "    singlePhaseMixtureCoeffs { phases ( liquid { H2O 1; } ); }\n"
+       "    phaseChangeModel liquidEvaporationBoil;\n"
+       "    liquidEvaporationBoilCoeffs { enthalpyTransfer enthalpyDifference; activeLiquids ( H2O ); }\n"
+       "    devolatilisationModel none;\n    surfaceReactionModel none;\n"
+       "    stochasticCollisionModel none;\n    surfaceFilmModel none;\n"
+       f"    radiation {'on' if radiation else 'off'};\n    radiationProperty constRad;\n"
+       "    constRadCoeffs { absEfficiency 0.5; sctEfficiency 0.5; }\n    nBands 1;\n}\n"
+       + coll)
+    return root

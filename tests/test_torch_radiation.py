@@ -600,8 +600,9 @@ def test_make_radiation_selects_every_model(cases):
 
 
 def test_deferred_parts_raise_naming_their_item(cases, tmp_path):
-    """The solid-coupled wall modes wait for the region models (P13), the
-    spray terms for the cloud (P12): each raises and names its item."""
+    """The solid-coupled wall modes wait for the region models (P13): each
+    raises and names its item. The spray terms no longer wait (the cloud
+    is ported): zero spray fields give the solve without them."""
     root = write_radiation_fire_case(str(tmp_path / "solid"), n=(4, 4, 4), model="greyMean")
     path = os.path.join(root, "0", "IDefault")
     txt = open(path).read()
@@ -617,9 +618,11 @@ def test_deferred_parts_raise_naming_their_item(cases, tmp_path):
             t_make(rp, g, TCase(root))
     _, tm = _models(cases, "greyMean")
     _, ts = _state(cases, 15)
-    ts["cloud_rad"] = {"ap": torch.zeros((1, cases["tg"].n_cells))}
-    with pytest.raises(NotImplementedError, match="P12"):
-        tm._solve_rays(tm.initial_state(), ts, cases["tgas"])
+    plain = tm._solve_rays(tm.initial_state(), ts, cases["tgas"])
+    z = torch.zeros((1, cases["tg"].n_cells), dtype=torch.float64)
+    ts["cloud_rad"] = {"ap": z, "sigmap": z, "asy": z, "Ep": z}
+    spray = tm._solve_rays(tm.initial_state(), ts, cases["tgas"])
+    assert torch.equal(spray["I"], plain["I"]) and torch.equal(spray["G"], plain["G"])
 
 
 def test_try_from_case_and_the_deferred_model(cases):
