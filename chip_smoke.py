@@ -128,7 +128,42 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      iteration counts equal; T and U within SPRAY_CHAIN_TOL, ROADMAP R10),
      the last step from the CPU's state within STEP_TOL with equal counts,
      float32 within the T drift band;
- 13. the kernels' JSON line, the card line, and the final JSON line.
+ 13. the region fires (pyrolysis zones, the wall film and their coupling to
+     the gas and the spray; plain PyTorch ops, no kernel of their own): the
+     wetted panel fire (write_wetted_panel_fire_case: phase 12's sprinkler
+     fire in a 1 x 0.5 x 1 m box with no collector, so that the drops reach
+     the floor film, with a reactingOneDim21 panel of 1,900 columns x 20
+     layers on the x = 0 wall, a thermoSingleLayer film over the floor and
+     the panel fed along its top rim, the cloud's splashBai handoff and the
+     film's drip injection) at 100k cells in float32: make_chunk(20) after
+     one warm-up step with the K1/K2 launch counts checked against the
+     solves, every field, parcel, film and solid leaf and log finite, the
+     panel's surface heating, pyrolysate flowing into the gas, film mass
+     above 0, the spray striking the film, the solid's mass ledger (the
+     pyrolysate it sent against its own tally, within SOLID_TALLY_TOL, and
+     against the mass lost from its density field, within SOLID_MASS_TOL)
+     and the film's (inlet + impinged = film + evaporated + dripped +
+     removed, within FILM_MASS_TOL), a second run bitwise equal (film,
+     solid, cloud and key included); ms/step, launches, host reads and
+     device-busy ms per step beside phase 4's box fire, and the regions'
+     share (torch.profiler on _evolve_film and _evolve_pyrolysis alone);
+     run_case writing and checkpointing (the solid's list and the film)
+     and resuming bitwise equal; at 9k cells the panel fire and the wetted
+     panel fire, 10 steps from t = 0 in lockstep (card float64 against the
+     CPU's, within CPU_TOL for the panel fire, REGION_CHAIN_TOL for the
+     wetted one; float32 within the T drift band); the panel fire's last
+     step from the CPU's state within STEP_TOL with equal counts; the
+     wetted fire's card run from the CPU's state at step 10 across the
+     spray's strike on the film (T and U within STRIKE_CHAIN_TOL; impinged
+     mass each step, film and solid within HANDOFF_TOL; parcels alive
+     equal; impinged above 0),
+     step 30 from the CPU's state, where the film drips, within STEP_TOL
+     (film, cloud, impinged and dripped mass, counts equal), and
+     FilmDripInjection against the CPU's on a set drip flux (DRIP_TOL); the
+     solid-only case (write_pyrolysis_1d_case, solvePrimaryRegion false)
+     through the run CLI, the card's float32 solid against the CPU's
+     float64 within SOLID_F32_TOL;
+ 14. the kernels' JSON line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
@@ -153,6 +188,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from firefoam_torch.io import read_field_file  # noqa: E402
+from firefoam_torch.lagrangian import prng  # noqa: E402
 from firefoam_torch.models import run as run_cli  # noqa: E402
 from firefoam_torch.models import firefoam as firefoam_mod  # noqa: E402
 from firefoam_torch.models.firefoam import FireFoamSolver  # noqa: E402
@@ -160,8 +196,9 @@ from firefoam_torch.solvers import dia_krylov, dic, linear  # noqa: E402
 from firefoam_torch.profile_step import _busy_us  # noqa: E402
 from firefoam_torch.radiation import fvdom as fvdom_mod  # noqa: E402
 from firefoam_torch.utils.synthcase import (  # noqa: E402
-    write_box_fire_case, write_castellated_fire_case, write_radiation_fire_case,
-    write_smooth_fire_case, write_spray_fire_case, write_wall_fire_case)
+    write_box_fire_case, write_castellated_fire_case, write_panel_fire_case,
+    write_pyrolysis_1d_case, write_radiation_fire_case, write_smooth_fire_case,
+    write_spray_fire_case, write_wall_fire_case, write_wetted_panel_fire_case)
 
 N_MAIN = (50, 40, 50)  # 100,000 cells
 N_SMALL = (30, 15, 20)  # 9,000 cells
@@ -220,6 +257,39 @@ SPRAY_CHAIN_TOL = 1e-5
 # dropped at minParticleMass, relative to injected; each term summed in
 # float32 over the 262,144 slots (set from the readings: see PERF.md)
 SPRAY_MASS_TOL = 1e-5
+# phase 13. The region fires' boxes: 1 x 0.5 x 1 m and no collector, so that
+# the sprinkler's drops (head 0.1 m below the top) reach the floor film
+# within the runs' steps (at 9k cells from step 11 on, on the CPU)
+WET_MAIN_KW = dict(pps=SPRAY_PPS, size=(1.0, 0.5, 1.0), collector=False, end_time=100.0)
+WET_SMALL_KW = dict(pps=SPRAY_PPS_SMALL, size=(1.0, 0.5, 1.0), collector=False)
+WET_CHAIN = 5  # 9k: the card's steps across the strike, from the CPU's state
+WET_DRIP_STEP = 30  # 9k: a step at which the film drips (from step 28 on, CPU)
+# The solid's mass ledger over the 100k chunk, relative to the pyrolysate
+# it sent (Σ flux·dt, in float64): its own float32 tally of the mass it
+# lost within SOLID_TALLY_TOL, and the mass lost from its float32 density
+# field (summed in float64; the field's rounding) within SOLID_MASS_TOL.
+# The film's ledger relative to the water taken in (a substep adds water at
+# the film's density at the gas pressure and its old T, the mass is weighed
+# at 1 atm and its new T: 8e-4 on the CPU in float64 over 40 steps of the
+# 9k-class test case). The 9k wetted fire card vs CPU in float64 over the
+# 10 steps from t = 0 (R10's limiter flips ride on the spray's vapour; the
+# panel fire, without a spray, is held to CPU_TOL). Across the strike, from
+# the CPU's state: T and U (a flip at the first step after the strike)
+# within STRIKE_CHAIN_TOL, the handoff (impinged mass a step, every film
+# leaf, the solid's T) within HANDOFF_TOL. FilmDripInjection card vs CPU
+# within DRIP_TOL (the CPU test's bound). The solid-only case's float32
+# card run against the CPU's float64 (T of the solid). Readings on an
+# NVIDIA H100 80GB HBM3 at 700 W: tally 4.3e-08, lost 7.3e-04, film
+# 1.8e-04, chain 3.0e-06, strike T/U 1.3e-05, handoff 6.4e-09, drip
+# 2.2e-14, solid-only 5.9e-08 (PERF.md, the region models' findings)
+SOLID_TALLY_TOL = 5e-7
+SOLID_MASS_TOL = 2e-3
+FILM_MASS_TOL = 1e-3
+REGION_CHAIN_TOL = 1e-5
+STRIKE_CHAIN_TOL = 5e-5
+HANDOFF_TOL = 1e-7
+DRIP_TOL = 1e-12
+SOLID_F32_TOL = 1e-6
 SOURCE = "firefoam_torch/csrc/dia_krylov.cu"
 REPLACES = {
     "bicgstab": "firefoam_tpu/solvers/pallas_cg.py:281",
@@ -2022,6 +2092,393 @@ def phase_spray_small(dev, tmp):
         raise SystemExit("phase 12: float32 drifts from float64 beyond the band")
 
 
+# ---------------------------------------------------------------- phase 13
+def solid_mass(solver, state) -> float:
+    """The solids' mass [kg]: Σ ρ·dx·area over every zone's layers, summed
+    in float64."""
+    m = 0.0
+    for z, zst in zip(solver.pyrolysis.zones, state["pyro"]):
+        dx = torch.as_tensor(z.region.dx, dtype=torch.float64, device=zst["rho"].device)
+        area = torch.as_tensor(z.region.area, dtype=torch.float64, device=zst["rho"].device)
+        m += float((zst["rho"].double() * dx[None, :] * area[:, None]).sum())
+    return m
+
+
+def surface_T_max(state) -> float:
+    return max(float(zst["T"][:, 0].max()) for zst in state["pyro"])
+
+
+def phase_regions(dev, tmp, box_solver, box_state, box_ms):
+    """The region fires (see the module docstring); returns the launch
+    counts of the 100k-cell wetted panel fire."""
+    case = write_wetted_panel_fire_case(os.path.join(tmp, "wet"), n=N_MAIN, **WET_MAIN_KW)
+    t0 = time.perf_counter()
+    solver = FireFoamSolver(case, device=dev)
+    zone = solver.pyrolysis.zones[0] if solver.pyrolysis is not None else None
+    film = solver.film
+    state0 = solver.initial_state()
+    step = solver.make_step()
+    state1, log1 = step(state0)  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = solver.geom.n_cells
+    if zone is None or film is None or solver.cloud is None or \
+            solver.cloud.cfg.capacity != SPRAY_CAPACITY or len(solver.cloud.injectors) != 2:
+        raise SystemExit("phase 13: the wetted panel fire did not build its regions, its cloud "
+                         "at the JAX package's capacity and the drip injector")
+    count0 = int(state1["rad"]["count"])
+    chunk = solver.make_chunk(CHUNK)
+    sweeps0 = solver.radiation.sweeps
+    Ts1, m1 = surface_T_max(state1), solid_mass(solver, state1)
+    dia_krylov.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logs = chunk(state1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / CHUNK
+    launches = dict(dia_krylov.LAUNCHES)
+    exp_k1, exp_k2 = expected_launches(solver.radiation, count0, CHUNK)
+    sweeps = solver.radiation.sweeps - sweeps0
+    leaves = spray_leaves({k: state[k] for k in ("T", "U", "p_rgh", "Y", "k", "cloud", "film",
+                                                 "pyro", "rad")})
+    finite = all(bool(torch.isfinite(v).all()) for v in leaves.values() if v.is_floating_point())
+    bad_logs = [k for k, v in logs.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    T_s = surface_T_max(state)
+    mlr = logs[f"pyro_{zone.region_name}_mlr"].double()
+    p_in = solver.geom.patch(f"region0_to_{zone.region_name}_panelHigh")
+    inflow = float(-state["phi"].b[p_in.slice].double().sum())
+    film_mass = float(logs["film_mass"][-1])
+    # the solid's ledger over the chunk: its mass lost against the pyrolysate
+    # it sent (Σ flux·dt), and its own tally
+    sent = float((mlr * logs["dt"].double()).sum())
+    lost = m1 - solid_mass(solver, state)
+    tally = float(state["pyro"][0]["lostSolidMass"].double() - state1["pyro"][0]["lostSolidMass"]
+                  .double())
+    solid_gap = abs(lost - sent) / max(sent, 1e-300)
+    tally_gap = abs(tally - sent) / max(sent, 1e-300)
+    impinged = float(logs["film_massImpinged"].double().sum())
+    # the film's ledger from t = 0
+    fst = state["film"]
+    taken = float(log1["film_massInlet"]) + float(log1["film_massImpinged"]) + float(
+        (logs["film_massInlet"].double() + logs["film_massImpinged"].double()).sum())
+    kept = film_mass + float(fst["evaporatedMass"]) + float(fst["drippedMass"]) + float(
+        fst["removedMass"])
+    film_gap = abs(taken - kept) / max(taken, 1e-300)
+    say(13, f"wetted panel fire {n} cells float32 ({zone.region.n_faces} solid columns x "
+            f"{zone.region.n_layers} layers, film on {film.fm.n_faces} faces, capacity "
+            f"{solver.cloud.cfg.capacity} parcels; setup + warm-up {setup_s:.1f} s): {ms:.3f} "
+            f"ms/step over make_chunk({CHUNK}), t = {float(state['t']):.4f} s, T max "
+            f"{float(state['T'].i.max()):.3f} K; the panel's surface T max {Ts1:.3f} -> "
+            f"{T_s:.3f} K; pyrolysate {float(mlr[0]):.6e} -> {float(mlr[-1]):.6e} kg/s, into "
+            f"the gas through panelHigh {inflow:.6e} kg/s; film mass {film_mass:.6e} kg; "
+            f"parcels alive {int(logs['cloud_nParcels'][-1])}; fields, parcels, film, solid "
+            f"and logs finite {finite and not bad_logs} {bad_logs}")
+    say(13, f"solid mass ledger over the chunk [kg]: lost {lost:.6e}, pyrolysate sent "
+            f"{sent:.9e}, the solid's tally {tally:.9e}; relative gaps: lost {solid_gap:.3e} "
+            f"(bound {SOLID_MASS_TOL:g}), tally {tally_gap:.3e} (bound {SOLID_TALLY_TOL:g}). "
+            f"Film since t = 0: inlet + impinged {taken:.6e} (impinged over the chunk "
+            f"{impinged:.6e}) = film "
+            f"{film_mass:.6e} + evaporated {float(fst['evaporatedMass']):.6e} + dripped "
+            f"{float(fst['drippedMass']):.6e} + removed {float(fst['removedMass']):.6e}; "
+            f"relative gap {film_gap:.3e} (bound {FILM_MASS_TOL:g})")
+    say(13, f"launches K1 {launches['bicgstab']} (expected {exp_k1}; fvDOM ray sweeps {sweeps}), "
+            f"K2 {launches['pcg']} (expected {exp_k2}), K3 {launches['smooth']}")
+    if not finite or bad_logs:
+        raise SystemExit("phase 13: the wetted panel fire is not finite")
+    if not (T_s > Ts1 and float(mlr.min()) > 0.0 and inflow > 0.0 and film_mass > 0.0):
+        raise SystemExit("phase 13: the panel did not heat, no pyrolysate flowed or the film is "
+                         "dry")
+    if not (solid_gap <= SOLID_MASS_TOL and tally_gap <= SOLID_TALLY_TOL):
+        raise SystemExit("phase 13: the solid's mass ledger does not close")
+    if not impinged > 0.0:
+        raise SystemExit("phase 13: the spray never struck the film")
+    if not film_gap <= FILM_MASS_TOL:
+        raise SystemExit("phase 13: the film's mass ledger does not close")
+    if (launches["bicgstab"], launches["pcg"], launches["smooth"]) != (exp_k1, exp_k2, 0) or \
+            sweeps != exp_k1 - 4 * CHUNK:
+        raise SystemExit("phase 13: kernel launch counts do not match the solves")
+    again, logs2 = chunk(state1)
+    torch.cuda.synchronize()
+    same = states_equal(again, state) and all(torch.equal(logs2[k], logs[k]) for k in logs)
+    say(13, f"the same {CHUNK} steps again: states (film, solid, cloud and key included) and "
+            f"logs bitwise equal: {same}")
+    if not same:
+        raise SystemExit("phase 13: two runs of the wetted panel fire differ")
+    del again, state0
+    _, k_all, r_all, busy_all = step_profile(step, state, SPRAY_PROFILE_STEPS)
+    srcs = solver._evolve_cloud(dict(state), {})[1]
+    k_film, r_film, busy_film = profiled_call(lambda: solver._evolve_film(state, srcs, {}))
+    k_pyro, r_pyro, busy_pyro = profiled_call(lambda: solver._evolve_pyrolysis(state, {}, srcs))
+    k_all = max(k_all, 1)
+    busy_all = max(busy_all, 1e-9)
+    say(13, f"per step at {n} cells float32 (torch.profiler over {SPRAY_PROFILE_STEPS} steps): box "
+            f"fire {box_ms:.3f} ms (phase 4); wetted panel fire {ms:.3f} ms, {k_all:.0f} "
+            f"launches, {r_all:.1f} host reads, device busy {busy_all:.3f} ms "
+            f"({100.0 * (1.0 - busy_all / ms):.1f} % idle); the film's evolve alone {k_film} "
+            f"launches ({100.0 * k_film / k_all:.1f} %), {r_film} host reads, {busy_film:.3f} "
+            f"ms device busy ({100.0 * busy_film / busy_all:.1f} %); the pyrolysis' alone "
+            f"{k_pyro} launches ({100.0 * k_pyro / k_all:.1f} %), {r_pyro} host reads, "
+            f"{busy_pyro:.3f} ms ({100.0 * busy_pyro / busy_all:.1f} %)")
+    if r_film or r_pyro:
+        raise SystemExit("phase 13: the regions read the card on the host")
+    del state, solver
+    phase_regions_cli(tmp, case)
+    for which in ("panel", "wetted"):
+        phase_regions_small(dev, tmp, which)
+    phase_solid_only(tmp)
+    return launches
+
+
+def phase_regions_cli(tmp, case):
+    """The wetted panel fire through run_case: 10 uninterrupted steps; the
+    same 5 steps writing once (a time directory and a checkpoint with the
+    solid's list and the film); 5 steps resumed from it, bitwise equal."""
+    path = os.path.join(case, "system", "controlDict")
+    kw = dict(verbose=False, chunk=5, device="cuda")
+
+    def control(old, new):
+        with open(path) as f:
+            txt = f.read()
+        with open(path, "w") as f:
+            f.write(txt.replace(old, new))
+
+    control("writeControl adjustableRunTime; writeInterval 1;",
+            "writeControl runTime; writeInterval 1000.0;")
+    _, full, logs = run_cli.run_case(case, max_steps=10, **kw)
+    t = [float(lg["t"]) for lg in logs]
+    control("writeInterval 1000.0;", f"writeInterval {0.5 * (t[3] + t[4])!r};")  # at step 5
+    out_dir = os.path.join(tmp, "wet_out")
+    stats = {}
+    run_cli.run_case(case, max_steps=5, output_dir=out_dir, write_fields=True, stats=stats, **kw)
+    times = sorted(d for d in os.listdir(out_dir) if d[0].isdigit())
+    ckpt = run_cli.latest_checkpoint(out_dir)
+    if len(times) != 1 or ckpt is None:
+        raise SystemExit(f"phase 13: expected one write, found {times}")
+    with np.load(ckpt) as z:
+        keys = set(z.files)
+    need = ("['pyro'][0]['T']", "['pyro'][0]['Ys0']", "['film']['delta']",
+            "['film_drip_b']", "['cloud']['inj'][1]['m_owed']")
+    if not all(k in keys for k in need):
+        raise SystemExit("phase 13: the checkpoint lacks the solid, the film or the drip injector")
+    _, resumed, _ = run_cli.run_case(case, max_steps=5, resume=ckpt, **kw)
+    same = states_equal(resumed, full)
+    say(13, f"run_case: 10 steps; 5 steps writing once ({stats['write_seconds']:.3f} s: time "
+            f"directory {times[0]} + checkpoint with {sum(1 for k in keys if 'pyro' in k)} solid "
+            f"and {sum(1 for k in keys if 'film' in k)} film leaves); 5 steps resumed: state "
+            f"bitwise equal to the uninterrupted run's {same}")
+    if not same:
+        raise SystemExit("phase 13: the resumed wetted panel fire differs from the uninterrupted one")
+
+
+def rel_max(a, b, floor=1e-300) -> float:
+    """max |a − b| / max |b| (b on the CPU, a anywhere)."""
+    a, b = torch.as_tensor(a).cpu().double(), torch.as_tensor(b).double()
+    return float((a - b).abs().max() / max(float(b.abs().max()), floor))
+
+
+def region_rel(a, b) -> dict:
+    """The card's state against the CPU's: T and U of the gas, the solid's
+    T, and (with a film) every film leaf, relative to its largest value."""
+    rel = {f: rel_max(a[f].i, b[f].i) for f in ("T", "U")}
+    rel["solid"] = rel_max(a["pyro"][0]["T"], b["pyro"][0]["T"])
+    if "film" in b:
+        fa, fb = spray_leaves(a["film"]), spray_leaves(b["film"])
+        rel["film"] = max(rel_max(fa[k], fb[k]) for k in fb if fb[k].is_floating_point())
+    return rel
+
+
+def phase_regions_small(dev, tmp, which):
+    """A 9k-cell region fire, DRIFT_STEPS steps from t = 0 in lockstep in
+    float32 and float64 on the card and float64 on the CPU. The panel fire:
+    then the last step on the card from the CPU's state. The wetted panel
+    fire (in a 1 × 0.5 × 1 m box with no collector, so that the spray
+    strikes the floor film from step WET_STRIKE on): the card's float64
+    run restarts from the CPU's state at step DRIFT_STEPS and runs
+    WET_CHAIN steps across the strike beside the CPU's (impinged mass per
+    step, film, solid, parcels alive); the CPU runs on alone to step
+    WET_DRIP_STEP, where the film drips over the panel's lower rim, and the
+    card takes that step from the CPU's state; FilmDripInjection on the
+    card against the CPU's on a set drip flux (the run's drip stays below
+    a parcel's mass)."""
+    if which == "panel":
+        case = write_panel_fire_case(os.path.join(tmp, "panel_small"), n=N_SMALL)
+        chain_tol = CPU_TOL
+    else:
+        case = write_wetted_panel_fire_case(os.path.join(tmp, "wet_small"), n=N_SMALL,
+                                            **WET_SMALL_KW)
+        chain_tol = REGION_CHAIN_TOL
+    cpu = torch.device("cpu")
+    runs = (("f32", dev, torch.float32), ("f64", dev, torch.float64), ("cpu", cpu, torch.float64))
+    solvers, states, secs = {}, {}, {}
+    for run, d, dtype in runs:
+        solvers[run] = FireFoamSolver(case, device=d, dtype=dtype, exact_solvers=False,
+                                      gmg=False, amg=False)
+        states[run] = solvers[run].initial_state()
+        secs[run] = 0.0
+
+    def card_step(run, st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solvers[run].step(st)
+        torch.cuda.synchronize()
+        secs[run] += time.perf_counter() - t0
+        return out
+
+    rows, before, last = [], None, None
+    for i in range(DRIFT_STEPS):
+        logs = {}
+        if i == DRIFT_STEPS - 1:
+            before = firefoam_mod.state_to_numpy(states["cpu"])
+        for run, _, _ in runs:
+            states[run], logs[run] = card_step(run, states[run])
+        last = logs["cpu"]
+        rel = region_rel(states["f64"], states["cpu"])
+        row = f"{i + 1}: " + " ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        if "cloud" in states["cpu"]:
+            row += (f" alive "
+                    f"{int((states['f64']['cloud']['alive'].cpu() != states['cpu']['cloud']['alive']).sum())}")
+        rows.append(row)
+    vs_cpu = rel
+    T32 = states["f32"]["T"].i.double().cpu().numpy()
+    T64 = states["f64"]["T"].i.double().cpu().numpy()
+    drift = float(np.max(np.abs(T32 - T64) / np.maximum(T64, 1.0)))
+    ms = {run: 1e3 * secs[run] / DRIFT_STEPS for run in secs}
+    label = "panel fire" if which == "panel" else "wetted panel fire"
+    say(13, f"{label} {T64.size} cells, float64 card vs CPU step by step (relative): "
+            f"{'; '.join(rows)} (bound {chain_tol:g}); {DRIFT_STEPS} steps: float32 "
+            f"{ms['f32']:.3f}, float64 {ms['f64']:.3f}, CPU float64 {ms['cpu']:.1f} ms/step; "
+            f"float32 T drift {drift:.6e}")
+    if not max(vs_cpu.values()) <= chain_tol:
+        raise SystemExit(f"phase 13: the card's float64 {which} fire differs from the CPU's "
+                         "beyond the bound")
+    if "cloud" in states["cpu"] and not torch.equal(states["f64"]["cloud"]["alive"].cpu(),
+                                                    states["cpu"]["cloud"]["alive"]):
+        raise SystemExit("phase 13: the card's float64 parcels part from the CPU's")
+    if not np.all(np.isfinite(T32)) or not drift <= T_DRIFT:
+        raise SystemExit(f"phase 13: the {which} fire's float32 drifts from float64 beyond the band")
+    del states["f32"], solvers["f32"]
+    if which == "wetted":
+        # the strike: the card restarts from the CPU's state and runs beside it
+        states["f64"] = firefoam_mod.state_from_numpy(firefoam_mod.state_to_numpy(states["cpu"]),
+                                                      device=dev, dtype=torch.float64)
+        rows, imp = [], {"f64": 0.0, "cpu": 0.0}
+        for i in range(DRIFT_STEPS, DRIFT_STEPS + WET_CHAIN):
+            logs = {}
+            for run in ("f64", "cpu"):
+                states[run], logs[run] = card_step(run, states[run])
+                imp[run] += float(logs[run]["film_massImpinged"])
+            rel = region_rel(states["f64"], states["cpu"])
+            rel["imp"] = rel_max(logs["f64"]["film_massImpinged"],
+                                      logs["cpu"]["film_massImpinged"])
+            alive = [int(states[run]["cloud"]["alive"].sum()) for run in ("f64", "cpu")]
+            rows.append(f"{i + 1}: " + " ".join(f"{k} {v:.2e}" for k, v in rel.items())
+                        + f" impinged {float(logs['cpu']['film_massImpinged']):.6e} kg, alive "
+                        f"{alive[0]}/{alive[1]}")
+            handoff = max(v for k, v in rel.items() if k not in ("T", "U"))
+            if not (max(rel["T"], rel["U"]) <= STRIKE_CHAIN_TOL and handoff <= HANDOFF_TOL
+                    and alive[0] == alive[1]):
+                raise SystemExit(f"phase 13: the card's spray-to-film handoff parts from the "
+                                 f"CPU's at step {i + 1}: {rows[-1]}")
+        say(13, f"wetted panel fire: the card from the CPU's state at step {DRIFT_STEPS}, "
+                f"{WET_CHAIN} steps across the strike beside the CPU (relative; bounds: T and U "
+                f"{STRIKE_CHAIN_TOL:g}, the rest {HANDOFF_TOL:g}): {'; '.join(rows)}; impinged in all {imp['f64']:.9e} kg "
+                f"(card), {imp['cpu']:.9e} kg (CPU)")
+        if not (imp["f64"] > 0.0 and imp["cpu"] > 0.0):
+            raise SystemExit("phase 13: the spray never struck the film")
+        del states["f64"]
+        for _ in range(DRIFT_STEPS + WET_CHAIN, WET_DRIP_STEP - 1):
+            states["cpu"], _ = solvers["cpu"].step(states["cpu"])
+        before = firefoam_mod.state_to_numpy(states["cpu"])
+        states["cpu"], last = solvers["cpu"].step(states["cpu"])
+    stepped, log = solvers["f64"].step(firefoam_mod.state_from_numpy(before, device=dev,
+                                                                     dtype=torch.float64))
+    one = region_rel(stepped, states["cpu"])
+    same_its = all(int(log[k]) == int(last[k]) for k in last if "iters" in k)
+    extra = ""
+    if which == "wetted":
+        ca, cb = spray_leaves(stepped["cloud"]), spray_leaves(states["cpu"]["cloud"])
+        one["cloud"] = max(rel_max(ca[k], cb[k]) for k in cb if cb[k].is_floating_point())
+        ints_equal = all(torch.equal(ca[k].cpu(), cb[k]) for k in cb if not cb[k].is_floating_point())
+        for k in ("film_massImpinged", "film_mass"):
+            one[k] = rel_max(log[k], last[k])
+        drip = [float(st["film"]["drippedMass"]) for st in (stepped, states["cpu"])]
+        same_its = same_its and ints_equal
+        extra = (f"; cloud {one['cloud']:.3e} (integer leaves equal {ints_equal}), impinged "
+                 f"{one['film_massImpinged']:.3e}, film mass {one['film_mass']:.3e}; dripped "
+                 f"since t = 0 {drip[0]:.9e} kg (card), {drip[1]:.9e} kg (CPU)")
+    step_at = DRIFT_STEPS if which == "panel" else WET_DRIP_STEP
+    say(13, f"{label}: step {step_at} on the card from the CPU's state (relative, bound "
+            f"{STEP_TOL:g}): " + ", ".join(f"{k} {v:.3e}" for k, v in one.items()
+                                            if k in ("T", "U", "solid", "film"))
+            + f", iteration counts equal {same_its}{extra}")
+    if not (max(one.values()) <= STEP_TOL and same_its):
+        raise SystemExit(f"phase 13: the card's float64 step of the {which} fire differs from "
+                         "the CPU's")
+    if which == "wetted":
+        if not min(drip) > 0.0:
+            raise SystemExit("phase 13: the wetted panel fire's film never dripped")
+        drip_injection_vs_cpu(dev, solvers["f64"].cloud.injectors[1],
+                              solvers["cpu"].cloud.injectors[1])
+
+
+def drip_injection_vs_cpu(dev, card_inj, cpu_inj):
+    """FilmDripInjection (float64) on the card against the CPU's: the same
+    drip flux on the film's gas-side faces (none, then some, then more),
+    the same keys; release positions, velocities, sizes, cells, masses,
+    the parcel count and the owed mass within DRIP_TOL."""
+    rng = np.random.default_rng(4)
+    nB = cpu_inj.geom.n_boundary
+    sts = {"card": card_inj.init_state(), "cpu": cpu_inj.init_state()}
+    worst, n_inj = 0.0, {}
+    for k, scale in enumerate((0.0, 0.5, 2.0)):
+        drip = np.zeros(nB)
+        drip[cpu_inj.bidx] = scale * rng.uniform(0.0, 1.0, cpu_inj.bidx.size)
+        fu = rng.normal(size=(nB, 3))
+        out = {}
+        for run, inj, d in (("card", card_inj, dev), ("cpu", cpu_inj, torch.device("cpu"))):
+            f64 = dict(dtype=torch.float64, device=d)
+            gas = {"film_drip_b": torch.as_tensor(drip, **f64),
+                   "film_U_b": torch.as_tensor(fu, **f64)}
+            sts[run], out[run] = inj.inject(sts[run], prng.PRNGKey(k),
+                                            torch.tensor(0.0, **f64), torch.tensor(0.01, **f64),
+                                            gas)
+        for name in ("x", "U", "d", "mass"):
+            worst = max(worst, rel_max(out["card"][name], out["cpu"][name]))
+        for name in ("cell", "valid"):
+            if not torch.equal(out["card"][name].cpu(), out["cpu"][name]):
+                worst = float("inf")
+        worst = max(worst, rel_max(sts["card"]["m_owed"], sts["cpu"]["m_owed"]))
+        n_inj = {run: int(sts[run]["n_inj"]) for run in sts}
+    say(13, f"FilmDripInjection float64 on {cpu_inj.bidx.size} film faces, card vs CPU over 3 "
+            f"drip fluxes: parcels released {n_inj['card']}/{n_inj['cpu']}, largest relative "
+            f"difference {worst:.3e} (bound {DRIP_TOL:g})")
+    if not (n_inj["card"] == n_inj["cpu"] > 0 and worst <= DRIP_TOL):
+        raise SystemExit("phase 13: the card's drip injection differs from the CPU's")
+
+
+def phase_solid_only(tmp):
+    """The solid-only case (solvePrimaryRegion false) through the run CLI on
+    the card, then its engine on the card (float32) and on the CPU
+    (float64): the solid's T within SOLID_F32_TOL."""
+    case = write_pyrolysis_1d_case(os.path.join(tmp, "p1d"), n=N_SMALL)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_cli.main(["--case", case, "--max-steps", "20", "--chunk", "10", "--output",
+                           os.path.join(tmp, "p1d_out")])
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("pyro_")]
+    out = {}
+    for run, d in (("card", "cuda"), ("cpu", "cpu")):
+        s, st, _ = run_cli.run_case(case, max_steps=20, verbose=False, device=d)
+        out[run] = (st["pyro"][0]["T"].double().cpu(), float(st["t"]))
+    rel = float((out["card"][0] - out["cpu"][0]).abs().max() / out["cpu"][0].abs().max())
+    say(13, f"solid-only case through the run CLI: exit {rc}, {len(lines)} region log lines, "
+            f"last '{lines[-1] if lines else ''}'; 20 steps (t = {out['card'][1]:.6g} s card, "
+            f"{out['cpu'][1]:.6g} s CPU): the solid's T max {float(out['card'][0].max()):.3f} K, "
+            f"card float32 vs CPU float64 {rel:.3e} relative (bound {SOLID_F32_TOL:g})")
+    if rc != 0 or not lines or not rel <= SOLID_F32_TOL:
+        raise SystemExit("phase 13: the solid-only case failed or parts from the CPU's")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2054,6 +2511,7 @@ def main():
         castel_launches, castel = phase_castellated(dev, tmp, main_case, main_solver,
                                                     main_state, main_ms)
         spray_launches = phase_spray(dev, tmp, main_solver, main_state, main_ms)
+        region_launches = phase_regions(dev, tmp, main_solver, main_state, main_ms)
         del main_solver, main_state
 
     kernels = [
@@ -2072,6 +2530,9 @@ def main():
             # phase 12's 100k-cell sprinkler fire: the spray runs no kernel of
             # its own; K1 and K2 serve its gas step and its fvDOM rays
             "launches_spray_path": spray_launches[name_k],
+            # phase 13's 100k-cell wetted panel fire: the regions run no
+            # kernel of their own; K1 and K2 serve its gas step and its rays
+            "launches_region_path": region_launches[name_k],
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],

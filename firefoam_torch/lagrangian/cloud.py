@@ -26,9 +26,14 @@ Random draws come from `st["rng"]` through `prng` (JAX's generator bit for
 bit), split in the JAX package's order, so both packages inject and thin
 the same parcels. Nothing here reads the card on the host except `info`.
 
+The surface-film handoff (surfaceFilmModel thermoSurfaceFilm): parcels
+striking film faces are absorbed, or splash or bounce by the Bai-Gosman
+regimes (interactionType splashBai), and their mass and enthalpy go to the
+film through order-fixed parcel→face sums.
+
 Waiting for other slices (they raise when a case selects them): the
 devolatilisation ledger, MPPIC and DEM pair collision (ROADMAP P12b), the
-surface-film handoff (P13), the SPMD parcel migration (P15).
+SPMD parcel migration (P15).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from .injection import make_injector
 from .liquids import LiquidMixture, liquid_by_name
 from .tracking import (
     INTERACT_ESCAPE,
+    INTERACT_FILM,
     INTERACT_REBOUND,
     INTERACT_STICK,
     CellSum,
@@ -336,6 +342,15 @@ class ReactingCloud:
         #   rebound: every patch rebounds with elasticity e (Rebound.C)
         #   none/noInteraction: parcel halts at the patch — mapped to stick
         b_code, b_e = self._parse_patch_interaction(sub, geom)
+        # the surface-film handoff and the Bai-Gosman splash parameters
+        # (thermoSurfaceFilmCoeffs, ThermoSurfaceFilmMeredith.C)
+        self.film_patches: List[str] = []
+        self.has_film_handoff = sub.get_word("surfaceFilmModel", "none") != "none"
+        tsf = sub.get_dict("thermoSurfaceFilmCoeffs", FoamDict())
+        self.splash_on = tsf.get_word("interactionType", "absorb").startswith("splash")
+        self.splash_delta_wet = tsf.get_scalar("deltaWet", 2e-4)
+        self.splash_Adry = tsf.get_scalar("Adry", 2630.0)
+        self.splash_Awet = tsf.get_scalar("Awet", 1320.0)
         self.b_code = torch.as_tensor(b_code, dtype=INT_DTYPE, device=self.device)
         self.b_e = torch.as_tensor(b_e, dtype=self.dtype, device=self.device)  # rebound elasticity
 
@@ -353,7 +368,6 @@ class ReactingCloud:
             ("devolatilisationModel", ("none", "noDevolatilisation"),
              "devolatilisation", "P12b"),
             ("collisionModel", ("none", "noCollision"), "DEM pair collision", "P12b"),
-            ("surfaceFilmModel", ("none",), "the surface-film interaction", "P13"),
         )
         for key, off, what, item in waits:
             v = sub.get_word(key, off[0])
@@ -420,6 +434,20 @@ class ReactingCloud:
         else:
             apply_model(pim, sub.get_dict(pim + "Coeffs", FoamDict()))
         return b_code, b_e
+
+    # ------------------------------------------------------------------
+    def set_film_patches(self, names: List[str]):
+        """Mark film-covered patches: parcels striking them go to the film."""
+        for n in names:
+            p = self.geom.patch(n)
+            self.set_film_faces(np.arange(p.start, p.start + p.n))
+        self.film_patches = list(names)
+
+    def set_film_faces(self, bidx):
+        """Mark film-covered boundary faces (boundary-local ids)."""
+        b_code = self.b_code.cpu().numpy().copy()
+        b_code[np.asarray(bidx, np.int64)] = INTERACT_FILM
+        self.b_code = torch.as_tensor(b_code, dtype=INT_DTYPE, device=self.device)
 
     # ------------------------------------------------------------------
     def initial_state(self, seed: int = 7) -> Dict:
@@ -901,6 +929,103 @@ class ReactingCloud:
         return cell_sum(vol, st["cell"], self.geom.n_cells, keep=st["alive"])
 
     # ------------------------------------------------------------------
+    def _film_interaction(self, st, src, code, hit, mass_before, film_delta_b):
+        """Parcel → film handoff with Bai-Gosman splashing
+        (ThermoSurfaceFilmMeredith.C:333-460 via ThermoSurfaceFilm):
+
+          La = ρσd/μ²;  Wec = A·La^(−0.183)  (A = Adry dry, Awet wet)
+          dry (δ < deltaWet): We < Wec → absorb, else splash
+          wet: We < 1 absorb; 1 ≤ We < 20 bounce; 20 ≤ We < Wec absorb;
+               ≥ Wec splash
+          splash: mRatio of the mass goes on as one secondary parcel with a
+          truncated-exponential diameter and the energy budget's speed
+          (:529-575); the rest is absorbed by the film.
+
+        The geometric reflection happened in the walk; the parcels' T is
+        the one they struck with. The two draws come from st["rng"] in the
+        JAX package's order. The mass and enthalpy handed to the film are
+        summed per boundary face in a fixed order (CellSum over the parcels
+        that hand over)."""
+        if not self.has_film_handoff:
+            return st, src
+        hit_film = (code == INTERACT_FILM) & (hit >= 0) & st["alive"]
+        nB = self.geom.n_boundary
+        bidx = torch.clamp(hit, min=0)
+        p_atm = 101325.0
+        T_hit = st["T"]
+        h_rel = self.liquid.cp(p_atm, T_hit) * (T_hit - 298.15)
+        zero = torch.zeros_like(mass_before)
+
+        if not self.splash_on or film_delta_b is None:
+            m_abs = torch.where(hit_film, mass_before, zero)
+            st = dict(st)
+            st["alive"] = st["alive"] & ~hit_film
+            fsum = CellSum(bidx, nB, keep=hit_film)
+            src = dict(src)
+            src["filmMass"] = src["filmMass"] + fsum(m_abs)
+            src["filmEnthalpy"] = src["filmEnthalpy"] + fsum(m_abs * h_rel)
+            return st, src
+
+        tiny = self._small
+        d = torch.clamp(st["d"], min=1e-9)
+        rho_l = self.liquid.rho(p_atm, T_hit)
+        sigma = torch.clamp(self.liquid.sigma(p_atm, T_hit), min=1e-6)
+        mu_l = self.liquid.mu(p_atm, T_hit)
+        magU = torch.sqrt(torch.sum(st["U"] ** 2, dim=1))
+        We = rho_l * d * magU ** 2 / sigma
+        La = rho_l * sigma * d / mu_l ** 2
+        wet = film_delta_b[bidx] > self.splash_delta_wet
+        A = torch.where(wet, torch.full_like(We, self.splash_Awet),
+                        torch.full_like(We, self.splash_Adry))
+        Wec = A * La ** (-0.183)
+
+        splash = hit_film & (We >= Wec)
+        bounce = hit_film & wet & (We >= 1.0) & (We < 20.0) & ~splash
+        absorb = hit_film & ~splash & ~bounce
+
+        # ---- the splash's secondary parcel ----
+        ks = prng.split(st["rng"])
+        y = prng.uniform(ks[1], (2,) + tuple(d.shape), self.dtype, device=self.device)
+        y1, y2 = y[0], y[1]
+        m_ratio = 0.2 + 0.6 * y1
+        Ns = torch.clamp(5.0 * (We / torch.clamp(Wec, min=1e-6) - 1.0), min=1e-3)
+        d_bar = (m_ratio / Ns) ** (1.0 / 3.0) * d / 6.0 ** (1.0 / 3.0) + 1e-12
+        d_min, d_max = 8e-5, 1.6e-3
+        K = torch.exp(-d_min / d_bar) - torch.exp(-d_max / d_bar)
+        d_new = torch.clamp(-d_bar * torch.log(torch.clamp(torch.exp(-d_min / d_bar) - y2 * K,
+                                                           min=1e-30)), min=d_min)
+        m = mass_before
+        m_splash = m_ratio * m
+        # the energy budget → the splashed speed (parcelsPerSplash 1)
+        np_old = st["nP"]
+        ek_in = 0.5 * m * magU ** 2
+        e_sig_in = np_old * sigma * _PI * d ** 2
+        np_new = m_splash / torch.clamp(_sphere_mass(rho_l, d_new), min=tiny)
+        e_sig_sec = np_new * sigma * _PI * d_new ** 2
+        e_d = torch.maximum(0.8 * ek_in, 0.75 * Wec / 12.0 * _PI * sigma * d ** 2 * np_old)
+        eks = ek_in + e_sig_in - e_sig_sec - e_d
+        # EKs ≤ 0: all absorbed instead of a splash
+        no_energy = splash & (eks <= 0.0)
+        splash = splash & (eks > 0.0)
+        absorb = absorb | no_energy
+        u_mag_new = torch.sqrt(torch.clamp(eks, min=0.0) / torch.clamp(m_splash, min=tiny))
+        u_dir = st["U"] / torch.clamp(magU, min=1e-12)[:, None]
+
+        st = dict(st)
+        st["alive"] = st["alive"] & ~absorb
+        st["d"] = torch.where(splash, d_new, st["d"])
+        st["nP"] = torch.where(splash, np_new, st["nP"])
+        st["U"] = torch.where(splash[:, None], u_dir * u_mag_new[:, None], st["U"])
+        st["rng"] = ks[0]
+        # the film takes the absorbed mass and the splashes' remainder
+        m_to_film = torch.where(absorb, m, zero) + torch.where(splash, m - m_splash, zero)
+        fsum = CellSum(bidx, nB, keep=absorb | splash)
+        src = dict(src)
+        src["filmMass"] = src["filmMass"] + fsum(m_to_film)
+        src["filmEnthalpy"] = src["filmEnthalpy"] + fsum(m_to_film * h_rel)
+        return st, src
+
+    # ------------------------------------------------------------------
     def evolve(self, st: Dict, gas: Dict, dt) -> Tuple[Dict, Dict]:
         """One gas-step evolution. `gas` holds per-cell carrier arrays:
         rho, U, T, p, mu, kappa, cp, Yv, W (and t). Returns (state, sources)."""
@@ -984,6 +1109,8 @@ class ReactingCloud:
                         fst = f.post_patch(fst, st, hit_c, hit_mask, mass_before, U, b_normal)
                     cfos.append(fst)
                 st["cfo"] = cfos
+            # film interaction (absorb / Bai-Gosman splash)
+            st, src = self._film_interaction(st, src, code, hit, mass_before, gas.get("film_delta_b"))
             # physics + gas-side sources
             st, src = self._calc(st, gas, dt_sub, src)
             # cloud function objects: postMove (void fraction, tracks, trap)

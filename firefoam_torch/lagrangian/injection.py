@@ -20,8 +20,9 @@ The port of firefoam_tpu/lagrangian/injection.py:
 Random draws come from `prng` (JAX's generator, bit for bit), in the JAX
 package's order, so both packages inject the same parcels from one key.
 Injector state lives in the cloud state (cumulative counts, link
-temperatures), so checkpoints capture activation history. The stock
-injectors (injection_stock) wait for ROADMAP P12b, film drip for P13.
+temperatures), so checkpoints capture activation history. The film's drip
+re-injection (`FilmDripInjection`) is added by the solver when a film
+drips. The stock injectors (injection_stock) wait for ROADMAP P12b.
 """
 
 from __future__ import annotations
@@ -580,12 +581,86 @@ class PatchInjection(InjectorBase):
 
 # ---------------------------------------------------------------------------
 class FilmDripInjection(InjectorBase):
-    """Film → cloud drip re-injection (surfaceFilm().inject): needs the
-    surface-film region, which the port does not carry yet."""
+    """Film → cloud drip re-injection (the reference's surfaceFilm().inject:
+    KinematicCloud.C:186 on the cloud side, drippingInjection on the film's).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "film drip injection (FilmDripInjection) needs the surface-film region: ROADMAP P13")
+    Takes the film's dripped-mass flux per boundary face (gas["film_drip_b"],
+    kg/m²/s, set each step by the solver) into an owed-mass account; parcels
+    leave from the film face centres (nudged into the gas) with the film's
+    velocity there plus a small kick along gravity, sizes uniform in
+    [d_min, d_max], particlesPerParcel particles each, as many as the owed
+    mass affords."""
+
+    def __init__(self, name, geom, bidx, d_min, d_max, n_per_parcel, g_vec,
+                 dtype=torch.float64, max_parcels_per_step: int = 64, rho_l: float = 1000.0):
+        super().__init__(name, soi=0.0, duration=1e30)
+        self.dtype = dtype
+        self.device = geom.C.device
+        self.geom = geom
+        self.bidx = np.asarray(bidx)  # film-covered boundary-face indices
+        self.d_min, self.d_max = d_min, d_max
+        self.n_per_parcel = n_per_parcel
+        self.rho_l = rho_l
+        self.max_per_step = max_parcels_per_step
+        own = geom.b_own.cpu().numpy()[self.bidx]
+        Cf = geom.b_Cf.double().cpu().numpy()[self.bidx]
+        C = geom.C.double().cpu().numpy()[own]
+        self.cells = own
+        self.x_rel = Cf + 0.1 * (C - Cf)
+        g = np.asarray(g_vec, float)
+        self.g_hat = g / max(np.linalg.norm(g), 1e-12)
+        self.areas = geom.b_magSf.double().cpu().numpy()[self.bidx]
+
+    def capacity_for_dt(self, dt_max: float) -> int:
+        return self.max_per_step
+
+    def init_state(self) -> Dict:
+        return {"n_inj": torch.zeros((), dtype=INT_DTYPE, device=self.device),
+                "m_owed": torch.zeros((), dtype=self.dtype, device=self.device)}
+
+    def inject(self, st: Dict, key, t, dt, gas) -> Tuple[Dict, Dict]:
+        cap = self.max_per_step
+        dtp, dev = self.dtype, self.device
+        drip_b = gas.get("film_drip_b")  # [nB] kg/m²/s
+        if drip_b is None or self.bidx.size == 0:
+            return dict(st), {
+                "x": torch.zeros((cap, 3), dtype=dtp, device=dev),
+                "U": torch.zeros((cap, 3), dtype=dtp, device=dev),
+                "d": torch.full((cap,), self.d_min, dtype=dtp, device=dev),
+                "cell": torch.zeros((cap,), dtype=INT_DTYPE, device=dev),
+                "valid": torch.zeros((cap,), dtype=torch.bool, device=dev),
+                "mass": torch.zeros((cap,), dtype=dtp, device=dev),
+            }
+        bidx = self._c("bidx", self.bidx, torch.int64)
+        w = drip_b[bidx] * self._c("areas", self.areas, dtp)  # kg/s
+        w_sum = torch.sum(w)
+        owed = st["m_owed"] + (w_sum * dt).to(dtp)
+        ks = prng.split(key, 3)
+        # release faces sampled ∝ dripped mass (uniformly when none drips)
+        wsafe = torch.where(w_sum > 0, w, torch.ones_like(w))
+        cdf = torch.cumsum(wsafe, 0) / torch.sum(wsafe)
+        u = prng.uniform(ks[0], cap, dtp, device=dev)
+        f = torch.clamp(torch.searchsorted(cdf, u), max=len(self.bidx) - 1)
+        dia = prng.uniform(ks[1], cap, dtp, self.d_min, self.d_max, device=dev)
+        m_par = self.n_per_parcel * self.rho_l * _PI / 6.0 * dia ** 3
+        # as many parcels as the owed account affords
+        valid = torch.cumsum(m_par, 0) <= owed
+        released = torch.sum(torch.where(valid, m_par, torch.zeros_like(m_par)))
+        st = dict(st)
+        st["m_owed"] = owed - released
+        st["n_inj"] = st["n_inj"] + torch.sum(valid).to(INT_DTYPE)
+        filmU = gas.get("film_U_b")
+        U = filmU[bidx][f] if filmU is not None else torch.zeros((cap, 3), dtype=dtp, device=dev)
+        U = U + 0.1 * self._c("g_hat", self.g_hat, dtp)[None, :]
+        cand = {
+            "x": self._c("x_rel", self.x_rel, dtp)[f],
+            "U": U,
+            "d": dia,
+            "cell": self._c("cells", self.cells, INT_DTYPE)[f],
+            "valid": valid,
+            "mass": torch.where(valid, m_par, torch.zeros_like(m_par)),
+        }
+        return st, cand
 
 
 # ---------------------------------------------------------------------------

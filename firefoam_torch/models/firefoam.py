@@ -46,10 +46,18 @@ The Lagrangian spray (lagrangian/cloud.py, constant/reactingCloud1Properties):
 cloud's sources into Srho, SU, SYv/SY and Sh; the spray's equivalent water
 density reaches the EDM family and its radiation fields fvDOM.
 
+The region models (regionmodels/, constant/pyrolysisZones and
+constant/surfaceFilmProperties) run in the reference's order, parcels →
+film → pyrolysis → the film's wall BC overrides → the gas: the solid's
+surface T and fuel-equivalent pyrolysate flux reach the gas through the
+coupled BCs' overrides, the film's evaporation and heat through Srho, SYv
+and Sh, the spray's impingement through the cloud's film handoff and the
+film's drip through FilmDripInjection. With `solvePrimaryRegion false` a
+step evolves the regions alone.
+
 Not ported: the spray's stock injectors, MPPIC, DEM collisions and
-devolatilisation (ROADMAP P12b), surface film, pyrolysis regions (and the
-solid-only step of `solvePrimaryRegion false`), the PairMG pressure solver,
-the SPMD `local=` path (its sharded multigrid and parcel migration) and the
+devolatilisation (ROADMAP P12b), the PairMG pressure solver, the SPMD
+`local=` path (its sharded multigrid and parcel migration) and the
 hoisted-jit entry points. A case that needs one of them raises at
 construction.
 """
@@ -175,7 +183,7 @@ class FireFoamSolver:
                                                layout=layout)
         self.setup_seconds = {"mesh": t1 - t0, "geometry": time.perf_counter() - t1}
         g = self.geom
-        self._check_supported()
+        self._read_additional_controls()
 
         # ---- thermo / chemistry ----
         tp = self.case.constant("thermophysicalProperties")
@@ -304,10 +312,40 @@ class FireFoamSolver:
                     cell_zones=getattr(self.cm.sets, "cell_zones", None),
                 )
 
+        # ---- pyrolysis regions (constant/pyrolysisZones) ----
+        self.max_di = cd.get_scalar("maxDi", 10.0)
+        self.pyrolysis = None
+        if self.solve_pyrolysis and self.case.has_constant("pyrolysisZones"):
+            from ..regionmodels.pyrolysis import PyrolysisCollection
+
+            coll = PyrolysisCollection(case_dir, self.cm, self.dtype, self.device)
+            if coll.zones:
+                self.pyrolysis = coll
+
+        # ---- surface film region (constant/surfaceFilmProperties) ----
+        self.film = None
+        self._film_maps = None
+        if self.case.has_constant("surfaceFilmProperties"):
+            sfp = self.case.constant("surfaceFilmProperties")
+            if sfp.get_bool("active", False) and sfp.get_word("surfaceFilmModel", "none") != "none":
+                self._build_film(sfp)
+
         # ---- fields & BCs ----
         self.t0_name = self.case.start_time()
         self.t0 = float(self.t0_name)
         self._read_initial_fields()
+        self._has_film_alphat_wf = self.film is not None and any(
+            b.kind == "alphatFilmWallFunction" for b in self.alphat_bcs.bcs)
+        if self.pyrolysis is not None:
+            self._init_pyro_coupling()
+        # emissivityMode solidRadiation/solidThermo/pyrolysisModel: the wall ε
+        # (and absorptivity) of those faces is the coupled zone's current
+        # surface emissivity (radiationCoupledBaseFF.C)
+        rad = self.radiation
+        if (rad is not None and self.pyrolysis is not None
+                and getattr(rad, "solid_eps_mask", None) is not None
+                and (rad.solid_eps_mask.any() or rad.solid_abs_mask.any())):
+            rad.solid_eps_fn = self._solid_wall_emissivity
         if self.combustion.variant == "eddyDissipationIgnModel" and (
                 self.case.has_field("dQI") or self.case.has_field("dQI", self.t0_name)):
             # pilot heat field dQI masked to the 'igniter' cellZone
@@ -376,25 +414,15 @@ class FireFoamSolver:
                 g.n_cells, device=self.device,
             )
 
-    def _check_supported(self):
-        """Read constant/additionalControls and raise on the case features
-        the port does not carry. With `solvePyrolysisRegion false` the
+    def _read_additional_controls(self):
+        """constant/additionalControls: solvePrimaryRegion false steps the
+        regions alone (pyrolysis1D); with solvePyrolysisRegion false the
         reference skips constant/pyrolysisZones, and so does the port."""
         case = self.case
         ac = case.constant("additionalControls") if case.has_constant(
             "additionalControls") else FoamDict()
         self.solve_primary = ac.get_bool("solvePrimaryRegion", True)
         self.solve_pyrolysis = ac.get_bool("solvePyrolysisRegion", True)
-        if not self.solve_primary:
-            raise NotImplementedError(
-                "solvePrimaryRegion false: the solid-only step waits for the region "
-                "models (ROADMAP P13)")
-        if self.solve_pyrolysis and case.has_constant("pyrolysisZones"):
-            raise NotImplementedError("pyrolysis regions")
-        if case.has_constant("surfaceFilmProperties"):
-            sfp = case.constant("surfaceFilmProperties")
-            if sfp.get_bool("active", False) and sfp.get_word("surfaceFilmModel", "none") != "none":
-                raise NotImplementedError("surface film region")
 
     def _read_field(self, name: str, default_name: Optional[str] = None):
         t0 = self.t0_name
@@ -501,6 +529,16 @@ class FireFoamSolver:
                 z = torch.zeros((self.cloud.cfg.n_bands, g.n_cells), dtype=self.dtype,
                                 device=self.device)
                 state["cloud_rad"] = {"ap": z, "sigmap": z, "asy": z, "Ep": z}
+        if self.pyrolysis is not None:
+            state["pyro"] = self.pyrolysis.initial_state()
+        if self.film is not None:
+            state["film"] = self.film.initial_state()
+            if self.cloud is not None and self.film.drip_enabled:
+                state["film_drip_b"] = z_b
+                state["film_U_b"] = torch.zeros((g.n_boundary, 3), dtype=self.dtype,
+                                                device=self.device)
+            if self._has_film_alphat_wf:
+                state["film_evap_b"] = z_b
         if self.rtis is not None and self.rtis.n > 0:
             state["rtis"] = self.rtis.initial_state()
         if self.rti_links.active:
@@ -642,11 +680,21 @@ class FireFoamSolver:
         return remain / n
 
     def new_dt(self, state: Dict) -> torch.Tensor:
-        """Next-step Δt: setMultiRegionDeltaT.H then the stock setDeltaT.H,
-        each re-landing on the adjustable write time (fireFoam.C:78-82)."""
+        """Next-step Δt: setMultiRegionDeltaT.H (the fluid Courant, the
+        solid's diffusion number and the film Courant) then the stock
+        setDeltaT.H, each re-landing on the adjustable write time
+        (fireFoam.C:78-82)."""
         co = self.courant(state)
         t_fluid = self.ctl.max_co / (co + 1e-15)
         fact = torch.clamp(t_fluid, max=1.2)
+        # the regions' factors: the solid's diffusion number under maxDi and
+        # the film Courant under maxCo
+        if self.pyrolysis is not None:
+            di = self.pyrolysis.diffusion_number(state["pyro"], state["dt"])
+            fact = torch.minimum(fact, self.max_di / (di + 1e-15))
+        if self.film is not None and "film" in state:
+            co_f = self.film.courant(state["film"], state["dt"])
+            fact = torch.minimum(fact, self.ctl.max_co / (co_f + 1e-15))
         dt = torch.clamp(fact * state["dt"], max=self.ctl.max_dt)
         dt = self._adjust_write_dt(state["t"], dt)
         fact2 = torch.clamp(torch.minimum(t_fluid, 1.0 + 0.1 * t_fluid), max=1.2)
@@ -1150,6 +1198,7 @@ class FireFoamSolver:
             return state, {
                 "Srho": torch.zeros(g.n_cells, **kw),
                 "SU": torch.zeros((g.n_cells, 3), **kw),
+                "SYv": torch.zeros(g.n_cells, **kw),
                 "Sh": torch.zeros(g.n_cells, **kw),
             }
         cloud = self.cloud
@@ -1186,10 +1235,17 @@ class FireFoamSolver:
                 gas_ctx["DUDt"] = (state["U"].i - u_old) / state["dt"] + conv
             else:
                 gas_ctx["DUDt"] = conv
+        if self.film is not None and "film" in state:
+            # the film thickness per boundary face: the splash regimes
+            gas_ctx["film_delta_b"] = self._film_to_b(state["film"]["delta"])
         if cloud.cfg.radiation and self.radiation is not None and "rad" in state:
             # stale per-band incident radiation for the parcel heating term
             # (ThermoCloud::radCalc reads fvdomModel_.GLambda)
             gas_ctx["G_bands"] = self.radiation.G_bands(state["rad"])
+        if "film_drip_b" in state:
+            # the previous step's film drip feeds FilmDripInjection
+            gas_ctx["film_drip_b"] = state["film_drip_b"]
+            gas_ctx["film_U_b"] = state["film_U_b"]
         cst, src = cloud.evolve(state["cloud"], gas_ctx, state["dt"])
         state = dict(state)
         state["cloud"] = cst
@@ -1225,6 +1281,10 @@ class FireFoamSolver:
         log["cloud_massEscaped"] = src["escapedMass"]
         log["cloud_massDropped"] = src["droppedMass"]
         log["cloud_massExpansion"] = src["expansionMass"]
+        if self.film is not None:
+            # the parcels' mass and enthalpy handed to the film this step
+            out["filmMass"] = src["filmMass"]
+            out["filmEnthalpy"] = src["filmEnthalpy"]
         return state, out
 
     def step(self, state: Dict) -> Tuple[Dict, Dict]:
@@ -1233,6 +1293,18 @@ class FireFoamSolver:
         log: Dict[str, torch.Tensor] = {}
         state = dict(state)
         dt = state["dt"]
+
+        # ---- solid-only cases (solvePrimaryRegion false, pyrolysis1D):
+        # evolve the regions and advance the time ----
+        if not self.solve_primary:
+            if self.pyrolysis is not None:
+                state, _ = self._evolve_pyrolysis(state, log)
+            state["t"] = state["t"] + dt
+            if self.ctl.adjust:
+                state["dt"] = self.new_dt(state)
+            log["t"] = state["t"]
+            log["dt"] = dt
+            return state, log
 
         # Courant as the reference prints it: before setDeltaT, with the
         # previous step's dt
@@ -1243,8 +1315,17 @@ class FireFoamSolver:
         # boundary phi the species equations see now: the lagged refValue
         # gate of the next step's species inlet BCs
         phi_b_species = state["phi"].b
+        # the regions in the reference's order (fireFoam.C:88-95): parcels,
+        # film, pyrolysis, then the film's wet/dry BC overrides
         state, srcs = self._evolve_cloud(state, log)
-        srcs["_ov"] = {}
+        if self.film is not None:
+            state, srcs = self._evolve_film(state, srcs, log)
+        ov: Dict = {}
+        if self.pyrolysis is not None:
+            state, ov = self._evolve_pyrolysis(state, log, srcs)
+        if self.film is not None:
+            ov = self._film_bc_overrides(state, ov)
+        srcs["_ov"] = ov
 
         # ---- rhoEqn (diagonal) ----
         rho_i = state["rho_old_i"] - dt * fvc.div_flux(g, state["phi"]) + dt * srcs["Srho"]
@@ -1383,10 +1464,13 @@ class FireFoamSolver:
           ṁ″ = −φ_w/|Sf|·2.5·1000 [g/m²/s fuel-equivalent]
           qw = ṁ″<0.1 ? clamp(qwL,0,QcThr)/QcThr·QcFlame
                        : QcFlame·(ṁ″/10)/(e^{ṁ″/10}−1)
-          alphat_w = min(1, qw/(Cp_w·(−∂T/∂n)) − α_w)"""
+          alphat_w = min(1, qw/(Cp_w·(−∂T/∂n)) − α_w)
+        and alphatFilmWallFunction over a film (_alphat_film_wf)."""
         g = self.geom
+        film_wf = self.film is not None
         fire = [(bc, p) for bc, p in zip(self.alphat_bcs.bcs, g.patches)
-                if bc.kind == "alphatFireWallFunction"]
+                if bc.kind == "alphatFireWallFunction"
+                or (film_wf and bc.kind == "alphatFilmWallFunction")]
         if not fire:
             return state
         state = dict(state)
@@ -1396,6 +1480,9 @@ class FireFoamSolver:
         T_c = g.cell_to_boundary(T.i)
         for bc, p in fire:
             sl = p.slice
+            if bc.kind == "alphatFilmWallFunction":
+                alphat_b[sl] = self._alphat_film_wf(state, bc, p)
+                continue
             cp_w = self.gas.cp(T.b[sl], Y.b[sl])
             alpha_w = state["alpha"].b[sl]
             grad_tw = g.b_dc[sl] * (T.b[sl] - T_c[sl])
@@ -1468,6 +1555,311 @@ class FireFoamSolver:
                 val = val - nuw
             nut_b[sl] = torch.clamp(val, min=0.0)
         return nut_b
+
+    # ------------------------------------------------------------------
+    # region coupling: pyrolysis zones and the surface film
+    # ------------------------------------------------------------------
+    def _init_pyro_coupling(self):
+        """Per-zone gas-coupling constants: the patch-local face maps and the
+        fuel-equivalence factor hocPyr/qFuel of
+        flowRateInletVelocityPyrolysisCoupled (lib/fvPatchFieldsPyrolysis/
+        flowRateInletVelocityPyrolysisCoupled/...C:100-127, hocChar =
+        32.8e6 W/kg there)."""
+        from ..ops.geometry import SegSum
+
+        g = self.geom
+        self._pyro_maps = {}
+        self._pyro_cell_sums = {}
+        for z in self.pyrolysis.zones:
+            entries = []
+            bidx_all = np.asarray(z.region.prim_bidx)
+            for pname in z.region.coupled_patches:
+                try:
+                    patch = g.patch(pname)
+                except KeyError:
+                    continue
+                rows = np.nonzero((bidx_all >= patch.start)
+                                  & (bidx_all < patch.start + patch.n))[0]
+                if rows.size == 0:
+                    continue
+                loc = bidx_all[rows] - patch.start
+                scale = 1.0
+                ub = next((b for b in self.U_bcs.bcs if b.patch == pname), None)
+                hoc_solid = ub.params.get("hocSolid") if ub is not None else None
+                if hoc_solid is not None and z.chem.reactions:
+                    rx = z.chem.reactions[0]
+                    rho_v = float(z.thermo.rho_s[rx.lhs])
+                    rho_c = float(z.thermo.rho_s[rx.rhs_solid]) if rx.rhs_solid >= 0 else 0.0
+                    hoc_pyr = (float(hoc_solid) * rho_v - 32.8e6 * rho_c) / max(rho_v - rho_c,
+                                                                               1e-300)
+                    scale = hoc_pyr / self.reaction.q_fuel()
+                to_dev = lambda a: torch.as_tensor(a, dtype=torch.int64, device=self.device)
+                entries.append((patch, to_dev(rows), to_dev(loc), scale))
+            if entries:
+                self._pyro_maps[z.region_name] = entries
+            # the char oxidation's face → cell sums, order-fixed
+            self._pyro_cell_sums[z.region_name] = SegSum(
+                g.b_own.cpu().numpy()[np.maximum(bidx_all, 0)], g.n_cells, self.device)
+            z.bidx_t = torch.as_tensor(bidx_all, dtype=torch.int64, device=self.device)
+
+    def _solid_wall_emissivity(self, state: Dict) -> torch.Tensor:
+        """Per-boundary-face emissivity with the pyrolysis-coupled faces at
+        their zone's current surface emissivity (radiationCoupledBaseFF.C
+        PYROLYSISMODELE/SOLIDRADIATION)."""
+        eps = self.radiation.emissivity.clone()
+        for z, zst in zip(self.pyrolysis.zones, state["pyro"]):
+            eps[z.bidx_t] = z.thermo.emissivity(zst["Y"][:, 0])
+        return eps
+
+    def _evolve_pyrolysis(self, state: Dict, log, srcs=None) -> Tuple[Dict, Dict]:
+        """pyrolysis.evolve() (fireFoam.C:92-95) and the gas-side BC
+        overrides: the surface T on the coupled T BCs and the
+        fuel-equivalent pyrolysate flux on the coupled inlets."""
+        g = self.geom
+        q_conv: Dict = {}
+        qr: Dict = {}
+        for z in self.pyrolysis.zones:
+            if z.bc_exposed.kind == "coupled" and self.solve_primary:
+                bidx = z.bidx_t
+                T_b = state["T"].b[bidx]
+                Y_b = state["Y"].b[bidx]
+                kappa_eff = (state["alpha"].b[bidx] + state["alphat"].b[bidx]) * self.gas.cp(T_b, Y_b)
+                own = g.b_own[bidx]
+                q_conv[z.region_name] = {"kDelta": kappa_eff * g.b_dc[bidx],
+                                         "T_nbr": state["T"].i[own]}
+                if getattr(z, "char_oxi", False) and "O2" in self.species:
+                    # O2 supply for char oxidation (αΔ·O2·|Sf|)
+                    q_conv[z.region_name]["O2_nbr"] = state["Y"].i[own, self.gas.index("O2")]
+                    q_conv[z.region_name]["alphaDelta_O2"] = state["alpha"].b[bidx] * g.b_dc[bidx]
+                if self.radiation is not None:
+                    qr[z.region_name] = self.radiation.qin_boundary(state["rad"])[bidx]
+        pstates, pouts = self.pyrolysis.evolve(state["pyro"], state["dt"], q_conv or None,
+                                               qr or None)
+        state = dict(state)
+        state["pyro"] = pstates
+
+        ov: Dict = {}
+        for z, out in zip(self.pyrolysis.zones, pouts):
+            m = self._pyro_maps.get(z.region_name)
+            log[f"pyro_{z.region_name}_T_max"] = out["T_max"]
+            log[f"pyro_{z.region_name}_mlr"] = torch.sum(out["phiGas"])
+            if m is None or not self.solve_primary:
+                continue
+            if (srcs is not None and getattr(z, "char_oxi", False)
+                    and "O2" in self.species and "CO2" in self.species):
+                # char oxidation: O2 taken from and CO2 returned to the
+                # wall-adjacent cells (phiO2_/phiCO2_ as volume sources)
+                csum = self._pyro_cell_sums[z.region_name]
+                add_o2 = csum(out["phiO2"]) / g.V
+                add_co2 = csum(out["phiCO2"]) / g.V
+                o2, co2 = self.gas.index("O2"), self.gas.index("CO2")
+                sy = dict(srcs.get("SY", {}))
+                sy[o2] = sy.get(o2, 0.0) + add_o2
+                sy[co2] = sy.get(co2, 0.0) + add_co2
+                srcs["SY"] = sy
+                srcs["Srho"] = srcs["Srho"] + add_o2 + add_co2
+                log[f"pyro_{z.region_name}_charOxiQdot"] = out["charOxiQdot"]
+            for patch, rows, loc, scale in m:
+                T_patch = torch.zeros((patch.n,), dtype=self.dtype, device=self.device)
+                T_patch[loc] = out["T_surface"][rows]
+                mdot = torch.zeros((patch.n,), dtype=self.dtype, device=self.device)
+                mdot[loc] = out["phiGas"][rows] * scale
+                ov[("T", patch.name, "value")] = T_patch
+                ov[("U", patch.name, "mdot")] = mdot
+        return state, ov
+
+    def _build_film(self, sfp):
+        """The thermoSingleLayer film over the faceZones (or patches) named
+        by the film region's extrudeToRegionMeshDict
+        (createSurfaceFilmModel.H), with the cloud's film handoff and the
+        drip injector."""
+        from ..ops.geometry import SegSum
+        from ..regionmodels.film import ThermoSingleLayerFilm
+        from ..regionmodels.surfmesh import FilmMesh
+
+        region = sfp.get_word("regionName", "filmRegion")
+        faces: List[int] = []
+        for d in self.cm.extrude_dicts:
+            if d.get_word("region", "") != region:
+                continue
+            for zn in (str(z) for z in d.get_list("faceZones", [])):
+                fz = self.cm.face_zones.get(zn)
+                if fz is not None:
+                    faces.extend(int(f) for f in fz.faces)
+                else:
+                    pp = next((p for p in self.cm.mesh.patches if p.name == zn), None)
+                    if pp is not None:
+                        faces.extend(range(pp.start, pp.start + pp.n_faces))
+        if not faces:
+            return
+        fm = FilmMesh.from_faces(self.cm.mesh, sorted(set(faces)), self.dtype, self.device)
+        self.film = ThermoSingleLayerFilm(fm, sfp, self.g_vec, self.dtype)
+        bidx = np.asarray(fm.prim_bidx)
+        keep = bidx >= 0
+        cells = np.asarray(fm.prim_cells)[keep]
+        ix = lambda a: torch.as_tensor(np.array(a, np.int64), device=self.device)
+        self._film_maps = {"bidx": ix(bidx[keep]), "rows": ix(np.nonzero(keep)[0]),
+                           "cells": ix(cells),
+                           # the film faces' sums into their gas cells, order-fixed
+                           "cell_sum": SegSum(cells, self.geom.n_cells, self.device)}
+        if self.cloud is not None:
+            # parcels striking film faces go to the splash model
+            self.cloud.set_film_faces(bidx[keep])
+            if self.film.drip_enabled:
+                # film → cloud drip re-injection (surfaceFilm().inject)
+                from ..lagrangian.injection import FilmDripInjection
+
+                self.cloud.injectors.append(FilmDripInjection(
+                    "filmDrip", self.geom, bidx[keep], self.film.drip_d_min,
+                    self.film.drip_d_max, self.film.particles_per_parcel, self.g_vec,
+                    dtype=self.dtype))
+
+    def _film_to_b(self, v: torch.Tensor) -> torch.Tensor:
+        """A per-film-face value on the gas boundary faces (0 elsewhere)."""
+        m = self._film_maps
+        out = torch.zeros((self.geom.n_boundary,) + tuple(v.shape[1:]), dtype=v.dtype,
+                          device=v.device)
+        out[m["bidx"]] = v[m["rows"]]
+        return out
+
+    def _evolve_film(self, state: Dict, srcs: Dict, log) -> Tuple[Dict, Dict]:
+        """surfaceFilm.evolve() (fireFoam.C:90) and the film's gas sources
+        (film.Srho/Sh, surfaceFilmModel.H:147-243)."""
+        g = self.geom
+        fm = self.film.fm
+        m = self._film_maps
+        bidx, rows, cells = m["bidx"], m["rows"], m["cells"]
+        dt = state["dt"]
+        T, Y = state["T"], state["Y"]
+        nF = fm.n_faces
+
+        def to_film(arr_b):
+            out = torch.zeros((nF,), dtype=self.dtype, device=self.device)
+            out[rows] = arr_b[bidx]
+            return out
+
+        # the spray's impingement this step [kg per face]
+        mass_imp = torch.zeros((nF,), dtype=self.dtype, device=self.device)
+        h_imp = mass_imp
+        if "filmMass" in srcs:
+            mass_imp = to_film(srcs["filmMass"]) / (fm.area * dt)
+            h_imp = to_film(srcs["filmEnthalpy"]) / (fm.area * dt)
+        kappa_eff_b = (state["alpha"].b + state["alphat"].b) * self.gas.cp(T.b, Y.b)
+        htc = to_film(kappa_eff_b * g.b_dc)
+        has_h2o = "H2O" in self.species
+        inp = {
+            "mass_imp": mass_imp,
+            "h_imp": h_imp,
+            "T_gas": T.i[cells],
+            "U_gas": state["U"].i[cells],
+            "rho_gas": state["rho"].i[cells],
+            "Yv_gas": Y.i[cells, self.gas.index("H2O")] if has_h2o else torch.zeros_like(htc),
+            "p_gas": state["p"].i[cells],
+            "htc_gas": htc,
+            "T_wall": to_film(T.b),
+        }
+        if self.radiation is not None:
+            inp["qr"] = to_film(self.radiation.qin_boundary(state["rad"]))
+        fstate, out = self.film.evolve(state["film"], dt, inp)
+        state = dict(state)
+        state["film"] = fstate
+        if self.cloud is not None and self.film.drip_enabled:
+            # the dripped-mass flux and the film velocity per gas boundary
+            # face: FilmDripInjection's input next step
+            state["film_drip_b"] = self._film_to_b(out["drip"])
+            state["film_U_b"] = self._film_to_b(fstate["U"])
+        if self._has_film_alphat_wf:
+            state["film_evap_b"] = self._film_to_b(out["m_evap"])
+        # gas sources: the evaporated H2O and the heat exchange
+        area_per_v = fm.area[rows] / g.V[cells]
+        csum = m["cell_sum"]
+        srho = csum(out["m_evap"][rows] * area_per_v)
+        if has_h2o:
+            hv = self.gas.hs_species(fstate["T"])[:, self.gas.index("H2O")]
+        else:
+            hv = torch.zeros_like(fstate["T"])
+        sh = csum(((out["m_evap"] * hv - out["q_gas"])[rows]) * area_per_v)
+        srcs = dict(srcs)
+        srcs["Srho"] = srcs["Srho"] + srho
+        srcs["SYv"] = srcs["SYv"] + srho
+        srcs["Sh"] = srcs["Sh"] + sh
+        log["film_mass"] = out["mass"]
+        log["film_evap"] = fstate["evaporatedMass"]
+        log["film_coverage"] = torch.mean(out["alpha"])
+        # the water the film took in this step [kg]: the spray's and the
+        # inlets' (the film's mass ledger)
+        log["film_massImpinged"] = (torch.sum(srcs["filmMass"]) if "filmMass" in srcs
+                                    else torch.zeros((), dtype=self.dtype, device=self.device))
+        log["film_massInlet"] = self.film.inlet_mass_rate(state["t"]) * dt
+        return state, srcs
+
+    def _film_bc_overrides(self, state: Dict, ov: Dict) -> Dict:
+        """filmPyrolysisTemperature/VelocityCoupled wet/dry switching
+        (lib/regionCoupling/derivedFvPatchFields): gas wall T = α·T_film +
+        (1−α)·T_pyrolysis (dry: the current wall value), gas wall U = U_film;
+        rollPaperTwoZoneST's fluid branch blends the clamped film T and the
+        solid's surface T by the film thickness."""
+        g = self.geom
+        fstate = state["film"]
+        alpha_b = self._film_to_b(self.film.alpha(fstate["delta"]))
+        Tf_b = self._film_to_b(fstate["T"])
+        Uf_b = self._film_to_b(fstate["U"])
+        delta_b = self._film_to_b(fstate["delta"])
+        ov = dict(ov)
+        for bc in self.T_bcs.bcs:
+            if bc.kind not in ("filmPyrolysisTemperatureCoupled", "compressible::rollPaperTwoZoneST"):
+                continue
+            p = g.patch(bc.patch)
+            sl = p.slice
+            base = ov.get(("T", p.name, "value"))
+            T_dry = base if base is not None else state["T"].b[sl]
+            if bc.kind == "filmPyrolysisTemperatureCoupled":
+                ov[("T", p.name, "value")] = alpha_b[sl] * Tf_b[sl] + (1.0 - alpha_b[sl]) * T_dry
+            else:
+                # rollPaperTwoZoneSTFvPatchScalarField.C:720-786
+                d_dry = float(bc.params.get("filmDeltaDry", 0.0))
+                d_wet = float(bc.params.get("filmDeltaWet", 2e-4))
+                ratio = torch.clamp((delta_b[sl] - d_dry) / max(d_wet - d_dry, 1e-12), 0.0, 1.0)
+                T_wet = torch.clamp(Tf_b[sl], 298.15, 378.4)
+                ov[("T", p.name, "value")] = ratio * (T_wet - T_dry) + T_dry
+        for bc in self.U_bcs.bcs:
+            if bc.kind == "filmPyrolysisVelocityCoupled":
+                p = g.patch(bc.patch)
+                ov[("U", p.name, "value")] = Uf_b[p.slice]
+        return ov
+
+    def _alphat_film_wf(self, state: Dict, bc, p) -> torch.Tensor:
+        """alphatFilmWallFunction (surfaceFilmModels/derivedFvPatchFields/
+        wallFunctions/alphatFilmWallFunction): the gas-side αt over an
+        evaporating film,
+          u_τ = Cμ^0.25·√k,  y⁺ = y·u_τ/ν_w,  m* = ṁ_film/(y·u_τ)
+          factor = m*/(e^{min(y⁺,y⁺crit)·m*·Pr}·(y⁺/y⁺crit)^{m*·Prt/κ} − 1)
+          αt = max(Δ⁻¹·ρ_w·u_τ·factor − α_w, 0)."""
+        g = self.geom
+        sl = p.slice
+        Cmu = float(bc.params.get("Cmu", 0.09))
+        kappa_k = float(bc.params.get("kappa", 0.41))
+        Prt = float(bc.params.get("Prt", 0.85))
+        yplus_crit = float(bc.params.get("yPlusCrit", 11.05))
+        k_c = g.cell_to_boundary(state["k"].i)[sl]
+        rho_w = state["rho"].b[sl]
+        mu_w = state["mu"].b[sl]
+        alpha_w = state["alpha"].b[sl]
+        y = 1.0 / g.b_dc[sl]
+        u_tau = Cmu ** 0.25 * torch.sqrt(torch.clamp(k_c, min=0.0))
+        y_plus = y * u_tau / torch.clamp(mu_w / rho_w, min=1e-30)
+        Pr = mu_w / torch.clamp(alpha_w, min=1e-30)
+        mdot_b = state.get("film_evap_b")
+        if mdot_b is None:
+            mdot_b = torch.zeros((g.n_boundary,), dtype=self.dtype, device=self.device)
+        m_star = mdot_b[sl] / torch.clamp(y * u_tau, min=1e-30)
+        exp_lo = torch.exp(torch.clamp(y_plus * m_star * Pr, max=50.0))
+        exp_hi = torch.exp(torch.clamp(yplus_crit * m_star * Pr, max=50.0))
+        pow_term = torch.clamp(y_plus / yplus_crit, min=1e-30) ** (m_star * Prt / kappa_k)
+        factor = torch.where(y_plus > yplus_crit,
+                             m_star / torch.clamp(exp_hi * pow_term - 1.0, min=1e-30),
+                             m_star / torch.clamp(exp_lo - 1.0, min=1e-30))
+        return torch.clamp(g.b_dc[sl] * rho_w * u_tau * factor - alpha_w, min=0.0)
 
     # ------------------------------------------------------------------
     def make_step(self):

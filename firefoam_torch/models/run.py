@@ -36,6 +36,13 @@ def _fmt(x) -> str:
 
 
 def _print_step(solver, log):
+    if not solver.solve_primary:
+        # solid-only cases (pyrolysis1D): the region log only
+        print(f"Time = {_fmt(log['t'])}")
+        for k, v in log.items():
+            if k.startswith("pyro_"):
+                print(f"{k} = {_fmt(v)}")
+        return
     """The reference's per-step log lines."""
     print(f"Courant Number max: {_fmt(log['CoNum'])}")
     print(f"deltaT = {_fmt(log['dt'])}")
@@ -153,8 +160,11 @@ def run_case(
                 _print_step(solver, log)
                 print(f"ExecutionTime = {time.time() - t_start:.2f} s\n")
         if verbose and step_fn is not None:
-            print(f"Time = {_fmt(state['t'])}  (chunk of {chunk} steps, "
-                  f"Co {_fmt(logs[-1]['CoNum'])}, T_max {_fmt(logs[-1]['T_max'])})")
+            if solver.solve_primary:
+                print(f"Time = {_fmt(state['t'])}  (chunk of {chunk} steps, "
+                      f"Co {_fmt(logs[-1]['CoNum'])}, T_max {_fmt(logs[-1]['T_max'])})")
+            else:
+                _print_step(solver, logs[-1])
         if write_fields and float(state["t"]) + 1e-9 >= next_write:
             t0 = time.perf_counter()
             tw = float(state["t"])

@@ -18,8 +18,13 @@ totalFlowRateAdvectiveDiffusive, nonUniFlowRateAdvectiveDiffusive,
 fixedEnthalpyFluxTemperature, prghTotalHydrostaticPressure, empty,
 symmetry, symmetryPlane, slip, compressible::thermalBaffle1D<h|e…>, the
 wall-function placeholders (their values are set by the solver's
-wall-function pass) and greyDiffusiveRadiation. The kinds coupled to a
-pyrolysis or film region raise NotImplementedError naming themselves.
+wall-function pass, alphatFilmWallFunction included), greyDiffusiveRadiation,
+and the kinds coupled to a pyrolysis or film region: the gas side of the
+conjugate wall (turbulentTemperatureRadiation*Coupled*,
+filmPyrolysisTemperatureCoupled, rollPaperTwoZoneST),
+flowRateInletVelocityPyrolysisCoupled (and FuelConvertCoupled) and
+filmPyrolysisVelocityCoupled, whose values the solver supplies each step
+through ctx["overrides"].
 
 Dynamic inputs (fluxes, gradients set by pEqn) come through a `ctx` dict;
 static parameters live in the BC's params.
@@ -240,6 +245,42 @@ def _prgh_total_hydrostatic(bc, p, geom, psi_i, psi_b, ctx, nc):
     return v, _zeros(p, nc, psi_i), torch.ones((p.n,), **_kw(psi_i))
 
 
+
+def _coupled_wall_T(bc, p, geom, psi_i, psi_b, ctx, nc):
+    """The gas side of the conjugate wall (the fluid branch of
+    turbulentTemperatureRadiationQinCoupledMixed, lib/fvPatchFieldsPyrolysis/
+    ...C:210-218): Dirichlet T_wall = the neighbour region's surface T,
+    supplied each step through ctx overrides; the stored boundary value
+    before the coupling is active."""
+    v = ctx.get("overrides", {}).get((ctx.get("_field"), p.name, "value"))
+    if v is None:
+        v = psi_b[p.slice]
+    return v, _zeros(p, nc, psi_i), _fcol(torch.ones((p.n,), **_kw(psi_i)), nc)
+
+
+def _flow_rate_pyro_coupled(bc, p, geom, psi_i, psi_b, ctx, nc):
+    """flowRateInletVelocityPyrolysisCoupled: the inlet velocity from the
+    neighbour pyrolysis region's fuel-equivalent pyrolysate flux
+    (phiGas·hocPyr/qFuel [kg/s] per face, ctx overrides)."""
+    mdot = ctx.get("overrides", {}).get(("U", p.name, "mdot"))
+    one = _fcol(torch.ones((p.n,), **_kw(psi_i)), nc)
+    if mdot is None:
+        return _zeros(p, nc, psi_i), _zeros(p, nc, psi_i), one
+    rho_b = ctx["rho"].b[p.slice]
+    n = geom.b_Sf[p.slice] / geom.b_magSf[p.slice, None]
+    u = -n * (mdot / (rho_b * geom.b_magSf[p.slice]))[:, None]
+    return u, _zeros(p, nc, psi_i), one
+
+
+def _film_velocity_coupled(bc, p, geom, psi_i, psi_b, ctx, nc):
+    """filmPyrolysisVelocityCoupled: the FM fork pins the gas velocity to the
+    film surface velocity (ctx overrides ('U', patch, 'value')); without it,
+    the pyrolysate inflow of _flow_rate_pyro_coupled."""
+    v = ctx.get("overrides", {}).get(("U", p.name, "value"))
+    if v is not None:
+        return v, _zeros(p, nc, psi_i), _fcol(torch.ones((p.n,), **_kw(psi_i)), nc)
+    return _flow_rate_pyro_coupled(bc, p, geom, psi_i, psi_b, ctx, nc)
+
 _REGISTRY: Dict[str, Callable] = {
     "fixedValue": _fixed_value,
     "zeroGradient": _zero_gradient,
@@ -274,6 +315,24 @@ _REGISTRY: Dict[str, Callable] = {
     # walls seen by fvDOM: the radiation module reads the emissivity; the
     # intensity field itself keeps its stored boundary values
     "greyDiffusiveRadiation": _calculated,
+    # conjugate gas↔solid coupling (pyrolysis and film regions)
+    "compressible::turbulentTemperatureRadiationQinCoupledMixed": _coupled_wall_T,
+    "compressible::turbulentTemperatureRadiationQinQcScaleCoupledMixed": _coupled_wall_T,
+    "compressible::turbulentTemperatureRadiationQinQcWallFunctionCoupledMixed": _coupled_wall_T,
+    "compressible::turbulentTemperatureRadiationCoupledMixedST": _coupled_wall_T,
+    "compressible::turbulentTemperatureRadiationCoupledQcWallFunctionMixedST": _coupled_wall_T,
+    "compressible::turbulentTemperatureRadiativeCoupledMixedST": _coupled_wall_T,
+    "compressible::turbulentTemperatureRadiativeCoupledQcWallFunctionMixedST": _coupled_wall_T,
+    "compressible::turbulentTemperatureRadCoupledMixed": _coupled_wall_T,
+    "filmPyrolysisTemperatureCoupled": _coupled_wall_T,
+    # roll-paper back-to-back coupling (rollPaperTwoZoneST, fluid branch):
+    # the solver's film overrides supply Twall
+    "compressible::rollPaperTwoZoneST": _coupled_wall_T,
+    "flowRateInletVelocityPyrolysisCoupled": _flow_rate_pyro_coupled,
+    "flowRateInletVelocityFuelConvertCoupled": _flow_rate_pyro_coupled,
+    "filmPyrolysisVelocityCoupled": _film_velocity_coupled,
+    # gas-side αt over a wall film: set by the solver's wall-function pass
+    "alphatFilmWallFunction": _calculated,
 }
 
 

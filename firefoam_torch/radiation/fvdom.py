@@ -36,8 +36,9 @@ extinction and an anisotropic in-scatter with the asymmetry factor g
 clipped to ±0.999 (ThermoCloud::setCScatCoeffs); a cloud with another
 band count than nLambda is lumped to grey and split equally.
 
-Waiting for another slice (raises NotImplementedError naming the item):
-the solid-coupled wall emissivity/absorptivity modes (ROADMAP P13).
+Walls coupled to a solid region (emissivityMode/absorptivityMode
+solidRadiation, solidThermo, pyrolysisModel) take the solid's surface
+emissivity at each solve, through `solid_eps_fn` (set by the solver).
 """
 
 from __future__ import annotations
@@ -292,6 +293,14 @@ class FvDOM(RadiantFractionGate):
     # while the wall emits ε·σT⁴ (radiationCoupledBaseFF absorptivityMode,
     # greyDiffusiveRadiationFF...C:199-210); equal to ε by default
     absorptivity: Optional[torch.Tensor] = None  # [nB]
+    # emissivityMode/absorptivityMode solidRadiation, solidThermo or
+    # pyrolysisModel: the wall ε/absorptivity of these faces (numpy bool
+    # masks) is the coupled solid's, from solid_eps_fn (state → ε [nB],
+    # set by the solver) at each solve
+    solid_eps_mask: object = None
+    solid_abs_mask: object = None
+    solid_eps_fn: object = None
+    _solid_masks: object = field(default=None, repr=False)
     # ray sweeps run since construction (each one K1 launch on a DIA mesh
     # on the card):
     # host-side bookkeeping, not part of the state
@@ -362,7 +371,7 @@ class FvDOM(RadiantFractionGate):
                     if dd is not None:
                         ck = dd.get_scalar("Ck", ck)
             spsoot = SpSootRadFrac.from_case(case, aec, turb_ck=ck)
-        emissivity, absorptivity = _read_wall_radprops(case, geom)
+        emissivity, absorptivity, solid_eps_mask, solid_abs_mask = _read_wall_radprops(case, geom)
         sigma_s = scatter_C = 0.0
         if str(rp.lookup("scatterModel", "none")) == "constantScatter":
             sc = rp.get_dict("constantScatterCoeffs", FoamDict())
@@ -386,6 +395,8 @@ class FvDOM(RadiantFractionGate):
             grey_species=grey_species,
             emissivity=emissivity,
             absorptivity=absorptivity,
+            solid_eps_mask=solid_eps_mask,
+            solid_abs_mask=solid_abs_mask,
             wsggm=wsggm,
             sigma_s=sigma_s,
             scatter_C=scatter_C,
@@ -591,6 +602,15 @@ class FvDOM(RadiantFractionGate):
         cloud = self._cloud_terms(state)
         emis = self.emissivity
         absorp = self.absorptivity if self.absorptivity is not None else emis
+        if self.solid_eps_fn is not None:
+            eps_dyn = self.solid_eps_fn(state)
+            if self._solid_masks is None:  # device copies, made once
+                self._solid_masks = tuple(torch.as_tensor(m, device=eps_dyn.device)
+                                          for m in (self.solid_eps_mask, self.solid_abs_mask))
+            if self.solid_eps_mask.any():
+                emis = torch.where(self._solid_masks[0], eps_dyn, emis)
+            if self.solid_abs_mask.any():
+                absorp = torch.where(self._solid_masks[1], eps_dyn, absorp)
         sigT4_w = SIGMA * T.b**4
         # constantScatter: the extinction uses sigmaEff = σs·(3−C)
         sig_eff = self.sigma_s * (3.0 - self.scatter_C)
@@ -727,39 +747,47 @@ def _read_wall_radprops(case, geom: MeshGeometry):
     greyDiffusiveRadiation(FF/Fire) / wideBandDiffusiveRadiation(FF)
     patches (radiationCoupledBase + radiationCoupledBaseFF.H:62-75):
       emissivityMode   lookup              → 'emissivity uniform X'
+                       solidRadiation / solidThermo / pyrolysisModel
+                                           → ε of the coupled solid region,
+                                             each step (mask)
       absorptivityMode emissivity (default) → absorptivity = emissivity
+                                             (its solid mask too)
                        lookup              → 'absorptivity uniform X'
-    Unspecified patches are black (ε = absorptivity = 1). The modes coupled
-    to a solid region (solidRadiation, solidThermo, pyrolysisModel) wait for
-    the region models and raise."""
+                       a solid mode        → the solid's ε (mask)
+    Unspecified patches are black (ε = absorptivity = 1). Returns
+    (emissivity [nB], absorptivity [nB], solid_eps_mask [nB],
+    solid_abs_mask [nB]); the masks are numpy bool."""
     em = np.ones(geom.n_boundary)
     ab = np.ones(geom.n_boundary)
+    m_e = np.zeros(geom.n_boundary, bool)
+    m_a = np.zeros(geom.n_boundary, bool)
     kw = dict(dtype=geom.dtype, device=geom.device)
     try:
         ff = case.field("IDefault")
     except (FileNotFoundError, AttributeError, TypeError):
-        return torch.as_tensor(em, **kw), torch.as_tensor(ab, **kw)
+        return torch.as_tensor(em, **kw), torch.as_tensor(ab, **kw), m_e, m_a
     for p in geom.patches:
         bd = ff.boundary.get_dict(p.name, None)
         if bd is None:
             continue
         emode = str(bd.lookup("emissivityMode", "lookup"))
+        if emode in _SOLID_MODES:
+            m_e[p.slice] = True
+        else:
+            v = _uniform_scalar(bd, "emissivity")
+            if v is not None:
+                em[p.slice] = v
         amode = str(bd.lookup("absorptivityMode", "emissivity"))
-        for what, mode in (("emissivityMode", emode), ("absorptivityMode", amode)):
-            if mode in _SOLID_MODES:
-                raise NotImplementedError(
-                    f"IDefault patch {p.name}: {what} {mode} (the wall radiative properties "
-                    f"of a coupled solid region): ROADMAP P13")
-        v = _uniform_scalar(bd, "emissivity")
-        if v is not None:
-            em[p.slice] = v
-        if amode == "lookup":
+        if amode in _SOLID_MODES:
+            m_a[p.slice] = True
+        elif amode == "lookup":
             v = _uniform_scalar(bd, "absorptivity")
             if v is not None:
                 ab[p.slice] = v
-        else:  # 'emissivity': mirror the emissivity
+        else:  # 'emissivity': mirror the emissivity, its solid mask too
             ab[p.slice] = em[p.slice]
-    return torch.as_tensor(em, **kw), torch.as_tensor(ab, **kw)
+            m_a[p.slice] = m_e[p.slice]
+    return torch.as_tensor(em, **kw), torch.as_tensor(ab, **kw), m_e, m_a
 
 
 class _DeferredFvDOM:

@@ -14,7 +14,8 @@ import re
 
 __all__ = ["write_box_fire_case", "write_smooth_fire_case", "write_wall_fire_case",
            "write_radiation_fire_case", "write_castellated_fire_case", "castellate_case",
-           "write_spray_fire_case"]
+           "write_spray_fire_case", "write_panel_fire_case", "write_wetted_panel_fire_case",
+           "write_pyrolysis_1d_case"]
 
 
 def _w(path, text):
@@ -1019,4 +1020,273 @@ def write_spray_fire_case(
        f"    radiation {'on' if radiation else 'off'};\n    radiationProperty constRad;\n"
        "    constRadCoeffs { absEfficiency 0.5; sctEfficiency 0.5; }\n    nBands 1;\n}\n"
        + coll)
+    return root
+
+
+# ---------------------------------------------------------------------------
+# region fires: a pyrolysing panel on the x = 0 wall, a wall film, and the
+# solid alone
+# ---------------------------------------------------------------------------
+# The panel's solid (constant/panelRegion): wood → char + gas, one
+# irreversibleArrheniusSolidReaction. The densities are the wood/char pair of
+# the pyrolysis models' documentation (114.7 → 11.5 kg/m³); the kinetics,
+# heat capacities, conductivities, formation enthalpy and the surface
+# emissivities are MADE UP, sized so that a panel at its initial 450 K
+# outgasses from the first step.
+_SOLID_REACTIONS = """FoamFile { version 2.0; format ascii; class dictionary; object reactions; }
+species ( v char );
+gaseousSpecies ( gas );
+reactions
+{
+    charReaction
+    {
+        type irreversibleArrheniusSolidReaction;
+        reaction "v^1 = char + gas";
+        A 7.83e10;
+        Ta 15274.57;
+        Tcrit 400;
+    }
+}
+"""
+
+_SOLID_THERMO = """FoamFile { version 2.0; format ascii; class dictionary; object thermo.solid; }
+v
+{
+    specie { nMoles 1; molWeight 100; }
+    transport { kappa 0.135; }
+    thermodynamics { Hf -1.41e6; Cp 696; }
+    equationOfState { rho 114.7; }
+}
+char
+{
+    specie { nMoles 1; molWeight 50; }
+    transport { kappa 0.4; }
+    thermodynamics { Hf 0; Cp 611; }
+    equationOfState { rho 11.5; }
+}
+"""
+
+
+def _panel_zones(split: bool):
+    return ("panelLow", "panelHigh") if split else ("panel",)
+
+
+_PANEL_LAYERS = 20        # nLayers of the panel's extrusion
+_PANEL_THICKNESS = 0.02   # m
+_PANEL_T = 450.0          # K, the panel fires' initial solid T (outgasses at once)
+_HEATER_T = 1500.0        # K, the wall strip below the panel fires' panel (made up)
+_FILM_INLET_GAMMA = 0.01  # kg/s per metre of the wetted panel's top rim (made up)
+_P1D_Q_INCIDENT = 60000.0  # W/m², the solid-only case's incident flux
+
+
+def _add_panel(root: str, n, size, model: str, T_solid: float, exposed_T: str,
+               heater_T=None, wet: bool = False):
+    """Turn a box fire written by write_box_fire_case into a panel fire: the
+    x = 0 side becomes a wall ('wall', its two lowest rows of faces) and a
+    pyrolysing panel above them, extruded to the oneD region panelRegion
+    (_PANEL_LAYERS layers, _PANEL_THICKNESS m) with adaptMesh, so that the
+    gas sees the coupled patch region0_to_panelRegion_<zone>. exposed_T: the
+    solid's T BC on its coupled side (0/panelRegion/T). heater_T: the wall
+    strip below the panel is held at heater_T K (a hot wall whose plume
+    rises along the panel; made up); None keeps it at 298.15 K. wet: the
+    panel is two faceZones, panelLow (below mid-height) and panelHigh, whose
+    gas-side BCs are the film's (filmPyrolysis*Coupled)."""
+    nx, ny, nz = n
+    lx, ly, lz = size
+    _replace(f"{root}/constant/polyMesh/blockMeshDict",
+             "sides { type patch; faces ( (0 4 7 3) (1 2 6 5) (0 3 2 1) (4 5 6 7) ); }",
+             "sides { type patch; faces ( (1 2 6 5) (0 3 2 1) (4 5 6 7) ); }\n"
+             "    wall  { type wall;  faces ( (0 4 7 3) ); }")
+    y0 = 2.0 * ly / ny
+    zones = _panel_zones(wet)
+    y_mid = y0 + (ly - y0) * 0.5
+    bands = {"panel": (y0, ly), "panelLow": (y0, y_mid), "panelHigh": (y_mid, ly)}
+    acts = []
+    for z in zones:
+        lo, hi = bands[z]
+        acts.append(f"    {{ name {z}_f; type faceSet; action new; source patchToFace;\n"
+                    f"      sourceInfo {{ name wall; }} }}\n"
+                    f"    {{ name {z}_f; type faceSet; action subset; source boxToFace;\n"
+                    f"      sourceInfo {{ box (-0.01 {lo - 1e-6} -0.01) (0.01 {hi - 1e-6} {lz + 0.01}); }} }}\n"
+                    f"    {{ name {z}; type faceZoneSet; action new; source setToFaceZone;\n"
+                    f"      sourceInfo {{ faceSet {z}_f; }} }}\n")
+    _w(f"{root}/system/topoSetDictPanel",
+       "FoamFile { version 2.0; format ascii; class dictionary; object topoSetDict; }\n"
+       "actions (\n" + "".join(acts) + ");\n")
+    _w(f"{root}/system/extrudeToRegionMeshDictPanel",
+       "FoamFile { version 2.0; format ascii; class dictionary; object extrudeToRegionMeshDict; }\n"
+       f"region panelRegion;\nfaceZones ( {' '.join(zones)} );\noneD true;\n"
+       "sampleMode nearestPatchFace;\nextrudeModel linearNormal;\n"
+       f"nLayers {_PANEL_LAYERS};\nexpansionRatio 1;\nadaptMesh true;\n"
+       f"linearNormalCoeffs {{ thickness {_PANEL_THICKNESS}; }}\n")
+    with open(f"{root}/mesh.sh", "a") as f:
+        f.write("runApplication topoSet -dict system/topoSetDictPanel\n"
+                "runApplication extrudeToRegionMesh -dict system/extrudeToRegionMeshDictPanel\n")
+    coeffs = (f"{model}Coeffs {{ filmCoupled {'true' if wet else 'false'}; "
+              "gasHSource false; qrHSource false; moveMesh false; minimumDelta 1e-6; }")
+    _w(f"{root}/constant/pyrolysisZones",
+       "FoamFile { version 2.0; format ascii; class dictionary; object pyrolysisZones; }\n"
+       f"panel\n{{\n    active true;\n    pyrolysisModel {model};\n    regionName panelRegion;\n"
+       f"    {coeffs}\n}}\n")
+    rd = f"{root}/constant/panelRegion"
+    _w(f"{rd}/thermophysicalProperties",
+       "FoamFile { version 2.0; format ascii; class dictionary; object thermophysicalProperties; }\n"
+       "thermoType { type heSolidThermo; mixture reactingMixture; transport constIso;\n"
+       "    thermo hConst; equationOfState rhoConst; specie specie; energy sensibleEnthalpy; }\n"
+       'foamChemistryFile "$FOAM_CASE/constant/panelRegion/reactions";\n'
+       'foamChemistryThermoFile "$FOAM_CASE/constant/panelRegion/thermo.solid";\n')
+    _w(f"{rd}/reactions", _SOLID_REACTIONS)
+    _w(f"{rd}/thermo.solid", _SOLID_THERMO)
+    _w(f"{rd}/radiationProperties",
+       "FoamFile { version 2.0; format ascii; class dictionary; object radiationProperties; }\n"
+       "radiation on;\nradiationModel opaqueSolid;\n"
+       "absorptionEmissionModel greyMeanSolidAbsorptionEmission;\n"
+       "greyMeanSolidAbsorptionEmissionCoeffs\n{\n"
+       "    v { absorptivity 0.8; emissivity 0.8; }\n"
+       "    char { absorptivity 0.9; emissivity 0.9; }\n}\n")
+
+    def solid_field(name, internal, bf):
+        _w(f"{root}/0/panelRegion/{name}",
+           f"FoamFile {{ version 2.0; format ascii; class volScalarField; object {name}; }}\n"
+           f"dimensions [0 0 0 {1 if name == 'T' else 0} 0 0 0];\n"
+           f"internalField uniform {internal};\nboundaryField\n{{\n{bf}}}\n")
+
+    coupled = "|".join(f"region0_to_panelRegion_{z}" for z in zones)
+    top = "|".join(f"{z}_top" for z in zones)
+    solid_field("T", T_solid,
+                f'    "({coupled})" {{ {exposed_T} value uniform {T_solid}; }}\n'
+                f'    "({top})" {{ type zeroGradient; }}\n')
+    solid_field("v", 1, '    ".*" { type zeroGradient; }\n')
+    solid_field("char", 0, '    ".*" { type zeroGradient; }\n')
+
+    # the gas side: 'wall' like the base, the panel patches coupled
+    wall = {"U": "type noSlip;", "T": "type fixedValue;\n        value uniform 298.15;",
+            "p_rgh": "type fixedFluxPressure;\n        value uniform 0;",
+            "p": "type calculated;\n        value uniform 101325;",
+            "k": "type zeroGradient;", "alphat": "type zeroGradient;",
+            "nut": "type zeroGradient;", "O2": "type zeroGradient;",
+            "C3H8": "type zeroGradient;", "Ydefault": "type zeroGradient;",
+            "IDefault": "type greyDiffusiveRadiation;\n        T T;\n        emissivityMode lookup;\n"
+                        "        emissivity uniform 1;\n        value uniform 0;"}
+    if heater_T is not None:
+        wall["T"] = f"type fixedValue;\n        value uniform {heater_T};"
+    for f, spec in wall.items():
+        _set_patch(root, f, "wall", spec)
+    for z in zones:
+        pname = f"region0_to_panelRegion_{z}"
+        T_kind = ("filmPyrolysisTemperatureCoupled" if wet
+                  else "compressible::turbulentTemperatureRadiationQinCoupledMixed")
+        U_spec = ("type filmPyrolysisVelocityCoupled;\n        phi phi;\n        rho rho;\n"
+                  "        hocSolid 1.66e7;\n        value uniform (0 0 0);" if wet and z == zones[0] else
+                  "type flowRateInletVelocityPyrolysisCoupled;\n        phi phi;\n"
+                  "        nbrPhi phiGas;\n        hocSolid 1.66e7;\n        value uniform (0 0 0);")
+        gas = dict(wall)
+        gas.update({
+            "U": U_spec,
+            "T": f"type {T_kind};\n        Tnbr T;\n        kappa fluidThermo;\n"
+                 f"        QrNbr none;\n        Qr Qr;\n        kappaName none;\n"
+                 f"        value uniform {T_solid};",
+            "O2": "type totalFlowRateAdvectiveDiffusive;\n        massFluxFraction 0;\n"
+                  "        value uniform 0.23301;",
+            "C3H8": "type totalFlowRateAdvectiveDiffusive;\n        massFluxFraction 1;\n"
+                    "        value uniform 0;",
+            "Ydefault": "type totalFlowRateAdvectiveDiffusive;\n        massFluxFraction 0;\n"
+                        "        value uniform 0;",
+            "IDefault": "type greyDiffusiveRadiation;\n        T T;\n"
+                        "        emissivityMode pyrolysisModel;\n        value uniform 0;",
+        })
+        for f, spec in gas.items():
+            _set_patch(root, f, pname, spec)
+
+
+def write_panel_fire_case(root: str, n=(8, 8, 8), **kw) -> str:
+    """The box fire (write_box_fire_case) with a pyrolysing panel on the
+    x = 0 wall, the wallFireSpread2D model family: constant/pyrolysisZones
+    (reactingOneDim21) over the faceZone 'panel' (the
+    x = 0 side above its two lowest rows of faces, which stay a plain wall),
+    an extrudeToRegionMeshDict of 20 layers, the solid's thermo and
+    chemistry under constant/panelRegion (wood → char + gas; the values are
+    made up, _SOLID_THERMO), and on the gas side
+    turbulentTemperatureRadiationQinCoupledMixed on T,
+    flowRateInletVelocityPyrolysisCoupled (hocSolid 1.66e7) on U, the
+    pyrolysate entering as the fuel, and fvDOM's wall emissivity mode
+    pyrolysisModel. The solid starts at 450 K: it outgasses from the first
+    step, so the coupled inlet carries mass at once. The wall strip below
+    the panel is held at 1500 K: its plume rises along the panel and heats
+    its surface."""
+    write_box_fire_case(root, n=n, **kw)
+    _add_panel(root, n, kw.get("size", (1.0, 1.0, 1.0)), "reactingOneDim21", _PANEL_T,
+               "type compressible::turbulentTemperatureRadiationQinCoupledMixed;",
+               heater_T=_HEATER_T)
+    return root
+
+
+def write_wetted_panel_fire_case(root: str, n=(8, 8, 8), **kw) -> str:
+    """The singleBox family: the sprinkler fire (write_spray_fire_case, its
+    head and made-up table) with the pyrolysing panel of
+    write_panel_fire_case (with its heater) split in two faceZones
+    (panelLow, panelHigh) and a
+    thermoSingleLayer film over the floor ('base') and both
+    panel zones (constant/surfaceFilmProperties, the film's
+    extrudeToRegionMeshDict with adaptMesh false). The panel's gas-side T is
+    filmPyrolysisTemperatureCoupled (the film T where wet, the solid's
+    surface T where dry); its U is filmPyrolysisVelocityCoupled on panelLow
+    (the film surface velocity) and flowRateInletVelocityPyrolysisCoupled on
+    panelHigh, where the pyrolysate enters the gas. The cloud hands parcels
+    to the film (surfaceFilmModel thermoSurfaceFilm, interactionType
+    splashBai) and the film drips back into it (drippingInjection,
+    deltaStable 1e-3 m). A massFlowInlet feeds the film along the panel's top
+    rim with 0.01 kg/s per metre of rim at 300 K, so the film holds
+    water from the first step. The film's heat-transfer coefficients and the
+    inlet are made up."""
+    write_spray_fire_case(root, n=n, **kw)
+    lx, ly, lz = kw.get("size", (1.0, 1.0, 1.0))
+    zones = _panel_zones(True)
+    _add_panel(root, n, kw.get("size", (1.0, 1.0, 1.0)), "reactingOneDim21", _PANEL_T,
+               "type filmPyrolysisTemperatureCoupled;", heater_T=_HEATER_T, wet=True)
+    _w(f"{root}/system/extrudeToRegionMeshDictFilm",
+       "FoamFile { version 2.0; format ascii; class dictionary; object extrudeToRegionMeshDict; }\n"
+       f"region filmRegion;\nfaceZones ( base {' '.join(zones)} );\noneD false;\n"
+       "extrudeModel linearNormal;\nnLayers 1;\nadaptMesh false;\n"
+       "linearNormalCoeffs { thickness 0.001; }\n")
+    with open(f"{root}/mesh.sh", "a") as f:
+        f.write("runApplication extrudeToRegionMesh -dict system/extrudeToRegionMeshDictFilm\n")
+    _w(f"{root}/constant/surfaceFilmProperties",
+       "FoamFile { version 2.0; format ascii; class dictionary; object surfaceFilmProperties; }\n"
+       "active true;\nsurfaceFilmModel thermoSingleLayer;\nregionName filmRegion;\n"
+       "thermoSingleLayerCoeffs\n{\n"
+       "    filmThermoModel liquid;\n    liquid H2O;\n    deltaWet 0.0002;\n"
+       "    Tmin 200;\n    Tmax 500;\n    laminarCoeffs { Cf 0.005; }\n"
+       "    injectionModels ( drippingInjection );\n"
+       "    drippingInjectionCoeffs\n    {\n        cloudName reactingCloud1;\n"
+       "        deltaStable 0.001;\n        particlesPerParcel 100;\n"
+       "        parcelDistribution { type uniform; uniformDistribution "
+       "{ minValue 0.001; maxValue 0.002; } }\n    }\n"
+       "    upperSurfaceModels { heatTransferModel mappedConvectiveHeatTransfer; }\n"
+       "    lowerSurfaceModels { heatTransferModel constant; constantCoeffs { c0 500; } }\n"
+       "    inletModels\n    {\n        feed\n        {\n            type massFlowInlet;\n"
+       f"            gamma {_FILM_INLET_GAMMA};\n            T 300;\n"
+       f"            box (-0.01 {ly - 0.01} -0.01) (0.01 {ly + 0.01} {lz + 0.01});\n"
+       "            direction (0 1 0);\n        }\n    }\n"
+       "}\n")
+    _replace(f"{root}/constant/reactingCloud1Properties", "surfaceFilmModel none;",
+             "surfaceFilmModel thermoSurfaceFilm;\n"
+             "    thermoSurfaceFilmCoeffs { interactionType splashBai; deltaWet 0.0002; "
+             "Adry 2630; Awet 1320; }")
+    return root
+
+
+def write_pyrolysis_1d_case(root: str, n=(4, 4, 4), **kw) -> str:
+    """The solid alone (the pyrolysis1D family): the panel of
+    write_panel_fire_case (reactingOneDim, at 298.15 K) heated by a
+    fixedIncidentRadiation of 60 kW/m² on its exposed side, under constant/additionalControls
+    solvePrimaryRegion false, so a step evolves the solid and advances the
+    time. The gas case around it (a box fire) is built but never stepped."""
+    write_box_fire_case(root, n=n, **kw)
+    _add_panel(root, n, kw.get("size", (1.0, 1.0, 1.0)), "reactingOneDim", 298.15,
+               f"type fixedIncidentRadiation; QrIncident uniform {_P1D_Q_INCIDENT};")
+    _w(f"{root}/constant/additionalControls",
+       "FoamFile { version 2.0; format ascii; class dictionary; object additionalControls; }\n"
+       "solvePrimaryRegion false;\nsolvePyrolysisRegion true;\n")
+    _replace(f"{root}/system/controlDict", "maxDeltaT 0.1;", "maxDeltaT 0.1;\nmaxDi 10;")
     return root

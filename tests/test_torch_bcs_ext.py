@@ -173,8 +173,20 @@ def test_baffle_sides_are_linked_alike(env):
 
 
 def test_coupled_kinds_still_raise(env):
-    root, _, tg = env
+    """The coupled kinds of the region models build as the JAX package's do
+    (turbulentTemperatureRadiationQinCoupledMixed: the stored wall value
+    until the solid's surface T arrives as an override); a kind neither
+    package knows still raises, naming itself."""
+    root, jg, tg = env
+    for kind in ("compressible::turbulentTemperatureRadiationQinCoupledMixed",
+                 "filmPyrolysisTemperatureCoupled"):
+        jff, tff = JCase(root).field("T"), TCase(root).field("T")
+        for ff in (jff, tff):
+            ff.boundary.get_dict("wall")["type"] = kind
+        jb, tb = jbcs.make_field_bcs(jff, jg), tbcs.make_field_bcs(tff, tg)
+        assert [b.kind for b in tb.bcs] == [b.kind for b in jb.bcs]
+        assert kind in [b.kind for b in tb.bcs]
     ff = TCase(root).field("T")
-    ff.boundary.get_dict("wall")["type"] = "compressible::turbulentTemperatureRadiationQinCoupledMixed"
-    with pytest.raises(NotImplementedError, match="QinCoupledMixed"):
+    ff.boundary.get_dict("wall")["type"] = "compressible::noSuchCoupledMixed"
+    with pytest.raises(NotImplementedError, match="noSuchCoupledMixed"):
         tbcs.make_field_bcs(ff, tg)

@@ -224,7 +224,8 @@ def test_lookup_sprinkler_with_suppression(base):
 
 _WAITS = (
     ("devolatilisationModel none;", "devolatilisationModel constantRateDevolatilisation;", "P12b"),
-    ("surfaceFilmModel none;", "surfaceFilmModel thermoSurfaceFilm;", "P13"),
+    ("stochasticCollisionModel none;", "stochasticCollisionModel none;\n    "
+     "isotropyModel stochastic;", "P12b"),
     ("stochasticCollisionModel none;", "stochasticCollisionModel none;\n    "
      "collisionModel pairCollision;", "P12b"),
     ("stochasticCollisionModel none;", "stochasticCollisionModel none;\n    "

@@ -278,6 +278,32 @@ def test_stock_injectors_wait_for_p12b(case, kind):
                            case["tc"], torch.float64, geom=case["tg"])
 
 
-def test_film_drip_waits_for_p13():
-    with pytest.raises(NotImplementedError, match="P13"):
-        tinj.FilmDripInjection("drip", None, [], 1e-4, 1e-3, 1, (0, -9.81, 0))
+def test_film_drip_injection(case):
+    """FilmDripInjection against the JAX package's: the film's drip flux on
+    the base's faces (none first, then some) from the same keys gives the
+    same release faces, sizes, parcel count and owed mass."""
+    base = case["tg"].patch("base")
+    bidx = np.arange(base.start, base.start + base.n)
+    args = ("drip", None, bidx, 1e-3, 2e-3, 100.0, (0.0, -9.81, 0.0))
+    ji = jinj.FilmDripInjection(*args[:1], case["jg"], *args[2:], dtype=jnp.float64)
+    ti = tinj.FilmDripInjection(*args[:1], case["tg"], *args[2:], dtype=torch.float64)
+    js, ts = ji.init_state(), ti.init_state()
+    rng = np.random.default_rng(4)
+    nB = case["tg"].n_boundary
+    for k, scale in enumerate((0.0, 0.5, 2.0)):
+        drip = np.zeros(nB)
+        drip[bidx] = scale * rng.uniform(0.0, 1.0, bidx.size)
+        fu = rng.normal(size=(nB, 3))
+        jgas = {"film_drip_b": jnp.asarray(drip), "film_U_b": jnp.asarray(fu)}
+        tgas = {"film_drip_b": torch.as_tensor(drip), "film_U_b": torch.as_tensor(fu)}
+        key = jax.random.PRNGKey(k)
+        js, jc = ji.inject(js, key, 0.0, 0.01, jgas)
+        ts, tc = ti.inject(ts, prng.PRNGKey(k), torch.tensor(0.0, dtype=torch.float64),
+                           torch.tensor(0.01, dtype=torch.float64), tgas)
+        for name in ("x", "U", "d", "cell", "valid", "mass"):
+            a, b = tc[name].numpy(), np.asarray(jc[name])
+            assert np.allclose(a, b, rtol=1e-12, atol=0.0), (k, name)
+        assert int(ts["n_inj"]) == int(js["n_inj"])
+        assert abs(float(ts["m_owed"]) - float(js["m_owed"])) <= 1e-12 * max(
+            abs(float(js["m_owed"])), 1e-30)
+    assert int(ts["n_inj"]) > 0

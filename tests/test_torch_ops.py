@@ -290,6 +290,6 @@ def test_boundary_conditions_match(env):
 def test_unported_bc_kind_raises(env, tmp_path):
     root, _, tg = env
     ff = TCase(root).field("T")
-    ff.boundary.get_dict("base")["type"] = "filmPyrolysisTemperatureCoupled"
-    with pytest.raises(NotImplementedError, match="filmPyrolysisTemperatureCoupled"):
+    ff.boundary.get_dict("base")["type"] = "noSuchPyrolysisTemperatureCoupled"
+    with pytest.raises(NotImplementedError, match="noSuchPyrolysisTemperatureCoupled"):
         tbcs.make_field_bcs(ff, tg)

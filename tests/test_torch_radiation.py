@@ -600,9 +600,11 @@ def test_make_radiation_selects_every_model(cases):
 
 
 def test_deferred_parts_raise_naming_their_item(cases, tmp_path):
-    """The solid-coupled wall modes wait for the region models (P13): each
-    raises and names its item. The spray terms no longer wait (the cloud
-    is ported): zero spray fields give the solve without them."""
+    """The solid-coupled wall modes (ported with the region models): each
+    builds the solid masks the JAX package builds (absorptivityMode
+    'emissivity' mirrors the emissivity's mask). The spray terms no longer
+    wait (the cloud is ported): zero spray fields give the solve without
+    them."""
     root = write_radiation_fire_case(str(tmp_path / "solid"), n=(4, 4, 4), model="greyMean")
     path = os.path.join(root, "0", "IDefault")
     txt = open(path).read()
@@ -614,8 +616,14 @@ def test_deferred_parts_raise_naming_their_item(cases, tmp_path):
             f.write(txt.replace(old, new))
         g = TGeom.from_polymesh(t_build(root).mesh, dtype=torch.float64, device="cpu")
         rp = tparse(os.path.join(root, "constant", "radiationProperties"))
-        with pytest.raises(NotImplementedError, match="P13"):
-            t_make(rp, g, TCase(root))
+        tm = t_make(rp, g, TCase(root))
+        jm = j_make(jparse(os.path.join(root, "constant", "radiationProperties")),
+                    JGeom.from_polymesh(j_build(root).mesh), JCase(root))
+        assert tm.solid_eps_mask.any() or tm.solid_abs_mask.any()
+        for m in ("solid_eps_mask", "solid_abs_mask"):
+            assert np.array_equal(getattr(tm, m), np.asarray(getattr(jm, m))), m
+        for a in ("emissivity", "absorptivity"):
+            assert np.array_equal(getattr(tm, a).numpy(), np.asarray(getattr(jm, a))), a
     _, tm = _models(cases, "greyMean")
     _, ts = _state(cases, 15)
     plain = tm._solve_rays(tm.initial_state(), ts, cases["tgas"])

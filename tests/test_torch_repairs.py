@@ -2,9 +2,9 @@
 
   * constant/additionalControls is read as the JAX constructor reads it:
     with `solvePyrolysisRegion false` a constant/pyrolysisZones file is
-    skipped (the port raised on any such file before), with it true the
-    pyrolysis regions still raise, and `solvePrimaryRegion false` (the
-    solid-only step) raises naming the region-model item of the roadmap;
+    skipped, with it true the zones are built as the JAX package builds them
+    (none for 'pyrolysisModel none'), and `solvePrimaryRegion false` steps
+    the regions alone, as in the JAX package;
   * p_rgh's maxIter: on the card K2 is launched with the dictionary's
     maxIter (as the JAX package's fused kernel takes c0["maxIter"]), also
     for the float64 solve of `p_rgh_f64`; on the CPU the Jacobi-CG twin
@@ -19,7 +19,7 @@ import torch
 
 from firefoam_torch.models.firefoam import FireFoamSolver as TSolver
 from firefoam_torch.solvers import dia_krylov
-from firefoam_torch.utils.synthcase import write_box_fire_case
+from firefoam_torch.utils.synthcase import write_box_fire_case, write_pyrolysis_1d_case
 
 from test_torch_grid_plan import _FakeCard
 
@@ -53,18 +53,31 @@ def test_additional_controls_skip_pyrolysis_zones(tmp_path):
     assert bool(torch.isfinite(state["T"].i).all()) and int(log["p_rgh_iters_1"]) > 0
 
 
-def test_additional_controls_still_refuse_what_the_port_lacks(tmp_path):
+def test_additional_controls_build_the_regions_as_jax_does(tmp_path):
+    """With solvePyrolysisRegion true both packages read
+    constant/pyrolysisZones: 'pyrolysisModel none' builds no zone in either;
+    with solvePrimaryRegion false both step the regions alone (the time
+    advances, the gas stays), and a solid-only case steps its solid alike."""
     from firefoam_tpu.models.firefoam import FireFoamSolver as JSolver
 
     root = write_box_fire_case(str(tmp_path / "box"), n=N)
     _controls(root, primary=True, pyrolysis=True)
-    with pytest.raises(NotImplementedError, match="pyrolysis regions"):
-        TSolver(root, device="cpu")
+    js, ts = JSolver(root), TSolver(root, device="cpu")
+    assert js.pyrolysis is None and ts.pyrolysis is None and ts.solve_pyrolysis
     _controls(root, primary=False, pyrolysis=False)
-    js = JSolver(root)
-    assert js.solve_primary is False  # the JAX package steps the solid only
-    with pytest.raises(NotImplementedError, match="P13"):
-        TSolver(root, device="cpu")
+    js, ts = JSolver(root), TSolver(root, device="cpu")
+    assert js.solve_primary is False and ts.solve_primary is False
+    st0 = ts.initial_state()
+    st, log = ts.make_step()(st0)
+    assert float(st["t"]) > float(st0["t"]) and torch.equal(st["T"].i, st0["T"].i)
+    solid = write_pyrolysis_1d_case(str(tmp_path / "p1d"), n=(4, 4, 4))
+    js, ts = JSolver(solid), TSolver(solid, device="cpu")
+    jst, jlog = js.make_step()(js.initial_state())
+    st, log = ts.make_step()(ts.initial_state())
+    assert [z.model for z in ts.pyrolysis.zones] == [z.model for z in js.pyrolysis.zones]
+    for k in ("pyro_panelRegion_T_max", "pyro_panelRegion_mlr"):
+        assert abs(float(log[k]) - float(jlog[k])) <= 1e-9 * max(abs(float(jlog[k])), 1.0), k
+    assert abs(float(st["dt"]) - float(jst["dt"])) <= 1e-12
 
 
 def _with_max_iter(root, max_iter):
