@@ -163,7 +163,36 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      solid-only case (write_pyrolysis_1d_case, solvePrimaryRegion false)
      through the run CLI, the card's float32 solid against the CPU's
      float64 within SOLID_F32_TOL;
- 14. the kernels' JSON line, the card line, and the final JSON line.
+ 14. the spray's stock submodels (plain PyTorch ops, no kernel of their
+     own): the multiphase spray fire (write_multiphase_spray_fire_case:
+     phase 12's box with a coneNozzle of C3H8/H2O/ash parcels at 20,000
+     parcels/s, singleKineticRate devolatilisation into C3H8 and the MPPIC
+     packing, damping and isotropy models; 262,144 slots) at 100k cells in
+     float32, make_chunk(20) after one warm-up step with the K1/K2 launch
+     counts checked, every field, parcel lane and log finite, devolatilised
+     mass above 0 and the C3H8 equation's source equal to it, the liquid's
+     ledger (phase 12's, SPRAY_MASS_TOL) and the volatiles' (injected = held
+     + devolatilised + carried out, VOLATILE_MASS_TOL), a second run bitwise
+     equal (mv, MPPIC's draws and the key included), ms/step, launches,
+     host reads and device-busy ms beside phase 4's box fire and the shares
+     of MPPIC.apply and of the devolatilisation (torch.profiler), run_case
+     writing, checkpointing (mv, mv0, ms) and resuming bitwise; the DEM
+     spray (write_dem_spray_fire_case: two drops thrown at each other,
+     pairCollision with 20 sub-cycles, 4,096 slots) at 100k cells, DEM_STEPS
+     steps after the burst: finite, the drops meeting (partner records held
+     over the sub-cycles, x velocities turned round), launch counts, a
+     second run bitwise equal;
+     PairCollision.collide alone on 16,384 parcels of a jittered packed
+     lattice: ms a sub-cycle, peak memory and its row-block size, bitwise
+     equal in blocks of LATTICE_BLOCK rows; at 9k cells both fires in
+     phase 12's lockstep against the CPU (the DEM spray cut to
+     DEM_SMALL_CAPACITY slots; the multiphase fire's parcels carry fuel, so
+     float32's own draws (R11) move where it burns: the band holds a float32
+     run with float64's draws rounded, and the drift as drawn is printed),
+     and every stock injector card against CPU;
+ 15. the kernels' JSON line (with launches_multiphase_path and
+     launches_dem_path), the DEM lattice's line, the card line, and the
+     final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
@@ -195,10 +224,12 @@ from firefoam_torch.models.firefoam import FireFoamSolver  # noqa: E402
 from firefoam_torch.solvers import dia_krylov, dic, linear  # noqa: E402
 from firefoam_torch.profile_step import _busy_us  # noqa: E402
 from firefoam_torch.radiation import fvdom as fvdom_mod  # noqa: E402
+from firefoam_torch.spray_sensitivity import float64_draws  # noqa: E402
 from firefoam_torch.utils.synthcase import (  # noqa: E402
-    write_box_fire_case, write_castellated_fire_case, write_panel_fire_case,
-    write_pyrolysis_1d_case, write_radiation_fire_case, write_smooth_fire_case,
-    write_spray_fire_case, write_wall_fire_case, write_wetted_panel_fire_case)
+    write_box_fire_case, write_castellated_fire_case, write_dem_spray_fire_case,
+    write_multiphase_spray_fire_case, write_panel_fire_case, write_pyrolysis_1d_case,
+    write_radiation_fire_case, write_smooth_fire_case, write_spray_fire_case,
+    write_wall_fire_case, write_wetted_panel_fire_case)
 
 N_MAIN = (50, 40, 50)  # 100,000 cells
 N_SMALL = (30, 15, 20)  # 9,000 cells
@@ -290,6 +321,24 @@ STRIKE_CHAIN_TOL = 5e-5
 HANDOFF_TOL = 1e-7
 DRIP_TOL = 1e-12
 SOLID_F32_TOL = 1e-6
+# phase 14. The DEM spray: the JAX package's capacity for its 2 parcels a
+# step (4,096 slots), DEM_STEPS steps (at 100k cells its drops meet in the
+# second), cut to DEM_SMALL_CAPACITY slots at 9k cells, where the CPU's dense
+# pair matrix of 4,096 slots would take minutes a step; PairCollision.collide
+# alone on a LATTICE of 16,384 parcels, and again in blocks of LATTICE_BLOCK
+# rows (16 blocks and a short one). The multiphase spray's volatile ledger
+# (injected = held + devolatilised + carried out, relative to injected; each
+# term a float32 sum) within VOLATILE_MASS_TOL, and the devolatilised mass
+# against the C3H8 equation's source within SOURCE_TOL. Readings on an NVIDIA
+# H100 80GB HBM3 at 700 W: ledger 7.989e-08, source 1.055e-07 (PERF.md, the
+# stock submodels' findings)
+DEM_CAPACITY = 4096
+DEM_STEPS = 6
+DEM_SMALL_CAPACITY = 512
+LATTICE = (32, 32, 16)
+LATTICE_BLOCK = 1000
+VOLATILE_MASS_TOL = 1e-6
+SOURCE_TOL = 1e-6
 SOURCE = "firefoam_torch/csrc/dia_krylov.cu"
 REPLACES = {
     "bicgstab": "firefoam_tpu/solvers/pallas_cg.py:281",
@@ -1958,18 +2007,20 @@ def phase_spray(dev, tmp, box_solver, box_state, box_ms):
             f"{k_cloud} launches ({100.0 * k_cloud / k_spray:.1f} %), {r_cloud} host reads, "
             f"{busy_cloud:.3f} ms device busy ({100.0 * busy_cloud / busy_spray:.1f} %)")
     del again, state0
-    phase_spray_cli(tmp)
-    phase_spray_small(dev, tmp)
+    phase_spray_cli(write_spray_fire_case(os.path.join(tmp, "spray_cli"), n=N_MAIN,
+                                          pps=SPRAY_PPS, end_time=100.0),
+                    tmp, 12, "sprinkler")
+    phase_spray_small(dev, write_spray_fire_case(os.path.join(tmp, "spray_small"), n=N_SMALL,
+                                                 pps=SPRAY_PPS_SMALL),
+                      12, "sprinkler fire")
     return launches
 
 
-def phase_spray_cli(tmp):
-    """The sprinkler fire through the run CLI's engine (run_case): 15
+def phase_spray_cli(case, tmp, phase, what, keys=()):
+    """A spray fire through the run CLI's engine (run_case): 15
     uninterrupted steps; the same 10 steps writing once (time directory +
-    checkpoint with the cloud and its key); 5 steps resumed from that
-    checkpoint, bitwise equal to the uninterrupted run's."""
-    case = write_spray_fire_case(os.path.join(tmp, "spray_cli"), n=N_MAIN, pps=SPRAY_PPS,
-                                 end_time=100.0)
+    checkpoint with the cloud, its key and the cloud leaves `keys`); 5 steps
+    resumed from that checkpoint, bitwise equal to the uninterrupted run's."""
     kw = dict(verbose=False, chunk=5, device="cuda")
     path = os.path.join(case, "system", "controlDict")
 
@@ -1986,46 +2037,56 @@ def phase_spray_cli(tmp):
     _, full, logs = run_cli.run_case(case, max_steps=15, **kw)
     t = [float(lg["t"]) for lg in logs]
     control("writeInterval 1000.0;", f"writeInterval {0.5 * (t[8] + t[9])!r};")  # at step 10
-    out_dir = os.path.join(tmp, "spray_out")
+    out_dir = os.path.join(tmp, f"{what}_out")
     stats = {}
     _, ten, _ = run_cli.run_case(case, max_steps=10, output_dir=out_dir, write_fields=True,
                                  stats=stats, **kw)
     times = sorted(d for d in os.listdir(out_dir) if d[0].isdigit())
     ckpt = run_cli.latest_checkpoint(out_dir)
     if len(times) != 1 or ckpt is None:
-        raise SystemExit(f"phase 12: expected one write, found {times}")
+        raise SystemExit(f"phase {phase}: expected one write, found {times}")
     with np.load(ckpt) as z:
-        keys = set(z.files)
+        have = set(z.files)
         rng = z["['cloud']['rng']"]
-    n_cloud = sum(1 for k in keys if k.startswith("['cloud']"))
-    if rng.dtype != np.uint32 or "['cloud']['alive']" not in keys or \
-            "['cloud']['inj'][0]['m_owed']" not in keys:
-        raise SystemExit("phase 12: the checkpoint lacks the cloud or its key")
+    n_cloud = sum(1 for k in have if k.startswith("['cloud']"))
+    need = {"['cloud']['alive']", "['cloud']['inj'][0]['m_owed']"} | {
+        f"['cloud']{k}" for k in keys}
+    if rng.dtype != np.uint32 or not need <= have:
+        raise SystemExit(f"phase {phase}: the checkpoint lacks the cloud, its key or "
+                         f"{sorted(need - have)}")
     _, resumed, _ = run_cli.run_case(case, max_steps=5, resume=ckpt, **kw)
     same = states_equal(resumed, full)
-    say(12, f"run_case: 15 steps; 10 steps writing once ({stats['write_seconds']:.3f} s: time "
-            f"directory {times[0]} + checkpoint with {n_cloud} cloud leaves, key {rng.tolist()}); "
-            f"5 steps resumed: state bitwise equal to the uninterrupted run's {same} "
-            f"(parcels {int(full['cloud']['alive'].sum())})")
+    say(phase, f"{what}: run_case: 15 steps; 10 steps writing once "
+               f"({stats['write_seconds']:.3f} s: time directory {times[0]} + checkpoint with "
+               f"{n_cloud} cloud leaves, key {rng.tolist()}); 5 steps resumed: state bitwise "
+               f"equal to the uninterrupted run's {same} "
+               f"(parcels {int(full['cloud']['alive'].sum())})")
     if not same:
-        raise SystemExit("phase 12: the resumed sprinkler run differs from the uninterrupted one")
+        raise SystemExit(f"phase {phase}: the resumed {what} run differs from the uninterrupted "
+                         "one")
 
 
-def phase_spray_small(dev, tmp):
-    """The 9k-cell sprinkler fire: DRIFT_STEPS steps in float32 and float64
-    on the card and in float64 on the CPU, in lockstep: each step the card's
+def phase_spray_small(dev, case, phase, what, capacity=None, aligned_draws=False):
+    """A 9k-cell spray fire: DRIFT_STEPS steps in float32 and float64 on the
+    card and in float64 on the CPU, in lockstep: each step the card's
     float64 fields and parcels against the CPU's (the first step whose
     parcels part, and whose iteration counts part, is printed); then the
-    last step again on the card from the CPU's state."""
-    case = write_spray_fire_case(os.path.join(tmp, "spray_small"), n=N_SMALL,
-                                 pps=SPRAY_PPS_SMALL)
+    last step again on the card from the CPU's state. `capacity` cuts the
+    clouds' slots (all runs alike). `aligned_draws`: one more float32 run
+    whose random draws are float64's rounded (R11: float32 and float64 draw
+    from other bits), which the T drift band then holds; the drift as drawn
+    is printed. Returns the runs' solvers."""
+    t_start = time.perf_counter()
     cpu = torch.device("cpu")
     runs = (("f32", dev, torch.float32), ("f64", dev, torch.float64),
-            ("cpu", cpu, torch.float64))
+            ("cpu", cpu, torch.float64)) + ((("f32x", dev, torch.float32),) if aligned_draws
+                                            else ())
     solvers, states, secs = {}, {}, {}
     for run, d, dtype in runs:
         solvers[run] = FireFoamSolver(case, device=d, dtype=dtype, exact_solvers=False,
                                       gmg=False, amg=False)
+        if capacity is not None:
+            solvers[run].cloud.cfg.capacity = capacity
         states[run] = solvers[run].initial_state()
         secs[run] = 0.0
     rows, parted, iters_apart, before, last = [], None, None, None, None
@@ -2036,7 +2097,8 @@ def phase_spray_small(dev, tmp):
         for run, _, _ in runs:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            states[run], logs[run] = solvers[run].step(states[run])
+            with float64_draws() if run == "f32x" else contextlib.nullcontext():
+                states[run], logs[run] = solvers[run].step(states[run])
             torch.cuda.synchronize()
             secs[run] += time.perf_counter() - t0
         last = logs["cpu"]
@@ -2060,8 +2122,13 @@ def phase_spray_small(dev, tmp):
            for run, _, _ in runs}
     alive = {run: int(states[run]["cloud"]["alive"].sum()) for run, _, _ in runs}
     ms = {run: 1e3 * secs[run] / DRIFT_STEPS for run in secs}
-    T32, T64 = out["f32"]["T"], out["f64"]["T"]
-    drift = float(np.max(np.abs(T32 - T64) / np.maximum(T64, 1.0)))
+    T64 = out["f64"]["T"]
+    drifts = {run: float(np.max(np.abs(out[run]["T"] - T64) / np.maximum(T64, 1.0)))
+              for run in ("f32", "f32x") if run in out}
+    T32 = out["f32x" if aligned_draws else "f32"]["T"]
+    drift = drifts["f32x" if aligned_draws else "f32"]
+    aligned = (f" (as drawn {drifts['f32']:.6e}; with float64's draws rounded, which the band "
+               f"holds: {drift:.6e})" if aligned_draws else "")
 
     vs_cpu = {f: float(np.max(np.abs(out["f64"][f] - out["cpu"][f])) /
                        np.max(np.abs(out["cpu"][f]))) for f in ("T", "U")}
@@ -2071,25 +2138,29 @@ def phase_spray_small(dev, tmp):
     one = {f: float((stepped[f].i.cpu() - states["cpu"][f].i).abs().max() /
                     states["cpu"][f].i.abs().max()) for f in ("T", "U")}
     same_its = all(int(log[k]) == int(last[k]) for k in last if "iters" in k)
-    say(12, f"sprinkler fire {T64.size} cells, float64 card vs CPU step by step (relative T, U; "
-            f"largest parcel position gap [m]; parcels in other cells; alive flags apart): "
-            f"{'; '.join(rows)}; "
-            f"first step whose parcels part: {parted}; first solves whose iteration counts "
-            f"part (card/CPU): {iters_apart}")
-    say(12, f"sprinkler fire {T64.size} cells, {DRIFT_STEPS} steps: float32 {ms['f32']:.3f}, "
-            f"float64 {ms['f64']:.3f}, CPU float64 {ms['cpu']:.1f} ms/step; float64 card vs "
-            f"CPU: T {vs_cpu['T']:.3e}, U {vs_cpu['U']:.3e} relative (bound {SPRAY_CHAIN_TOL:g}); "
-            f"the last step from the CPU's state: T {one['T']:.3e}, U "
-            f"{one['U']:.3e}, iteration counts equal {same_its}; parcels alive {alive['f64']} "
-            f"vs {alive['cpu']} (float32 {alive['f32']}); float32 T drift {drift:.6e}")
+    say(phase, f"{what} {T64.size} cells, float64 card vs CPU step by step (relative T, U; "
+               f"largest parcel position gap [m]; parcels in other cells; alive flags apart): "
+               f"{'; '.join(rows)}; "
+               f"first step whose parcels part: {parted}; first solves whose iteration counts "
+               f"part (card/CPU): {iters_apart}")
+    say(phase, f"{what} {T64.size} cells, {DRIFT_STEPS} steps: float32 {ms['f32']:.3f}, "
+               f"float64 {ms['f64']:.3f}, CPU float64 {ms['cpu']:.1f} ms/step; float64 card vs "
+               f"CPU: T {vs_cpu['T']:.3e}, U {vs_cpu['U']:.3e} relative (bound "
+               f"{SPRAY_CHAIN_TOL:g}); "
+               f"the last step from the CPU's state: T {one['T']:.3e}, U "
+               f"{one['U']:.3e}, iteration counts equal {same_its}; parcels alive {alive['f64']} "
+               f"vs {alive['cpu']} (float32 {alive['f32']}); float32 T drift {drift:.6e}"
+               f"{aligned} ({time.perf_counter() - t_start:.1f} s)")
     if alive["f64"] != alive["cpu"] or parted is not None:
-        raise SystemExit("phase 12: the card's float64 parcels part from the CPU's")
+        raise SystemExit(f"phase {phase}: the card's float64 parcels part from the CPU's")
     if not (max(one.values()) <= STEP_TOL and same_its):
-        raise SystemExit("phase 12: the card's float64 step differs from the CPU's")
+        raise SystemExit(f"phase {phase}: the card's float64 step differs from the CPU's")
     if not max(vs_cpu.values()) <= SPRAY_CHAIN_TOL:
-        raise SystemExit("phase 12: the card's float64 run differs from the CPU's beyond the bound")
+        raise SystemExit(f"phase {phase}: the card's float64 run differs from the CPU's beyond "
+                         "the bound")
     if not np.all(np.isfinite(T32)) or not drift <= T_DRIFT:
-        raise SystemExit("phase 12: float32 drifts from float64 beyond the band")
+        raise SystemExit(f"phase {phase}: float32 drifts from float64 beyond the band")
+    return solvers
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2479,6 +2550,360 @@ def phase_solid_only(tmp):
         raise SystemExit("phase 13: the solid-only case failed or parts from the CPU's")
 
 
+# ---------------------------------------------------------------- phase 14
+def sum_log(log1, logs, key) -> float:
+    """A step-log entry summed in float64 over the warm-up step and a chunk."""
+    return float(log1[key]) + float(logs[key].double().sum())
+
+
+def cone_injected(solver, state, elapsed):
+    """The mass the cone injectors released by `state`: their mass rate over
+    `elapsed` less what each still owes."""
+    return sum(inj.mass_rate * elapsed - float(ist["m_owed"])
+               for inj, ist in zip(solver.cloud.injectors, state["cloud"]["inj"]))
+
+
+def phase_multiphase(dev, tmp, box_solver, box_state, box_ms):
+    """The multiphase spray fire at 100k cells (see the module docstring);
+    returns the launch counts of its run."""
+    t_start = time.perf_counter()
+    case = write_multiphase_spray_fire_case(os.path.join(tmp, "multi"), n=N_MAIN,
+                                            pps=SPRAY_PPS, end_time=100.0)
+    solver = FireFoamSolver(case, device=dev)
+    cloud = solver.cloud
+    state0 = solver.initial_state()
+    step = solver.make_step()
+    state1, log1 = step(state0)  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_start
+    n = solver.geom.n_cells
+    if cloud is None or cloud.cfg.capacity != SPRAY_CAPACITY or cloud.devol is None or \
+            cloud.mppic is None or cloud.ledger is None:
+        raise SystemExit("phase 14: the multiphase case did not build its cloud at the JAX "
+                         "package's capacity with devolatilisation, MPPIC and the ledger")
+    count0 = int(state1["rad"]["count"])
+    chunk = solver.make_chunk(CHUNK)
+    sweeps0 = solver.radiation.sweeps
+    dia_krylov.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logs = chunk(state1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / CHUNK
+    launches = dict(dia_krylov.LAUNCHES)
+    exp_k1, exp_k2 = expected_launches(solver.radiation, count0, CHUNK)
+    sweeps = solver.radiation.sweeps - sweeps0
+    finite = all(bool(torch.isfinite(state[f].i).all()) for f in ("T", "U", "p_rgh", "Y", "k")) \
+        and all(bool(torch.isfinite(v).all()) for v in spray_leaves(state["cloud"]).values()
+                if v.is_floating_point())
+    bad_logs = [k for k, v in logs.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    alive = int(logs["cloud_nParcels"][-1])
+    # the liquid's ledger (phase 12's): injected + expansion = in the system
+    # + evaporated + escaped + collected + dropped
+    elapsed = float(log1["dt"]) + float(logs["dt"].double().sum())
+    evap, esc, drop, expa = (sum_log(log1, logs, k) for k in (
+        "cloud_massEvaporated", "cloud_massEscaped", "cloud_massDropped", "cloud_massExpansion"))
+    coll = sum(float(c["mass"].sum()) for c in state["cloud"]["coll"])
+    inside = float(logs["cloud_mass"][-1])
+    inj = cone_injected(solver, state, elapsed)
+    book = abs(inj + expa - (inside + evap + esc + coll + drop)) / inj
+    # the volatiles' ledger: injected = held + devolatilised + carried out
+    v_inj, v_dev, v_lost = (sum_log(log1, logs, k) for k in (
+        "cloud_volatileInjected", "cloud_massDevolatilised", "cloud_volatileLost"))
+    v_held = float(logs["cloud_volatileMass"][-1])
+    vbook = abs(v_inj - (v_held + v_dev + v_lost)) / v_inj
+    # the next step's devolatilised mass as the C3H8 equation receives it
+    lg = {}
+    _, out = solver._evolve_cloud(state, lg)
+    gained = float((out["SY"][solver.gas.index("C3H8")].double() * solver.geom.V.double()).sum()
+                   * float(state["dt"]))
+    to_c3h8 = abs(gained - float(lg["cloud_massDevolatilised"])) / max(gained, 1e-300)
+    live = state["cloud"]["alive"]
+    v_held_frac = float(state["cloud"]["mv"][live].double().sum()
+                        / state["cloud"]["mv0"][live].double().sum().clamp(min=1e-300))
+    say(14, f"multiphase spray fire {n} cells float32 (capacity {cloud.cfg.capacity}, "
+            f"{cloud.cfg.n_sub} substeps of a {cloud.cfg.walk_steps}-hop walk; setup + warm-up "
+            f"{setup_s:.1f} s): {ms:.3f} ms/step over make_chunk({CHUNK}), t = "
+            f"{float(state['t']):.4f} s, T max {float(state['T'].i.max()):.3f} K, parcels alive "
+            f"{alive} (their volatiles {v_held_frac:.4f} of what they were injected with); "
+            f"fields, cloud and logs finite {finite and not bad_logs} {bad_logs}")
+    say(14, f"liquid since t = 0 [kg]: injected {inj:.6e} + expansion {expa:.6e} = in system "
+            f"{inside:.6e} + evaporated {evap:.6e} + escaped {esc:.6e} + collected {coll:.6e} "
+            f"+ dropped {drop:.6e}; relative gap {book:.3e} (bound {SPRAY_MASS_TOL:g})")
+    say(14, f"volatiles since t = 0 [kg]: injected {v_inj:.6e} = held {v_held:.6e} + "
+            f"devolatilised {v_dev:.6e} + carried out {v_lost:.6e}; relative gap {vbook:.3e} "
+            f"(bound {VOLATILE_MASS_TOL:g}); the next step's devolatilised "
+            f"{float(lg['cloud_massDevolatilised']):.6e} kg, the C3H8 equation's source "
+            f"{gained:.6e} kg ({to_c3h8:.3e} apart, bound {SOURCE_TOL:g})")
+    say(14, f"launches K1 {launches['bicgstab']} (expected {exp_k1}; fvDOM ray sweeps "
+            f"{sweeps}), K2 {launches['pcg']} (expected {exp_k2}), K3 {launches['smooth']}")
+    if not finite or bad_logs:
+        raise SystemExit("phase 14: the multiphase spray fire is not finite")
+    if not (alive > 0 and v_dev > 0.0 and gained > 0.0):
+        raise SystemExit("phase 14: no parcel alive, or nothing devolatilised into the gas")
+    if not (book <= SPRAY_MASS_TOL and vbook <= VOLATILE_MASS_TOL and to_c3h8 <= SOURCE_TOL):
+        raise SystemExit("phase 14: a mass ledger of the multiphase spray does not close")
+    if (launches["bicgstab"], launches["pcg"], launches["smooth"]) != (exp_k1, exp_k2, 0) or \
+            sweeps != exp_k1 - 4 * CHUNK:
+        raise SystemExit("phase 14: kernel launch counts do not match the solves")
+    again, logs2 = chunk(state1)
+    torch.cuda.synchronize()
+    same = states_equal(again, state) and all(torch.equal(logs2[k], logs[k]) for k in logs)
+    say(14, f"the same {CHUNK} steps again: states (mv, mv0, ms, key, MPPIC's draws included) "
+            f"and logs bitwise equal: {same}")
+    if not same:
+        raise SystemExit("phase 14: two runs of the multiphase spray fire differ")
+    del again
+    _, k_multi, r_multi, busy_multi = step_profile(step, state, SPRAY_PROFILE_STEPS)
+    _, k_box, r_box, busy_box = step_profile(box_solver.make_step(), box_state,
+                                             SPRAY_PROFILE_STEPS)
+    cst = state["cloud"]
+    k_mppic, r_mppic, busy_mppic = profiled_call(
+        lambda: cloud.mppic.apply(cst, solver.geom, state["dt"], prng.PRNGKey(0)))
+    T_p = torch.clamp(cst["T"], min=cloud.cfg.T_min)
+    gate = cst["alive"] & (cst["mv0"].sum(1) > 0)
+    dt_sub = state["dt"] / cloud.cfg.n_sub
+    k_dev, r_dev, busy_dev = profiled_call(lambda: [cloud.devol.calculate(
+        dt_sub, T_p, cst["mv"], cst["mv0"], cst["canCombust"], gate)
+        for _ in range(cloud.cfg.n_sub)])
+    k_multi, busy_multi = max(k_multi, 1), max(busy_multi, 1e-9)
+    say(14, f"per step at {n} cells float32 (torch.profiler over {SPRAY_PROFILE_STEPS} steps): "
+            f"box fire {box_ms:.3f} ms (phase 4), {k_box:.0f} launches, {r_box:.1f} host reads, "
+            f"device busy {busy_box:.3f} ms; multiphase spray fire {ms:.3f} ms, {k_multi:.0f} "
+            f"launches, {r_multi:.1f} host reads, device busy {busy_multi:.3f} ms "
+            f"({100.0 * (1.0 - busy_multi / ms):.1f} % idle); MPPIC.apply {k_mppic} launches "
+            f"({100.0 * k_mppic / k_multi:.1f} %), {r_mppic} host reads, {busy_mppic:.3f} ms "
+            f"({100.0 * busy_mppic / busy_multi:.1f} %); Devolatilisation.calculate x "
+            f"{cloud.cfg.n_sub} substeps {k_dev} launches ({100.0 * k_dev / k_multi:.1f} %), "
+            f"{r_dev} host reads, {busy_dev:.3f} ms ({100.0 * busy_dev / busy_multi:.1f} %)")
+    phase_spray_cli(case, tmp, 14, "multiphase", keys=("['mv']", "['mv0']", "['ms']"))
+    say(14, f"multiphase spray fire at {n} cells: {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+class _NoWalls:
+    patches = []
+
+
+def dem_lattice(dev):
+    """PairCollision.collide alone on a jittered packed lattice of
+    LATTICE parcels (every neighbour pair overlapping): ms per sub-cycle,
+    the peak memory and the row-block size it chose, and the same call with
+    LATTICE_BLOCK rows a block, bitwise equal."""
+    from firefoam_torch.io import parse_string
+    from firefoam_torch.lagrangian.paircollision import PairCollision
+
+    pc = PairCollision.from_dict(parse_string(
+        "collisionModel pairCollision; pairCollisionCoeffs { nSubCycles 2; pairModelCoeffs "
+        "{ alpha 0.12; b 1.5; mu 0.52; cohesionEnergyDensity 0; } }"),
+        parse_string("youngsModulus 1e5; poissonsRatio 0.35;"), _NoWalls())
+    rng = np.random.default_rng(14)
+    d = 2e-3
+    idx = np.stack(np.meshgrid(*(np.arange(k) for k in LATTICE), indexing="ij"), -1)
+    idx = idx.reshape(-1, 3)
+    n = idx.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    st = {"x": torch.as_tensor(idx * 0.98 * d + rng.uniform(-0.01, 0.01, (n, 3)) * d, **f32),
+          "U": torch.as_tensor(rng.normal(0.0, 0.05, (n, 3)), **f32),
+          "d": torch.full((n,), d, **f32), "nP": torch.ones(n, **f32),
+          "alive": torch.ones(n, dtype=torch.bool, device=dev)}
+    cst = pc.init_state(n, torch.float32, dev)
+    pc.collide(st, cst, 1000.0, 1e-5)  # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    a = pc.collide(st, cst, 1000.0, 1e-5)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / pc.sub_cycles
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    rows = pc.last_block_rows
+    pc.block_rows = LATTICE_BLOCK
+    t0 = time.perf_counter()
+    b = pc.collide(st, cst, 1000.0, 1e-5)
+    torch.cuda.synchronize()
+    ms_b = 1e3 * (time.perf_counter() - t0) / pc.sub_cycles
+    same = all(torch.equal(a[0][k], b[0][k]) for k in ("x", "U")) and all(
+        torch.equal(a[1][k], b[1][k]) for k in a[1])
+    held = int((a[1]["rec_id"] >= 0).sum())
+    say(14, f"PairCollision.collide alone, {n} parcels float32 in a jittered packed lattice "
+            f"(partner records held {held}): {ms:.3f} ms a sub-cycle in blocks of {rows} rows, "
+            f"peak memory {peak / 2 ** 30:.3f} GiB above the inputs; {ms_b:.3f} ms a sub-cycle "
+            f"in blocks of {LATTICE_BLOCK} rows: bitwise equal {same}")
+    if not (same and held > 0):
+        raise SystemExit("phase 14: collide depends on its row-block size, or found no contact")
+    return {"ms_per_subcycle": ms, "peak_bytes": peak, "block_rows": rows,
+            "ms_per_subcycle_other_block": ms_b}
+
+
+def phase_dem(dev, tmp):
+    """The DEM spray at 100k cells and collide alone at 16,384 parcels;
+    returns (the launch counts of the spray's run, the lattice's readings)."""
+    t_start = time.perf_counter()
+    case = write_dem_spray_fire_case(os.path.join(tmp, "dem"), n=N_MAIN, end_time=100.0)
+    solver = FireFoamSolver(case, device=dev)
+    cloud = solver.cloud
+    if cloud is None or cloud.pair_collision is None or cloud.cfg.capacity != DEM_CAPACITY:
+        raise SystemExit("phase 14: the DEM case did not build its pair collision at the JAX "
+                         "package's capacity")
+    state0 = solver.initial_state()
+    step = solver.make_step()
+    state1, log1 = step(state0)  # warm-up: the burst
+    count0 = int(state1["rad"]["count"])
+    chunk = solver.make_chunk(DEM_STEPS)
+    dia_krylov.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logs = chunk(state1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / DEM_STEPS
+    launches = dict(dia_krylov.LAUNCHES)
+    exp_k1, exp_k2 = expected_launches(solver.radiation, count0, DEM_STEPS)
+    finite = all(bool(torch.isfinite(state[f].i).all()) for f in ("T", "U", "p_rgh", "Y", "k")) \
+        and all(bool(torch.isfinite(v).all()) for v in spray_leaves(state["cloud"]).values()
+                if v.is_floating_point())
+    bad_logs = [k for k, v in logs.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    # the same steps again, counting the partner records held after each
+    # sub-cycle (a contact lasts about ten)
+    pcm = cloud.pair_collision
+    pcm.contacts = torch.zeros((), dtype=torch.int64, device=dev)
+    again, logs2 = chunk(state1)
+    held, pcm.contacts = int(pcm.contacts), None
+    torch.cuda.synchronize()
+    same = states_equal(again, state) and all(torch.equal(logs2[k], logs[k]) for k in logs)
+    c1, c2 = state1["cloud"], state["cloud"]
+    ux0 = c1["U"][c1["alive"], 0].cpu()
+    ux1 = c2["U"][c2["alive"], 0].cpu()
+    turned = ux0.numel() == 2 and ux1.numel() == 2 and bool(
+        torch.all(torch.sign(ux1) == -torch.sign(ux0)))
+    say(14, f"DEM spray {solver.geom.n_cells} cells float32 (capacity {cloud.cfg.capacity}, "
+            f"{cloud.cfg.n_sub} substeps x {pcm.sub_cycles} sub-cycles of the dense pair "
+            f"matrix in blocks of {pcm.last_block_rows} rows): {ms:.3f} ms/step over "
+            f"make_chunk({DEM_STEPS}), t = {float(state['t']):.4f} s; partner records held "
+            f"over the sub-cycles {held}; the drops' x velocities "
+            f"{[round(v, 4) for v in ux0.tolist()]} -> {[round(v, 4) for v in ux1.tolist()]} "
+            f"m/s, turned round {turned}; finite {finite and not bad_logs} {bad_logs}; "
+            f"launches K1 {launches['bicgstab']} (expected {exp_k1}), K2 {launches['pcg']} "
+            f"(expected {exp_k2}), K3 {launches['smooth']}; the same steps again bitwise "
+            f"equal {same}")
+    if not finite or bad_logs:
+        raise SystemExit("phase 14: the DEM spray is not finite")
+    if not (held > 0 and turned):
+        raise SystemExit("phase 14: the DEM drops never met")
+    if (launches["bicgstab"], launches["pcg"], launches["smooth"]) != (exp_k1, exp_k2, 0):
+        raise SystemExit("phase 14: kernel launch counts do not match the solves")
+    if not same:
+        raise SystemExit("phase 14: two runs of the DEM spray differ")
+    del again, solver, state, state0, state1
+    say(14, f"DEM spray at 100k cells: {time.perf_counter() - t_start:.1f} s")
+    return launches, dem_lattice(dev)
+
+
+# the stock injectors' dictionaries and the files they read, for the card
+# against the CPU on one mesh (the kinds of injection_stock.STOCK_KINDS)
+_STOCK_FILES = {
+    "positions": "3\n(\n(0.1 0.1 0.1)\n(0.5 0.5 0.5)\n(0.9 0.85 0.9)\n)\n",
+    "parcelData": "(\n((0.2 0.2 0.2) (0 -1 0) 1e-3 1000 0.02)\n"
+                  "((0.6 0.6 0.6) (0 -2 0) 2e-3 1000 0.04)\n)\n",
+    "thermoTab": "2\n(\n((0.5 0.9 0.5) (0 -1 0) 0.0010 1000 0.05 342.0 4100.0)\n"
+                 "((0.4 0.8 0.4) (0 -1 0) 0.0008 1000 0.03 361.0 4200.0)\n)\n",
+    "reactTab": "1\n(\n((0.5 0.9 0.5) (0 -1 0) 0.0010 1000 0.05 350.0 4100.0 (1.0))\n)\n",
+    "multiTab": "1\n(\n((0.5 0.9 0.5) (0 -1 0) 0.0010 1000 0.05 335.0 4100.0 "
+                "(0.25 0.55 0.20) (1.0) (1.0) (1.0))\n)\n",
+}
+_RR = ("sizeDistribution { type RosinRammler; RosinRammlerDistribution { minValue 1e-4; "
+       "maxValue 1e-3; d 4e-4; n 3; } }")
+_STOCK_KINDS = {
+    "manualInjection": "SOI 0.05; massTotal 0.3; positionsFile \"positions\"; U0 (0 -1 0); " + _RR,
+    "cellZoneInjection": "SOI 0; cellZone z1; numberDensity 1500; massTotal 0.05; "
+                         "U0 (0 0.5 0); " + _RR,
+    "fieldActivatedInjection": "SOI 0; massTotal 0.06; factor 1.0; referenceField p; "
+                               "thresholdField pMin; nParcelsPerInjector 2; positionsFile "
+                               "\"positions\"; U0 (0 0 0); " + _RR,
+    "kinematicLookupTableInjection": "SOI 0; duration 1; parcelsPerSecond 20; "
+                                     "inputFile \"parcelData\";",
+    "thermoLookupTableInjection": "SOI 0; duration 5; parcelsPerSecond 70; "
+                                  "inputFile \"thermoTab\";",
+    "reactingLookupTableInjection": "SOI 0; duration 5; parcelsPerSecond 70; "
+                                    "inputFile \"reactTab\";",
+    "reactingMultiphaseLookupTableInjection": "SOI 0; duration 5; parcelsPerSecond 70; "
+                                              "inputFile \"multiTab\";",
+    "coneNozzleInjection": "SOI 0; duration 1; massTotal 0.1; parcelsPerSecond 100; "
+                           "position (0.5 0.9 0.5); direction (0.1 -1 0); outerDiameter 0.2; "
+                           "innerDiameter 0.05; Cd constant 0.9; thetaInner constant 0; "
+                           "thetaOuter constant 30; flowRateProfile constant 1; " + _RR,
+    "none": "",
+    "noInjection": "",
+    "inflationInjection": "SOI 0; duration 1; cellZone z1; flowRate constant 1e-5; "
+                          "growthRate constant 5e-3; dSeed 1e-4; parcelsPerSecond 50; "
+                          "rhoInjection 1000; " + _RR,
+}
+
+
+def stock_injectors_vs_cpu(dev, case, solvers):
+    """Every stock injector in float64 on the card against the CPU's, on the
+    9k mesh: 6 steps of inject from the same key chain (the fieldActivated
+    gate closed, then open in half the cells): candidates and injector
+    states within STEP_TOL, cells and masks equal."""
+    from firefoam_torch.io import Case, parse_string
+    from firefoam_torch.lagrangian.injection import make_injector
+
+    for name, txt in _STOCK_FILES.items():
+        with open(os.path.join(case, "constant", name), "w") as f:
+            f.write(txt)
+    nC = solvers["cpu"].geom.n_cells
+    zones = {"z1": np.arange(0, nC, 7)}
+    rng = np.random.default_rng(3)
+    worst, fired = 0.0, {}
+    for kind, body in _STOCK_KINDS.items():
+        spec = parse_string(f"type {kind}; {body}")
+        injs = {run: make_injector("inj", spec, solvers[run].cloud.walk, Case(case),
+                                   torch.float64, geom=solvers[run].geom, cell_zones=zones)
+                for run in ("f64", "cpu")}
+        for inj in injs.values():
+            inj.max_per_step = inj.capacity_for_dt(0.1)
+        sts = {run: inj.init_state() for run, inj in injs.items()}
+        key, n_valid = prng.PRNGKey(11), 0
+        for i in range(6):
+            key, k = prng.split(key)
+            p = np.full(nC, 1e5) + (2e5 * (rng.uniform(size=nC) < 0.5) if i >= 2 else 0.0)
+            out = {}
+            for run, d in (("f64", dev), ("cpu", torch.device("cpu"))):
+                f64 = dict(dtype=torch.float64, device=d)
+                gas = {"p": torch.as_tensor(p, **f64), "pMin": torch.full((nC,), 2e5, **f64)}
+                sts[run], out[run] = injs[run].inject(sts[run], k, torch.tensor(i * 0.05, **f64),
+                                                      torch.tensor(0.05, **f64), gas)
+            for kk, v in list(out["cpu"].items()) + [(f"state/{a}", b) for a, b in
+                                                     sts["cpu"].items()]:
+                mine = out["f64"][kk] if not kk.startswith("state/") else sts["f64"][kk[6:]]
+                if v.is_floating_point():
+                    worst = max(worst, rel_max(mine, v))
+                elif not torch.equal(mine.cpu(), v):
+                    worst = float("inf")
+            n_valid += int(out["cpu"]["valid"].sum())
+        fired[kind] = n_valid
+    say(14, f"the {len(_STOCK_KINDS)} stock injectors float64, card vs CPU over 6 steps: "
+            f"parcels {fired}; largest relative difference {worst:.3e} (bound {STEP_TOL:g})")
+    if not worst <= STEP_TOL or any(v == 0 for k, v in fired.items()
+                                    if k not in ("none", "noInjection")):
+        raise SystemExit("phase 14: a stock injector on the card differs from the CPU's")
+
+
+def phase_stock_small(dev, tmp):
+    """Both fires at 9k cells against the CPU (phase 12's lockstep), the DEM
+    spray cut to DEM_SMALL_CAPACITY slots; then every stock injector."""
+    multi = write_multiphase_spray_fire_case(os.path.join(tmp, "multi_small"), n=N_SMALL,
+                                             pps=SPRAY_PPS_SMALL)
+    # its parcels carry fuel: where float32's own draws put them (R11) the
+    # devolatilised propane burns elsewhere, so the band holds the float32
+    # run with float64's draws rounded
+    solvers = phase_spray_small(dev, multi, 14, "multiphase spray fire", aligned_draws=True)
+    dem = write_dem_spray_fire_case(os.path.join(tmp, "dem_small"), n=N_SMALL)
+    phase_spray_small(dev, dem, 14, f"DEM spray ({DEM_SMALL_CAPACITY} slots)",
+                      capacity=DEM_SMALL_CAPACITY)
+    stock_injectors_vs_cpu(dev, multi, solvers)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2512,7 +2937,10 @@ def main():
                                                     main_state, main_ms)
         spray_launches = phase_spray(dev, tmp, main_solver, main_state, main_ms)
         region_launches = phase_regions(dev, tmp, main_solver, main_state, main_ms)
+        multi_launches = phase_multiphase(dev, tmp, main_solver, main_state, main_ms)
         del main_solver, main_state
+        dem_launches, lattice = phase_dem(dev, tmp)
+        phase_stock_small(dev, tmp)
 
     kernels = [
         {
@@ -2533,6 +2961,11 @@ def main():
             # phase 13's 100k-cell wetted panel fire: the regions run no
             # kernel of their own; K1 and K2 serve its gas step and its rays
             "launches_region_path": region_launches[name_k],
+            # phase 14's 100k-cell multiphase spray fire and DEM spray: the
+            # stock submodels run no kernel of their own; K1 and K2 serve
+            # their gas steps and rays
+            "launches_multiphase_path": multi_launches[name_k],
+            "launches_dem_path": dem_launches[name_k],
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],
@@ -2558,6 +2991,7 @@ def main():
              for n, t in sorted(solve_ms.items())}
     print(json.dumps({"p_rgh_solve": p_rgh}))
     print(json.dumps({"castellated": castel}))
+    print(json.dumps({"dem_collide": lattice}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -31,9 +31,16 @@ striking film faces are absorbed, or splash or bounce by the Bai-Gosman
 regimes (interactionType splashBai), and their mass and enthalpy go to the
 film through order-fixed parcel→face sums.
 
-Waiting for other slices (they raise when a case selects them): the
-devolatilisation ledger, MPPIC and DEM pair collision (ROADMAP P12b), the
-SPMD parcel migration (P15).
+The stock submodels: the n-phase ledger with devolatilisation
+(devolatilisation.py: `mv`/`mv0`/`ms` lanes, the devolatilised mass to each
+volatile's own species through src["dvTrans"]), MPPIC's packing, damping
+and isotropy at the step's end (mppic.py; its draw splits st["rng"] after
+the substeps) and DEM pair collision (paircollision.py, `st["pc"]`; its
+sub-cycles replace the ballistic pre-move). The volatile mass rides on top
+of the liquid sphere that `_mass` counts, so it keeps a ledger of its own:
+the sources log the volatiles injected, devolatilised and carried out by
+parcels that leave the cloud. The SPMD parcel migration waits for ROADMAP
+P15.
 """
 
 from __future__ import annotations
@@ -52,9 +59,12 @@ from ..io.foamdict import FoamDict
 from . import prng
 from .collector import make_collectors
 from .cloudfunctions import make_cloud_functions
+from .devolatilisation import Devolatilisation, PhaseLedger, parse_phases
 from .forces import ParticleForces, _sphere_cdre
 from .injection import make_injector
 from .liquids import LiquidMixture, liquid_by_name
+from .mppic import MPPIC
+from .paircollision import PairCollision
 from .tracking import (
     INTERACT_ESCAPE,
     INTERACT_FILM,
@@ -65,7 +75,7 @@ from .tracking import (
     cell_sum,
 )
 
-__all__ = ["ReactingCloud", "parse_phases"]
+__all__ = ["ReactingCloud"]
 
 _PI = math.pi
 SIGMA_SB = 5.670367e-8
@@ -81,31 +91,6 @@ def _cbrt(x: torch.Tensor) -> torch.Tensor:
     1e-12) by 2.6e-7 and the parcel's mass by three times that, in every
     substep; in float64 this is x ** (1/3) itself."""
     return (x.double() ** (1.0 / 3.0)).to(x.dtype)
-
-
-def parse_phases(comp: FoamDict) -> Dict[str, List[Tuple[str, float]]]:
-    """phases ( gas {..} liquid {..} solid {..} ) → {phase: [(name, Y)]}
-    (the JAX package's devolatilisation.parse_phases). A bare component
-    dict with no phase name is liquid (the singlePhaseMixture droplet form
-    of the shipped cases)."""
-    out: Dict[str, List[Tuple[str, float]]] = {}
-    if not comp.found("phases"):
-        return out
-    name = None
-    for it in comp.get_list("phases"):
-        if isinstance(it, str):
-            name = it
-            continue
-        if isinstance(it, FoamDict):
-            ph = name if name in ("gas", "liquid", "solid") else "liquid"
-            ents = out.setdefault(ph, [])
-            for k in it:
-                try:
-                    ents.append((k, float(it.get_scalar(k, 1.0))))
-                except Exception:
-                    ents.append((k, 1.0))
-            name = None
-    return out
 
 
 @dataclass
@@ -178,7 +163,6 @@ class ReactingCloud:
         sol = props.get_dict("solution")
         cp = props.get_dict("constantProperties")
         sub = props.get_dict("subModels")
-        self._check_supported(sub)
 
         schemes = sol.get_dict("sourceTerms", FoamDict()).get_dict("schemes", FoamDict())
 
@@ -203,10 +187,6 @@ class ReactingCloud:
         if comp is None:
             comp = sub.get_dict("singleMixtureFractionCoeffs", FoamDict())
         ph_map = parse_phases(comp)
-        if ph_map.get("gas") or ph_map.get("solid"):
-            raise NotImplementedError(
-                "cloud composition with gas or solid phases (the multiphase ledger of "
-                "devolatilisation): ROADMAP P12b")
         liq_entries = list(ph_map.get("liquid", [])) or [("H2O", 1.0)]
         if len(liq_entries) == 1:
             self.liquid = liquid_by_name(liq_entries[0][0])
@@ -235,6 +215,18 @@ class ReactingCloud:
             self._Y0 = torch.as_tensor(np.asarray(self.liquid.Y, np.float64), dtype=dtype,
                                        device=self.device)[None, :]
             self._Wk = torch.tensor(self.liquid.comp_W(), dtype=dtype, device=self.device)
+
+        # ---- n-phase ledger + devolatilisation (ReactingMultiphase) ----
+        # (the reference's phaseProperties gas/liquid/solid bookkeeping and
+        # DevolatilisationModel submodels; surfaceReactionModel ships only
+        # NoSurfaceReaction in the reference, so 'none' is the whole surface)
+        self.ledger = PhaseLedger.from_phases(ph_map)
+        self.devol = Devolatilisation.from_dict(sub, cp, gas)
+        self._liq_frac0 = float(self.ledger.liquid_frac) if self.ledger is not None else 1.0
+        if self.devol is not None:
+            # volatile fractions of the TOTAL particle mass, volatileData order
+            fracs = dict(zip(self.ledger.gas_names, self.ledger.gas_fracs)) if self.ledger else {}
+            self._vol_frac0 = np.asarray([float(fracs.get(n, 0.0)) for n in self.devol.names])
 
         self.cfg = CloudConfig(
             active=sol.get_bool("active", True),
@@ -326,10 +318,18 @@ class ReactingCloud:
         else:
             self.suppression = None
 
+        # deterministic DEM collisions (CollisionModel/PairCollision):
+        # spring-slider-dashpot pair and wall forces, the parcels' omega and
+        # records under st["pc"]
+        self.pair_collision = PairCollision.from_dict(sub, cp, geom)
+
         # cloud function objects: ParticleCollectorFmg (lib/
         # additionalCloudFunctionObjects) and the stock family
         self.collectors = make_collectors(props)
         self.cloud_functions = make_cloud_functions(props, geom)
+        # MPPIC dense-phase corrections (packing/damping/isotropy); None
+        # unless the cloud dict selects at least one model
+        self.mppic = MPPIC.from_dict(sub, self.cfg.rho0)
 
         # patch interaction (submodels/Kinematic/PatchInteractionModel):
         # the whole family compiles down to per-boundary-face interaction
@@ -361,25 +361,6 @@ class ReactingCloud:
         self.cfg.capacity = capacity
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _check_supported(sub: FoamDict):
-        """Raise on the submodels that wait for other slices."""
-        waits = (
-            ("devolatilisationModel", ("none", "noDevolatilisation"),
-             "devolatilisation", "P12b"),
-            ("collisionModel", ("none", "noCollision"), "DEM pair collision", "P12b"),
-        )
-        for key, off, what, item in waits:
-            v = sub.get_word(key, off[0])
-            if v not in off:
-                raise NotImplementedError(f"{key} {v}: {what} waits for ROADMAP {item}")
-        for key, off in (("packingModel", ("none", "nopacking")),
-                         ("dampingModel", ("none", "nodamping")),
-                         ("isotropyModel", ("none", "noisotropy"))):
-            v = sub.get_word(key, "none")
-            if v.lower() not in off:
-                raise NotImplementedError(f"{key} {v}: MPPIC waits for ROADMAP P12b")
-
     @staticmethod
     def _parse_patch_interaction(sub, geom):
         """PatchInteractionModel family → (b_code[int64], b_e[float]) per
@@ -484,11 +465,23 @@ class ReactingCloud:
                 for f in self.cloud_functions
             ],
         }
+        if self.devol is not None:
+            # the n-phase ledger lanes (per-PARTICLE volatile masses)
+            st["mv"] = torch.zeros((cap, self.devol.n_vol), **kw)
+            st["mv0"] = torch.zeros((cap, self.devol.n_vol), **kw)
+        if self.ledger is not None:
+            st["ms"] = torch.zeros((cap,), **kw)  # per-particle inert solid mass
         if self.multi_liq:
             # per-parcel liquid composition lanes (ReactingParcel Y_ over
             # the liquid phase — components deplete independently)
             st["Yl"] = self._Y0.expand(cap, -1).clone()
+        if self.pair_collision is not None:
+            st["pc"] = self.pair_collision.init_state(cap, self.dtype, dev)
         return st
+
+    def _volatiles(self, st) -> torch.Tensor:
+        """Per-parcel volatile mass nP·Σ mv [cap] (with devolatilisation)."""
+        return st["nP"] * torch.sum(st["mv"], dim=1)
 
     # ------------------------------------------------------------------
     def _rho(self, T, Yl) -> torch.Tensor:
@@ -502,7 +495,7 @@ class ReactingCloud:
         return torch.where(st["alive"], st["nP"] * _sphere_mass(rho_l, st["d"]), 0.0)
 
     # ------------------------------------------------------------------
-    def _inject(self, st: Dict, t, dt, gas) -> Dict:
+    def _inject(self, st: Dict, t, dt, gas, src: Optional[Dict] = None) -> Dict:
         if not self.injectors:
             return st
         st = dict(st)
@@ -512,12 +505,14 @@ class ReactingCloud:
         for inj, istate, k in zip(self.injectors, st["inj"], ks[1:]):
             istate, cand = inj.inject(istate, k, t, dt, gas)
             inj_states.append(istate)
-            st = self._scatter_new(st, cand)
+            st = self._scatter_new(st, cand, src)
         st["inj"] = inj_states
         return st
 
-    def _scatter_new(self, st: Dict, cand: Dict) -> Dict:
-        """Place candidate parcels into free slots (drop on overflow)."""
+    def _scatter_new(self, st: Dict, cand: Dict, src: Optional[Dict] = None) -> Dict:
+        """Place candidate parcels into free slots (drop on overflow). With
+        a ledger and `src`, src["volatileInjected"] gains the volatile mass
+        of the parcels placed."""
         m = cand["valid"].shape[0]
         # free slots first: a stable sort of alive puts the free lanes first
         free = torch.sort(st["alive"].to(torch.int32), stable=True).indices[:m]
@@ -571,6 +566,49 @@ class ReactingCloud:
         st["age"] = put(st["age"], torch.zeros((m,), dtype=dtp, device=self.device))
         st["canCombust"] = put(st["canCombust"], torch.ones_like(st["canCombust"][tgt]))
         st["typeId"] = put(st["typeId"], torch.zeros_like(st["typeId"][tgt]))
+        # n-phase ledger: split the seeded particle mass by the composition
+        # phases' Y0 (the liquid core carries fraction _liq_frac0; volatile
+        # and solid content ride on top, constantVolume bookkeeping)
+        if self.devol is not None or self.ledger is not None:
+            m1l = _sphere_mass(rho_l, cand["d"])
+            lf = max(self._liq_frac0, 1e-12)
+            mv_new = None
+            # per-parcel phase split: the reacting lookup-table injectors
+            # supply Yphase (phase-mixture fractions in the composition's
+            # gas/liquid/solid order, reactingParcelInjectionData.H Y_) and
+            # optionally YGas (the split within the gas phase); the lanes
+            # carry volatile and solid mass RELATIVE to the liquid sphere
+            yph = cand.get("Yphase")
+            if yph is not None and self.ledger is not None:
+                ng = len(self.ledger.gas_names)
+                col_gas = 0 if ng else None
+                col_liq = 1 if ng else 0
+                col_sol = col_liq + 1
+                W = yph.shape[1]
+                zeros = torch.zeros(m, dtype=dtp, device=self.device)
+                ygas = yph[:, col_gas] if (ng and W > col_gas) else zeros
+                yliq = yph[:, col_liq] if W > col_liq else torch.ones_like(zeros)
+                ysol = yph[:, col_sol] if W > col_sol else zeros
+                yliq = torch.clamp(yliq, min=1e-12)
+                if self.devol is not None:
+                    within = cand.get("YGas")
+                    if within is None:
+                        gf = np.asarray(self.ledger.gas_fracs, float)
+                        within = torch.as_tensor(gf / max(gf.sum(), 1e-300), dtype=dtp,
+                                                 device=self.device)[None, :]
+                    mv_new = m1l[:, None] * (ygas / yliq)[:, None] * within[:, : self.devol.n_vol]
+                st["ms"] = put(st["ms"], m1l * ysol / yliq)
+            else:
+                if self.devol is not None:
+                    mv_new = m1l[:, None] * self._ledger_tab("vol_frac", self._vol_frac0 / lf)
+                if self.ledger is not None:
+                    st["ms"] = put(st["ms"], m1l * (self.ledger.solid_frac / lf))
+            if mv_new is not None:
+                st["mv"] = put(st["mv"], mv_new)
+                st["mv0"] = put(st["mv0"], mv_new)
+                if src is not None:
+                    src["volatileInjected"] = src["volatileInjected"] + torch.sum(torch.where(
+                        ok, nP.to(dtp) * torch.sum(mv_new, dim=1), torch.zeros_like(nP, dtype=dtp)))
         # relocalise injected parcels from their seed cell (sprinkler offset)
         x, U, cell, alive, _, _ = self.walk.walk(
             st["x"], st["U"], st["cell"], st["alive"], self.b_code, self.b_e,
@@ -578,6 +616,14 @@ class ReactingCloud:
         )
         st.update(x=x, U=U, cell=cell, alive=alive)
         return st
+
+    def _ledger_tab(self, name, a) -> torch.Tensor:
+        """A [1, k] host table of the ledger on the cloud's device, made once."""
+        cache = self.__dict__.setdefault("_ledger_tabs", {})
+        if name not in cache:
+            cache[name] = torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype,
+                                          device=self.device)[None, :]
+        return cache[name]
 
     # ------------------------------------------------------------------
     def _calc(self, st: Dict, gas: Dict, dt_sub, src: Dict) -> Tuple[Dict, Dict]:
@@ -694,6 +740,17 @@ class ReactingCloud:
         evap_all = m1_new * st["nP"] <= cfg.min_mass
         d_new = torch.clamp(_cbrt(6.0 * m1_new / (_PI * rho_l)), min=1e-9)
 
+        # ---- devolatilisation (ReactingMultiphaseParcel calc chain) ------
+        # the volatile ledger's mass evolves into the carrier; suppression's
+        # canCombust == −1 inhibits it; all volatiles evolved flips the
+        # parcel combustion-ready (canCombust = 1)
+        dmv = None
+        if self.devol is not None:
+            gate = mask & (torch.sum(st["mv0"], dim=1) > 0.0)
+            dmv, can_new = self.devol.calculate(dt_sub, T_p, st["mv"], st["mv0"],
+                                                st["canCombust"], gate)
+            dmv_tot = torch.sum(dmv, dim=1)
+
         # ---- particle radiative efficiencies + heating -------------------
         # (ThermoParcel::calcHeatTransfer radiation branch + ThermoCloud::
         # radCalc — s = kG/4 − σ·kEmm·T⁴ added to the analytic T solve)
@@ -749,6 +806,13 @@ class ReactingCloud:
             # from the radiation field, not the carrier enthalpy — dhsTrans
             # in the reference is Sph·(Tres.average − Tc), convective only)
             q_conv1 = m1_new * cp_l * (T_new - T_p) + dm1 * hl - s_rad * A * dt_sub
+        if self.devol is not None and self.devol.L_devol != 0.0:
+            # the latent heat of devolatilisation drawn from the particle
+            # (Sh −= dMassTot·LDevol/dt, ReactingMultiphaseParcel.C:566)
+            cp_here = cp_l if cfg.heat_transfer else st["cp0"]
+            T_new = T_new - dmv_tot * self.devol.L_devol / torch.clamp(m1_new * cp_here,
+                                                                      min=small_)
+            T_new = torch.clamp(T_new, min=cfg.T_min)
         T_new = torch.where(mask, T_new, T_p)
 
         # ---- momentum (particle force list, drag-implicit Euler) --------
@@ -827,12 +891,25 @@ class ReactingCloud:
             else:
                 q = -w * q_conv1 + dm * hs_all[:, self.vapour_index]
                 cols = [dm[:, None], mom, q[:, None]]
+            n_pc = dm_k.shape[1] if dm_k is not None else 0
+            if dmv is not None:
+                # devolatilised mass → each volatile's carrier species, its
+                # momentum at the parcel velocity, its enthalpy at Tp
+                dv = w[:, None] * dmv  # parcel-level mass per volatile
+                q_dv = sum(dv[:, i] * hs_all[:, si]
+                           for i, si in enumerate(self.devol.gas_indices))
+                cols += [dv, (w * dmv_tot)[:, None] * st["U"], q_dv[:, None]]
             tot = seg(torch.cat(cols, dim=1))
             src["rhoTrans"] = src["rhoTrans"] + tot[:, 0]
             src["UTrans"] = src["UTrans"] + tot[:, 1:4]
             src["hsTrans"] = src["hsTrans"] + tot[:, 4]
             if dm_k is not None:
-                src["pcTrans"] = src["pcTrans"] + tot[:, 5:].T
+                src["pcTrans"] = src["pcTrans"] + tot[:, 5:5 + n_pc].T
+            if dmv is not None:
+                nv, o = self.devol.n_vol, 5 + n_pc
+                src["dvTrans"] = src["dvTrans"] + tot[:, o:o + nv].T
+                src["UTrans"] = src["UTrans"] + tot[:, o + nv:o + nv + 3]
+                src["hsTrans"] = src["hsTrans"] + tot[:, o + nv + 3]
 
         # ---- spray radiation accumulators (ThermoCloud::radCalc:
         # radAreaP/radAreaPSc/radAreaPT4/radAreaPScAsy per band) ----------
@@ -855,6 +932,9 @@ class ReactingCloud:
 
         # ---- commit parcel updates --------------------------------------
         st = dict(st)
+        if dmv is not None:
+            st["mv"] = st["mv"] - dmv
+            st["canCombust"] = can_new
         if dm_k is not None:
             # composition drift: remaining component masses renormalise;
             # fully evaporated parcels keep their last valid composition
@@ -1041,6 +1121,13 @@ class ReactingCloud:
             "expansionMass": torch.zeros((), **kw),
             "droppedMass": torch.zeros((), **kw),
         }
+        if self.devol is not None:
+            # per-volatile devolatilised mass to the carrier [nVol, nC], and
+            # the volatile ledger (logged only): injected, and carried out of
+            # the cloud by parcels that leave it (escaped, dropped, caught)
+            src["dvTrans"] = torch.zeros((self.devol.n_vol, nC), **kw)
+            src["volatileInjected"] = torch.zeros((), **kw)
+            src["volatileLost"] = torch.zeros((), **kw)
         if self.multi_liq:
             # per-component evaporated mass [nLiq, nC] — routed to each
             # component's own carrier species by the solver
@@ -1054,7 +1141,10 @@ class ReactingCloud:
 
         st = dict(st)
         st["cell"] = st["cell"].to(INT_DTYPE)
-        st = self._inject(st, gas["t"], dt, gas)
+        alive_ref = st["alive"]
+        st = self._inject(st, gas["t"], dt, gas, src)
+        if self.devol is not None:
+            alive_ref = self._count_lost(st, alive_ref, src)
 
         # stochastic collision (KinematicCloud.C:205): SuppressionCollision
         # driven by the suppressing cloud's per-cell swept-volume rate
@@ -1073,7 +1163,16 @@ class ReactingCloud:
             # ballistic move + containment walk (wall interactions inside)
             mass_before = self._mass(st)
             x_pre = st["x"]
-            x = st["x"] + torch.where(st["alive"][:, None], st["U"] * dt_sub, 0.0)
+            if self.pair_collision is not None:
+                # DEM sub-cycled contact forces + motion (PairCollision::
+                # collide); x advances inside the sub-cycles, which take the
+                # place of the ballistic pre-move
+                stc, pc = self.pair_collision.collide(st, st["pc"], self.cfg.rho0, dt_sub)
+                st = dict(st)
+                st.update(x=stc["x"], U=stc["U"], pc=pc)
+                x = st["x"]
+            else:
+                x = st["x"] + torch.where(st["alive"][:, None], st["U"] * dt_sub, 0.0)
             x, U, cell, alive, hit, code = self.walk.walk(
                 x, st["U"], st["cell"], st["alive"], self.b_code, self.b_e,
                 n_steps=self.cfg.walk_steps,
@@ -1122,6 +1221,16 @@ class ReactingCloud:
                     cfos.append(fst)
                 st = dict(st)
                 st["cfo"] = cfos
+            if self.devol is not None:
+                alive_ref = self._count_lost(st, alive_ref, src)
+
+        # MPPIC dense-phase corrections at the step's end (MPPICCloud::motion:
+        # damping → packing → isotropy on the settled positions); its key is
+        # split from st["rng"] after the substeps'
+        if self.mppic is not None:
+            st = dict(st)
+            st["rng"], sub_key = prng.split(st["rng"])
+            st = self.mppic.apply(st, self.geom, dt, sub_key)
 
         if self.cfg.radiation:
             # time-averaged dispersed-phase radiation fields for the RTE
@@ -1135,6 +1244,15 @@ class ReactingCloud:
                 "Ep": SIGMA_SB * src.pop("radEpT4") / Vdt,
             }
         return st, src
+
+    def _count_lost(self, st, alive_ref, src):
+        """src["volatileLost"] += the volatiles of the parcels alive in
+        `alive_ref` and gone from st; returns st's alive mask."""
+        gone = alive_ref & ~st["alive"]
+        v = self._volatiles(st)
+        src["volatileLost"] = src["volatileLost"] + torch.sum(torch.where(gone, v,
+                                                                          torch.zeros_like(v)))
+        return st["alive"]
 
     # ------------------------------------------------------------------
     def write_sprinkler_logs(self, st: Dict, out_dir: str):

@@ -22,7 +22,8 @@ package's order, so both packages inject the same parcels from one key.
 Injector state lives in the cloud state (cumulative counts, link
 temperatures), so checkpoints capture activation history. The film's drip
 re-injection (`FilmDripInjection`) is added by the solver when a film
-drips. The stock injectors (injection_stock) wait for ROADMAP P12b.
+drips. The stock injectors (manual, cellZone, fieldActivated, the lookup
+tables, coneNozzle, inflation, none) are in injection_stock.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ _SMALL = 1e-300
 # gpm/psi^0.5 K-factor → m3/s at p[psig]:  Q[gpm] = K·√p;  1 gpm = 6.30902e-5 m3/s
 _GPM_TO_M3S = 6.30902e-5
 
-# the stock injectors of the JAX package (injection_stock.py), not ported yet
+# the stock injectors (injection_stock.py)
 STOCK_KINDS = (
     "manualInjection", "cellZoneInjection", "fieldActivatedInjection",
     "kinematicLookupTableInjection", "thermoLookupTableInjection",
@@ -670,8 +671,27 @@ def make_injector(name: str, d: FoamDict, walk, case, dtype, geom=None,
     if kind == "coneInjection":
         return ConeInjection(name, d, walk, dtype)
     if kind in STOCK_KINDS:
-        raise NotImplementedError(
-            f"injection model '{kind}' (the stock injectors of injection_stock): ROADMAP P12b")
+        from . import injection_stock as stk
+
+        if kind == "manualInjection":
+            return stk.ManualInjection(name, d, walk, case, dtype)
+        if kind == "cellZoneInjection":
+            return stk.CellZoneInjection(name, d, walk, case, geom, cell_zones or {}, dtype)
+        if kind == "fieldActivatedInjection":
+            return stk.FieldActivatedInjection(name, d, walk, case, dtype)
+        if kind == "kinematicLookupTableInjection":
+            return stk.KinematicLookupTableInjection(name, d, walk, case, dtype)
+        if kind == "thermoLookupTableInjection":
+            return stk.ThermoLookupTableInjection(name, d, walk, case, dtype)
+        if kind == "reactingLookupTableInjection":
+            return stk.ReactingLookupTableInjection(name, d, walk, case, dtype)
+        if kind == "reactingMultiphaseLookupTableInjection":
+            return stk.ReactingMultiphaseLookupTableInjection(name, d, walk, case, dtype)
+        if kind == "coneNozzleInjection":
+            return stk.ConeNozzleInjection(name, d, walk, dtype)
+        if kind == "inflationInjection":
+            return stk.InflationInjection(name, d, walk, case, geom, cell_zones or {}, dtype)
+        return stk.NoInjection(name, d, dtype, walk.C.device)
     if kind in ("patchInjection", "patchFlowRateInjection") and geom is not None:
         return PatchInjection(name, d, geom, dtype)
     if kind in ("detailedSprinklerInjection", "detailedSprinklerInjection2"):

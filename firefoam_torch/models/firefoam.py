@@ -43,8 +43,9 @@ and constant/additionalControls.
 
 The Lagrangian spray (lagrangian/cloud.py, constant/reactingCloud1Properties):
 `_evolve_cloud` runs parcels.evolve() first in the step and turns the
-cloud's sources into Srho, SU, SYv/SY and Sh; the spray's equivalent water
-density reaches the EDM family and its radiation fields fvDOM.
+cloud's sources into Srho, SU, SYv/SY and Sh (the devolatilised mass into
+Srho and each volatile's own species); the spray's equivalent water density
+reaches the EDM family and its radiation fields fvDOM.
 
 The region models (regionmodels/, constant/pyrolysisZones and
 constant/surfaceFilmProperties) run in the reference's order, parcels →
@@ -55,8 +56,7 @@ and Sh, the spray's impingement through the cloud's film handoff and the
 film's drip through FilmDripInjection. With `solvePrimaryRegion false` a
 step evolves the regions alone.
 
-Not ported: the spray's stock injectors, MPPIC, DEM collisions and
-devolatilisation (ROADMAP P12b), the PairMG pressure solver, the SPMD
+Not ported: the PairMG pressure solver, the SPMD
 `local=` path (its sharded multigrid and parcel migration) and the
 hoisted-jit entry points. A case that needs one of them raises at
 construction.
@@ -165,14 +165,16 @@ class FireFoamSolver:
     def __init__(self, case_dir: str, device=None, dtype=None, radiation: bool = True,
                  exact_solvers: Optional[bool] = None, gmg: Optional[bool] = None,
                  gmg_coarsest: int = 64, amg: Optional[bool] = None,
-                 p_rgh_f64: bool = False, layout: Optional[str] = None):
+                 p_rgh_f64: bool = False, layout: Optional[str] = None,
+                 enable_cloud: bool = True):
         """exact_solvers, gmg, amg: True forces, False forbids, None leaves
         the choice to the automatic rule of `_pick_solvers`. gmg_coarsest:
         the lattice multigrid stops coarsening at this many cells.
         p_rgh_f64: solve p_rgh in float64 inside a float32 step. layout:
         None/"auto" (DIA where the mesh fits, else SEG), "dia" or "seg"
-        (MeshGeometry.from_polymesh). `setup_seconds` holds the host's
-        seconds for the mesh, the geometry and the solver tables."""
+        (MeshGeometry.from_polymesh). enable_cloud=False leaves out the
+        Lagrangian cloud of a case that has one. `setup_seconds` holds the
+        host's seconds for the mesh, the geometry and the solver tables."""
         self.device = torch.device(device) if device is not None else default_device()
         self.dtype = dtype or real_dtype(self.device)
         self.case = Case(case_dir)
@@ -299,7 +301,7 @@ class FireFoamSolver:
 
         # ---- Lagrangian spray cloud (solver/createClouds.H:1-9) ----
         self.cloud = None
-        if self.case.has_constant("reactingCloud1Properties"):
+        if enable_cloud and self.case.has_constant("reactingCloud1Properties"):
             props = self.case.constant("reactingCloud1Properties")
             if props.get_dict("solution").get_bool("active", True):
                 from ..lagrangian.cloud import ReactingCloud
@@ -1271,6 +1273,23 @@ class FireFoamSolver:
             for i, si in enumerate(cloud.vapour_indices):
                 sy[si] = sy.get(si, 0.0) + cfg.relax_Yi * pc[i] * inv_vdt
             out["SY"] = sy
+        if "dvTrans" in src:
+            # devolatilised volatiles: continuity + their OWN species
+            # (parcels.Srho + SYi, YEEqn.H:52 — apart from the evaporation's
+            # vapour species)
+            dv = src["dvTrans"]  # [nVol, nC]
+            out["Srho"] = out["Srho"] + cfg.relax_rho * torch.sum(dv, dim=0) * inv_vdt
+            sy = dict(out.get("SY", {}))
+            for i, si in enumerate(cloud.devol.gas_indices):
+                sy[si] = sy.get(si, 0.0) + cfg.relax_Yi * dv[i] * inv_vdt
+            out["SY"] = sy
+            # the volatile ledger: injected = devolatilised + carried out by
+            # parcels that left + the change of what the parcels hold
+            log["cloud_volatileMass"] = torch.sum(torch.where(
+                cst["alive"], cloud._volatiles(cst), torch.zeros_like(cst["nP"])))
+            log["cloud_volatileInjected"] = src["volatileInjected"]
+            log["cloud_massDevolatilised"] = torch.sum(dv)
+            log["cloud_volatileLost"] = src["volatileLost"]
         info = cloud.info(cst)
         log["cloud_nParcels"] = info["nParcels"]
         log["cloud_mass"] = info["massInSystem"]

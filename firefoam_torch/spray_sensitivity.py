@@ -121,7 +121,7 @@ def nudge_study(case, device, steps):
 
 
 @contextlib.contextmanager
-def _float64_draws():
+def float64_draws():
     """prng.uniform draws in float64 and rounds to the dtype asked for."""
     plain = prng.uniform
 
@@ -147,7 +147,7 @@ def drift_study(case, device, steps):
 
     T64, alive64 = run(torch.float64)
     for what in ("as drawn", "float64 draws rounded"):
-        with _float64_draws() if what != "as drawn" else contextlib.nullcontext():
+        with float64_draws() if what != "as drawn" else contextlib.nullcontext():
             T32, alive32 = run(torch.float32)
         drift = [float(((t32 - t64).abs() / t64.clamp(min=1.0)).max())
                  for t32, t64 in zip(T32, T64)]

@@ -14,8 +14,8 @@ import re
 
 __all__ = ["write_box_fire_case", "write_smooth_fire_case", "write_wall_fire_case",
            "write_radiation_fire_case", "write_castellated_fire_case", "castellate_case",
-           "write_spray_fire_case", "write_panel_fire_case", "write_wetted_panel_fire_case",
-           "write_pyrolysis_1d_case"]
+           "write_spray_fire_case", "write_multiphase_spray_fire_case", "write_dem_spray_fire_case",
+           "write_panel_fire_case", "write_wetted_panel_fire_case", "write_pyrolysis_1d_case"]
 
 
 def _w(path, text):
@@ -1020,6 +1020,106 @@ def write_spray_fire_case(
        f"    radiation {'on' if radiation else 'off'};\n    radiationProperty constRad;\n"
        "    constRadCoeffs { absEfficiency 0.5; sctEfficiency 0.5; }\n    nBands 1;\n}\n"
        + coll)
+    return root
+
+
+# ---------------------------------------------------------------------------
+# the spray's stock submodels: a multiphase spray with devolatilisation and
+# MPPIC, and a DEM burst
+# ---------------------------------------------------------------------------
+# The multiphase spray's coefficients. The parcels' split (10 % propane, 80 %
+# water, 10 % ash), the devolatilisation kinetics (A1 20 1/s, E 5e6 J/kmol:
+# about 3 % of the volatiles a 0.01 s step at 300 K), TDevol, LDevol and the
+# nozzle are MADE UP; the MPPIC coefficients are the JAX package's defaults
+# (firefoam_tpu/lagrangian/mppic.py).
+_MULTIPHASE_COMPOSITION = (
+    "compositionModel singleMixtureFraction;\n"
+    "    singleMixtureFractionCoeffs { phases ( gas { C3H8 0.1; } liquid { H2O 0.8; } "
+    "solid { ash 0.1; } ); }")
+_MULTIPHASE_SUBMODELS = (
+    "devolatilisationModel singleKineticRateDevolatilisation;\n"
+    "    singleKineticRateDevolatilisationCoeffs { volatileData ( (C3H8 20 5e6) ); "
+    "residualCoeff 0.001; }\n"
+    "    packingModel explicit;\n"
+    "    explicitCoeffs { particleStressModel { type HarrisCrighton; alphaPacked 0.6; "
+    "pSolid 10; beta 2; eps 1e-7; } correctionLimitingMethod { type absolute; e 0.9; } }\n"
+    "    dampingModel relaxation;\n"
+    "    relaxationCoeffs { timeScaleModel { type nonEquilibrium; alphaPacked 0.6; e 0.9; } }\n"
+    "    isotropyModel stochastic;\n"
+    "    stochasticCoeffs { timeScaleModel { type isotropic; alphaPacked 0.6; e 0.9; } }")
+
+
+def write_multiphase_spray_fire_case(root: str, n=(8, 8, 8), pps: float = 2000.0,
+                                     **kw) -> str:
+    """The sprinkler fire's box (write_spray_fire_case) with a multiphase
+    spray in place of the sprinkler: a coneNozzleInjection 0.1 m below the
+    top (an annulus of 20/10 mm, 0-40°, 5 m/s, 0.1 kg/s, `pps` parcels/s);
+    parcels of gas (C3H8), liquid (H2O) and solid (ash) phases;
+    singleKineticRateDevolatilisation of the C3H8 into the gas; and the
+    MPPIC models: packingModel explicit (HarrisCrighton), dampingModel
+    relaxation, isotropyModel stochastic. The nozzle, the phase split and
+    the kinetics are made up (_MULTIPHASE_SUBMODELS); the other keyword
+    arguments are write_spray_fire_case's."""
+    write_spray_fire_case(root, n=n, injector="cone", pps=pps, **kw)
+    lx, ly, lz = kw.get("size", (1.0, 1.0, 1.0))
+    path = f"{root}/constant/reactingCloud1Properties"
+    with open(path) as f:
+        txt = f.read()
+    txt = re.sub(r"injectionModels \{ model1 \{.*\} \}\n", lambda _: (
+        "injectionModels { model1 { type coneNozzleInjection; SOI 0; duration 100; "
+        f"massTotal 10; parcelsPerSecond {pps}; position ({0.5 * lx} {ly - 0.1} {0.5 * lz}); "
+        "direction (0 -1 0); outerDiameter 0.02; innerDiameter 0.01; Umag constant 5; "
+        "flowRateProfile constant 1; thetaInner constant 0; thetaOuter constant 40; "
+        "sizeDistribution { type RosinRammler; RosinRammlerDistribution { minValue 1e-4; "
+        "maxValue 1e-3; d 5e-4; n 3; } } } }\n"), txt)
+    _w(path, txt)
+    _replace(path, "compositionModel singlePhaseMixture;\n"
+             "    singlePhaseMixtureCoeffs { phases ( liquid { H2O 1; } ); }",
+             _MULTIPHASE_COMPOSITION)
+    _replace(path, "devolatilisationModel none;", _MULTIPHASE_SUBMODELS)
+    _replace(path, "minParticleMass 1e-15;", "minParticleMass 1e-15;\n    TDevol 290; LDevol 1e5;")
+    return root
+
+
+def write_dem_spray_fire_case(root: str, n=(8, 8, 8), **kw) -> str:
+    """The sprinkler fire's box (write_spray_fire_case, no collector) with a
+    DEM burst in place of the sprinkler: two manualInjection models, one
+    4 mm drop each, 0.15 m below the top 4 cm apart on one line, thrown at
+    each other at 1 m/s at t = 0 (by the JAX package's capacity rule, 2
+    parcels a step: 4096 slots), and collisionModel pairCollision
+    (pairSpringSliderDashpot with wallSpringSliderDashpot on the floor,
+    20 sub-cycles). The drops' Young's modulus (1e5 Pa, soft enough for a
+    contact to last about ten sub-cycles) and the burst are made up; the
+    other keyword arguments are write_spray_fire_case's."""
+    kw.setdefault("collector", False)
+    write_spray_fire_case(root, n=n, injector="cone", **kw)
+    lx, ly, lz = kw.get("size", (1.0, 1.0, 1.0))
+    y, z = ly - 0.15, 0.5 * lz
+    for name, x in (("left", 0.5 * lx - 0.02), ("right", 0.5 * lx + 0.02)):
+        _w(f"{root}/constant/{name}Positions", f"1\n(\n({x} {y} {z})\n)\n")
+    path = f"{root}/constant/reactingCloud1Properties"
+    with open(path) as f:
+        txt = f.read()
+
+    def burst(name, u):
+        return (f"{name} {{ type manualInjection; SOI 0; massTotal 3.35103e-05; "
+                f"parcelBasisType mass; positionsFile \"{name}Positions\"; U0 ({u} 0 0); "
+                "sizeDistribution { type fixedValue; fixedValueDistribution { value 0.004; } } }")
+
+    txt = re.sub(r"injectionModels \{ model1 \{.*\} \}\n", lambda _: (
+        f"injectionModels {{ {burst('left', 1)} {burst('right', -1)} }}\n"
+        "    collisionModel pairCollision;\n"
+        "    pairCollisionCoeffs\n    {\n        nSubCycles 20;\n"
+        "        pairModel pairSpringSliderDashpot;\n"
+        "        pairModelCoeffs { useEquivalentSize no; alpha 0.12; b 1.5; mu 0.52; "
+        "cohesionEnergyDensity 0; }\n"
+        "        wallModel wallSpringSliderDashpot;\n"
+        "        wallModelCoeffs { useEquivalentSize no; collisionResolutionSteps 12; "
+        "youngsModulus 1e5; poissonsRatio 0.23; alpha 0.12; b 1.5; mu 0.43; "
+        "cohesionEnergyDensity 0; }\n    }\n"), txt)
+    _w(path, txt)
+    _replace(path, "minParticleMass 1e-15;",
+             "minParticleMass 1e-15;\n    youngsModulus 1e5; poissonsRatio 0.35;")
     return root
 
 

@@ -14,7 +14,11 @@ firefoam_torch.utils.synthcase at (6, 5, 6):
   * the lookup-table sprinkler with SuppressionCollision driven by a
     swept-volume field.
 
-Also: what waits for other slices raises, naming its item.
+Also: each of the spray's stock submodels (devolatilisation with the
+multiphase ledger, MPPIC's isotropy and packing, DEM pair collision, a gas
+phase in the parcels, manual injection) selected in the case's cloud
+dictionary builds in both packages' solvers, and one cloud step through the
+solver agrees.
 """
 
 import os
@@ -222,6 +226,9 @@ def test_lookup_sprinkler_with_suppression(base):
     assert (st["canCombust"] == -1).any()
 
 
+# each selects one of the spray's stock submodels (ROADMAP P12b) in the spray
+# fire case's reactingCloud1Properties: (old, new) text; _COEFFS adds the
+# coefficients a model needs (the DEM case is cut to 512 slots)
 _WAITS = (
     ("devolatilisationModel none;", "devolatilisationModel constantRateDevolatilisation;", "P12b"),
     ("stochasticCollisionModel none;", "stochasticCollisionModel none;\n    "
@@ -234,20 +241,86 @@ _WAITS = (
      "singlePhaseMixtureCoeffs { phases ( gas { CH4 0.2; } liquid { H2O 0.8; } ); }", "P12b"),
     ("type detailedSprinklerInjection;", "type manualInjection; positionsFile x;", "P12b"),
 )
+_COEFFS = {
+    0: (("devolatilisationModel constantRateDevolatilisation;",
+         "devolatilisationModel constantRateDevolatilisation;\n    "
+         "constantRateDevolatilisationCoeffs { volatileData ( (C3H8 12) ); residualCoeff 0.01; }"),
+        ("singlePhaseMixtureCoeffs { phases ( liquid { H2O 1; } ); }",
+         "singlePhaseMixtureCoeffs { phases ( gas { C3H8 0.2; } liquid { H2O 0.8; } ); }")),
+    5: (("positionsFile x;", "positionsFile x; U0 (0 -1 0); massTotal 1e-3; "
+         "sizeDistribution { type fixedValue; fixedValueDistribution { value 1e-3; } }"),),
+}
+
+
+def _cut_capacity(mp, cap):
+    """Both packages' clouds built with `cap` slots (the JAX package's dense
+    DEM pair matrix at its rule's 4096 slots takes gigabytes in float64)."""
+    import firefoam_torch.lagrangian.cloud as tcl
+    import firefoam_tpu.lagrangian.cloud as jcl
+
+    for mod in (jcl, tcl):
+        init = mod.ReactingCloud.__init__
+
+        def cut(self, *a, _init=init, **k):
+            k["capacity"] = cap
+            _init(self, *a, **k)
+
+        mp.setattr(mod.ReactingCloud, "__init__", cut)
 
 
 @pytest.mark.parametrize("old,new,item", _WAITS)
 def test_waiting_submodels_raise(base, old, new, item):
-    """A case that selects what waits for another slice: the cloud and the
-    solver raise, naming the item."""
-    from firefoam_torch.models.firefoam import FireFoamSolver
+    """A case that selects one of the stock submodels, which waited for
+    ROADMAP P12b and raised (the name is kept from then), builds in both
+    packages' solvers, and one step of the cloud through the solver
+    (`_evolve_cloud` from the initial state: injection, the substeps, the
+    submodel and the gas-side sources) agrees: every cloud leaf and source
+    within 1e-9, masks equal."""
+    from firefoam_tpu.models.firefoam import FireFoamSolver as JSolver
+    from firefoam_torch.models.firefoam import FireFoamSolver as TSolver
+    from firefoam_torch.models.firefoam import state_from_numpy
 
-    root = write_spray_fire_case(str(base / f"wait_{_WAITS.index((old, new, item))}"), n=N)
+    case = _WAITS.index((old, new, item))
+    root = write_spray_fire_case(str(base / f"wait_{case}"), n=N)
     path = os.path.join(root, "constant", "reactingCloud1Properties")
     with open(path) as f:
         txt = f.read()
-    assert old in txt
+    assert old in txt and item == "P12b"
+    for a, b in ((old, new),) + _COEFFS.get(case, ()):
+        txt = txt.replace(a, b, 1)
     with open(path, "w") as f:
-        f.write(txt.replace(old, new))
-    with pytest.raises(NotImplementedError, match=item):
-        FireFoamSolver(root, device="cpu", dtype=torch.float64)
+        f.write(txt)
+    with open(os.path.join(root, "constant", "x"), "w") as f:
+        f.write("2\n(\n(0.5 0.8 0.5)\n(0.45 0.7 0.55)\n)\n")
+    with pytest.MonkeyPatch.context() as mp:
+        for k in ("EXACT_SOLVERS", "AMG", "GMG", "PALLAS"):
+            mp.setenv(f"FIREFOAM_TPU_{k}", "0")
+        mp.setenv("FIREFOAM_TPU_DTYPE", "float64")
+        if "pairCollision" in txt:
+            _cut_capacity(mp, 512)
+        js = JSolver(root)
+        ts = TSolver(root, device="cpu", dtype=torch.float64, exact_solvers=False, gmg=False,
+                     amg=False)
+        st0 = js.initial_state()
+
+        def one(s):
+            log = {}
+            s, out = js._evolve_cloud(s, log)
+            return s["cloud"], out, log
+
+        jcl, jout, jlog = jax.device_get(jax.jit(one)(st0))
+    tlog = {}
+    tst, tout = ts._evolve_cloud(state_from_numpy(jax.device_get(st0), device="cpu",
+                                                  dtype=torch.float64), tlog)
+    cl = ts.cloud
+    assert (cl.devol is None, cl.mppic is None, cl.pair_collision is None, cl.ledger is None) == (
+        js.cloud.devol is None, js.cloud.mppic is None, js.cloud.pair_collision is None,
+        js.cloud.ledger is None)
+    assert any(m is not None for m in (cl.devol, cl.mppic, cl.pair_collision, cl.ledger)) or \
+        type(cl.injectors[0]).__name__ == "ManualInjection"
+    _same(tst["cloud"], jcl, f"case {case} cloud")
+    _same({k: tout[k] for k in jout if k in ("Srho", "SU", "SYv", "Sh", "SY")},
+          {k: v for k, v in jout.items() if k in ("Srho", "SU", "SYv", "Sh", "SY")},
+          f"case {case} sources")
+    _same({k: tlog[k] for k in jlog}, jlog, f"case {case} log")
+    assert int(tst["cloud"]["alive"].sum()) > 0

@@ -270,12 +270,53 @@ def test_lookup_table_sprinklers(case, kind):
     assert ti.ideal_flow == pytest.approx(ji.ideal_flow, rel=1e-15)
 
 
-@pytest.mark.parametrize("kind", ("manualInjection", "cellZoneInjection", "coneNozzleInjection",
-                                  "kinematicLookupTableInjection", "inflationInjection"))
+_FIXED = "sizeDistribution { type fixedValue; fixedValueDistribution { value 1e-3; } }"
+_STOCK = {
+    "manualInjection": f"SOI 0; massTotal 0.3; positionsFile \"pos\"; U0 (0 -1 0); {_FIXED}",
+    "cellZoneInjection": f"SOI 0; cellZone z1; numberDensity 900; massTotal 0.05; U0 (0 0 0); "
+                         f"{_FIXED}",
+    "coneNozzleInjection": "SOI 0; duration 1; massTotal 0.1; parcelsPerSecond 100; "
+                           "position (0.5 0.9 0.5); direction (0 -1 0); outerDiameter 0.2; "
+                           "innerDiameter 0.05; Umag constant 4; thetaInner constant 0; "
+                           f"thetaOuter constant 30; flowRateProfile constant 1; {_FIXED}",
+    "kinematicLookupTableInjection": "SOI 0; duration 1; parcelsPerSecond 20; "
+                                     "inputFile \"kinTab\";",
+    "inflationInjection": "SOI 0; duration 1; cellZone z1; flowRate constant 1e-5; "
+                          "growthRate constant 5e-3; dSeed 1e-4; parcelsPerSecond 50; "
+                          f"rhoInjection 1000; {_FIXED}",
+}
+
+
+@pytest.mark.parametrize("kind", tuple(_STOCK))
 def test_stock_injectors_wait_for_p12b(case, kind):
-    with pytest.raises(NotImplementedError, match="P12b"):
-        tinj.make_injector("i", tparse(f"type {kind}; SOI 0; duration 1;"), case["tw"],
-                           case["tc"], torch.float64, geom=case["tg"])
+    """The stock injectors, which waited for ROADMAP P12b and raised (the
+    name is kept from then), come out of make_injector as the JAX package's
+    do, and their first injection from one key agrees
+    (tests/test_torch_injection_stock.py drives all 11 kinds over several
+    steps)."""
+    with open(os.path.join(case["root"], "constant", "pos"), "w") as f:
+        f.write("2\n(\n(0.2 0.3 0.4)\n(0.6 0.5 0.5)\n)\n")
+    with open(os.path.join(case["root"], "constant", "kinTab"), "w") as f:
+        f.write("(\n((0.2 0.2 0.2) (0 -1 0) 1e-3 1000 0.02)\n)\n")
+    zones = {"z1": np.arange(0, case["tg"].n_cells, 4)}
+    txt = f"type {kind}; {_STOCK[kind]}"
+    ji = jinj.make_injector("i", jparse(txt), case["jw"], case["jc"], jnp.float64,
+                            geom=case["jg"], cell_zones=zones)
+    ti = tinj.make_injector("i", tparse(txt), case["tw"], case["tc"], torch.float64,
+                            geom=case["tg"], cell_zones=zones)
+    assert type(ti).__name__ == type(ji).__name__
+    ji.max_per_step = ti.max_per_step = ji.capacity_for_dt(0.1)
+    _, jc = ji.inject(ji.init_state(), jax.random.PRNGKey(5), jnp.asarray(0.0),
+                      jnp.asarray(0.1), {})
+    _, tc = ti.inject(ti.init_state(), prng.PRNGKey(5), torch.tensor(0.0, dtype=torch.float64),
+                      torch.tensor(0.1, dtype=torch.float64), {})
+    assert np.asarray(jc["valid"]).any()
+    for k in jc:
+        a, b = tc[k].numpy(), np.asarray(jc[k])
+        if b.dtype.kind in "biu":
+            assert np.array_equal(a.astype(np.int64), b.astype(np.int64)), k
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-10, atol=0.0, err_msg=k)
 
 
 def test_film_drip_injection(case):
