@@ -102,8 +102,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      the 100k box fire with layout="seg" (the twins) beside phase 4's DIA
      run: T and U within GMG_TOL after GMG_STEPS steps from t = 0, T within
      GMG_T_DRIFT relative and U within GMG_TOL after phase 4's 1 + 20 steps
-     (a flame: float32 round-off grows there, phase 7), and the same 1 + 20
-     steps in float64, SEG against DIA within CPU_TOL;
+     (a flame: float32 round-off grows there, phase 7), and 1 + 10 steps
+     in float64, SEG against DIA within CPU_TOL;
      then the castellated fire at 10k cells, 10 steps, float64 on the card
      against float64 on the CPU within CPU_TOL and float32 against float64
      within the T drift band;
@@ -190,9 +190,26 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      float32's own draws (R11) move where it burns: the band holds a float32
      run with float64's draws rounded, and the drift as drawn is printed),
      and every stock injector card against CPU;
- 15. the kernels' JSON line (with launches_multiphase_path and
-     launches_dem_path), the DEM lattice's line, the card line, and the
-     final JSON line.
+ 15. multiple partitions (firefoam_torch/parallel/): the ranks are
+     processes on cuda:0 over gloo (NCCL takes one rank per card), their
+     CUDA payloads staged through host buffers (counted and printed). The
+     100k box fire in 4 RCB parts: one float64 step from the single card's
+     SEG flat state after 10 steps within 1e-10 with equal iteration
+     counts, the same step again bitwise equal; 10 float32 steps timed
+     (ms/step, device-busy ms, collectives and bytes a step by kind, bytes
+     staged) beside phase 4's box fire; the 100k box fire in 2 z-slabs,
+     p_rgh by the sharded lattice multigrid, 3 float64 steps from t = 0
+     against the single card's DIA multigrid: at the case's tolerances the
+     p_rgh iterations (tests/test_spmd_gmg.py's bounds), and with every
+     solve taken to 1e-10 the fields (that test's bounds on T, p_rgh and
+     U); the 100k sprinkler fire in 4
+     RCB parts, 5 float64 steps: parcels equal and spray mass within 1e-8
+     each step against the single card's SEG flat run, parcels migrating
+     (seeded across the parts if none cross by themselves), none
+     overflowing, alive on more than one rank; each sub-run's seconds;
+ 16. the kernels' JSON line (with launches_multiphase_path,
+     launches_dem_path and launches_sharded_path), the DEM lattice's line,
+     the partitions' line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
@@ -254,6 +271,12 @@ GMG_T_DRIFT = 0.05
 # launches and device time the profiler reads
 T_DRIFT = 0.05
 PROFILE_STEPS = 3
+# phase 11: the profiler's steps on the 100k box fire on SEG and on DIA
+# (the step after 1 + 20, which solves no rays, as the two after it) and
+# the float64 SEG-against-DIA box fire's depth (1 + these steps, with the
+# radiation solves of steps 1 and 11 of 1 + 20)
+SEG_PROFILE_STEPS = 1
+SEG_F64_STEPS = 10
 # above propane's adiabatic flame temperature in air (about 2,270 K) and
 # below the thermo's upper clip: a diverged run sits at the clip
 T_FLAME_MAX = 3000.0
@@ -339,6 +362,38 @@ LATTICE = (32, 32, 16)
 LATTICE_BLOCK = 1000
 VOLATILE_MASS_TOL = 1e-6
 SOURCE_TOL = 1e-6
+# phase 15. The partitions: ranks on cuda:0 over gloo (NCCL takes one rank
+# per card). The box fire in SHARD_P RCB parts: one float64 step from the
+# single card's state after SHARD_WARM steps within SHARD_TOL with equal
+# iteration counts; SHARD_F32_STEPS float32 steps timed. The box fire in two
+# z-slabs (the sharded lattice multigrid) over SHARD_GMG_STEPS steps from
+# t = 0 against the single card's DIA multigrid, twice: at the case's
+# tolerances the p_rgh iterations within tests/test_spmd_gmg.py's bounds
+# (at most 25, at most the single card's + 15); and with every linear solve
+# taken to SHARD_TIGHT_TOL (relTol 0) on both sides, so that the two
+# multigrids' different stopping points leave the comparison, each field
+# within that test's bound (SHARD_GMG_TOL, set there at 3,840 cells). At
+# 100k cells the two runs part by U 2.0e-05 at the case's tolerances and by
+# U 4.6e-12 with every solve at 1e-12 (PERF.md, the partitions). The
+# sprinkler fire in SHARD_P parts over SHARD_SPRAY_STEPS steps: parcels equal
+# and spray mass each step within SHARD_MASS_TOL relative, the bound of
+# tests/test_spmd_cloud.py (the card's float64 gas fields part at 1e-14 and
+# the evaporated mass follows: 1.6e-11 after 5 steps, PERF.md, the partitions)
+SHARD_P = 4
+SHARD_BACKEND = "gloo"
+SHARD_WARM = 10
+SHARD_F32_STEPS = 10
+SHARD_GMG_STEPS = 3
+SHARD_SPRAY_STEPS = 5
+SHARD_TOL = 1e-10
+SHARD_GMG_TOL = {"T": 1e-6, "p_rgh": 1e-4, "U": 1e-5}
+SHARD_MASS_TOL = 1e-8
+SHARD_GMG = None  # the partitioned solver's rule: the sharded multigrid from 50k cells
+SHARD_TIGHT_TOL = 1e-10
+SHARD_DEADLINE = 900.0
+SHARD_FIELDS = ("T", "U", "p_rgh", "rho", "k", "Y", "hs")
+SHARD_ITERS = ("p_rgh_iters_0", "p_rgh_iters_1", "Ux_iters", "Uy_iters", "Uz_iters",
+               "O2_iters", "C3H8_iters", "H2O_iters", "CO2_iters", "h_iters", "k_iters")
 SOURCE = "firefoam_torch/csrc/dia_krylov.cu"
 REPLACES = {
     "bicgstab": "firefoam_tpu/solvers/pallas_cg.py:281",
@@ -913,6 +968,18 @@ def step_profile(step, state, n_steps):
     return state, kernels / n_steps, reads / n_steps, _busy_us(prof) / 1e3 / n_steps
 
 
+_BOX_PROFILE = []
+
+
+def box_profile(box_solver, box_state):
+    """(kernel launches, host reads, device-busy ms) per step of phase 4's
+    box fire over PROFILE_STEPS steps from its state (steps 22-24: no ray
+    solve), profiled once and printed beside each later phase's fire."""
+    if not _BOX_PROFILE:
+        _BOX_PROFILE.extend(step_profile(box_solver.make_step(), box_state, PROFILE_STEPS)[1:])
+    return tuple(_BOX_PROFILE)
+
+
 def phase_wall(dev, tmp, box_solver, box_state, box_ms):
     """The gas-phase variants on the 100k-cell wall-fire case (see the
     module docstring); returns its launch counts."""
@@ -978,7 +1045,7 @@ def phase_wall(dev, tmp, box_solver, box_state, box_ms):
     if not same:
         raise SystemExit("phase 9: two runs of the wall fire differ")
     _, k_wall, _, busy_wall = step_profile(solver.make_step(), state, PROFILE_STEPS)
-    _, k_box, _, busy_box = step_profile(box_solver.make_step(), box_state, PROFILE_STEPS)
+    k_box, _, busy_box = box_profile(box_solver, box_state)
     say(9, f"per step at {n} cells float32: box fire {box_ms:.3f} ms (phase 4), "
            f"{k_box:.0f} kernel launches, device busy {busy_box:.3f} ms; wall fire {ms:.3f} ms, "
            f"{k_wall:.0f} kernel launches, device busy {busy_wall:.3f} ms (torch.profiler over "
@@ -1366,7 +1433,7 @@ def phase_radiation(dev, tmp, box_solver, box_state, box_ms, sync_s):
                 f"{k1_n_no:.0f}); the radiation adds {k_rad - k_no:.0f} launches and "
                 f"{busy_rad - busy_no:.3f} ms of device work")
         del solver, state, st
-    _, k_box, busy_box, _, _ = profiled(box_solver.make_step(), box_state, PROFILE_STEPS)
+    k_box, _, busy_box = box_profile(box_solver, box_state)
     say(10, f"box fire (phase 4) {box_ms:.3f} ms/step, {k_box:.0f} kernel launches and "
             f"{busy_box:.3f} ms device busy a step")
     small_radiation_runs(dev, tmp, (("greyMean", {}), ("wsggBand", dict(n_theta=4, n_phi=2)),
@@ -1800,15 +1867,15 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
     seg_launches += sum(dia_krylov.LAUNCHES.values())
     dT = float(((st["T"].i - box_state["T"].i).abs() / box_state["T"].i).max())
     dU = float((st["U"].i - box_state["U"].i).abs().max())
-    _, k_seg, r_seg, busy_seg = step_profile(seg.make_step(), st, PROFILE_STEPS)
-    _, k_dia, r_dia, busy_dia = step_profile(box_solver.make_step(), box_state, PROFILE_STEPS)
+    _, k_seg, r_seg, busy_seg = step_profile(seg.make_step(), st, SEG_PROFILE_STEPS)
+    k_dia, r_dia, busy_dia = box_profile(box_solver, box_state)
     del seg, st, st5, ref5
-    # the same 1 + CHUNK steps in float64, both layouts on the same solvers
+    # 1 + SEG_F64_STEPS steps in float64, both layouts on the same solvers
     out64 = {}
     for layout in ("dia", "seg"):
         s64 = FireFoamSolver(box_case, device=dev, dtype=torch.float64, layout=layout,
                              exact_solvers=False, gmg=False, amg=False)
-        st64, _ = s64.make_chunk(1 + CHUNK)(s64.initial_state())
+        st64, _ = s64.make_chunk(1 + SEG_F64_STEPS)(s64.initial_state())
         out64[layout] = {f: st64[f].i for f in ("T", "U")}
         del s64, st64
     vs64 = {f: float((out64["seg"][f] - out64["dia"][f]).abs().max()
@@ -1820,7 +1887,7 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
             f"{busy_seg:.3f} ms a step; kernel launches on SEG {seg_launches}")
     say(11, f"box fire SEG vs DIA: after {GMG_STEPS} steps from t = 0 max |dT| {dT5:.3e} K, "
             f"max |dU| {dU5:.3e} m/s; after 1 + {CHUNK} steps (burning) max relative dT "
-            f"{dT:.3e}, max |dU| {dU:.3e} m/s; the same 1 + {CHUNK} steps in float64: T "
+            f"{dT:.3e}, max |dU| {dU:.3e} m/s; 1 + {SEG_F64_STEPS} steps in float64: T "
             f"{vs64['T']:.3e}, U {vs64['U']:.3e} relative")
     if seg_launches:
         raise SystemExit("phase 11: the box fire on SEG launched a kernel")
@@ -1994,13 +2061,12 @@ def phase_spray(dev, tmp, box_solver, box_state, box_ms):
     if not same:
         raise SystemExit("phase 12: two runs of the sprinkler fire differ")
     _, k_spray, r_spray, busy_spray = step_profile(step, state, SPRAY_PROFILE_STEPS)
-    _, k_box, r_box, busy_box = step_profile(box_solver.make_step(), box_state,
-                                             SPRAY_PROFILE_STEPS)
+    k_box, r_box, busy_box = box_profile(box_solver, box_state)
     k_cloud, r_cloud, busy_cloud = profiled_call(lambda: solver._evolve_cloud(state, {}))
     k_spray = max(k_spray, 1)  # the profiler may see no device event (then 0)
     busy_spray = max(busy_spray, 1e-9)
-    say(12, f"per step at {n} cells float32 (torch.profiler over {SPRAY_PROFILE_STEPS} steps): box fire "
-            f"{box_ms:.3f} ms (phase 4), {k_box:.0f} launches, {r_box:.1f} host reads, device "
+    say(12, f"per step at {n} cells float32 (torch.profiler over {SPRAY_PROFILE_STEPS} steps, "
+            f"the box fire's over {PROFILE_STEPS}): box fire {box_ms:.3f} ms (phase 4), {k_box:.0f} launches, {r_box:.1f} host reads, device "
             f"busy {busy_box:.3f} ms; sprinkler fire {ms:.3f} ms, {k_spray:.0f} launches, "
             f"{r_spray:.1f} host reads, device busy {busy_spray:.3f} ms "
             f"({100.0 * (1.0 - busy_spray / ms):.1f} % idle); the cloud's evolve alone "
@@ -2655,8 +2721,7 @@ def phase_multiphase(dev, tmp, box_solver, box_state, box_ms):
         raise SystemExit("phase 14: two runs of the multiphase spray fire differ")
     del again
     _, k_multi, r_multi, busy_multi = step_profile(step, state, SPRAY_PROFILE_STEPS)
-    _, k_box, r_box, busy_box = step_profile(box_solver.make_step(), box_state,
-                                             SPRAY_PROFILE_STEPS)
+    k_box, r_box, busy_box = box_profile(box_solver, box_state)
     cst = state["cloud"]
     k_mppic, r_mppic, busy_mppic = profiled_call(
         lambda: cloud.mppic.apply(cst, solver.geom, state["dt"], prng.PRNGKey(0)))
@@ -2667,8 +2732,8 @@ def phase_multiphase(dev, tmp, box_solver, box_state, box_ms):
         dt_sub, T_p, cst["mv"], cst["mv0"], cst["canCombust"], gate)
         for _ in range(cloud.cfg.n_sub)])
     k_multi, busy_multi = max(k_multi, 1), max(busy_multi, 1e-9)
-    say(14, f"per step at {n} cells float32 (torch.profiler over {SPRAY_PROFILE_STEPS} steps): "
-            f"box fire {box_ms:.3f} ms (phase 4), {k_box:.0f} launches, {r_box:.1f} host reads, "
+    say(14, f"per step at {n} cells float32 (torch.profiler over {SPRAY_PROFILE_STEPS} steps, "
+            f"the box fire's over {PROFILE_STEPS}): box fire {box_ms:.3f} ms (phase 4), {k_box:.0f} launches, {r_box:.1f} host reads, "
             f"device busy {busy_box:.3f} ms; multiphase spray fire {ms:.3f} ms, {k_multi:.0f} "
             f"launches, {r_multi:.1f} host reads, device busy {busy_multi:.3f} ms "
             f"({100.0 * (1.0 - busy_multi / ms):.1f} % idle); MPPIC.apply {k_mppic} launches "
@@ -2904,6 +2969,264 @@ def phase_stock_small(dev, tmp):
     stock_injectors_vs_cpu(dev, multi, solvers)
 
 
+# ---------------------------------------------------------------- phase 15
+def comm_per_step(out) -> dict:
+    """Rank 0's collectives a step (mean over the run's steps): calls and
+    bytes sent per kind, and the bytes staged through the host."""
+    reps = out["comm"][0]
+    n = len(reps)
+    kinds = reps[0]["counts"]
+    per = {k: {"calls": sum(r["counts"][k]["calls"] for r in reps) / n,
+               "bytes": sum(r["counts"][k]["bytes"] for r in reps) / n} for k in kinds}
+    staged = sum(r["staged"]["bytes"] for r in reps) / n
+    return {"collectives": per, "staged_bytes": staged}
+
+
+def comm_text(c) -> str:
+    parts = [f"{k} {v['calls']:.0f} ({v['bytes'] / 1e6:.3f} MB)"
+             for k, v in c["collectives"].items() if v["calls"]]
+    return ", ".join(parts) + f"; staged through the host {c['staged_bytes'] / 1e6:.3f} MB"
+
+
+def shard_rel(got, ref) -> dict:
+    """Per field, max |a − b| / max |b| of the gathered state against the
+    single card's."""
+    out = {}
+    for f in SHARD_FIELDS:
+        a = np.asarray(got[f].i, np.float64)
+        b = ref[f].i.detach().cpu().double().numpy()
+        out[f] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+    return out
+
+
+def seed_crossing_parcels(sp, state, n=120):
+    """tests/test_spmd_cloud.py's seeding: n parcels across the domain with
+    velocities that cross partition boundaries."""
+    cst = dict(state["cloud"])
+    rng = np.random.RandomState(3)
+    C = sp.gg.C.numpy()
+    cells = rng.choice(len(C), n, replace=False)
+    U = np.zeros((n, 3))
+    U[:, 0] = 1.5 * np.sign(rng.randn(n))
+    U[:, 2] = 1.0 * np.sign(rng.randn(n))
+
+    def setcap(a, v):
+        a = a.clone()
+        a[:n] = torch.as_tensor(np.asarray(v), dtype=a.dtype, device=a.device)
+        return a
+
+    cst.update(x=setcap(cst["x"], C[cells]), U=setcap(cst["U"], U), d=setcap(cst["d"], 5e-4),
+               nP=setcap(cst["nP"], 10.0), T=setcap(cst["T"], 310.0),
+               cell=setcap(cst["cell"], cells), alive=setcap(cst["alive"], True))
+    state = dict(state)
+    state["cloud"] = cst
+    return state
+
+
+def shard_box_f64(dev, main_case):
+    """The box fire in SHARD_P RCB parts, float64: one step from the single
+    card's SEG flat state after SHARD_WARM steps, and the same step again;
+    returns (the run, the readings, the initial state, the state stepped
+    from)."""
+    from firefoam_torch.parallel.spmd_step import SpmdFireFoam
+
+    t0 = time.perf_counter()
+    sp = SpmdFireFoam(main_case, SHARD_P, dtype=torch.float64, device=dev,
+                      backend=SHARD_BACKEND, partition="auto")
+    ref = sp.ref
+    state0 = ref.initial_state()
+    state = state0
+    for _ in range(SHARD_WARM):
+        state, _ = ref.step(state)
+    state1, log1 = ref.step(state)
+    out = sp.run(state, 1, deadline_s=SHARD_DEADLINE, repeat=True)
+    rel = shard_rel(out["state"], state1)
+    its = {k: (int(out["logs"][0][k]), int(log1[k])) for k in SHARD_ITERS}
+    c = comm_per_step(out)
+    say(15, f"box fire {ref.geom.n_cells} cells in {SHARD_P} {sp.partition.upper()} parts "
+            f"({SHARD_BACKEND}, ranks on {dev}, CUDA payloads staged through host buffers), "
+            f"float64, one step from the single card's SEG flat state after {SHARD_WARM} "
+            f"steps: relative differences {rel} (bound {SHARD_TOL:g}); iterations "
+            f"(partitioned, single) {its}; collectives a step {comm_text(c)}; the same step "
+            f"again bitwise equal {out['repeat_equal']}; K1-K3 launches {out['kernel_launches']}")
+    if sp.partition != "rcb" or out["p_solver"] != "flat":
+        raise SystemExit("phase 15: the 100k box in 4 parts did not take RCB and the flat CG")
+    if max(rel.values()) > SHARD_TOL or any(a != b for a, b in its.values()):
+        raise SystemExit("phase 15: the partitioned step departs from the single card's")
+    if not out["repeat_equal"]:
+        raise SystemExit("phase 15: two runs of the partitioned step differ")
+    say(15, f"box fire float64 in {SHARD_P} parts: {time.perf_counter() - t0:.1f} s")
+    readings = {"rel": rel, "iterations": its, **c, "repeat_equal": out["repeat_equal"]}
+    return out, readings, state0, state
+
+
+def shard_box_f32(dev, main_case, state, main_ms):
+    """The box fire in SHARD_P RCB parts, float32, SHARD_F32_STEPS steps
+    timed (the last one profiled) from `state`."""
+    from firefoam_torch.parallel.spmd_step import SpmdFireFoam
+
+    t0 = time.perf_counter()
+    sp = SpmdFireFoam(main_case, SHARD_P, dtype=torch.float32, device=dev,
+                      backend=SHARD_BACKEND, partition="auto", build_ref=False)
+    out = sp.run(state, SHARD_F32_STEPS, deadline_s=SHARD_DEADLINE, profile=True)
+    secs = out["seconds"]
+    ms = 1e3 * float(np.mean(secs[1:-1]))
+    busy = out["busy_ms"][-1] if out["busy_ms"] else float("nan")
+    c = comm_per_step(out)
+    g = out["state"]
+    finite = all(np.isfinite(np.asarray(g[f].i)).all() for f in ("T", "U", "p_rgh"))
+    its = [[int(lg["p_rgh_iters_0"]), int(lg["p_rgh_iters_1"])] for lg in out["logs"]]
+    say(15, f"box fire float32 in {SHARD_P} parts, {SHARD_F32_STEPS} steps: "
+            f"{ms:.3f} ms/step over steps 2-{SHARD_F32_STEPS - 1} (rank 0; steps "
+            f"{[round(1e3 * x, 1) for x in secs]} ms, the first warms up, the last is "
+            f"profiled), device busy {busy:.3f} ms on rank 0 in the profiled step; phase 4's "
+            f"single-card DIA box fire {main_ms:.3f} ms/step; collectives a step "
+            f"{comm_text(c)}; p_rgh iterations {its}; finite {finite}; rank setup "
+            f"{out['setup_seconds']:.1f} s")
+    if not finite:
+        raise SystemExit("phase 15: the float32 partitioned run is not finite")
+    say(15, f"box fire float32 in {SHARD_P} parts: {time.perf_counter() - t0:.1f} s")
+    return out, {"ms_per_step": ms, "step_ms": [1e3 * x for x in secs], "device_busy_ms": busy,
+                 "single_card_dia_ms": main_ms, **c}
+
+
+def tight_case(root: str) -> str:
+    """The 100k box fire with every linear solve taken to SHARD_TIGHT_TOL
+    (relTol 0, maxIter 1000)."""
+    case = write_box_fire_case(root, n=N_MAIN)
+    path = os.path.join(case, "system", "fvSolution")
+    with open(path) as f:
+        text = f.read()
+    text = re.sub(r"tolerance [0-9.eE+-]+", f"tolerance {SHARD_TIGHT_TOL:g}", text)
+    text = re.sub(r"relTol [0-9.eE+-]+", "relTol 0", text)
+    text = re.sub(r"maxIter [0-9]+", "maxIter 1000", text)
+    with open(path, "w") as f:
+        f.write(text)
+    return case
+
+
+def slab_vs_single(dev, case, start):
+    """The box fire `case` in two z-slabs (the sharded lattice multigrid on
+    p_rgh), SHARD_GMG_STEPS float64 steps from `start` (a SEG state of the
+    case at t = 0), against the single card's DIA lattice multigrid from its
+    own initial state: (the partitioned run, its partition, the largest
+    differences per step, the p_rgh iterations per step, the single run's
+    field scales)."""
+    from firefoam_torch.parallel.spmd_step import SpmdFireFoam
+
+    f64 = torch.float64
+    sp = SpmdFireFoam(case, 2, dtype=f64, device=dev, backend=SHARD_BACKEND,
+                      partition="auto", gmg=SHARD_GMG, build_ref=False)
+    out = sp.run(start, SHARD_GMG_STEPS, deadline_s=SHARD_DEADLINE, every_step=True)
+    s1 = FireFoamSolver(case, device=dev, dtype=f64, layout="dia", gmg=True)
+    if sp.partition != "slab" or out["p_solver"] != "sharded_gmg" or s1.gmg is None:
+        raise SystemExit("phase 15: the two z-slabs did not run the sharded multigrid")
+    st1 = s1.initial_state()
+    pairs, steps = [], []
+    for k in range(SHARD_GMG_STEPS):
+        st1, lg = s1.step(st1)
+        pairs.append([(int(out["logs"][k][key]), int(lg[key]))
+                      for key in ("p_rgh_iters_0", "p_rgh_iters_1")])
+        steps.append({f: float(np.abs(np.asarray(out["states"][k][f].i)
+                                      - st1[f].i.cpu().numpy()).max()) for f in SHARD_GMG_TOL})
+    scale = {f: float(st1[f].i.abs().max()) for f in SHARD_GMG_TOL}
+    return out, sp, steps, pairs, scale
+
+
+def shard_slab(dev, tmp, main_case, start):
+    """The box fire in two z-slabs against the single card's DIA lattice
+    multigrid (slab_vs_single): at the case's tolerances from `start` (the
+    SEG flat solver's initial state), the p_rgh iterations within
+    test_spmd_gmg.py's bounds; with every solve at SHARD_TIGHT_TOL, the
+    fields within that test's bounds."""
+    t0 = time.perf_counter()
+    out, sp, steps, pairs, scale = slab_vs_single(dev, main_case, start)
+    c = comm_per_step(out)
+    say(15, f"box fire in 2 {sp.partition} parts, p_rgh by the {out['p_solver']} "
+            f"(slab dims {sp.lz.slab_dims}), float64, {SHARD_GMG_STEPS} steps from t = 0 "
+            f"against the single card's DIA lattice multigrid at the case's tolerances: p_rgh "
+            f"iterations (partitioned, single) {pairs} (bounds: at most 25, at most the single "
+            f"run's + 15); max differences per step {steps} (the fields' largest values "
+            f"{scale}); collectives a step {comm_text(c)}")
+    if any(a > 25 or a > b + 15 for step in pairs for a, b in step):
+        raise SystemExit("phase 15: the sharded multigrid's p_rgh iterations are out of bounds")
+    tight = tight_case(os.path.join(tmp, "box_tight"))
+    # the partitioned run starts from the SEG flat solver's state, as above
+    start_t = FireFoamSolver(tight, device=dev, dtype=torch.float64, layout="seg",
+                             exact_solvers=False, gmg=False, amg=False).initial_state()
+    out_t, _, steps_t, pairs_t, _ = slab_vs_single(dev, tight, start_t)
+    dif = steps_t[-1]
+    say(15, f"the same with every linear solve at tolerance {SHARD_TIGHT_TOL:g} (relTol 0) on "
+            f"both sides: max differences per step {steps_t} (bounds {SHARD_GMG_TOL}, test_spmd_"
+            f"gmg.py's); p_rgh iterations (partitioned, single) {pairs_t}")
+    if any(d[f] >= SHARD_GMG_TOL[f] for d in steps_t for f in d):
+        raise SystemExit("phase 15: the sharded multigrid run is out of its bounds")
+    say(15, f"box fire in two z-slabs: {time.perf_counter() - t0:.1f} s")
+    return [out, out_t], {
+        "case_tolerance": {"max_diff_per_step": steps, "p_rgh_iterations": pairs, **c},
+        "tight": {"tolerance": SHARD_TIGHT_TOL, "max_diff": dif, "max_diff_per_step": steps_t,
+                  "bounds": SHARD_GMG_TOL, "p_rgh_iterations": pairs_t}}
+
+
+def shard_spray(dev, tmp):
+    """The sprinkler fire in SHARD_P parts, SHARD_SPRAY_STEPS float64 steps
+    against the single card's SEG flat run."""
+    from firefoam_torch.parallel.spmd_step import SpmdFireFoam
+
+    t0 = time.perf_counter()
+    case = write_spray_fire_case(os.path.join(tmp, "spray15"), n=N_MAIN, pps=SPRAY_PPS,
+                                 end_time=100.0)
+    sp = SpmdFireFoam(case, SHARD_P, dtype=torch.float64, device=dev, backend=SHARD_BACKEND,
+                      partition="auto")
+    seeded = False
+    start = sp.ref.initial_state()
+    while True:
+        out = sp.run(start, SHARD_SPRAY_STEPS, deadline_s=SHARD_DEADLINE)
+        if sum(int(lg["cloud_migrated"]) for lg in out["logs"]) > 0 or seeded:
+            break
+        seeded = True
+        start = seed_crossing_parcels(sp, start)
+    st = start
+    rows = []
+    for k in range(SHARD_SPRAY_STEPS):
+        st, lg = sp.ref.step(st)
+        got = out["logs"][k]
+        rows.append((int(got["cloud_nParcels"]), int(lg["cloud_nParcels"]),
+                     abs(got["cloud_mass"] - float(lg["cloud_mass"]))
+                     / max(abs(float(lg["cloud_mass"])), 1e-300),
+                     int(got["cloud_migrated"]), int(got["cloud_migrOverflow"])))
+    alive = out["alive_per_rank"]
+    c = comm_per_step(out)
+    say(15, f"sprinkler fire {sp.ref.geom.n_cells} cells in {SHARD_P} {sp.partition.upper()} "
+            f"parts, float64, {SHARD_SPRAY_STEPS} steps{' (parcels seeded across the parts: '
+            'none crossed unseeded)' if seeded else ''}: per step (parcels partitioned, single, "
+            f"spray mass relative difference, migrated, overflow) {rows} (mass bound "
+            f"{SHARD_MASS_TOL:g}); parcels alive per rank {alive}; collectives a step "
+            f"{comm_text(c)}")
+    if any(a != b or m > SHARD_MASS_TOL or o != 0 for a, b, m, _, o in rows):
+        raise SystemExit("phase 15: the partitioned spray departs from the single card's")
+    if not (sum(r[3] for r in rows) > 0 and sum(a > 0 for a in alive) > 1):
+        raise SystemExit("phase 15: no parcel migrated, or the parcels sit on one rank")
+    say(15, f"sprinkler fire in {SHARD_P} parts: {time.perf_counter() - t0:.1f} s")
+    return out, {"steps": rows, "alive_per_rank": alive, "seeded": seeded, **c}
+
+
+def phase_partitions(dev, tmp, main_case, main_ms):
+    """Phase 15 (see the module docstring); returns (the kernels' launches
+    summed over the partitioned runs, the readings for the JSON line)."""
+    readings = {"backend": SHARD_BACKEND, "ranks_on": str(dev)}
+    out, readings["box_f64"], state0, state = shard_box_f64(dev, main_case)
+    runs = [out]
+    out, readings["box_f32"] = shard_box_f32(dev, main_case, state, main_ms)
+    runs.append(out)
+    outs, readings["slab_gmg"] = shard_slab(dev, tmp, main_case, state0)
+    runs.extend(outs)
+    out, readings["spray"] = shard_spray(dev, tmp)
+    runs.append(out)
+    launches = {k: sum(r["kernel_launches"][k] for r in runs) for k in ("bicgstab", "pcg", "smooth")}
+    return launches, readings
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2941,6 +3264,7 @@ def main():
         del main_solver, main_state
         dem_launches, lattice = phase_dem(dev, tmp)
         phase_stock_small(dev, tmp)
+        shard_launches, shards = phase_partitions(dev, tmp, main_case, main_ms)
 
     kernels = [
         {
@@ -2966,6 +3290,9 @@ def main():
             # their gas steps and rays
             "launches_multiphase_path": multi_launches[name_k],
             "launches_dem_path": dem_launches[name_k],
+            # phase 15's partitioned runs, summed over the ranks: the
+            # partitions are SEG, where no kernel serves
+            "launches_sharded_path": shard_launches[name_k],
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],
@@ -2992,6 +3319,7 @@ def main():
     print(json.dumps({"p_rgh_solve": p_rgh}))
     print(json.dumps({"castellated": castel}))
     print(json.dumps({"dem_collide": lattice}))
+    print(json.dumps({"partitions": shards}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

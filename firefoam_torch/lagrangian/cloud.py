@@ -24,7 +24,8 @@ accumulators. Wall interaction happens inside the walk (tracking.py).
 
 Random draws come from `st["rng"]` through `prng` (JAX's generator bit for
 bit), split in the JAX package's order, so both packages inject and thin
-the same parcels. Nothing here reads the card on the host except `info`.
+the same parcels. Nothing here reads the card on the host except `info`
+(and, partitioned, the migration's count of parcels in halo cells).
 
 The surface-film handoff (surfaceFilmModel thermoSurfaceFilm): parcels
 striking film faces are absorbed, or splash or bounce by the Bai-Gosman
@@ -39,8 +40,18 @@ the substeps) and DEM pair collision (paircollision.py, `st["pc"]`; its
 sub-cycles replace the ballistic pre-move). The volatile mass rides on top
 of the liquid sphere that `_mass` counts, so it keeps a ledger of its own:
 the sources log the volatiles injected, devolatilised and carried out by
-parcels that leave the cloud. The SPMD parcel migration waits for ROADMAP
-P15.
+parcels that leave the cloud.
+
+Partitioned (`part`, a parallel.localize.PartInfo): `walk` is the
+partition's WalkMesh over its [owned ‖ halo] cells and the injectors are
+built over the GLOBAL walk (`inj_walk`): every rank draws the same parcels
+with the same key and keeps those in cells it owns. A parcel whose walk
+stops in a halo slot has left the partition: before the physics of each
+substep it moves to the owning rank (parallel/parcels.exchange_parcels, the
+reference's switchProcessor handoff), which finishes its walk, in as many
+rounds as the crossings and the send capacity need; `info` reduces over the
+ranks. The DEM pair collision keeps its records on one
+partition: a partitioned cloud with it raises.
 """
 
 from __future__ import annotations
@@ -149,11 +160,15 @@ class ReactingCloud:
         dtype=torch.float64,
         capacity: Optional[int] = None,
         cell_zones=None,
+        part=None,
+        inj_walk: Optional[WalkMesh] = None,
     ):
         self.name = name
         self.dtype = dtype
         self.device = geom.C.device
         self.walk = walk
+        # partition identity (parallel.localize.PartInfo) or None
+        self.part = part
         self.geom = geom
         self.gas = gas
         self._g_np = np.asarray(g_vec, np.float64)
@@ -280,7 +295,8 @@ class ReactingCloud:
         # injectors
         inj_dict = sub.get_dict("injectionModels", FoamDict())
         self.injectors = [
-            make_injector(iname, idict, walk, case, self.dtype, geom=geom, cell_zones=cell_zones)
+            make_injector(iname, idict, inj_walk or walk, case, self.dtype, geom=geom,
+                          cell_zones=cell_zones)
             for iname, idict in inj_dict.subdicts()
         ]
         for inj in self.injectors:
@@ -304,7 +320,11 @@ class ReactingCloud:
                         pass
         if u_est <= 0.0:
             u_est = 20.0  # sprinkler-class default when tables hide U
-        dx_min = float(geom.V.min()) ** (1.0 / 3.0)
+        v_min = geom.V.min()
+        if part is not None:
+            # every rank must size its substeps alike: the global minimum
+            v_min = part.pmin(v_min)
+        dx_min = float(v_min) ** (1.0 / 3.0)
         self.cfg.n_sub = int(np.clip(math.ceil(u_est * dt_max / (max_co * dx_min) / 8.0), 4, 64))
         self.cfg.walk_steps = int(np.clip(
             math.ceil(u_est * (dt_max / self.cfg.n_sub) / dx_min) + 3, 5, 24))
@@ -322,6 +342,9 @@ class ReactingCloud:
         # spring-slider-dashpot pair and wall forces, the parcels' omega and
         # records under st["pc"]
         self.pair_collision = PairCollision.from_dict(sub, cp, geom)
+        if self.pair_collision is not None and part is not None:
+            raise NotImplementedError(
+                "partitioned cloud: the DEM pair collision's records are single-partition")
 
         # cloud function objects: ParticleCollectorFmg (lib/
         # additionalCloudFunctionObjects) and the stock family
@@ -512,7 +535,14 @@ class ReactingCloud:
     def _scatter_new(self, st: Dict, cand: Dict, src: Optional[Dict] = None) -> Dict:
         """Place candidate parcels into free slots (drop on overflow). With
         a ledger and `src`, src["volatileInjected"] gains the volatile mass
-        of the parcels placed."""
+        of the parcels placed. Partitioned, the candidates' cell ids are
+        GLOBAL (every rank draws the same parcels): a rank keeps those in
+        the cells it owns, at their local ids."""
+        if self.part is not None:
+            cand = dict(cand)
+            loc = self.part.cell_map[cand["cell"].to(INT_DTYPE)]
+            cand["valid"] = cand["valid"] & (loc >= 0)
+            cand["cell"] = torch.clamp(loc, min=0)
         m = cand["valid"].shape[0]
         # free slots first: a stable sort of alive puts the free lanes first
         free = torch.sort(st["alive"].to(torch.int32), stable=True).indices[:m]
@@ -1136,6 +1166,9 @@ class ReactingCloud:
             nb = self.cfg.n_bands
             for k in ("radAp", "radSigp", "radAsy", "radEpT4"):
                 src[k] = torch.zeros((nb, nC), **kw)
+        if self.part is not None:
+            src["migrated"] = torch.zeros((), dtype=torch.int64, device=self.device)
+            src["migrOverflow"] = torch.zeros((), dtype=torch.int64, device=self.device)
         if not self.cfg.active:
             return st, src
 
@@ -1210,6 +1243,8 @@ class ReactingCloud:
                 st["cfo"] = cfos
             # film interaction (absorb / Bai-Gosman splash)
             st, src = self._film_interaction(st, src, code, hit, mass_before, gas.get("film_delta_b"))
+            if self.part is not None:
+                st, src = self._migrate(st, src)
             # physics + gas-side sources
             st, src = self._calc(st, gas, dt_sub, src)
             # cloud function objects: postMove (void fraction, tracks, trap)
@@ -1243,6 +1278,62 @@ class ReactingCloud:
                 "asy": src.pop("radAsy") / Vdt,
                 "Ep": SIGMA_SB * src.pop("radEpT4") / Vdt,
             }
+        return st, src
+
+    def _migrate(self, st: Dict, src: Dict) -> Tuple[Dict, Dict]:
+        """The partitioned handoff (switchProcessor, KinematicParcel.C:
+        330-333): the walk of a parcel that left this partition stopped in
+        the halo cell it entered (the halo rows have no faces). Before the
+        physics, so that the sources accumulate on owned cells only, each
+        such parcel moves to the owner of that cell, which finishes the
+        containment walk from there: the parcel ends in the cell the
+        unpartitioned walk finds (a parcel that escapes on the way counts as
+        escaped; its wall interactions there skip the film and the cloud
+        functions). Rounds go on while the count of parcels in halo cells,
+        summed over the ranks (one host read of a replicated value a round),
+        is above 0: a parcel that crosses into a third partition on the way
+        moves again, and one beyond the send capacity (pi.cap_send a round
+        and target) keeps its halo cell and goes in a later round. So no
+        parcel is left in a halo cell for the physics. src["migrated"]
+        counts the parcels this rank sent, src["migrOverflow"] the parcels
+        held back a round (summed over the ranks)."""
+        from ..parallel.parcels import exchange_parcels
+
+        pi = self.part
+        keys = ("x", "U", "d", "T", "nP", "cell", "age", "canCombust", "typeId", "cp0") + tuple(
+            k for k in ("mv", "mv0", "ms", "Yl") if k in st)
+        st = dict(st)
+        # a straight path crosses each RCB box or slab once, and a send
+        # capacity holds a parcel back at most cap / cap_send rounds
+        max_rounds = pi.n_parts - 1 + -(-st["alive"].shape[0] // pi.cap_send)
+        for rnd in range(max_rounds + 1):
+            in_halo = st["alive"] & (st["cell"] >= pi.n_own)
+            if int(pi.preduce(torch.sum(in_halo))) == 0:
+                break
+            if rnd == max_rounds:
+                raise RuntimeError(f"parcel migration: parcels still in halo cells after "
+                                   f"{max_rounds} rounds")
+            hslot = torch.clamp(st["cell"] - pi.n_own, min=0)
+            dest = torch.where(in_halo, pi.halo_owner[hslot], torch.full_like(hslot, -1))
+            soa = {k: st[k] for k in keys}
+            soa["cell"] = torch.where(in_halo, pi.halo_local[hslot],
+                                      st["cell"]).to(st["cell"].dtype)
+            soa, alive, left, n_over = exchange_parcels(
+                pi.comm, soa, st["alive"], dest, pi.n_parts, pi.cap_send)
+            # a parcel held back stays in its slot with its halo cell (its
+            # walk stops there at once)
+            kept = alive & (left >= 0)
+            soa["cell"] = torch.where(kept, st["cell"], soa["cell"])
+            x, U, cell, alive2, _, code = self.walk.walk(
+                soa["x"], soa["U"], soa["cell"], alive, self.b_code, self.b_e,
+                n_steps=self.cfg.walk_steps)
+            st.update(soa)
+            esc = alive & ~alive2 & (code == INTERACT_ESCAPE)
+            src["escapedMass"] = src["escapedMass"] + torch.sum(
+                torch.where(esc, self._mass(st), 0.0))
+            st.update(x=x, U=U, cell=cell, alive=alive2)
+            src["migrOverflow"] = src["migrOverflow"] + n_over
+            src["migrated"] = src["migrated"] + torch.sum(in_halo) - torch.sum(kept)
         return st, src
 
     def _count_lost(self, st, alive_ref, src):
@@ -1302,12 +1393,14 @@ class ReactingCloud:
     def info(self, st: Dict) -> Dict:
         m = self._mass(st)
         alive = st["alive"]
+        red = self.part.preduce if self.part is not None else (lambda v: v)
+        mx = self.part.pmax if self.part is not None else (lambda v: v)
         return {
-            "nParcels": torch.sum(alive.to(torch.int32)),
-            "massInSystem": torch.sum(m),
-            "Dmax": torch.max(torch.where(alive, st["d"], 0.0)),
-            "D32": torch.sum(torch.where(alive, st["nP"] * st["d"] ** 3, 0.0))
-            / torch.clamp(torch.sum(torch.where(alive, st["nP"] * st["d"] ** 2, 0.0)),
+            "nParcels": red(torch.sum(alive.to(torch.int32))),
+            "massInSystem": red(torch.sum(m)),
+            "Dmax": mx(torch.max(torch.where(alive, st["d"], 0.0))),
+            "D32": red(torch.sum(torch.where(alive, st["nP"] * st["d"] ** 3, 0.0)))
+            / torch.clamp(red(torch.sum(torch.where(alive, st["nP"] * st["d"] ** 2, 0.0))),
                           min=self._small),
         }
 

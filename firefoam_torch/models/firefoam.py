@@ -56,10 +56,19 @@ and Sh, the spray's impingement through the cloud's film handoff and the
 film's drip through FilmDripInjection. With `solvePrimaryRegion false` a
 step evolves the regions alone.
 
-Not ported: the PairMG pressure solver, the SPMD
-`local=` path (its sharded multigrid and parcel migration) and the
-hoisted-jit entry points. A case that needs one of them raises at
-construction.
+Partitioned (`local=`, a parallel.localize.LocalContext): the instance is
+one rank of the explicitly partitioned step (parallel/spmd_step.py). Its
+geometry is the partition's ShardGeometry over [owned ‖ halo] cells; fields
+are read against the global mesh and scattered; the solves take the
+geometry's psum reducers and halo refresh; p_rgh runs the flat psum-CG, or
+on a z-slab lattice partition the sharded lattice multigrid
+(parallel/sharded_gmg.py) by the JAX package's rule; the cloud migrates its
+parcels between ranks. The wavefront DIC schedule, the lattice multigrid
+and AMG are global-topology objects and stay off there; pyrolysis, the film
+and fvOptions zones raise under `local`, as the JAX package raises.
+
+Not ported: the PairMG pressure solver and the hoisted-jit entry points. A
+case that needs one of them raises at construction.
 """
 
 from __future__ import annotations
@@ -166,7 +175,7 @@ class FireFoamSolver:
                  exact_solvers: Optional[bool] = None, gmg: Optional[bool] = None,
                  gmg_coarsest: int = 64, amg: Optional[bool] = None,
                  p_rgh_f64: bool = False, layout: Optional[str] = None,
-                 enable_cloud: bool = True):
+                 enable_cloud: bool = True, local=None):
         """exact_solvers, gmg, amg: True forces, False forbids, None leaves
         the choice to the automatic rule of `_pick_solvers`. gmg_coarsest:
         the lattice multigrid stops coarsening at this many cells.
@@ -174,15 +183,22 @@ class FireFoamSolver:
         None/"auto" (DIA where the mesh fits, else SEG), "dia" or "seg"
         (MeshGeometry.from_polymesh). enable_cloud=False leaves out the
         Lagrangian cloud of a case that has one. `setup_seconds` holds the
-        host's seconds for the mesh, the geometry and the solver tables."""
+        host's seconds for the mesh, the geometry and the solver tables.
+        local: a parallel.localize.LocalContext — builds this instance over
+        ONE partition's geometry (its device and dtype) as one rank of the
+        partitioned step."""
+        self._local = local
+        if local is not None:
+            device, dtype = local.geom.device, local.geom.dtype
         self.device = torch.device(device) if device is not None else default_device()
         self.dtype = dtype or real_dtype(self.device)
         self.case = Case(case_dir)
         t0 = time.perf_counter()
-        self.cm = build_case_mesh(case_dir)
+        self.cm = build_case_mesh(case_dir) if local is None else local.cm
         t1 = time.perf_counter()
-        self.geom = MeshGeometry.from_polymesh(self.cm.mesh, dtype=self.dtype, device=self.device,
-                                               layout=layout)
+        self.geom = (MeshGeometry.from_polymesh(self.cm.mesh, dtype=self.dtype,
+                                                device=self.device, layout=layout)
+                     if local is None else local.geom)
         self.setup_seconds = {"mesh": t1 - t0, "geometry": time.perf_counter() - t1}
         g = self.geom
         self._read_additional_controls()
@@ -207,7 +223,10 @@ class FireFoamSolver:
         near_wall = torch.zeros(g.n_cells, dtype=torch.bool, device=self.device)
         for pch in g.patches:
             if "wall" in (pch.ptype or "").lower():
-                near_wall[g.b_own[pch.slice]] = True
+                o = g.b_own[pch.slice]
+                if local is not None:
+                    o = o[g.b_valid[pch.slice] > 0]
+                near_wall[o] = True
         self._near_wall_mask = near_wall
 
         # ---- turbulence ----
@@ -307,11 +326,22 @@ class FireFoamSolver:
                 from ..lagrangian.cloud import ReactingCloud
                 from ..lagrangian.tracking import WalkMesh
 
-                walk = WalkMesh.from_polymesh(self.cm.mesh, dtype=self.dtype, device=self.device)
+                part = inj_walk = None
+                if local is not None:
+                    # the partition's tracking mesh and migration identity;
+                    # the injectors' tables stay GLOBAL (built over the
+                    # global walk) and are remapped at injection
+                    walk = local.walk_local(self.dtype)
+                    part = local.part_info()
+                    inj_walk = local.walk_g
+                else:
+                    walk = WalkMesh.from_polymesh(self.cm.mesh, dtype=self.dtype,
+                                                  device=self.device)
                 self.cloud = ReactingCloud(
                     "reactingCloud1", props, walk, g, self.case, self.gas,
                     self.g_vec, dt_max=min(self.ctl.max_dt, 0.1), dtype=self.dtype,
                     cell_zones=getattr(self.cm.sets, "cell_zones", None),
+                    part=part, inj_walk=inj_walk,
                 )
 
         # ---- pyrolysis regions (constant/pyrolysisZones) ----
@@ -322,6 +352,9 @@ class FireFoamSolver:
 
             coll = PyrolysisCollection(case_dir, self.cm, self.dtype, self.device)
             if coll.zones:
+                if local is not None:
+                    raise NotImplementedError(
+                        "partitioned step: pyrolysis regions are not localized")
                 self.pyrolysis = coll
 
         # ---- surface film region (constant/surfaceFilmProperties) ----
@@ -330,6 +363,9 @@ class FireFoamSolver:
         if self.case.has_constant("surfaceFilmProperties"):
             sfp = self.case.constant("surfaceFilmProperties")
             if sfp.get_bool("active", False) and sfp.get_word("surfaceFilmModel", "none") != "none":
+                if local is not None:
+                    raise NotImplementedError(
+                        "partitioned step: the film region is not localized")
                 self._build_film(sfp)
 
         # ---- fields & BCs ----
@@ -353,16 +389,21 @@ class FireFoamSolver:
             # pilot heat field dQI masked to the 'igniter' cellZone
             # (eddyDissipationIgnModel::correct)
             dqi, _ = self._read_field("dQI")
-            mask = torch.zeros(g.n_cells, dtype=self.dtype, device=self.device)
+            mask = np.zeros(self.cm.mesh.n_cells)
             zone = self.cm.sets.cell_zones.get("igniter")
             if zone is not None:
-                mask[torch.as_tensor(np.asarray(zone), dtype=torch.int64, device=self.device)] = 1.0
-            self.combustion.ign_dQI = dqi.i * mask
+                mask[np.asarray(zone)] = 1.0
+            if local is not None:
+                mask = local.lz.cells(mask)[local.p]
+            self.combustion.ign_dQI = dqi.i * self._t(mask)
 
         # ---- fvOptions, function objects, RTI probes and links ----
-        self.fv_options = FvOptions(case_dir, g, self.cm.sets.cell_zones)
+        self.fv_options = FvOptions(case_dir, g,
+                                    self.cm.sets.cell_zones if local is None else None)
         if not self.fv_options.active:
             self.fv_options = None
+        elif local is not None:
+            raise NotImplementedError("partitioned step: fvOptions zones are not localized")
         self.function_objects = make_function_objects(self, cd)
         self.rtis = RtiProbes.try_from_case(self, case_dir)
         self.rti_links = RTILinks(self.case, g.n_cells, self.dtype, self.device)
@@ -385,22 +426,40 @@ class FireFoamSolver:
             or when the dictionary says GAMG, or when the schedule is off.
             On a DIA mesh on the card the whole-solve kernels K1-K3 serve
             both dtypes (as the JAX package's fused kernels serve float32
-            on its accelerator), so there AMG is on only when forced."""
+            on its accelerator), so there AMG is on only when forced.
+
+        Partitioned (`local`): none of the three (they are global-topology
+        objects); `_sgmg`, the sharded lattice multigrid, when the partition
+        is a z-slab decomposition of a lattice and `gmg` is True, or None
+        and the global mesh has at least 50000 cells (the JAX package's
+        rule, on either device)."""
         g = self.geom
         self._ldu = None
+        self.gmg = None
+        self.amg = None
+        self._sgmg = None
+        if self._local is not None:
+            sl = self._local.slab_info()
+            if sl is not None and gmg is not False and (gmg or self.cm.mesh.n_cells >= 50000):
+                from ..parallel.sharded_gmg import ShardedLatticeMG
+
+                dims, n_parts, maps = sl
+                mg = ShardedLatticeMG.build(dims, n_parts)
+                if mg is not None:
+                    self._sgmg = (mg, {a: torch.as_tensor(ix, device=self.device)
+                                       for a, ix in maps.items()})
+            return
         if exact_solvers or (exact_solvers is None and self.dtype == torch.float64):
             n_int = self.cm.mesh.n_internal_faces
             self._ldu = build_schedule(
                 np.asarray(self.cm.mesh.owner[:n_int]), np.asarray(self.cm.mesh.neighbour),
                 g.n_cells, perm=g.face_perm,
             )
-        self.gmg = None
         gmg_min = GMG_MIN_CELLS.get(self.device.type)
         if gmg is not False and g.layout == "dia" and (
             gmg or (gmg_min is not None and g.n_cells >= gmg_min)
         ):
             self.gmg = LatticeMG.build(g.offsets, g.n_cells, n_coarsest=gmg_coarsest)
-        self.amg = None
         try:
             p_solver = _solver_controls(self.fv_solution, "p_rgh")["solver"]
             fused = g.layout == "dia" and self.device.type == "cuda"
@@ -437,6 +496,16 @@ class FireFoamSolver:
         else:
             raise FileNotFoundError(f"0/{name}")
         g = self.geom
+        L = self._local
+        if L is not None:
+            # read against the GLOBAL mesh, scatter onto this partition's
+            # extended layout (halo filled, so pointwise consistency holds),
+            # and build the BCs against the LOCAL patch layout
+            gg = L.global_geom
+            i_g = np.asarray(ff.internal_array(gg.n_cells), np.float64)
+            b_g = initial_boundary(ff, gg, torch.float64, "cpu").numpy()
+            return (VolField(self._t(L.lz.cells(i_g)[L.p]), self._t(L.lz.bfaces(b_g)[L.p])),
+                    make_field_bcs(ff, g))
         internal = self._t(ff.internal_array(g.n_cells))
         boundary = initial_boundary(ff, g, self.dtype, self.device)
         return VolField(internal, boundary), make_field_bcs(ff, g)
@@ -1183,10 +1252,37 @@ class FireFoamSolver:
             )
         if self.gmg is not None:
             return gmg_pcg(self.gmg, dtot, m.lower, m.upper, b, x0, tol=tol, rel_tol=rel)
+        if self._sgmg is not None:
+            return self._sharded_gmg_solve(dtot, m, b, x0, tol, rel, c0["maxIter"])
         if self.amg is not None:
             return amg_pcg(self.amg, dtot, m.lower, m.upper, b, x0, tol=tol, rel_tol=rel)
         return solve_ldu(g, "PCG", dtot, m.upper, m.lower, b, x0, tol=tol, rel_tol=rel,
                          max_iter=cg_max_iter)
+
+    def _sharded_gmg_solve(self, dtot, m, b, x0, tol, rel, max_iter):
+        """p_rgh through the sharded lattice multigrid
+        (parallel/sharded_gmg.py). The slab partition makes the owned slots a
+        [nz_p, ny, nx] sub-lattice; the six DIA coupling planes gather from
+        the local face arrays through the slab maps (sentinel → appended
+        zero), and the solve's only traffic is the per-matvec z-plane ring,
+        the psum dot products and the coarsest level's all_gather."""
+        from ..parallel.sharded_gmg import sharded_gmg_pcg
+
+        g = self.geom
+        mg, maps = self._sgmg
+        shape3 = mg.shapes[0]
+        n_own = g.n_own_slots
+        zpad = dtot.new_zeros(1)
+        ue = torch.cat([m.upper, zpad])
+        le = torch.cat([m.lower, zpad])
+        offd = {}
+        for a in (0, 1, 2):
+            offd["u%d" % a] = ue[maps[a]].reshape(shape3)
+            offd["l%d" % a] = le[maps[a]].reshape(shape3)
+        r3 = sharded_gmg_pcg(
+            g.comm, mg, dtot[:n_own].reshape(shape3), offd, b[:n_own].reshape(shape3),
+            x0[:n_own].reshape(shape3), tol=tol, rel_tol=rel, max_iter=max_iter)
+        return r3._replace(x=g.sync(torch.cat([r3.x.reshape(-1), x0[n_own:]])))
 
     # ------------------------------------------------------------------
     def _evolve_cloud(self, state: Dict, log) -> Tuple[Dict, Dict]:
@@ -1257,11 +1353,15 @@ class FireFoamSolver:
             state["cloud_rad"] = src["cloud_rad"]
         inv_vdt = 1.0 / (g.V * state["dt"])
         cfg = cloud.cfg
+        # sync: partitioned, the parcel sums fill only owned cells (parcels
+        # migrate to their owner before the physics), so the halo slots of
+        # the sources are refreshed before the gas equations read them
+        # (the identity on the global geometry)
         out = {
-            "Srho": cfg.relax_rho * src["rhoTrans"] * inv_vdt,
-            "SU": cfg.relax_U * src["UTrans"] * inv_vdt[:, None],
-            "SYv": cfg.relax_Yi * src["rhoTrans"] * inv_vdt,
-            "Sh": cfg.relax_h * src["hsTrans"] * inv_vdt,
+            "Srho": g.sync(cfg.relax_rho * src["rhoTrans"] * inv_vdt),
+            "SU": g.sync(cfg.relax_U * src["UTrans"] * inv_vdt[:, None]),
+            "SYv": g.sync(cfg.relax_Yi * src["rhoTrans"] * inv_vdt),
+            "Sh": g.sync(cfg.relax_h * src["hsTrans"] * inv_vdt),
         }
         if "pcTrans" in src:
             # per-component evaporation: each liquid's mass enters its OWN
@@ -1271,17 +1371,17 @@ class FireFoamSolver:
             out["SYv"] = torch.zeros_like(out["SYv"])
             sy = {}
             for i, si in enumerate(cloud.vapour_indices):
-                sy[si] = sy.get(si, 0.0) + cfg.relax_Yi * pc[i] * inv_vdt
+                sy[si] = sy.get(si, 0.0) + g.sync(cfg.relax_Yi * pc[i] * inv_vdt)
             out["SY"] = sy
         if "dvTrans" in src:
             # devolatilised volatiles: continuity + their OWN species
             # (parcels.Srho + SYi, YEEqn.H:52 — apart from the evaporation's
             # vapour species)
             dv = src["dvTrans"]  # [nVol, nC]
-            out["Srho"] = out["Srho"] + cfg.relax_rho * torch.sum(dv, dim=0) * inv_vdt
+            out["Srho"] = out["Srho"] + g.sync(cfg.relax_rho * torch.sum(dv, dim=0) * inv_vdt)
             sy = dict(out.get("SY", {}))
             for i, si in enumerate(cloud.devol.gas_indices):
-                sy[si] = sy.get(si, 0.0) + cfg.relax_Yi * dv[i] * inv_vdt
+                sy[si] = sy.get(si, 0.0) + g.sync(cfg.relax_Yi * dv[i] * inv_vdt)
             out["SY"] = sy
             # the volatile ledger: injected = devolatilised + carried out by
             # parcels that left + the change of what the parcels hold
@@ -1293,6 +1393,11 @@ class FireFoamSolver:
         info = cloud.info(cst)
         log["cloud_nParcels"] = info["nParcels"]
         log["cloud_mass"] = info["massInSystem"]
+        if cloud.part is not None:
+            # partitioned: the parcels handed to another rank this step
+            # (summed over the ranks) and those that found no room
+            log["cloud_migrated"] = cloud.part.preduce(src["migrated"])
+            log["cloud_migrOverflow"] = src["migrOverflow"]
         # the step's mass bookkeeping: evaporated into the gas, escaped
         # through open patches, dropped at minParticleMass, and the change of
         # the parcels' mass with the liquid's density as they heat or cool

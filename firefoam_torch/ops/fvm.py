@@ -123,7 +123,12 @@ class FvMatrix:
         return self.diag + both[:, 0], self.source + both[:, 1]
 
     def matvec(self, x: torch.Tensor, diag_total: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """M·x for a scalar component (x: [nC])."""
+        """M·x for a scalar component (x: [nC]). On a partition the Krylov
+        iterate's halo slots are stale (only owned slots are updated each
+        iteration), so the matvec refreshes them first — the one halo
+        exchange per matvec the reference performs through processor
+        patches inside every solve. The identity on the global geometry."""
+        x = self.geom.sync(x)
         d = self.diag if diag_total is None else diag_total
         return d * x + self._H_off(x)
 

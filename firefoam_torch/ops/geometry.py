@@ -407,11 +407,17 @@ class MeshGeometry:
     def bmean(self, x: torch.Tensor, sl=None) -> torch.Tensor:
         return torch.mean(x if sl is None else x[sl], dim=0)
 
+    def sync(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Refresh the halo slots of a cell array (cells along `dim`) after
+        a non-pointwise update: the identity on the unpartitioned geometry;
+        a partition's geometry (parallel/localize.ShardGeometry) exchanges
+        them with its neighbours."""
+        return x
+
     def solver_reducers(self):
         """(sum_fn, dot_fn, mean_fn) over the cell axis of [..., nC] vectors
-        for the Krylov twins (a leading batch axis is kept)."""
-        return (
-            lambda v: torch.sum(v, dim=-1),
-            lambda a, b: torch.sum(a * b, dim=-1),
-            lambda v: torch.mean(v, dim=-1),
-        )
+        for the Krylov twins (a leading batch axis is kept): the twins' own
+        defaults here; mask-aware psum collectives on a partition."""
+        from ..solvers import linear
+
+        return (linear._sum, linear._dot, linear._mean)

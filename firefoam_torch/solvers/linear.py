@@ -68,11 +68,23 @@ def _rows(x0, b, diag):
     return x0.expand(B, -1), b.expand(B, -1), diag, squeeze
 
 
-def _norm_factor(matvec, x, b):
-    xref = torch.mean(x, dim=-1, keepdim=True)
+def _sum(v):
+    return torch.sum(v, dim=-1)
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def _mean(v):
+    return torch.mean(v, dim=-1)
+
+
+def _norm_factor(matvec, x, b, sum_fn=_sum, mean_fn=_mean):
+    xref = mean_fn(x)[..., None]
     Aref = matvec(xref.expand_as(x))
     Ax = matvec(x)
-    norm = torch.sum(torch.abs(Ax - Aref) + torch.abs(b - Aref), dim=-1)
+    norm = sum_fn(torch.abs(Ax - Aref) + torch.abs(b - Aref))
     return Ax, norm + torch.finfo(x.dtype).tiny * 1e6
 
 
@@ -89,14 +101,18 @@ def _sel(active, new, old):
     return torch.where(a, new, old)
 
 
-def pcg(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000) -> SolverResult:
+def pcg(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
+        sum_fn=_sum, dot_fn=_dot, mean_fn=_mean) -> SolverResult:
     """Diagonal-preconditioned CG with OpenFOAM convergence semantics.
-    `matvec` maps [B, nC] → [B, nC]."""
+    `matvec` maps [B, nC] → [B, nC]. sum_fn/dot_fn/mean_fn reduce the last
+    axis; they are the SPMD injection points (a partition passes
+    psum-reduced ones, parallel/sharded.py), so the stop test each rank
+    reads on the host is the same global residual on every rank."""
     x0, b, diag, squeeze = _rows(x0, b, diag)
     rD = 1.0 / diag
-    Ax0, norm = _norm_factor(matvec, x0, b)
+    Ax0, norm = _norm_factor(matvec, x0, b, sum_fn, mean_fn)
     r = b - Ax0
-    res0 = torch.sum(torch.abs(r), dim=-1) / norm
+    res0 = sum_fn(torch.abs(r)) / norm
     stop = torch.clamp(rel_tol * res0, min=tol_floor(tol, x0.dtype))
     x = x0.clone()
     p = torch.zeros_like(x0)
@@ -108,14 +124,14 @@ def pcg(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000) -> SolverResu
         if not bool(active.any()):
             break
         z = rD * r
-        rz = torch.sum(r * z, dim=-1)
+        rz = dot_fn(r, z)
         beta = torch.where(it == 0, torch.zeros_like(rz), rz / rz_old)
         p_n = z + beta[:, None] * p
         Ap = matvec(p_n)
-        alpha = rz / torch.sum(p_n * Ap, dim=-1)
+        alpha = rz / dot_fn(p_n, Ap)
         x_n = x + alpha[:, None] * p_n
         r_n = r - alpha[:, None] * Ap
-        res_n = torch.sum(torch.abs(r_n), dim=-1) / norm
+        res_n = sum_fn(torch.abs(r_n)) / norm
         x, r, p = _sel(active, x_n, x), _sel(active, r_n, r), _sel(active, p_n, p)
         rz_old = _sel(active, rz, rz_old)
         res = _sel(active, res_n, res)
@@ -123,7 +139,8 @@ def pcg(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000) -> SolverResu
     return _finish(x, res0, res, it, squeeze)
 
 
-def bicgstab(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000) -> SolverResult:
+def bicgstab(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
+             sum_fn=_sum, dot_fn=_dot, mean_fn=_mean) -> SolverResult:
     """Jacobi-preconditioned BiCGStab (PBiCGStab role) for asymmetric
     systems, restarting with the current residual on breakdown.
 
@@ -134,12 +151,13 @@ def bicgstab(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000) -> Solve
     solver divides by the clamped value instead, its α or β overflows and
     the solve returns NaN: on the 100k-cell box fire one fvDOM ray's shadow
     residual decays to rounding noise (rhat·r ≈ 1e-18·r·r) until rhat·v is
-    exactly 0. Away from those cases both take the same steps."""
+    exactly 0. Away from those cases both take the same steps. The
+    reducers are the SPMD injection points (see pcg)."""
     x0, b, diag, squeeze = _rows(x0, b, diag)
     rD = 1.0 / diag
-    Ax0, norm = _norm_factor(matvec, x0, b)
+    Ax0, norm = _norm_factor(matvec, x0, b, sum_fn, mean_fn)
     r = b - Ax0
-    res0 = torch.sum(torch.abs(r), dim=-1) / norm
+    res0 = sum_fn(torch.abs(r)) / norm
     stop = torch.clamp(rel_tol * res0, min=tol_floor(tol, x0.dtype))
     small = torch.finfo(x0.dtype).tiny * 1e3
     tiny = torch.finfo(x0.dtype).tiny * 1e6
@@ -156,8 +174,8 @@ def bicgstab(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000) -> Solve
         active = (res > stop) & (it < max_iter)
         if not bool(active.any()):
             break
-        rho = torch.sum(rhat * r, dim=-1)
-        rr = torch.sum(r * r, dim=-1)
+        rho = dot_fn(rhat, r)
+        rr = dot_fn(r, r)
         restart = ((torch.abs(rho) < small * rr) | (it == 0) | retry
                    | (torch.abs(rho_old) < tiny) | (torch.abs(omega) < tiny))
         rhat_n = torch.where(restart[:, None], r, rhat)
@@ -168,16 +186,16 @@ def bicgstab(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000) -> Solve
         p_n = r + beta[:, None] * (p - omega[:, None] * v)
         phat = rD * p_n
         v_n = matvec(phat)
-        rv = torch.sum(rhat_n * v_n, dim=-1)
+        rv = dot_fn(rhat_n, v_n)
         retry = ~restart & (torch.abs(rv) < tiny)
         alpha_n = rho / _nz(rv)
         s = r - alpha_n[:, None] * v_n
         shat = rD * s
         t = matvec(shat)
-        omega_n = torch.sum(t * s, dim=-1) / _nz(torch.sum(t * t, dim=-1))
+        omega_n = dot_fn(t, s) / _nz(dot_fn(t, t))
         x_n = x + alpha_n[:, None] * phat + omega_n[:, None] * shat
         r_n = s - omega_n[:, None] * t
-        res_n = torch.sum(torch.abs(r_n), dim=-1) / norm
+        res_n = sum_fn(torch.abs(r_n)) / norm
         step = active & ~retry
         x, r, rhat = _sel(step, x_n, x), _sel(step, r_n, r), _sel(step, rhat_n, rhat)
         p, v = _sel(step, p_n, p), _sel(step, v_n, v)
@@ -189,14 +207,16 @@ def bicgstab(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000) -> Solve
 
 
 def jacobi_smooth(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
-                  n_sweeps=4, damping=0.8) -> SolverResult:
+                  n_sweeps=4, damping=0.8, sum_fn=_sum, dot_fn=_dot,
+                  mean_fn=_mean) -> SolverResult:
     """Damped-Jacobi smoothSolver: n_sweeps passes per convergence check,
     with a stagnation exit when a check fails to drop the residual by 1e-4
-    relative. `n_iterations` counts sweeps."""
+    relative. `n_iterations` counts sweeps. The reducers are the SPMD
+    injection points (see pcg)."""
     x0, b, diag, squeeze = _rows(x0, b, diag)
     rD = damping / diag
-    Ax0, norm = _norm_factor(matvec, x0, b)
-    res0 = torch.sum(torch.abs(b - Ax0), dim=-1) / norm
+    Ax0, norm = _norm_factor(matvec, x0, b, sum_fn, mean_fn)
+    res0 = sum_fn(torch.abs(b - Ax0)) / norm
     stop = torch.clamp(rel_tol * res0, min=tol_floor(tol, x0.dtype))
     x = x0.clone()
     it = torch.zeros(res0.shape, dtype=torch.int32, device=x0.device)
@@ -210,7 +230,7 @@ def jacobi_smooth(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
         x_n = x
         for _ in range(n_sweeps):
             x_n = x_n + rD * (b - matvec(x_n))
-        res_n = torch.sum(torch.abs(b - matvec(x_n)), dim=-1) / norm
+        res_n = sum_fn(torch.abs(b - matvec(x_n))) / norm
         x = _sel(active, x_n, x)
         res_prev = _sel(active, res, res_prev)
         res = _sel(active, res_n, res)
@@ -223,14 +243,21 @@ def ldu_matvec(g, diag, upper, lower):
     [nC] or [B, nC]; upper/lower are shared [nI] or per row [B, nI]. DIA:
     the product of dia_krylov.dia_matvec (K0's plain version). SEG:
     d·x + Σ_owned upper·x[nei] + Σ_neighbouring lower·x[own] through the
-    geometry's order-fixed tables."""
+    geometry's order-fixed tables, after the geometry's halo refresh of x
+    (`sync`: the identity on the global geometry; a partition's Krylov
+    iterates update only their owned cells, parallel/localize.py)."""
     if g.layout == "dia":
         from . import dia_krylov
 
         return lambda x: dia_krylov.dia_matvec(diag, upper, lower, g.offsets, x)
     own, nei = g.own, g.nei
-    return lambda x: diag * x + g.seg_both.last(
-        upper * x.index_select(-1, nei), lower * x.index_select(-1, own))
+
+    def mv(x):
+        x = g.sync(x, dim=-1)
+        return diag * x + g.seg_both.last(
+            upper * x.index_select(-1, nei), lower * x.index_select(-1, own))
+
+    return mv
 
 
 def solve_ldu(g, solver: str, diag, upper, lower, b, x0, tol: float = 1e-6,
@@ -240,7 +267,10 @@ def solve_ldu(g, solver: str, diag, upper, lower, b, x0, tol: float = 1e-6,
     Jacobi with max(maxIter, 200) rounds of 4 sweeps, any other → BiCGStab.
     DIA: the whole-solve kernels of dia_krylov (K2, K3, K1 on the card; the
     twins on the CPU). SEG: the twins with the SEG product on either device,
-    as the JAX package runs its flat solvers there; no kernel is launched."""
+    as the JAX package runs its flat solvers there; no kernel is launched.
+    The twins take the geometry's reducers (`solver_reducers`) and the
+    solution its halo refresh (`sync`): both the identity's equivalent on
+    the global geometry, psum-reduced and exchanged on a partition."""
     if g.layout == "dia":
         from . import dia_krylov
 
@@ -254,11 +284,14 @@ def solve_ldu(g, solver: str, diag, upper, lower, b, x0, tol: float = 1e-6,
         return kern(diag, upper, lower, b, x0, g.offsets, tol=tol, rel_tol=rel_tol,
                     max_iter=max_iter)
     mv = ldu_matvec(g, diag, upper, lower)
+    red = dict(zip(("sum_fn", "dot_fn", "mean_fn"), g.solver_reducers()))
     if solver in ("PCG", "GAMG"):
-        return pcg(mv, x0, b, diag, tol, rel_tol, max_iter)
-    if solver == "smoothSolver":
-        return jacobi_smooth(mv, x0, b, diag, tol, rel_tol, max(int(max_iter), 200))
-    return bicgstab(mv, x0, b, diag, tol, rel_tol, max_iter)
+        res = pcg(mv, x0, b, diag, tol, rel_tol, max_iter, **red)
+    elif solver == "smoothSolver":
+        res = jacobi_smooth(mv, x0, b, diag, tol, rel_tol, max(int(max_iter), 200), **red)
+    else:
+        res = bicgstab(mv, x0, b, diag, tol, rel_tol, max_iter, **red)
+    return res._replace(x=g.sync(res.x, dim=-1))
 
 
 def solve_scalar(m, x0: torch.Tensor, solver: str = "PCG", tol: float = 1e-6,
