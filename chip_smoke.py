@@ -14,8 +14,14 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      at different iterations, and on more rows than the card has blocks
      (the one-block-per-row kernels); K3's main-path solve is also timed
      through its one-block-per-row kernel, whose x must be bit-equal; K1 at
-     the banded fvDOM's shapes, 128 and 160 rows of 100k cells with a
-     matrix each (grid-wide with one block a row, and one block per row);
+     5, 32 and 64 rows and at the banded fvDOM's shapes, 128 and 160 rows of
+     100k cells with a matrix each, and on 128 rows that stop from 0 to some
+     18 iterations (the many-rows kernel); every K1 batch also through K1's
+     other layout (the many-rows kernel, or bicgstab_grid_kernel /
+     bicgstab_kernel where the rule takes the many-rows kernel), held to the
+     plain version too, and the many-rows kernel launched twice, bit-equal;
+     at CROSSOVER_ROWS and at 200 rows of 9k cells both layouts timed in
+     float32 with their bounds;
   4. the main path at 100k cells in float32: write_box_fire_case(50,40,50)
      → FireFoamSolver(device="cuda") → initial_state() → one warm-up step →
      make_chunk(20), with the kernels' launch counters checked, every logged
@@ -30,7 +36,9 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      firefoam_torch.models.run.main: 30 steps in chunks of 10; the same 20
      steps writing once (time directory + checkpoint); 10 steps resumed
      from that checkpoint. Each run's launch counts (per step K3 3, K1 1
-     plus the fvDOM steps, K2 2, plus 3 K2 of the hydrostatic init), the
+     plus the fvDOM steps, K2 2, plus 3 K2 of the hydrostatic init; K1's
+     split by device kernel: U on bicgstab_grid_kernel, the 16 ray rows on
+     bicgstab_rows_kernel), the
      function-object and rtis rows, the written T and U against the
      checkpoint, and the repeated and resumed rows against the
      uninterrupted run (equal: the step is bit-reproducible on the card);
@@ -42,14 +50,18 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      the two runs within 0.5 m/s and T within 0.05 relative (a K2 run with
      p_rgh in float64 beside it as the yardstick); the same pair from t = 0
      at 100k and at 500k cells (100, 50, 100), T and U within 0.5 K and 0.5
-     m/s; then, at 9k, 100k and
+     m/s; the 500k fire's first step with its first fvDOM ray launch run
+     again through each K1 kernel and the plain version (iterations and
+     failed rows, x finite), the step's logged rad_failedRows equal to its
+     ray launches' failed rows, and T, qr and G against the same step with
+     the rays on bicgstab_grid_kernel; then, at 9k, 100k and
      500k cells, one p_rgh system captured from a step and solved by K2 and
      gmg_pcg (at 9k also amg_pcg): ms, iterations, kernel launches and host
      reads per solve (torch.profiler), each x's normalised residual within
      the solve's tolerance;
   8. the exact solvers on the card, 9k cells in float64 with
      exact_solvers=True: the box fire (DIC-PCG on p_rgh) and the smoothSolver
-     case (symGaussSeidel on Yi, h, k) over 10 steps against the CPU's
+     case (symGaussSeidel on Yi, h, k) over 5 steps against the CPU's
      float64 run of the same configuration (T and U within 1e-6 relative for
      the box fire and 1e-3 for the smoothSolver case, whose start-up
      amplifies last-bit differences), the last of these steps from the CPU's
@@ -80,7 +92,9 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      step's launches and device-busy ms beside a step without radiation
      (torch.profiler); its K1 launch captured and run again alone beside the
      plain version on the same operands, x within RAD_X_TOL and each row's
-     true residual within RAD_RES_FACTOR of the plain version's; then at 9k
+     true residual within RAD_RES_FACTOR of the plain version's, with the
+     device kernel that served it (the many-rows kernel for the fvDOM's 16
+     and 128 rows) and K1's earlier layout timed on the same rows; then at 9k
      cells 10 steps of each of the three, float64 on the card against
      float64 on the CPU (T and U within CPU_TOL, G within G_TOL) and float32
      against float64 within the T drift band, and one radiation solve from
@@ -92,7 +106,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      solves run the plain twins and AMG): the castellated fire of the JAX
      package's unstructured scale row (write_castellated_fire_case
      (54,40,54), 2.0 x 1.5 x 2.0 m, mdot 0.01: about 117k cells) in
-     float32, make_chunk(20) from t = 0 with no K1-K3 launch, fields and
+     float32, make_chunk(10) from t = 0 with no K1-K3 launch, fields and
      logs finite, the gas heating, a second run bitwise equal (the SEG sums
      are order-fixed); its ms/step, launches, host reads and device-busy ms
      per step, the host's seconds for the castellation, the geometry tables
@@ -186,7 +200,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      lattice: ms a sub-cycle, peak memory and its row-block size, bitwise
      equal in blocks of LATTICE_BLOCK rows; at 9k cells both fires in
      phase 12's lockstep against the CPU (the DEM spray cut to
-     DEM_SMALL_CAPACITY slots; the multiphase fire's parcels carry fuel, so
+     DEM_SMALL_CAPACITY slots and DEM_STEPS steps; the multiphase fire's parcels carry fuel, so
      float32's own draws (R11) move where it burns: the band holds a float32
      run with float64's draws rounded, and the drift as drawn is printed),
      and every stock injector card against CPU;
@@ -195,7 +209,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      CUDA payloads staged through host buffers (counted and printed). The
      100k box fire in 4 RCB parts: one float64 step from the single card's
      SEG flat state after 10 steps within 1e-10 with equal iteration
-     counts, the same step again bitwise equal; 10 float32 steps timed
+     counts, the same step again bitwise equal; 4 float32 steps timed
      (ms/step, device-busy ms, collectives and bytes a step by kind, bytes
      staged) beside phase 4's box fire; the 100k box fire in 2 z-slabs,
      p_rgh by the sharded lattice multigrid, 3 float64 steps from t = 0
@@ -206,9 +220,13 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      RCB parts, 5 float64 steps: parcels equal and spray mass within 1e-8
      each step against the single card's SEG flat run, parcels migrating
      (seeded across the parts if none cross by themselves), none
-     overflowing, alive on more than one rank; each sub-run's seconds;
+     overflowing, alive on more than one rank. The three runs in 4 parts
+     share one launch of the ranks, the two slab runs another (the rank
+     processes start once a launch); each launch's seconds;
  16. the kernels' JSON line (with launches_multiphase_path,
-     launches_dem_path and launches_sharded_path), the DEM lattice's line,
+     launches_dem_path and launches_sharded_path; K1's entry with its
+     layouts by rows, `by_rows`, and its launches by device kernel on the
+     main path and the banded fvDOM's), the DEM lattice's line,
      the partitions' line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
@@ -268,23 +286,28 @@ GMG_TOL = 0.5
 # float64 is printed beside it as the yardstick of that sensitivity
 GMG_T_DRIFT = 0.05
 # phase 9: float32 T against float64 (phase 5's band), and the steps whose
-# launches and device time the profiler reads
+# launches and device time the profiler reads (the profiler costs seconds a
+# 100k step: one step, the one after the chunk, which solves no rays)
 T_DRIFT = 0.05
-PROFILE_STEPS = 3
-# phase 11: the profiler's steps on the 100k box fire on SEG and on DIA
-# (the step after 1 + 20, which solves no rays, as the two after it) and
-# the float64 SEG-against-DIA box fire's depth (1 + these steps, with the
-# radiation solves of steps 1 and 11 of 1 + 20)
-SEG_PROFILE_STEPS = 1
+PROFILE_STEPS = 1
+# phase 11: the float64 SEG-against-DIA box fire's depth (1 + these steps,
+# with the radiation solves of steps 1 and 11 of 1 + 20), and the castellated
+# fire's chunk (the next step solves the rays, as after CHUNK)
 SEG_F64_STEPS = 10
+CASTEL_CHUNK = 10
 # above propane's adiabatic flame temperature in air (about 2,270 K) and
 # below the thermo's upper clip: a diverged run sits at the clip
 T_FLAME_MAX = 3000.0
 CHUNK = 20
 DRIFT_STEPS = 10
-# K1 rows of the banded fvDOM: 32 rays x 4 bands (grid-wide, one block a
-# row on a 132-SM card) and x 5 bands (more rows than blocks)
+# K1 rows of the banded fvDOM: 32 rays x 4 bands and x 5 bands (more rows
+# than a 132-SM card has blocks)
 BANDED_ROWS = (128, 160)
+# K1's batch sizes at which phase 3 times both of its layouts on the same
+# rows (the many-rows kernel and bicgstab_grid_kernel, or bicgstab_kernel
+# beyond G rows): U (3), the Yi batch (4; 5 with Fstar), the fvDOM's grey
+# rays (16), more rays (32, 64) and the banded batches
+CROSSOVER_ROWS = (3, 4, 5, 16, 32, 64) + BANDED_ROWS
 # isothermal enclosure: |qr| against σT⁴ of the walls (the view factors'
 # closure comes from 50 scaling passes, not an exact normalisation)
 QR_ISO_TOL = 1e-3
@@ -298,7 +321,7 @@ FT_TABLE_TOL = 1e-4
 SPRAY_PPS = 20000.0
 SPRAY_CAPACITY = 262144
 SPRAY_PPS_SMALL = 2000.0
-SPRAY_PROFILE_STEPS = 2  # the profiler's steps (it costs about 6 s a 100k step)
+SPRAY_PROFILE_STEPS = 1  # the profiler's steps (it costs about 6 s a 100k step)
 # the 9k sprinkler fire's float64 card-vs-CPU chain after DRIFT_STEPS steps:
 # the species' shared convection weight takes the minimum of every species'
 # limiter, and those of species at 1e-70 flip with the last bit, so the
@@ -382,7 +405,7 @@ SOURCE_TOL = 1e-6
 SHARD_P = 4
 SHARD_BACKEND = "gloo"
 SHARD_WARM = 10
-SHARD_F32_STEPS = 10
+SHARD_F32_STEPS = 4
 SHARD_GMG_STEPS = 3
 SHARD_SPRAY_STEPS = 5
 SHARD_TOL = 1e-10
@@ -458,11 +481,14 @@ RAD_X_TOL = 1e-2
 RAD_RES_FACTOR = 10.0
 # one step on the card from the CPU's float64 state, against the CPU's step
 STEP_TOL = 1e-9
-# the smoothSolver case over DRIFT_STEPS steps from t = 0, card f64 vs CPU
+# the smoothSolver case over EXACT_STEPS steps from t = 0, card f64 vs CPU
 # f64: its start-up amplifies last-bit differences tenfold a step from step 5
 # on whatever solves Yi, h and k (with K3 and its twin U reads 6.1e-05 after
 # 10 steps, with symGaussSeidel 7.9e-05, iteration counts equal throughout)
 SMOOTH_CHAIN_TOL = 1e-3
+# phase 8's depth: the exact solvers' 9k runs take 0.5-0.8 s a step on an
+# H100 and on its host's CPU alike
+EXACT_STEPS = 5
 
 
 _T0 = time.perf_counter()
@@ -483,32 +509,34 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- phase 3
-def dia_system(rng, nxyz, B, per_row, sym, dtype, dev):
+def dia_system(gen, nxyz, B, per_row, sym, dtype, dev):
     """Random diagonally dominant DIA system(s) on the lattice stencil:
     (diag, upper, lower, b, x0) with [B, ...] rows, off-diagonals shared
-    when not per_row."""
+    when not per_row; drawn on the card from the generator `gen` in float64
+    and rounded to `dtype`."""
     nx, ny, nz = nxyz
     n = nx * ny * nz
     offs = (1, nx, nx * ny)
-    c = np.arange(n)
+    f8 = dict(dtype=torch.float64, device=dev)
+    c = torch.arange(n, device=dev)
     i, j, k = c % nx, (c // nx) % ny, c // (nx * ny)
     exists = [i + 1 < nx, j + 1 < ny, k + 1 < nz]
     rows = B if per_row else 1
-    up = np.zeros((rows, 3, n))
-    lo = np.zeros((rows, 3, n))
+    rand = lambda *shape: torch.rand(shape, generator=gen, **f8)
+    up = torch.zeros((rows, 3, n), **f8)
+    lo = torch.zeros((rows, 3, n), **f8)
     for kk in range(3):
-        v = -(0.5 + rng.rand(rows, n)) * exists[kk]
+        v = -(0.5 + rand(rows, n)) * exists[kk]
         up[:, kk] = v
-        lo[:, kk] = v if sym else v * (1.0 + 0.3 * rng.rand(rows, n))
-    diag = 1.0 + 0.1 * rng.rand(B, n)
+        lo[:, kk] = v if sym else v * (1.0 + 0.3 * rand(rows, n))
+    diag = 1.0 + 0.1 * rand(B, n)
     for kk, o in enumerate(offs):
-        u = up[:, kk] if per_row else np.broadcast_to(up[:, kk], (B, n))
-        l_ = lo[:, kk] if per_row else np.broadcast_to(lo[:, kk], (B, n))
+        u, l_ = up[:, kk].expand(B, n), lo[:, kk].expand(B, n)
         diag[:, : n - o] -= u[:, : n - o]
         diag[:, o:] -= l_[:, : n - o]
-    b = rng.randn(B, n)
-    x0 = 0.1 * rng.randn(B, n)
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+    b = torch.randn((B, n), generator=gen, **f8)
+    x0 = 0.1 * torch.randn((B, n), generator=gen, **f8)
+    t = lambda a: a.to(dtype).contiguous()
     up = up.reshape(rows, 3 * n)
     lo = lo.reshape(rows, 3 * n)
     if not per_row:
@@ -550,11 +578,43 @@ def streamed_ms(name, dtype, nC, iters):
     return 1e3 * nbytes / HBM_BYTES_S
 
 
-def latency_ms(name, iters, sync_s):
+def latency_ms(name, iters, sync_s, B=None):
     """iterations × grid barriers per iteration × the measured time of one
     grid barrier (plus the prologue's): the least a solve that synchronises
-    that often can take on this card."""
-    return 1e3 * sync_s * (BARRIERS_PROLOGUE + BARRIERS_ITER[name] * float(np.max(iters)))
+    that often can take on this card. `B`: K1's many-rows kernel on B rows,
+    whose two-stage reductions (from dia_krylov.ROWS_TWO_STAGE rows) pass
+    one more barrier each (three an iteration, two in the prologue)."""
+    extra = 0
+    if B is not None and B >= dia_krylov.ROWS_TWO_STAGE:
+        extra = 1
+    return 1e3 * sync_s * (BARRIERS_PROLOGUE * (1 + extra)
+                           + (BARRIERS_ITER[name] + 3 * extra) * float(np.max(iters)))
+
+
+def device_kernel(plan) -> str:
+    """The device kernel K1's plan takes (DEVICE_LAUNCHES' names)."""
+    return "bicgstab_rows" if plan.rows else "bicgstab_grid" if plan.grid_wide else "bicgstab"
+
+
+def k1_layout_row(d, up, lo, b, x0, it_k, sync_s, ms_of):
+    """K1 on these rows through both of its layouts (float32, phase 3): ms,
+    iterations and bounds; `ms_of(rows=...)` times one layout."""
+    B, nC = x0.shape
+    G = dia_krylov._coop_blocks("bicgstab", x0.dtype, 0)[0]
+    new = dia_krylov.grid_plan(B, nC, G, many_rows=True)
+    old = dia_krylov.grid_plan(B, nC, G, many_rows=False)
+    rows_ms, old_ms = ms_of(rows=True), ms_of(rows=False)
+    its = float(np.max(it_k))
+    return {"device_kernel": device_kernel(new), "rows_ms": rows_ms, "old_ms": old_ms,
+            "old_kernel": device_kernel(old), "iterations": int(its),
+            "ms": rows_ms if new.rows else old_ms,
+            "us_per_iteration": 1e3 * (rows_ms if new.rows else old_ms) / its,
+            "bound_ms": bound("bicgstab", x0.dtype, (d, up, lo, b, x0), it_k)[0],
+            "streamed_ms": streamed_ms("bicgstab", x0.dtype, nC, it_k),
+            "latency_ms_rows": latency_ms("bicgstab", it_k, sync_s, B),
+            "latency_ms_old": latency_ms("bicgstab", it_k, sync_s) if old.grid_wide else None,
+            "blocks": new.blocks_per_row if new.rows else (
+                B * new.blocks_per_row if new.grid_wide else B)}
 
 
 def phase_sync():
@@ -569,7 +629,7 @@ def phase_sync():
 
 
 def phase_kernels(dev, G, sync_s):
-    rng = np.random.RandomState(0)
+    rng = torch.Generator(device=dev).manual_seed(0)
     stats = {}
     smooth_kw = dict(max_iter=SMOOTH_SWEEPS)
     # (lattice, B, per-row matrices, rows stop apart)
@@ -577,7 +637,9 @@ def phase_kernels(dev, G, sync_s):
                  for B, pr in ((1, False), (3, False), (4, True), (16, True)))
     # the wall fire's species batch (Fstar makes it 5 rows) and the banded
     # fvDOM's (ray x band) batches, 32 x 4 and 32 x 5 rows: K1 only
-    wall = ((N_MAIN, 5, True, False),) + tuple((N_MAIN, B, True, False) for B in BANDED_ROWS)
+    wall = tuple((N_MAIN, B, True, False) for B in (5, 32, 64) + BANDED_ROWS)
+    # the many-rows kernel on 128 rows that stop from 0 to some 18 iterations
+    wall += ((N_MAIN, 128, True, True),)
     extra = ((N_SMALL, 1, False, False), (N_SMALL, 4, True, False), (N_SMALL, 4, True, True),
              (N_SMALL, G + 68, False, False))  # more rows than blocks: 200 on an H100
     for name, plain, kern, sym, shapes in (
@@ -599,7 +661,16 @@ def phase_kernels(dev, G, sync_s):
                 args = dict(tol=1e-8, rel_tol=0.0, max_iter=1000)
                 if name == "smooth":
                     args.update(smooth_kw)
-                if apart:  # right-hand sides of very different size and a relTol
+                if apart and B > 4:
+                    # heavier diagonals converge sooner, right-hand sides over
+                    # six decades, and 8 rows that start converged (b = A·x0)
+                    d = (d + torch.linspace(0, 6, B, dtype=dtype, device=dev)[:, None] ** 2
+                         ).contiguous()
+                    scale = 10.0 ** torch.linspace(-3, 3, B, dtype=dtype, device=dev)
+                    b = (b * scale[:, None]).contiguous()
+                    b[:8] = dia_krylov.dia_matvec(d, up, lo, offs, x0)[:8]
+                    args.update(tol=1e-7, rel_tol=0.0)
+                elif apart:  # right-hand sides of very different size and a relTol
                     scale = torch.tensor([1.0, 1e3, 1e-3, 30.0], dtype=dtype, device=dev)
                     b = (b * scale[:, None]).contiguous()
                     args.update(tol=1e-6, rel_tol=0.05)
@@ -629,17 +700,25 @@ def phase_kernels(dev, G, sync_s):
                 torch.cuda.synchronize()
                 it_k = rk.n_iterations.cpu().numpy()
                 it_p = rp.n_iterations.cpu().numpy()
+
+                def agrees(r):
+                    rel = float(((r.x - rp.x).abs().amax(-1) / rp.x.abs().amax(-1)).max())
+                    its = r.n_iterations.cpu().numpy()
+                    return rel, (rel <= xtol and np.all(np.abs(its - it_p) <= slack)
+                                 and bool(torch.isfinite(r.x).all()))
+
                 err = float((rk.x - rp.x).abs().max())
-                rel = float(((rk.x - rp.x).abs().amax(-1) / rp.x.abs().amax(-1)).max())
-                ok = rel <= xtol and np.all(np.abs(it_k - it_p) <= slack) and bool(
-                    torch.isfinite(rk.x).all()
-                )
+                rel, ok = agrees(rk)
                 if apart and len(set(it_p.tolist())) < 2:
                     raise SystemExit("phase 3: the rows meant to stop apart stopped together")
+                if apart and B > 4 and not (it_p == 0).any():
+                    raise SystemExit("phase 3: no row of the rows-apart batch started converged")
                 ms_k, ms_p = time_ms(run_k, reps=20), time_ms(run_p, reps=2)
                 plan, smem = dia_krylov._grid_launch_plan(name, dtype, B, nC, len(offs),
                                                           x0.element_size())
-                blocks = (f" grid-wide {B}x{plan.blocks_per_row} blocks of "
+                blocks = (f" many rows: {plan.blocks_per_row} blocks of {plan.cells_per_block} "
+                          f"cells in every row, {smem} B shared" if plan.rows else
+                          f" grid-wide {B}x{plan.blocks_per_row} blocks of "
                           f"{plan.cells_per_block} cells, {smem} B shared"
                           if plan.grid_wide else " one block per row")
                 show = (lambda a: a.tolist()) if B <= 16 else (
@@ -650,6 +729,46 @@ def phase_kernels(dev, G, sync_s):
                        f"max rel err {rel:.3e} kernel {ms_k:.3f} ms plain {ms_p:.3f} ms")
                 if not ok:
                     raise SystemExit(f"phase 3: {name} disagrees with its plain version")
+                if name == "bicgstab" and B <= dia_krylov.ROWS_MAX:
+                    # K1's other layout on the same rows, and the many-rows
+                    # kernel launched again: bit-equal
+                    other = laid_out(rows=not plan.rows)
+                    rel_o, ok_o = agrees(other)
+                    many = rk if plan.rows else other
+                    again = laid_out(rows=True)
+                    same = (torch.equal(again.x, many.x)
+                            and torch.equal(again.final_residual, many.final_residual)
+                            and torch.equal(again.n_iterations, many.n_iterations))
+                    say(3, f"bicgstab {str(dtype)[6:]} B={B}: the "
+                           f"{'earlier layout' if plan.rows else 'many-rows kernel'} on the same "
+                           f"rows: iters {show(other.n_iterations.cpu().numpy())} max rel err "
+                           f"{rel_o:.3e}; the many-rows kernel again bit-equal: {same}")
+                    if not ok_o:
+                        raise SystemExit("phase 3: K1's other layout disagrees with its plain "
+                                         "version")
+                    if not same:
+                        raise SystemExit("phase 3: two launches of the many-rows kernel differ")
+                    if nxyz == N_MAIN and dtype == torch.float32 and B in CROSSOVER_ROWS and (
+                            not apart):
+                        row = k1_layout_row(d, up, lo, b, x0, it_k, sync_s,
+                                            ms_laid_out)
+                        row["plain_ms"] = ms_p
+                        st[f"B{B}"] = row
+                        say(3, f"bicgstab B={B} {'per-row' if per_row else 'shared'} layouts: "
+                               f"many-rows kernel "
+                               f"{row['rows_ms']:.3f} ms, {row['old_kernel']} {row['old_ms']:.3f} "
+                               f"ms ({row['iterations']} iterations; the rule takes "
+                               f"{row['device_kernel']}); bound {row['bound_ms']:.4f} ms; "
+                               f"streamed {row['streamed_ms']:.4f} ms; grid barriers alone "
+                               f"{row['latency_ms_rows']:.4f} ms (many rows)")
+                    if nxyz == N_SMALL and dtype == torch.float32 and B > G:
+                        row = k1_layout_row(d, up, lo, b, x0, it_k, sync_s,
+                                            ms_laid_out)
+                        row["plain_ms"] = ms_p
+                        st[f"B{B}_9k"] = row
+                        say(3, f"bicgstab B={B} at {nC} cells: many-rows kernel "
+                               f"{row['rows_ms']:.3f} ms, {row['old_kernel']} "
+                               f"{row['old_ms']:.3f} ms")
                 st["max_abs_err"] = max(st["max_abs_err"], err)
                 # the main path's shapes in float32: U-like shared rows for
                 # K1, one p_rgh row for K2, one h or k row for K3 (whose
@@ -671,22 +790,6 @@ def phase_kernels(dev, G, sync_s):
                            f"{ms_laid_out(resident=False):.3f} ms; with at least 256 cells "
                            f"a block {ms_laid_out(min_cells=256):.3f} ms, 1024 cells "
                            f"{ms_laid_out(min_cells=1024):.3f} ms")
-                if (name == "bicgstab" and nxyz == N_MAIN and dtype == torch.float32
-                        and B in (5,) + BANDED_ROWS):
-                    row = {"ms": ms_k, "plain_ms": ms_p, "iterations": int(np.max(it_k)),
-                           "us_per_iteration": 1e3 * ms_k / float(np.max(it_k)),
-                           "bound_ms": bound(name, dtype, (d, up, lo, b, x0), it_k)[0],
-                           "streamed_ms": streamed_ms(name, dtype, nC, it_k),
-                           # one block per row: block barriers, no grid barrier
-                           "latency_ms": latency_ms(name, it_k, sync_s) if plan.grid_wide else None,
-                           "blocks": B * plan.blocks_per_row if plan.grid_wide else B}
-                    st[f"B{B}"] = row
-                    batch = "the wall fire's species" if B == 5 else "the banded fvDOM's"
-                    say(3, f"bicgstab B={B} per-row ({batch} batch): "
-                           f"{row['iterations']} iterations, {row['us_per_iteration']:.3f} us each, "
-                           f"{row['blocks']} blocks; bound {row['bound_ms']:.4f} ms; streamed "
-                           f"{row['streamed_ms']:.4f} ms; grid barriers alone "
-                           f"{'n/a' if row['latency_ms'] is None else format(row['latency_ms'], '.4f')} ms")
                 if name == "smooth" and nxyz == N_MAIN and B in (1, 4):
                     # the main path's h/k and Yi shapes through the kernel that
                     # takes B > G: a sweep is the same expression in both
@@ -844,6 +947,82 @@ def p_rgh_solver_times(phase, solvers, state, what):
     return out
 
 
+def first_ray_sweep(solver, state, what):
+    """One step from `state` with its fvDOM ray launches recorded, and the
+    first of them again through each of K1's device kernels and the plain
+    version: iterations and the rows each fails (a step that is not finite
+    ends a row at x0 and res0: linear.failed_rows). On the 500k box fire's
+    first sweep float32 Jacobi-BiCGStab leaves rays unsolved whatever the
+    kernel, and which rows overflow follows the order of the sums (ROADMAP
+    R18). The step's log must count its launches' failed rows
+    (rad_failedRows) and every x must be finite. Then the same step with
+    the ray rows on K1's grid-wide layout (bicgstab_grid_kernel): T, qr and G
+    against it, what this step's ray solves cost. Returns the step's
+    (state, logs)."""
+    got, failed_n, orig = [], [], dia_krylov.dia_bicgstab
+
+    def shim(*a, **k):
+        r = orig(*a, **k)
+        if (a[4].shape[0] if a[4].ndim == 2 else 1) > 4:
+            got.append((a, k))
+            failed_n.append(int(linear.failed_rows(r, k["tol"], k["rel_tol"]).sum()))
+        return r
+
+    dia_krylov.dia_bicgstab = shim
+    try:
+        out = solver.step(state)
+    finally:
+        dia_krylov.dia_bicgstab = orig
+    logged = int(out[1]["rad_failedRows"])
+    a, k = got[0]
+    launch = lambda **kw: dia_krylov._launch("bicgstab", *a, k["tol"], k["rel_tol"],
+                                             k["max_iter"], **kw)
+    runs = {"bicgstab_rows": lambda: launch(rows=True),
+            "bicgstab_grid": lambda: launch(rows=False),
+            "bicgstab": lambda: launch(grid_wide=False),
+            "plain": lambda: dia_krylov.plain(linear.bicgstab, *a, **k)}
+    parts, finite = [], True
+    for name, run in runs.items():
+        r = run()
+        its = r.n_iterations.cpu().numpy()
+        failed = linear.failed_rows(r, k["tol"], k["rel_tol"])
+        finite = finite and bool(torch.isfinite(r.x).all())
+        parts.append(f"{name} {int(its.min())}..{int(its.max())} iterations, failed rows "
+                     f"{failed.nonzero().reshape(-1).tolist()}")
+    say(7, f"{what}: its first fvDOM sweep ({a[4].shape[0]} rays) through each of K1's "
+           f"kernels and the plain version: {'; '.join(parts)}; every x finite: {finite}; the "
+           f"step's {len(got)} ray launch(es) failed {failed_n} rows, its log's rad_failedRows "
+           f"{logged}")
+    # the same step with the ray rows on bicgstab_grid_kernel
+    launch_k = dia_krylov._launch
+
+    def grid_rows(name, *a_, **k_):
+        if name == "bicgstab" and (a_[4].shape[0] if a_[4].ndim == 2 else 1) > 4:
+            k_["rows"] = False
+        return launch_k(name, *a_, **k_)
+
+    dia_krylov._launch = grid_rows
+    try:
+        ref, ref_log = solver.step(state)
+    finally:
+        dia_krylov._launch = launch_k
+    rad = solver.radiation
+    qr, qr_ref = rad.qr_boundary(out[0]["rad"]), rad.qr_boundary(ref["rad"])
+    G, G_ref = out[0]["rad"]["G"], ref["rad"]["G"]
+    say(7, f"{what}: that step against the same step with the ray rows on bicgstab_grid_kernel "
+           f"(failed rows {int(out[1]['rad_failedRows'])} and {int(ref_log['rad_failedRows'])}): "
+           f"max |dT| {float((out[0]['T'].i - ref['T'].i).abs().max()):.4e} K; max |qr| "
+           f"{float(qr.abs().max()):.4e} and {float(qr_ref.abs().max()):.4e} W/m2, max |dqr| "
+           f"{float((qr - qr_ref).abs().max()):.4e}; max |dG| / max |G| "
+           f"{float((G - G_ref).abs().max() / G_ref.abs().max()):.3e}")
+    if not finite:
+        raise SystemExit(f"phase 7: the {what}'s first ray sweep is not finite")
+    if logged != sum(failed_n):
+        raise SystemExit(f"phase 7: the {what}'s step logs {logged} failed ray rows, its "
+                         f"launches failed {sum(failed_n)}")
+    return out
+
+
 def gmg_pair(dev, case, k2, state, what, burning=False):
     """GMG_STEPS steps from `state` with K2 on p_rgh (solver `k2`) and with
     the lattice multigrid (a new solver, built and initialised inside the
@@ -928,7 +1107,7 @@ def phase_gmg(dev, tmp, main_case, main_solver, main_state, small_case):
     large_case = write_box_fire_case(os.path.join(tmp, "large"), n=N_LARGE)
     k2 = FireFoamSolver(large_case, device=dev, gmg=False)
     state = k2.initial_state()
-    state, _ = k2.step(state)
+    state, _ = first_ray_sweep(k2, state, "500k box fire")
     torch.cuda.synchronize()
     say(7, f"500k cells: case, mesh, solver, initial state and one step in "
            f"{time.perf_counter() - t0:.1f} s")
@@ -973,7 +1152,7 @@ _BOX_PROFILE = []
 
 def box_profile(box_solver, box_state):
     """(kernel launches, host reads, device-busy ms) per step of phase 4's
-    box fire over PROFILE_STEPS steps from its state (steps 22-24: no ray
+    box fire over PROFILE_STEPS steps from its state (from step 22: no ray
     solve), profiled once and printed beside each later phase's fire."""
     if not _BOX_PROFILE:
         _BOX_PROFILE.extend(step_profile(box_solver.make_step(), box_state, PROFILE_STEPS)[1:])
@@ -1010,6 +1189,7 @@ def phase_wall(dev, tmp, box_solver, box_state, box_ms):
         torch.cuda.synchronize()
         dt_s = time.perf_counter() - t0
         launches = dict(dia_krylov.LAUNCHES)
+        by_kernel = {k: v for k, v in dia_krylov.DEVICE_LAUNCHES.items() if v}
     finally:
         dia_krylov._launch = launch
     exp_k1, exp_k2 = expected_launches(solver.radiation, 0, CHUNK)
@@ -1030,7 +1210,8 @@ def phase_wall(dev, tmp, box_solver, box_state, box_ms):
            f"alphat max {float(state['alphat'].b[wall].max()):.3e}; fields finite {finite}, "
            f"non-finite log entries {bad_logs}, ray intensities finite {rays_finite}")
     say(9, f"launches K1 {launches['bicgstab']} (expected {exp_k1}, {b5} of them on the 5 "
-           f"species rows), K2 {launches['pcg']} (expected {exp_k2}), K3 {launches['smooth']}")
+           f"species rows), K2 {launches['pcg']} (expected {exp_k2}), K3 {launches['smooth']}; "
+           f"by device kernel {by_kernel}")
     if not finite or bad_logs or not rays_finite:
         raise SystemExit("phase 9: the wall fire is not finite")
     if not T0_max + 1.0 < T_max < T_FLAME_MAX:
@@ -1126,6 +1307,7 @@ def radiation_run(dev, case, what):
         torch.cuda.synchronize()
         dt_s = time.perf_counter() - t0
         launches = dict(dia_krylov.LAUNCHES)
+        by_kernel = {k: v for k, v in dia_krylov.DEVICE_LAUNCHES.items() if v}
     finally:
         dia_krylov._launch = launch
     n_rad = rad_launches(rad) - before
@@ -1152,7 +1334,7 @@ def radiation_run(dev, case, what):
     say(10, f"{what}: launches K1 {launches['bicgstab']} (expected {4 * CHUNK} + {n_rad} "
             f"radiation launches in {opportunities} radiation steps, {on_batch} of them with "
             f"{batch} rows), K2 {launches['pcg']} (expected {2 * CHUNK}), K3 "
-            f"{launches['smooth']}")
+            f"{launches['smooth']}; by device kernel {by_kernel}")
     if not finite or bad_logs:
         raise SystemExit(f"phase 10: the {what} run is not finite")
     if not T0_max + 1.0 < T_max < T_FLAME_MAX:
@@ -1174,7 +1356,7 @@ def radiation_run(dev, case, what):
     say(10, f"{what}: the same {CHUNK} steps again, states and logs bitwise equal: {same}")
     if not same:
         raise SystemExit(f"phase 10: two runs of the {what} case differ")
-    return solver, state, launches, ms
+    return solver, state, dict(launches, by_kernel=by_kernel), ms
 
 
 def profiled(step, state, n_steps):
@@ -1212,9 +1394,15 @@ def small_radiation_runs(dev, tmp, models):
             st = s.initial_state()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            st, _ = s.make_chunk(DRIFT_STEPS)(st)
+            st, _ = s.make_chunk(5)(st)
             torch.cuda.synchronize()
-            ms_run[run] = 1e3 * (time.perf_counter() - t0) / DRIFT_STEPS
+            secs = time.perf_counter() - t0
+            if run == "cpu":  # the state the tight solve below starts from
+                after5 = firefoam_mod.state_to_numpy(st)
+            t0 = time.perf_counter()
+            st, _ = s.make_chunk(DRIFT_STEPS - 5)(st)
+            torch.cuda.synchronize()
+            ms_run[run] = 1e3 * (secs + time.perf_counter() - t0) / DRIFT_STEPS
             sweeps[run] = rad_launches(s.radiation)
             its[run] = s.radiation.last_iters.cpu()
             out[run] = {f: torch.cat([st[f].i.reshape(-1), st[f].b.reshape(-1)]).double().cpu().numpy()
@@ -1235,7 +1423,7 @@ def small_radiation_runs(dev, tmp, models):
                 f"U {vs_cpu['U']:.3e}, G {vs_cpu['G']:.3e}; the last radiation launch's rows "
                 f"with other iteration counts on the card: {other} of {its['cpu'].numel()}; "
                 f"G float32 vs float64 {g32:.3e}")
-        tight = radiation_solve_vs_cpu(dev, case, model)
+        tight = radiation_solve_vs_cpu(dev, case, model, after5)
         if not np.all(np.isfinite(T32)) or not drift <= T_DRIFT:
             raise SystemExit(f"phase 10: {model} float32 drifts from float64 beyond the band")
         if not (max(vs_cpu["T"], vs_cpu["U"]) <= CPU_TOL and vs_cpu["G"] <= G_TOL
@@ -1243,17 +1431,15 @@ def small_radiation_runs(dev, tmp, models):
             raise SystemExit(f"phase 10: {model} on the card in float64 differs from the CPU's")
 
 
-def radiation_solve_vs_cpu(dev, case, model):
+def radiation_solve_vs_cpu(dev, case, model, host):
     """One radiation solve from the CPU's float64 state after 5 steps (the
-    solve that first sees the flame), on the card and on the CPU in float64
-    with the solve's tolerance at RAD_TIGHT_TOL: max |ΔG| / max |G|."""
-    G, its, host = {}, {}, None
+    solve that first sees the flame; `host`, state_to_numpy's), on the card
+    and on the CPU in float64 with the solve's tolerance at RAD_TIGHT_TOL:
+    max |ΔG| / max |G|."""
+    G, its = {}, {}
     for run, d in (("cpu", torch.device("cpu")), ("f64", dev)):
         s = FireFoamSolver(case, device=d, dtype=torch.float64, exact_solvers=False, gmg=False,
                            amg=False)
-        if host is None:
-            st, _ = s.make_chunk(5)(s.initial_state())
-            host = firefoam_mod.state_to_numpy(st)
         st = firefoam_mod.state_from_numpy(host, device=d, dtype=torch.float64)
         s.radiation.tol = RAD_TIGHT_TOL
         before = rad_launches(s.radiation)
@@ -1364,7 +1550,12 @@ def radiation_solve(solver, step, state, sync_s, what):
     ops, x0 = a[:5], a[4]
     run_k = lambda: orig(*a, **k)
     run_p = lambda: dia_krylov.plain(linear.bicgstab, *a, **k)
-    rk, rp = run_k(), run_p()
+    run_old = lambda: dia_krylov._launch("bicgstab", *a, k["tol"], k["rel_tol"], k["max_iter"],
+                                         rows=False)
+    before = dict(dia_krylov.DEVICE_LAUNCHES)
+    rk = run_k()
+    served = [n for n, v in dia_krylov.DEVICE_LAUNCHES.items() if v > before[n]]
+    rp = run_p()
     torch.cuda.synchronize()
     its = rk.n_iterations.reshape(-1).cpu().numpy()
     its_p = rp.n_iterations.reshape(-1).cpu().numpy()
@@ -1373,14 +1564,22 @@ def radiation_solve(solver, step, state, sync_s, what):
     worst = float(torch.max(res_k / torch.clamp(res_p, min=k["tol"])))
     plan, _ = dia_krylov._grid_launch_plan("bicgstab", x0.dtype, rows, x0.shape[-1],
                                            len(a[5]), x0.element_size())
-    out = {"ms": time_ms(run_k, reps=3), "plain_ms": time_ms(run_p, reps=1),
+    old = dia_krylov.grid_plan(rows, x0.shape[-1], dia_krylov._coop_blocks(
+        "bicgstab", x0.dtype, 0)[0], many_rows=False)
+    out = {"device_kernel": served[0], "ms": time_ms(run_k, reps=3),
+           "plain_ms": time_ms(run_p, reps=1),
+           "old_kernel": device_kernel(old), "old_ms": time_ms(run_old, reps=3),
            "iterations": int(its.max()), "rows": rows,
            "bound_ms": bound("bicgstab", x0.dtype, ops, its)[0],
            "streamed_ms": streamed_ms("bicgstab", x0.dtype, x0.shape[-1], its),
-           "latency_ms": latency_ms("bicgstab", its, sync_s) if plan.grid_wide else None,
-           "blocks": rows * plan.blocks_per_row if plan.grid_wide else rows}
-    say(10, f"{what}: its radiation solve ({rows} rows, captured in the step) alone: kernel "
-            f"{out['ms']:.3f} ms, {int(its.min())}..{int(its.max())} iterations; plain "
+           "latency_ms": (latency_ms("bicgstab", its, sync_s, rows if plan.rows else None)
+                          if plan.grid_wide else None),
+           "blocks": (plan.blocks_per_row if plan.rows else
+                      rows * plan.blocks_per_row if plan.grid_wide else rows)}
+    say(10, f"{what}: its radiation solve ({rows} rows, captured in the step) alone: "
+            f"{out['device_kernel']} {out['ms']:.3f} ms (the earlier layout, "
+            f"{out['old_kernel']}, {out['old_ms']:.3f} ms), "
+            f"{int(its.min())}..{int(its.max())} iterations; plain "
             f"{out['plain_ms']:.3f} ms, {int(its_p.min())}..{int(its_p.max())} iterations; max rel "
             f"difference of x {rel:.3e}; {out['blocks']} blocks; bound {out['bound_ms']:.4f} ms, "
             f"streamed {out['streamed_ms']:.4f} ms, grid barriers alone "
@@ -1388,6 +1587,8 @@ def radiation_solve(solver, step, state, sync_s, what):
     say(10, f"{what}: true normalised residuals (float64) kernel {float(res_k.max()):.3e}, "
             f"plain {float(res_p.max()):.3e} at tolerance {k['tol']:.0e}; the kernel's "
             f"largest row against max(plain, tolerance): {worst:.3f}")
+    if len(served) != 1 or served[0] != device_kernel(plan):
+        raise SystemExit(f"phase 10: the {what} radiation solve went through {served}")
     if not bool(torch.isfinite(rk.x).all()):
         raise SystemExit(f"phase 10: the {what} radiation solve is not finite alone")
     if not (rel <= RAD_X_TOL and worst <= RAD_RES_FACTOR):
@@ -1418,11 +1619,11 @@ def phase_radiation(dev, tmp, box_solver, box_state, box_ms, sync_s):
         solver, state, launches, ms = radiation_run(dev, case, what)
         step = solver.make_step()
         # the chunk ended at a radiation opportunity: the next step solves
-        # the radiation, the two after it do not
+        # the radiation, the one after it does not
         before = rad_launches(solver.radiation)
         st, k_rad, busy_rad, k1_ms, k1_n = profiled(step, state, 1)
         n_rad = rad_launches(solver.radiation) - before
-        _, k_no, busy_no, k1_ms_no, k1_n_no = profiled(step, st, 2)
+        _, k_no, busy_no, k1_ms_no, k1_n_no = profiled(step, st, 1)
         runs[model] = {"launches": launches, "k1_step_ms": (k1_ms - k1_ms_no) / n_rad,
                        "solve": radiation_solve(solver, step, state, sync_s, what)}
         say(10, f"{what} per step at {solver.geom.n_cells} cells float32: the radiation step "
@@ -1485,13 +1686,13 @@ def phase_exact(dev, tmp, box_case):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if run == "cpu":  # the last step apart: the card repeats it from the same state
-                before, _ = solver.make_chunk(DRIFT_STEPS - 1)(state)
+                before, _ = solver.make_chunk(EXACT_STEPS - 1)(state)
                 state, last = solver.step(before)
                 logs = None
             else:
-                state, logs = solver.make_chunk(DRIFT_STEPS)(state)
+                state, logs = solver.make_chunk(EXACT_STEPS)(state)
             torch.cuda.synchronize()
-            ms[run] = 1e3 * (time.perf_counter() - t0) / DRIFT_STEPS
+            ms[run] = 1e3 * (time.perf_counter() - t0) / EXACT_STEPS
             end[run], solvers[run] = state, solver
             if logs is not None:
                 its[run] = {k: [int(v) for v in logs[k]] for k in keys}
@@ -1512,7 +1713,7 @@ def phase_exact(dev, tmp, box_case):
         same_its = all(int(log[k]) == int(last[k]) for k in log
                        if k.endswith("_iters") or "iters_" in k)
         same = all(torch.equal(end["card"][f].i, end["card again"][f].i) for f in fields)
-        say(8, f"{what}, {end['cpu']['T'].i.numel()} cells float64, {DRIFT_STEPS} steps: card "
+        say(8, f"{what}, {end['cpu']['T'].i.numel()} cells float64, {EXACT_STEPS} steps: card "
                f"{ms['card']:.1f} ms/step, CPU {ms['cpu']:.1f} ms/step; card vs CPU after the "
                f"chain: T {chain['T']:.3e}, U {chain['U']:.3e} relative; the last step from the "
                f"CPU's state: T {one['T']:.3e}, U {one['U']:.3e}, iteration counts equal "
@@ -1591,10 +1792,18 @@ def phase_cli(tmp):
         dia_krylov.reset_counts()
         out = cli(base + args)
         got = dict(dia_krylov.LAUNCHES)
+        by_kernel = {k: v for k, v in dia_krylov.DEVICE_LAUNCHES.items() if v}
         exp = slice_launches(n_steps, count0, freq)
-        say(6, f"launches {got} (expected {exp})")
+        say(6, f"launches {got} (expected {exp}); by device kernel {by_kernel}")
         if got != exp:
             raise SystemExit("phase 6: kernel launch counts do not match the solves")
+        # the fvDOM's 16 ray rows go to K1's many-rows kernel, U's 3 to the
+        # grid-wide one
+        if not (by_kernel.get("bicgstab_rows", 0) > 0 and by_kernel.get("bicgstab_grid", 0) > 0
+                and sum(v for k, v in by_kernel.items() if k.startswith("bicgstab"))
+                == got["bicgstab"]):
+            raise SystemExit("phase 6: K1's launches do not split over its device kernels")
+        run.by_kernel = by_kernel
         rows = {sub: dat(case, sub) for sub in DATS}
         for sub, r in rows.items():
             if r.shape[0] != n_steps or not np.all(np.isfinite(r)):
@@ -1618,6 +1827,7 @@ def phase_cli(tmp):
         f.write(txt.replace("writeInterval 1000.0;", f"writeInterval {w!r};"))
     out_dir = os.path.join(tmp, "slice_out")
     out, launches, first = run(["--max-steps", "20", "--output", out_dir], 20, 0)
+    by_kernel = run.by_kernel
     m = re.search(r"([0-9.]+) ms/step, writing ([0-9.]+) s", out)
     ms, write_s = float(m.group(1)), float(m.group(2))
     times = sorted(d for d in os.listdir(out_dir) if d[0].isdigit())
@@ -1647,7 +1857,7 @@ def phase_cli(tmp):
     if not max(rep20, res10) <= RESUME_TOL:
         raise SystemExit(f"phase 6: a repeated or resumed run differs from the uninterrupted "
                          f"one beyond {RESUME_TOL}")
-    return launches
+    return launches, by_kernel
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1782,13 +1992,13 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
             f"seconds: mesh (blockMesh, castellation, topoSet, createPatch) "
             f"{host['mesh']:.2f}, geometry and SEG tables {host['geometry']:.2f}, AMG "
             f"hierarchy {host['solvers']:.2f}; case and solver {build_s:.1f} s")
-    chunk = solver.make_chunk(CHUNK)
+    chunk = solver.make_chunk(CASTEL_CHUNK)
     dia_krylov.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, logs = chunk(state0)
     torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / CHUNK
+    ms = 1e3 * (time.perf_counter() - t0) / CASTEL_CHUNK
     launches = dict(dia_krylov.LAUNCHES)
     fields = ("T", "U", "p_rgh", "Y", "k", "phi")
     finite = all(bool(torch.isfinite(state[f].i).all() and torch.isfinite(state[f].b).all())
@@ -1797,7 +2007,7 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
     rays_finite = bool(torch.isfinite(state["rad"]["I"]).all())
     T_max = float(state["T"].i.max())
     p_its = [[int(a), int(b)] for a, b in zip(logs["p_rgh_iters_0"], logs["p_rgh_iters_1"])]
-    say(11, f"castellated fire float32, make_chunk({CHUNK}) from t = 0: {ms:.3f} ms/step, "
+    say(11, f"castellated fire float32, make_chunk({CASTEL_CHUNK}) from t = 0: {ms:.3f} ms/step, "
             f"{n / (ms * 1e-3):.6e} cell-updates/s; T max {T_max:.3f} K (initially "
             f"{T0_max:.3f} K), Qdot_total {float(logs['Qdot_total'][-1]):.6e} W; fields finite "
             f"{finite}, non-finite log entries {bad_logs}, ray intensities finite {rays_finite}")
@@ -1814,7 +2024,8 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
     torch.cuda.synchronize()
     same = all(torch.equal(again[f].i, state[f].i) and torch.equal(again[f].b, state[f].b)
                for f in fields) and all(torch.equal(logs2[k], logs[k]) for k in logs)
-    say(11, f"the same {CHUNK} castellated steps again: states and logs bitwise equal: {same}")
+    say(11, f"the same {CASTEL_CHUNK} castellated steps again: states and logs bitwise equal: "
+            f"{same}")
     if not same:
         raise SystemExit("phase 11: two runs of the castellated fire differ")
     _, k_step, r_step, busy = step_profile(solver.make_step(), state, PROFILE_STEPS)
@@ -1867,7 +2078,7 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
     seg_launches += sum(dia_krylov.LAUNCHES.values())
     dT = float(((st["T"].i - box_state["T"].i).abs() / box_state["T"].i).max())
     dU = float((st["U"].i - box_state["U"].i).abs().max())
-    _, k_seg, r_seg, busy_seg = step_profile(seg.make_step(), st, SEG_PROFILE_STEPS)
+    _, k_seg, r_seg, busy_seg = step_profile(seg.make_step(), st, PROFILE_STEPS)
     k_dia, r_dia, busy_dia = box_profile(box_solver, box_state)
     del seg, st, st5, ref5
     # 1 + SEG_F64_STEPS steps in float64, both layouts on the same solvers
@@ -2132,8 +2343,9 @@ def phase_spray_cli(case, tmp, phase, what, keys=()):
                          "one")
 
 
-def phase_spray_small(dev, case, phase, what, capacity=None, aligned_draws=False):
-    """A 9k-cell spray fire: DRIFT_STEPS steps in float32 and float64 on the
+def phase_spray_small(dev, case, phase, what, capacity=None, aligned_draws=False,
+                      steps=DRIFT_STEPS):
+    """A 9k-cell spray fire: `steps` steps in float32 and float64 on the
     card and in float64 on the CPU, in lockstep: each step the card's
     float64 fields and parcels against the CPU's (the first step whose
     parcels part, and whose iteration counts part, is printed); then the
@@ -2156,9 +2368,9 @@ def phase_spray_small(dev, case, phase, what, capacity=None, aligned_draws=False
         states[run] = solvers[run].initial_state()
         secs[run] = 0.0
     rows, parted, iters_apart, before, last = [], None, None, None, None
-    for i in range(DRIFT_STEPS):
+    for i in range(steps):
         logs = {}
-        if i == DRIFT_STEPS - 1:
+        if i == steps - 1:
             before = firefoam_mod.state_to_numpy(states["cpu"])
         for run, _, _ in runs:
             torch.cuda.synchronize()
@@ -2187,7 +2399,7 @@ def phase_spray_small(dev, case, phase, what, capacity=None, aligned_draws=False
     out = {run: {f: states[run][f].i.double().cpu().numpy() for f in ("T", "U")}
            for run, _, _ in runs}
     alive = {run: int(states[run]["cloud"]["alive"].sum()) for run, _, _ in runs}
-    ms = {run: 1e3 * secs[run] / DRIFT_STEPS for run in secs}
+    ms = {run: 1e3 * secs[run] / steps for run in secs}
     T64 = out["f64"]["T"]
     drifts = {run: float(np.max(np.abs(out[run]["T"] - T64) / np.maximum(T64, 1.0)))
               for run in ("f32", "f32x") if run in out}
@@ -2209,7 +2421,7 @@ def phase_spray_small(dev, case, phase, what, capacity=None, aligned_draws=False
                f"{'; '.join(rows)}; "
                f"first step whose parcels part: {parted}; first solves whose iteration counts "
                f"part (card/CPU): {iters_apart}")
-    say(phase, f"{what} {T64.size} cells, {DRIFT_STEPS} steps: float32 {ms['f32']:.3f}, "
+    say(phase, f"{what} {T64.size} cells, {steps} steps: float32 {ms['f32']:.3f}, "
                f"float64 {ms['f64']:.3f}, CPU float64 {ms['cpu']:.1f} ms/step; float64 card vs "
                f"CPU: T {vs_cpu['T']:.3e}, U {vs_cpu['U']:.3e} relative (bound "
                f"{SPRAY_CHAIN_TOL:g}); "
@@ -2956,7 +3168,8 @@ def stock_injectors_vs_cpu(dev, case, solvers):
 
 def phase_stock_small(dev, tmp):
     """Both fires at 9k cells against the CPU (phase 12's lockstep), the DEM
-    spray cut to DEM_SMALL_CAPACITY slots; then every stock injector."""
+    spray cut to DEM_SMALL_CAPACITY slots and DEM_STEPS steps (0.8-1.1 s a
+    step on an H100 and on its host's CPU); then every stock injector."""
     multi = write_multiphase_spray_fire_case(os.path.join(tmp, "multi_small"), n=N_SMALL,
                                              pps=SPRAY_PPS_SMALL)
     # its parcels carry fuel: where float32's own draws put them (R11) the
@@ -2965,7 +3178,7 @@ def phase_stock_small(dev, tmp):
     solvers = phase_spray_small(dev, multi, 14, "multiphase spray fire", aligned_draws=True)
     dem = write_dem_spray_fire_case(os.path.join(tmp, "dem_small"), n=N_SMALL)
     phase_spray_small(dev, dem, 14, f"DEM spray ({DEM_SMALL_CAPACITY} slots)",
-                      capacity=DEM_SMALL_CAPACITY)
+                      capacity=DEM_SMALL_CAPACITY, steps=DEM_STEPS)
     stock_injectors_vs_cpu(dev, multi, solvers)
 
 
@@ -3023,30 +3236,18 @@ def seed_crossing_parcels(sp, state, n=120):
     return state
 
 
-def shard_box_f64(dev, main_case):
-    """The box fire in SHARD_P RCB parts, float64: one step from the single
-    card's SEG flat state after SHARD_WARM steps, and the same step again;
-    returns (the run, the readings, the initial state, the state stepped
-    from)."""
-    from firefoam_torch.parallel.spmd_step import SpmdFireFoam
-
-    t0 = time.perf_counter()
-    sp = SpmdFireFoam(main_case, SHARD_P, dtype=torch.float64, device=dev,
-                      backend=SHARD_BACKEND, partition="auto")
-    ref = sp.ref
-    state0 = ref.initial_state()
-    state = state0
-    for _ in range(SHARD_WARM):
-        state, _ = ref.step(state)
-    state1, log1 = ref.step(state)
-    out = sp.run(state, 1, deadline_s=SHARD_DEADLINE, repeat=True)
+def shard_box_f64(sp, out, state1, log1):
+    """The box fire in SHARD_P RCB parts, float64: its one step from the
+    single card's SEG flat state after SHARD_WARM steps (`out`, run with
+    repeat) against the single card's step (`state1`, `log1`); returns
+    the readings."""
     rel = shard_rel(out["state"], state1)
     its = {k: (int(out["logs"][0][k]), int(log1[k])) for k in SHARD_ITERS}
     c = comm_per_step(out)
-    say(15, f"box fire {ref.geom.n_cells} cells in {SHARD_P} {sp.partition.upper()} parts "
-            f"({SHARD_BACKEND}, ranks on {dev}, CUDA payloads staged through host buffers), "
-            f"float64, one step from the single card's SEG flat state after {SHARD_WARM} "
-            f"steps: relative differences {rel} (bound {SHARD_TOL:g}); iterations "
+    say(15, f"box fire {sp.ref.geom.n_cells} cells in {SHARD_P} {sp.partition.upper()} parts "
+            f"({SHARD_BACKEND}, ranks on {sp.device}, CUDA payloads staged through host "
+            f"buffers), float64, one step from the single card's SEG flat state after "
+            f"{SHARD_WARM} steps: relative differences {rel} (bound {SHARD_TOL:g}); iterations "
             f"(partitioned, single) {its}; collectives a step {comm_text(c)}; the same step "
             f"again bitwise equal {out['repeat_equal']}; K1-K3 launches {out['kernel_launches']}")
     if sp.partition != "rcb" or out["p_solver"] != "flat":
@@ -3055,20 +3256,12 @@ def shard_box_f64(dev, main_case):
         raise SystemExit("phase 15: the partitioned step departs from the single card's")
     if not out["repeat_equal"]:
         raise SystemExit("phase 15: two runs of the partitioned step differ")
-    say(15, f"box fire float64 in {SHARD_P} parts: {time.perf_counter() - t0:.1f} s")
-    readings = {"rel": rel, "iterations": its, **c, "repeat_equal": out["repeat_equal"]}
-    return out, readings, state0, state
+    return {"rel": rel, "iterations": its, **c, "repeat_equal": out["repeat_equal"]}
 
 
-def shard_box_f32(dev, main_case, state, main_ms):
-    """The box fire in SHARD_P RCB parts, float32, SHARD_F32_STEPS steps
-    timed (the last one profiled) from `state`."""
-    from firefoam_torch.parallel.spmd_step import SpmdFireFoam
-
-    t0 = time.perf_counter()
-    sp = SpmdFireFoam(main_case, SHARD_P, dtype=torch.float32, device=dev,
-                      backend=SHARD_BACKEND, partition="auto", build_ref=False)
-    out = sp.run(state, SHARD_F32_STEPS, deadline_s=SHARD_DEADLINE, profile=True)
+def shard_box_f32(out, main_ms):
+    """The box fire in SHARD_P RCB parts, float32: its SHARD_F32_STEPS steps
+    (`out`, the last one profiled) timed; returns the readings."""
     secs = out["seconds"]
     ms = 1e3 * float(np.mean(secs[1:-1]))
     busy = out["busy_ms"][-1] if out["busy_ms"] else float("nan")
@@ -3085,9 +3278,8 @@ def shard_box_f32(dev, main_case, state, main_ms):
             f"{out['setup_seconds']:.1f} s")
     if not finite:
         raise SystemExit("phase 15: the float32 partitioned run is not finite")
-    say(15, f"box fire float32 in {SHARD_P} parts: {time.perf_counter() - t0:.1f} s")
-    return out, {"ms_per_step": ms, "step_ms": [1e3 * x for x in secs], "device_busy_ms": busy,
-                 "single_card_dia_ms": main_ms, **c}
+    return {"ms_per_step": ms, "step_ms": [1e3 * x for x in secs], "device_busy_ms": busy,
+            "single_card_dia_ms": main_ms, **c}
 
 
 def tight_case(root: str) -> str:
@@ -3105,19 +3297,22 @@ def tight_case(root: str) -> str:
     return case
 
 
-def slab_vs_single(dev, case, start):
+def slab_job(dev, case, start):
     """The box fire `case` in two z-slabs (the sharded lattice multigrid on
     p_rgh), SHARD_GMG_STEPS float64 steps from `start` (a SEG state of the
-    case at t = 0), against the single card's DIA lattice multigrid from its
-    own initial state: (the partitioned run, its partition, the largest
-    differences per step, the p_rgh iterations per step, the single run's
-    field scales)."""
+    case at t = 0): a run_many job."""
     from firefoam_torch.parallel.spmd_step import SpmdFireFoam
 
-    f64 = torch.float64
-    sp = SpmdFireFoam(case, 2, dtype=f64, device=dev, backend=SHARD_BACKEND,
+    sp = SpmdFireFoam(case, 2, dtype=torch.float64, device=dev, backend=SHARD_BACKEND,
                       partition="auto", gmg=SHARD_GMG, build_ref=False)
-    out = sp.run(start, SHARD_GMG_STEPS, deadline_s=SHARD_DEADLINE, every_step=True)
+    return sp, start, SHARD_GMG_STEPS, {"every_step": True}
+
+
+def slab_vs_single(dev, case, sp, out):
+    """The two z-slabs' run `out` against the single card's DIA lattice
+    multigrid from its own initial state: (the largest differences per
+    step, the p_rgh iterations per step, the single run's field scales)."""
+    f64 = torch.float64
     s1 = FireFoamSolver(case, device=dev, dtype=f64, layout="dia", gmg=True)
     if sp.partition != "slab" or out["p_solver"] != "sharded_gmg" or s1.gmg is None:
         raise SystemExit("phase 15: the two z-slabs did not run the sharded multigrid")
@@ -3130,17 +3325,26 @@ def slab_vs_single(dev, case, start):
         steps.append({f: float(np.abs(np.asarray(out["states"][k][f].i)
                                       - st1[f].i.cpu().numpy()).max()) for f in SHARD_GMG_TOL})
     scale = {f: float(st1[f].i.abs().max()) for f in SHARD_GMG_TOL}
-    return out, sp, steps, pairs, scale
+    return steps, pairs, scale
 
 
 def shard_slab(dev, tmp, main_case, start):
     """The box fire in two z-slabs against the single card's DIA lattice
-    multigrid (slab_vs_single): at the case's tolerances from `start` (the
-    SEG flat solver's initial state), the p_rgh iterations within
-    test_spmd_gmg.py's bounds; with every solve at SHARD_TIGHT_TOL, the
-    fields within that test's bounds."""
+    multigrid (slab_vs_single), both runs in one launch of the ranks: at
+    the case's tolerances from `start` (the SEG flat solver's initial
+    state), the p_rgh iterations within test_spmd_gmg.py's bounds; with
+    every solve at SHARD_TIGHT_TOL, the fields within that test's bounds."""
+    from firefoam_torch.parallel.spmd_step import run_many
+
     t0 = time.perf_counter()
-    out, sp, steps, pairs, scale = slab_vs_single(dev, main_case, start)
+    tight = tight_case(os.path.join(tmp, "box_tight"))
+    # the partitioned run starts from the SEG flat solver's state, as above
+    start_t = FireFoamSolver(tight, device=dev, dtype=torch.float64, layout="seg",
+                             exact_solvers=False, gmg=False, amg=False).initial_state()
+    jobs = [slab_job(dev, main_case, start), slab_job(dev, tight, start_t)]
+    out, out_t = run_many(jobs, deadline_s=SHARD_DEADLINE)
+    sp = jobs[0][0]
+    steps, pairs, scale = slab_vs_single(dev, main_case, sp, out)
     c = comm_per_step(out)
     say(15, f"box fire in 2 {sp.partition} parts, p_rgh by the {out['p_solver']} "
             f"(slab dims {sp.lz.slab_dims}), float64, {SHARD_GMG_STEPS} steps from t = 0 "
@@ -3150,42 +3354,31 @@ def shard_slab(dev, tmp, main_case, start):
             f"{scale}); collectives a step {comm_text(c)}")
     if any(a > 25 or a > b + 15 for step in pairs for a, b in step):
         raise SystemExit("phase 15: the sharded multigrid's p_rgh iterations are out of bounds")
-    tight = tight_case(os.path.join(tmp, "box_tight"))
-    # the partitioned run starts from the SEG flat solver's state, as above
-    start_t = FireFoamSolver(tight, device=dev, dtype=torch.float64, layout="seg",
-                             exact_solvers=False, gmg=False, amg=False).initial_state()
-    out_t, _, steps_t, pairs_t, _ = slab_vs_single(dev, tight, start_t)
+    steps_t, pairs_t, _ = slab_vs_single(dev, tight, jobs[1][0], out_t)
     dif = steps_t[-1]
     say(15, f"the same with every linear solve at tolerance {SHARD_TIGHT_TOL:g} (relTol 0) on "
             f"both sides: max differences per step {steps_t} (bounds {SHARD_GMG_TOL}, test_spmd_"
             f"gmg.py's); p_rgh iterations (partitioned, single) {pairs_t}")
     if any(d[f] >= SHARD_GMG_TOL[f] for d in steps_t for f in d):
         raise SystemExit("phase 15: the sharded multigrid run is out of its bounds")
-    say(15, f"box fire in two z-slabs: {time.perf_counter() - t0:.1f} s")
+    say(15, f"box fire in two z-slabs, both runs in one launch of the ranks: "
+            f"{time.perf_counter() - t0:.1f} s")
     return [out, out_t], {
         "case_tolerance": {"max_diff_per_step": steps, "p_rgh_iterations": pairs, **c},
         "tight": {"tolerance": SHARD_TIGHT_TOL, "max_diff": dif, "max_diff_per_step": steps_t,
                   "bounds": SHARD_GMG_TOL, "p_rgh_iterations": pairs_t}}
 
 
-def shard_spray(dev, tmp):
-    """The sprinkler fire in SHARD_P parts, SHARD_SPRAY_STEPS float64 steps
-    against the single card's SEG flat run."""
-    from firefoam_torch.parallel.spmd_step import SpmdFireFoam
-
-    t0 = time.perf_counter()
-    case = write_spray_fire_case(os.path.join(tmp, "spray15"), n=N_MAIN, pps=SPRAY_PPS,
-                                 end_time=100.0)
-    sp = SpmdFireFoam(case, SHARD_P, dtype=torch.float64, device=dev, backend=SHARD_BACKEND,
-                      partition="auto")
+def shard_spray(sp, start, out):
+    """The sprinkler fire in SHARD_P parts: its SHARD_SPRAY_STEPS float64
+    steps (`out`, from `start`) against the single card's SEG flat run; if
+    no parcel migrated, once more with parcels seeded across the parts.
+    Returns (the run, the readings)."""
     seeded = False
-    start = sp.ref.initial_state()
-    while True:
-        out = sp.run(start, SHARD_SPRAY_STEPS, deadline_s=SHARD_DEADLINE)
-        if sum(int(lg["cloud_migrated"]) for lg in out["logs"]) > 0 or seeded:
-            break
+    if sum(int(lg["cloud_migrated"]) for lg in out["logs"]) == 0:
         seeded = True
         start = seed_crossing_parcels(sp, start)
+        out = sp.run(start, SHARD_SPRAY_STEPS, deadline_s=SHARD_DEADLINE)
     st = start
     rows = []
     for k in range(SHARD_SPRAY_STEPS):
@@ -3207,23 +3400,46 @@ def shard_spray(dev, tmp):
         raise SystemExit("phase 15: the partitioned spray departs from the single card's")
     if not (sum(r[3] for r in rows) > 0 and sum(a > 0 for a in alive) > 1):
         raise SystemExit("phase 15: no parcel migrated, or the parcels sit on one rank")
-    say(15, f"sprinkler fire in {SHARD_P} parts: {time.perf_counter() - t0:.1f} s")
     return out, {"steps": rows, "alive_per_rank": alive, "seeded": seeded, **c}
 
 
 def phase_partitions(dev, tmp, main_case, main_ms):
-    """Phase 15 (see the module docstring); returns (the kernels' launches
-    summed over the partitioned runs, the readings for the JSON line)."""
+    """Phase 15 (see the module docstring): the box fire's float64 and
+    float32 runs and the sprinkler fire's, all in SHARD_P parts, in one
+    launch of the ranks (they start once), then the two z-slab runs in
+    another; returns (the kernels' launches summed over the partitioned
+    runs, the readings for the JSON line)."""
+    from firefoam_torch.parallel.spmd_step import SpmdFireFoam, run_many
+
+    t0 = time.perf_counter()
+    kw = dict(device=dev, backend=SHARD_BACKEND, partition="auto")
+    box64 = SpmdFireFoam(main_case, SHARD_P, dtype=torch.float64, **kw)
+    state0 = box64.ref.initial_state()
+    state = state0
+    for _ in range(SHARD_WARM):
+        state, _ = box64.ref.step(state)
+    state1, log1 = box64.ref.step(state)
+    box32 = SpmdFireFoam(main_case, SHARD_P, dtype=torch.float32, build_ref=False, **kw)
+    spray_case = write_spray_fire_case(os.path.join(tmp, "spray15"), n=N_MAIN, pps=SPRAY_PPS,
+                                       end_time=100.0)
+    spray = SpmdFireFoam(spray_case, SHARD_P, dtype=torch.float64, **kw)
+    spray_start = spray.ref.initial_state()
+    set_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out64, out32, out_spray = run_many(
+        [(box64, state, 1, {"repeat": True}), (box32, state, SHARD_F32_STEPS, {"profile": True}),
+         (spray, spray_start, SHARD_SPRAY_STEPS, {})], deadline_s=SHARD_DEADLINE)
+    say(15, f"the three runs in {SHARD_P} parts in one launch of the ranks: "
+            f"{time.perf_counter() - t0:.1f} s (the partitions and the single card's "
+            f"{SHARD_WARM + 1} float64 steps before it: {set_s:.1f} s)")
     readings = {"backend": SHARD_BACKEND, "ranks_on": str(dev)}
-    out, readings["box_f64"], state0, state = shard_box_f64(dev, main_case)
-    runs = [out]
-    out, readings["box_f32"] = shard_box_f32(dev, main_case, state, main_ms)
-    runs.append(out)
+    readings["box_f64"] = shard_box_f64(box64, out64, state1, log1)
+    readings["box_f32"] = shard_box_f32(out32, main_ms)
+    out_spray, readings["spray"] = shard_spray(spray, spray_start, out_spray)
     outs, readings["slab_gmg"] = shard_slab(dev, tmp, main_case, state0)
-    runs.extend(outs)
-    out, readings["spray"] = shard_spray(dev, tmp)
-    runs.append(out)
-    launches = {k: sum(r["kernel_launches"][k] for r in runs) for k in ("bicgstab", "pcg", "smooth")}
+    runs = [out64, out32, out_spray] + outs
+    launches = {k: sum(r["kernel_launches"][k] for r in runs)
+                for k in ("bicgstab", "pcg", "smooth")}
     return launches, readings
 
 
@@ -3248,7 +3464,7 @@ def main():
         main_solver, main_state, main_ms = phase_main(dev, main_case)
         small_case = write_box_fire_case(os.path.join(tmp, "small"), n=N_SMALL)
         phase_drift(dev, small_case)
-        launches = phase_cli(tmp)
+        launches, main_by_kernel = phase_cli(tmp)
         gmg_launches, solve_ms = phase_gmg(dev, tmp, main_case, main_solver, main_state,
                                            small_case)
         phase_exact(dev, tmp, small_case)
@@ -3306,12 +3522,15 @@ def main():
         }
         for name_k in ("bicgstab", "pcg", "smooth")
     ]
-    # K1 on the wall fire's 5-row species batch and the banded fvDOM's 128
-    # and 160 rows (phase 3), and in the banded radiation step (phase 10)
-    for B in (5,) + BANDED_ROWS:
-        kernels[0].update({f"{k}_B{B}": v for k, v in stats["bicgstab"][f"B{B}"].items()})
+    # K1 through both of its layouts on the same rows (phase 3: the crossover
+    # batches at 100k cells and 200 rows at 9k), in the radiation steps
+    # (phase 10), and its launches by device kernel on the main path (phase
+    # 6's 20 CLI steps) and the banded fvDOM's (phase 10)
+    kernels[0]["by_rows"] = {k: v for k, v in stats["bicgstab"].items() if k.startswith("B")}
     kernels[0].update(radiation_solves={
         m: dict(r["solve"], in_step_ms=r["k1_step_ms"]) for m, r in rad_runs.items()})
+    kernels[0]["launches_by_device_kernel"] = main_by_kernel
+    kernels[0]["launches_by_device_kernel_radiation_path"] = banded["launches"]["by_kernel"]
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the slice was never launched")
     p_rgh = {str(n): {k: {"ms": v[0], "iterations": v[1]} for k, v in t.items()}

@@ -3,18 +3,23 @@
 // Replaces the Pallas kernels of firefoam_tpu/solvers/pallas_cg.py:
 //   K0  _dia_matvec (pallas_cg.py:187) and the normFactor prologue
 //       (:232-248)                       -> dia_row* / prologue* below
-//   K1  _bicgstab_kernel (:281-374)      -> bicgstab_grid_kernel, bicgstab_kernel
+//   K1  _bicgstab_kernel (:281-374)      -> bicgstab_grid_kernel, bicgstab_rows_kernel,
+//                                           bicgstab_kernel
 //   K2  _pcg_kernel (:201-278)           -> pcg_grid_kernel, pcg_kernel
 //   K3  _smooth_kernel (:377-456)        -> smooth_grid_kernel, smooth_kernel
 // The Python wrappers and the plain PyTorch twins are in
 // firefoam_torch/solvers/dia_krylov.py and solvers/linear.py.
 //
-// What bounds the three solvers on this card: not bytes. A 100k-cell row's
-// working set (a few MB) sits in the 50 MB L2, and a Krylov iteration is a
-// chain of dependent steps — a matvec, a dot product over the whole row, an
-// update, another dot product — as a Jacobi sweep depends on the one before
-// it, so a solve costs (iterations) x (synchronisations per iteration) x
-// (the latency of one synchronisation plus one pass).
+// What bounds the three solvers on this card: with a few rows, not bytes. A
+// 100k-cell row's working set (a few MB) sits in the 50 MB L2, and a Krylov
+// iteration is a chain of dependent steps — a matvec, a dot product over the
+// whole row, an update, another dot product — as a Jacobi sweep depends on
+// the one before it, so a solve costs (iterations) x (synchronisations per
+// iteration) x (the latency of one synchronisation plus one pass). With many
+// rows (the fvDOM's ray x band batches) the rows' vectors leave the L2, and
+// K1 streams them from HBM: bicgstab_rows_kernel below is laid out for that.
+// No kernel here uses the tensor cores: a DIA stencil and its dot products
+// have no matrix product in them.
 //
 // Design of the *_grid_kernel trio (K1, K2, K3): one system spread over the
 // whole card. The launch is cooperative (cudaLaunchCooperativeKernel), so
@@ -41,9 +46,16 @@
 // (or retries) does no work with x frozen, and the loop ends for the whole
 // grid when no row's flag (written before, read after a barrier) is set.
 //
-// When there are more rows than co-resident blocks the one-block-per-row
-// kernels (pcg_kernel, bicgstab_kernel, smooth_kernel: block barriers only)
-// are the right shape already and take the launch.
+// That layout fixes a row's blocks for the whole solve. With many rows it
+// leaves one block (one SM) a row, which cannot stream a 100k-cell row near
+// HBM's rate, and leaves the SMs of stopped rows idle while the slowest
+// rows finish. K1's batches of many rows therefore go to
+// bicgstab_rows_kernel (see there), where every block works its cells of
+// every row that still iterates. K2 and K3 have no such batches on the
+// port's paths: with more rows than co-resident blocks their
+// one-block-per-row kernels (pcg_kernel, smooth_kernel: block barriers
+// only) take the launch, as bicgstab_kernel does for K1 beyond the
+// many-rows kernel's row cap.
 //
 // Batch semantics: every row stops at its own rule and reports its own
 // iteration count, as a jax.vmap over firefoam_tpu/solvers/linear.py does.
@@ -96,6 +108,8 @@ struct Params {
   int resident;                  // 1: the block's slices live in dynamic shared memory
   T* slots;                      // [kSlots, gridDim.x] per-block partial sums
   int* flags;                    // [B] row still iterating
+  // bicgstab_rows_kernel only:
+  int rows;                      // B
 };
 
 // nz(): guard a denominator against exact zero, keeping its sign
@@ -271,7 +285,11 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Params<T> p) {
 // start of an iteration, or rhat·v after a step that did not restart (that
 // step is dropped and retried as a restart, uncounted). Dividing by the
 // clamped value instead overflows α or β to inf and then NaN; one fvDOM ray
-// of the 100k-cell box fire reaches rhat·v = 0 exactly.
+// of the 100k-cell box fire reaches rhat·v = 0 exactly. A step whose α, ω,
+// t·s or t·t is not finite fails the row: it returns x0 and res0 with the
+// steps it took (in float32 a ray of the 500k-cell box fire's first fvDOM
+// sweep can grow its residual until t·t overflows; the step would write NaN,
+// and the row's last finite iterate is far from any solution).
 // work: r, rhat, p, v, phat, s, shat, t.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) bicgstab_kernel(Params<T> p) {
@@ -348,6 +366,11 @@ __global__ void __launch_bounds__(kThreads) bicgstab_kernel(Params<T> p) {
     }
     block_sum<T, 2>(s2, sm);
     omega = s2[0] / nz(s2[1]);
+    if (!(isfinite(alpha) && isfinite(omega) && isfinite(s2[0]) && isfinite(s2[1]))) {
+      for (int c = threadIdx.x; c < nC; c += blockDim.x) x[c] = x0[c];
+      res = res0;
+      break;
+    }
     T s3[3] = {T(0), T(0), T(0)};
     for (int c = threadIdx.x; c < nC; c += blockDim.x) {
       x[c] = x[c] + alpha * phat[c] + omega * shat[c];
@@ -637,7 +660,8 @@ __global__ void __launch_bounds__(kThreads) pcg_grid_kernel(Params<T> p) {
 // rhat·v; s-hat published; t·s and t·t; Σ|r|, rhat·r and r·r). A row that
 // must retry (rhat·v ≈ 0 after a step that did not restart) drops the step
 // as bicgstab_kernel's `continue` does, but walks on through the trip's
-// remaining barriers doing nothing. work: as bicgstab_kernel.
+// remaining barriers doing nothing; a row whose step is not finite fails as
+// bicgstab_kernel's does. work: as bicgstab_kernel.
 // Resident slices: d, K upper, K lower, x, r, rhat, p, v, phat, s, shat, t
 // (10 + 2K vectors of L).
 template <typename T>
@@ -673,9 +697,9 @@ __global__ void __launch_bounds__(kThreads) bicgstab_grid_kernel(Params<T> p) {
   T res = res0, rho_old = T(1), alpha = T(1), omega = T(1);
   T rhr = rr;  // Σ rhat·r, fused into the previous residual pass
   int it = 0;
-  bool retry = false;
+  bool retry = false, failed = false;
   for (;;) {
-    const bool active = res > stop && it < p.max_iter;
+    const bool active = !failed && res > stop && it < p.max_iter;
     T rho = rhr;
     const bool restart = fabs(rho) < small * rr || it == 0 || retry ||
                          fabs(rho_old) < t6 || fabs(omega) < t6;
@@ -728,6 +752,10 @@ __global__ void __launch_bounds__(kThreads) bicgstab_grid_kernel(Params<T> p) {
     T s3[3] = {T(0), T(0), T(0)};
     if (work) {
       omega = s2[0] / nz(s2[1]);
+      failed = !(isfinite(alpha) && isfinite(omega) && isfinite(s2[0]) && isfinite(s2[1]));
+    }
+    const bool step = work && !failed;
+    if (step) {
       for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
         x[i] = x[i] + alpha * phat[i] + omega * shat[i];
         const T rc = sv[i] - omega * t[i];
@@ -737,8 +765,8 @@ __global__ void __launch_bounds__(kThreads) bicgstab_grid_kernel(Params<T> p) {
         s3[2] += rc * rc;
       }
     }
-    row_sum<T, 3>(grid, work, p, s, 8, s3, sm);
-    if (work) {
+    row_sum<T, 3>(grid, step, p, s, 8, s3, sm);
+    if (step) {
       res = s3[0] / norm;
       rhr = s3[1];
       rr = s3[2];
@@ -746,7 +774,531 @@ __global__ void __launch_bounds__(kThreads) bicgstab_grid_kernel(Params<T> p) {
       ++it;
     }
   }
+  if (failed) {  // the row returns x0 and res0
+    const T* x0 = p.x0 + (long long)s.row * n + s.c0;
+    for (int i = threadIdx.x; i < s.n; i += blockDim.x) x[i] = x0[i];
+    res = res0;
+  }
   finish_grid(p, s, x, res0, res, it);
+}
+
+// ------------------------------------------------------- K1 for many rows
+// bicgstab_rows_kernel: the arithmetic, the restart/retry rules and the
+// per-row stops of bicgstab_grid_kernel, laid out for batches of many rows
+// (the fvDOM's ray x band solves: 16, 128, 160 rows of 100k cells).
+//
+// What bounds it: bytes. A BiCGStab iteration streams 39 vectors of nC
+// values a row (phase 3 of chip_smoke.py counts them), and 128 rows of 100k
+// cells are 2 GB an iteration, forty times the L2: HBM's rate is the limit,
+// and an SM reaches its share of it only with tens of kB of loads in flight.
+// Each pass therefore issues all the loads of a batch of cells before it
+// uses any (rows_pass); on an H100 that streams the 39 vectors at 68-76 % of
+// HBM's rate from 16 rows up (PERF.md). Two other ways to feed HBM were
+// built and measured on the same rows, and both lost (PERF.md): staging
+// every operand through shared memory with bulk copies (cp.async.bulk into
+// up to four stages, an mbarrier each, a producer warp issuing an item's
+// 16-byte aligned windows, the x windows spanning c ± the near offsets) was
+// 20-28 % slower at 16 to 160 rows of 100k cells and 3.6 times slower at
+// 200 rows of 9k, where a block's slices are 96 cells; 16-byte loads of
+// four consecutive cells a lane in the light passes were 15-20 % slower
+// (a warp's stores of those cells then span four lines). The loads here
+// are already whole 128-byte lines a warp, and nothing is reused from
+// shared memory.
+//
+// The layout: one cooperative launch over `nblk` co-resident blocks, the
+// lattice's cells cut into nblk contiguous ranges of L (a multiple of 32)
+// as the wrapper's grid_plan cuts one row. Block j works its range of
+// EVERY row that still iterates, so all SMs stay on the work until the last
+// row stops; a stopped row costs its flag and nothing else.
+//   Within a block a pass is a list of items (row, chunk): a chunk is
+// kChunk consecutive cells of the block's range, a lane takes kLaneCells of
+// them 32 apart (a warp's loads are whole 128-byte lines), and the 32 warps
+// take the items in turn. So a block has loads of many rows in flight at
+// once, whatever the number of live rows, and a warp never waits for a
+// block barrier inside a pass.
+//   The live-row lists: each block keeps every row's scalars (rho_old,
+// alpha, omega, r·r, rhat·r, res, it, the retry and restart bits, the
+// normFactor) in its shared memory, computed from the same totals in the
+// same order in every block, so the lists of rows that iterate (`act`) and
+// that do the whole trip (`wrk`: active and not retrying) are the same in
+// every block without a flag exchange, and the loop ends in every block at
+// once. A trip has the grid kernel's 5 grid barriers (p-hat published;
+// rhat·v; s-hat published; t·s and t·t; Σ|r|, rhat·r and r·r), and a trip
+// in which every live row retries (or stops on a step that is not finite)
+// ends early.
+//   Reductions without float atomics: a warp sums its lanes (butterfly),
+// the block adds its chunks of a row in chunk order and writes the partial
+// to slots[site][row][block]; after the grid barrier a row's total is its
+// nblk partials added in one fixed order (row_total). Below kRowsTwoStage
+// rows every block adds every live row's partials itself; from it the
+// blocks share the rows out, publish the totals, and read them back after
+// one more barrier (phase 3 on an H100: that costs 2-17 % below 64 rows and
+// saves 0.3-1.6 % from 64). The orders depend on (B, nC, nblk) alone: two
+// launches give bit-equal results, and the two schemes the same bits.
+//   Loads: the read-only operands through the non-coherent path, the
+// vectors written in the launch through L2 (ld.global.cg), the neighbours
+// x[c±o] of p-hat and s-hat too. The passes after a publish (2 and 4) walk
+// the rows backwards, so the rows written last, still in L2, are read
+// first (0.7-3.4 % from 16 rows on an H100).
+constexpr int kWarps = kThreads / 32;
+constexpr int kLaneCells = 4;
+constexpr int kChunk = 32 * kLaneCells;
+constexpr int kGroupItems = 1024;  // items whose partials a block holds at once
+constexpr int kMaxRows = kThreads;  // one thread a row in the list scan
+// from this many rows the row totals are summed in two stages (rows_reduce)
+constexpr int kRowsTwoStage = 64;
+enum : int { kActive = 1, kRestart = 2, kRetry = 4, kWork = 8, kFailed = 16 };
+
+template <typename T>
+struct RowState {
+  T norm, stop, res0, res, rho_old, alpha, omega, rhr, rr, rho, beta, xref;
+  int it, bits;
+};
+
+__host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
+
+// dynamic shared memory of bicgstab_rows_kernel for B rows: the row totals
+// of the last reduction [3][B], the item partials [kGroupItems][3], the
+// rows' scalars [B], the two row lists [B] each and the scan's 33 ints
+template <typename T>
+__host__ __device__ constexpr size_t rows_smem_bytes(int B) {
+  return align16(3 * (size_t)B * sizeof(T)) + align16((size_t)kGroupItems * 3 * sizeof(T)) +
+         align16((size_t)B * sizeof(RowState<T>)) + align16(2 * (size_t)B * sizeof(int)) +
+         align16(33 * sizeof(int));
+}
+
+template <typename T>
+struct Rows {
+  int B, nblk, c0, n, nch;
+  T* tot;
+  T* part;
+  RowState<T>* st;
+  int* act;
+  int* wrk;
+  int* scan;
+};
+
+template <typename T>
+__device__ __forceinline__ Rows<T> rows_view(const Params<T>& p, unsigned char* smem) {
+  Rows<T> rw;
+  rw.B = p.rows;
+  rw.nblk = gridDim.x;
+  const long long at = (long long)blockIdx.x * p.L;
+  rw.c0 = at < p.nC ? (int)at : p.nC;
+  rw.n = min(p.L, p.nC - rw.c0);
+  rw.nch = (p.L + kChunk - 1) / kChunk;
+  unsigned char* m = smem;
+  rw.tot = reinterpret_cast<T*>(m);
+  m += align16(3 * (size_t)rw.B * sizeof(T));
+  rw.part = reinterpret_cast<T*>(m);
+  m += align16((size_t)kGroupItems * 3 * sizeof(T));
+  rw.st = reinterpret_cast<RowState<T>*>(m);
+  m += align16((size_t)rw.B * sizeof(RowState<T>));
+  rw.act = reinterpret_cast<int*>(m);
+  rw.wrk = rw.act + rw.B;
+  m += align16(2 * (size_t)rw.B * sizeof(int));
+  rw.scan = reinterpret_cast<int*>(m);
+  return rw;
+}
+
+// The rows whose bits have `bit` set, in row order, into `list`; returns
+// their number. Rows and threads one to one (B <= kThreads). Every thread
+// has read the count before the closing barrier, so the next call may
+// reuse `scan`.
+template <typename T>
+__device__ __forceinline__ int rows_list(const Rows<T>& rw, int bit, int* list) {
+  const int q = threadIdx.x, lane = q & 31, warp = q >> 5;
+  const bool f = q < rw.B && (rw.st[q].bits & bit);
+  const unsigned m = __ballot_sync(0xffffffffu, f);
+  if (lane == 0) rw.scan[warp] = __popc(m);
+  __syncthreads();
+  if (warp == 0) {
+    const int c = rw.scan[lane];
+    int incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    __syncwarp();
+    rw.scan[lane] = incl - c;
+    if (lane == 31) rw.scan[32] = incl;
+  }
+  __syncthreads();
+  if (f) list[rw.scan[warp] + __popc(m & ((1u << lane) - 1u))] = q;
+  const int count = rw.scan[32];
+  __syncthreads();
+  return count;
+}
+
+// One pass over the items of the rows in `list` (see above). A lane takes
+// its cells CB at a time: `load(row, c, ops)` reads every operand of cell c
+// into registers, from addresses that are valid whether or not the cell
+// (or its neighbour) exists, then `apply(row, c, ops, acc)` computes and
+// stores the cells that exist and adds their N contributions to acc, in
+// cell order. Loads first: program order would keep a cell's loads behind
+// the stores of the cell before it, and a thread would wait a round trip
+// to memory per cell and per dependent load instead of per batch. With
+// N > 0 the block's partial of each row goes to slots[site + j][row][block]
+// (the chunks added in chunk order); the block's threads then meet at two
+// block barriers a group of kGroupItems items.
+template <typename T, int N, int CB, typename Ops, typename Load, typename Apply>
+__device__ __forceinline__ void rows_pass(const Params<T>& p, const Rows<T>& rw, const int* list,
+                                          int nlist, bool reverse, int site, Load load,
+                                          Apply apply) {
+  constexpr int M = N > 0 ? N : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per = max(1, kGroupItems / rw.nch);
+  for (int g0 = 0; g0 < nlist; g0 += per) {
+    const int gn = min(per, nlist - g0);
+    for (int item = warp; item < gn * rw.nch; item += kWarps) {
+      const int q = g0 + item / rw.nch;
+      const int row = list[reverse ? nlist - 1 - q : q];
+      const int i0 = (item % rw.nch) * kChunk + lane;
+      T acc[M];
+#pragma unroll
+      for (int j = 0; j < M; ++j) acc[j] = T(0);
+#pragma unroll
+      for (int k0 = 0; k0 < kLaneCells; k0 += CB) {
+        if (i0 + 32 * k0 >= rw.n) break;
+        Ops ops[CB];
+#pragma unroll
+        for (int k = 0; k < CB; ++k)
+          load(row, rw.c0 + min(i0 + 32 * (k0 + k), rw.n - 1), ops[k]);
+#pragma unroll
+        for (int k = 0; k < CB; ++k) {
+          const int i = i0 + 32 * (k0 + k);
+          if (i < rw.n) apply(row, rw.c0 + i, ops[k], acc);
+        }
+      }
+      if constexpr (N > 0) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          for (int o = 16; o > 0; o >>= 1) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+          if (lane == 0) rw.part[item * N + j] = acc[j];
+        }
+      }
+    }
+    if constexpr (N > 0) {
+      __syncthreads();
+      const long long plane = (long long)rw.B * rw.nblk;
+      for (int t = threadIdx.x; t < gn * N; t += kThreads) {
+        const int qq = t / N, j = t % N;
+        const int q = g0 + qq;
+        const int row = list[reverse ? nlist - 1 - q : q];
+        T s = T(0);
+        for (int ch = 0; ch < rw.nch; ++ch) s += rw.part[(qq * rw.nch + ch) * N + j];
+        __stcg(p.slots + (site + j) * plane + (long long)row * rw.nblk + blockIdx.x, s);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// A row's total: its nblk partials, lane j taking j, j + 32, ... in order,
+// then a butterfly (every lane holds the same bits).
+template <typename T>
+__device__ __forceinline__ T row_total(const T* col, int nblk) {
+  const int lane = threadIdx.x & 31;
+  T t = T(0);
+  for (int j = lane; j < nblk; j += 32) t += __ldcg(col + j);
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+  return t;
+}
+
+// The totals of sites [site, site + N) of the rows in `list`, into
+// rw.tot[j][row] of every block: one grid barrier, two from kRowsTwoStage
+// rows (the totals then pass through slots' tail [kSlots][B]).
+template <typename T, int N>
+__device__ __forceinline__ void rows_reduce(cg::grid_group& grid, const Params<T>& p,
+                                            const Rows<T>& rw, const int* list, int nlist,
+                                            int site) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long plane = (long long)rw.B * rw.nblk;
+  T* totals = p.slots + kSlots * plane;
+  grid.sync();
+  const int pairs = nlist * N;
+  if (rw.B >= kRowsTwoStage) {
+    for (int P = blockIdx.x * kWarps + warp; P < pairs; P += rw.nblk * kWarps) {
+      const int row = list[P / N], j = P % N;
+      const T t = row_total(p.slots + (site + j) * plane + (long long)row * rw.nblk, rw.nblk);
+      if (lane == 0) __stcg(totals + (long long)(site + j) * rw.B + row, t);
+    }
+    grid.sync();
+    for (int P = threadIdx.x; P < pairs; P += kThreads) {
+      const int row = list[P / N], j = P % N;
+      rw.tot[j * rw.B + row] = __ldcg(totals + (long long)(site + j) * rw.B + row);
+    }
+  } else {
+    for (int P = warp; P < pairs; P += kWarps) {
+      const int row = list[P / N], j = P % N;
+      const T t = row_total(p.slots + (site + j) * plane + (long long)row * rw.nblk, rw.nblk);
+      if (lane == 0) rw.tot[j * rw.B + row] = t;
+    }
+  }
+  __syncthreads();
+}
+
+// One cell's operands of K0 (row c of M·x): d, x at c, and for each offset
+// the upper coefficient with x[c+o] and the lower one with x[c−o]. KK is K
+// (3 on a lattice) or kMaxOffsets with offsets k >= K read as offset 0; an
+// absent neighbour's pair is read at cell c itself. Both are left out of
+// the sums, which add in dia_row_s's order.
+template <typename T, int KK>
+struct Cell0 {
+  T d, xc, u[KK], xu[KK], l[KK], xl[KK];
+};
+
+template <typename T, int KK>
+__device__ __forceinline__ void load_cell(const Params<T>& p, const T* d, const T* up,
+                                          const T* lo, const T* xrow, int c, Cell0<T, KK>& s) {
+  s.d = __ldg(d + c);
+  s.xc = __ldcg(xrow + c);
+#pragma unroll
+  for (int k = 0; k < KK; ++k) {
+    const int kk = k < p.K ? k : 0;
+    const int o = p.off[kk];
+    const int cu = c + o < p.nC ? c + o : c;
+    const int cl = c >= o ? c - o : c;
+    s.u[k] = __ldg(up + (long long)kk * p.nC + c);
+    s.xu[k] = __ldcg(xrow + cu);
+    s.l[k] = __ldg(lo + (long long)kk * p.nC + cl);
+    s.xl[k] = __ldcg(xrow + cl);
+  }
+}
+
+// Σ u·x[c+o] + Σ l·x[c−o] over the neighbours that exist; `xr`: every
+// neighbour's x replaced by xr (the normFactor's A·x̄)
+template <typename T, int KK>
+__device__ __forceinline__ T off_sum(const Params<T>& p, const Cell0<T, KK>& s, int c,
+                                     bool constant, T xr) {
+  T own = T(0), nei = T(0);
+#pragma unroll
+  for (int k = 0; k < KK; ++k)
+    if (k < p.K && c + p.off[k] < p.nC) own += s.u[k] * (constant ? xr : s.xu[k]);
+#pragma unroll
+  for (int k = 0; k < KK; ++k)
+    if (k < p.K && c >= p.off[k]) nei += s.l[k] * (constant ? xr : s.xl[k]);
+  return own + nei;
+}
+
+// work: as bicgstab_kernel (r, rhat, p, v, phat, s, shat, t); x is written
+// in place in p.x. KK: see Cell0.
+template <typename T, int KK>
+__global__ void __launch_bounds__(kThreads) bicgstab_rows_kernel(Params<T> p) {
+  constexpr int CB = sizeof(T) == 4 ? 4 : 2;  // cells a lane loads at once in the light passes
+  cg::grid_group grid = cg::this_grid();
+  const Rows<T> rw = rows_view(p, ffk_dyn_smem);
+  const long long n = p.nC;
+  const int B = rw.B;
+  RowState<T>* st = rw.st;
+  auto D = [&](int row) { return p.diag + row * p.sd; };
+  auto U = [&](int row) { return p.upper + row * p.su; };
+  auto Lo = [&](int row) { return p.lower + row * p.sl; };
+  auto W = [&](int row) { return p.work + (long long)row * 8 * n; };
+  struct One { T a; };
+  struct Three { T a, b, c; };
+  struct Six { T a, b, c, d, e, f; };
+  struct Mat { Cell0<T, KK> m; T a; };
+
+  // prologue (prologue_grid's arithmetic): x = x0 and Σx0; then r = b − A·x0,
+  // the normFactor, Σ|r| and r·r; rhat = r, p = v = 0
+  for (int q = threadIdx.x; q < B; q += kThreads) rw.act[q] = q;
+  __syncthreads();
+  rows_pass<T, 1, CB, One>(
+      p, rw, rw.act, B, false, 0,
+      [&](int row, int c, One& o) { o.a = __ldg(p.x0 + row * n + c); },
+      [&](int row, int c, const One& o, T(&a)[1]) {
+        p.x[row * n + c] = o.a;
+        a[0] += o.a;
+      });
+  rows_reduce<T, 1>(grid, p, rw, rw.act, B, 0);
+  for (int q = threadIdx.x; q < B; q += kThreads) st[q].xref = rw.tot[q] / T(p.nC);
+  __syncthreads();
+  rows_pass<T, 3, 1, Mat>(
+      p, rw, rw.act, B, false, 1,
+      [&](int row, int c, Mat& o) {
+        load_cell(p, D(row), U(row), Lo(row), p.x0 + row * n, c, o.m);
+        o.a = __ldg(p.b + row * n + c);
+      },
+      [&](int row, int c, const Mat& o, T(&a)[3]) {
+        const T xref = st[row].xref;
+        const T ax = o.m.d * o.m.xc + off_sum(p, o.m, c, false, T(0));
+        const T ar = o.m.d * xref + off_sum(p, o.m, c, true, xref);
+        const T rc = o.a - ax;
+        T* w = W(row);
+        w[c] = rc;
+        w[n + c] = rc;
+        w[2 * n + c] = T(0);
+        w[3 * n + c] = T(0);
+        a[0] += fabs(ax - ar) + fabs(o.a - ar);
+        a[1] += fabs(rc);
+        a[2] += rc * rc;
+      });
+  rows_reduce<T, 3>(grid, p, rw, rw.act, B, 1);
+  for (int q = threadIdx.x; q < B; q += kThreads) {
+    RowState<T>& s = st[q];
+    s.norm = rw.tot[q] + Lim<T>::tiny() * T(1e6);
+    s.res0 = rw.tot[B + q] / s.norm;
+    s.rr = rw.tot[2 * B + q];
+    s.stop = stop_at(p, s.res0);
+    s.res = s.res0;
+    s.rho_old = s.alpha = s.omega = T(1);
+    s.rhr = s.rr;  // Σ rhat·r, fused into the previous residual pass
+    s.it = 0;
+    s.bits = 0;
+  }
+  const T small = Lim<T>::tiny() * T(1e3);
+  const T t6 = Lim<T>::tiny() * T(1e6);
+  for (;;) {
+    for (int q = threadIdx.x; q < B; q += kThreads) {
+      RowState<T>& s = st[q];
+      const bool active = !(s.bits & kFailed) && s.res > s.stop && s.it < p.max_iter;
+      T rho = s.rhr;
+      const bool restart = fabs(rho) < small * s.rr || s.it == 0 || (s.bits & kRetry) ||
+                           fabs(s.rho_old) < t6 || fabs(s.omega) < t6;
+      if (restart) rho = s.rr;
+      s.rho = rho;
+      if (active) s.beta = restart ? T(0) : (rho / nz(s.rho_old)) * (s.alpha / nz(s.omega));
+      s.bits = (active ? kActive : 0) | (restart ? kRestart : 0) | (s.bits & (kRetry | kFailed));
+    }
+    const int nact = rows_list(rw, kActive, rw.act);
+    if (nact == 0) break;
+    // p = r + β(p − ωv), p-hat = p/d published (rhat = r on a restart)
+    rows_pass<T, 0, CB, Six>(
+        p, rw, rw.act, nact, false, 0,
+        [&](int row, int c, Six& o) {
+          const T* w = W(row);
+          o.a = __ldcg(w + c);
+          o.b = __ldcg(w + 2 * n + c);
+          o.c = __ldcg(w + 3 * n + c);
+          o.d = __ldg(D(row) + c);
+        },
+        [&](int row, int c, const Six& o, T(&)[1]) {
+          const RowState<T>& s = st[row];
+          T* w = W(row);
+          if (s.bits & kRestart) w[n + c] = o.a;
+          const T pc = o.a + s.beta * (o.b - s.omega * o.c);
+          w[2 * n + c] = pc;
+          w[4 * n + c] = (T(1) / o.d) * pc;
+        });
+    grid.sync();
+    // v = A·p-hat, rhat·v
+    rows_pass<T, 1, 1, Mat>(
+        p, rw, rw.act, nact, true, 5,
+        [&](int row, int c, Mat& o) {
+          const T* w = W(row);
+          load_cell(p, D(row), U(row), Lo(row), w + 4 * n, c, o.m);
+          o.a = __ldcg(w + n + c);
+        },
+        [&](int row, int c, const Mat& o, T(&a)[1]) {
+          const T vc = o.m.d * o.m.xc + off_sum(p, o.m, c, false, T(0));
+          W(row)[3 * n + c] = vc;
+          a[0] += o.a * vc;
+        });
+    rows_reduce<T, 1>(grid, p, rw, rw.act, nact, 5);
+    for (int q = threadIdx.x; q < B; q += kThreads) {
+      RowState<T>& s = st[q];
+      bool retry = false, work = false;
+      if (s.bits & kActive) {
+        const T s1 = rw.tot[q];
+        retry = !(s.bits & kRestart) && fabs(s1) < t6;
+        work = !retry;
+        if (work) s.alpha = s.rho / nz(s1);
+      }
+      s.bits = (s.bits & (kActive | kRestart | kFailed)) | (retry ? kRetry : 0) |
+               (work ? kWork : 0);
+    }
+    int nwrk = rows_list(rw, kWork, rw.wrk);
+    if (nwrk == 0) continue;  // every live row retries: the trip is dropped
+    // s = r − αv, s-hat = s/d published
+    rows_pass<T, 0, CB, Three>(
+        p, rw, rw.wrk, nwrk, false, 0,
+        [&](int row, int c, Three& o) {
+          const T* w = W(row);
+          o.a = __ldcg(w + c);
+          o.b = __ldcg(w + 3 * n + c);
+          o.c = __ldg(D(row) + c);
+        },
+        [&](int row, int c, const Three& o, T(&)[1]) {
+          T* w = W(row);
+          const T sc = o.a - st[row].alpha * o.b;
+          w[5 * n + c] = sc;
+          w[6 * n + c] = (T(1) / o.c) * sc;
+        });
+    grid.sync();
+    // t = A·s-hat, t·s and t·t
+    rows_pass<T, 2, 1, Mat>(
+        p, rw, rw.wrk, nwrk, true, 6,
+        [&](int row, int c, Mat& o) {
+          const T* w = W(row);
+          load_cell(p, D(row), U(row), Lo(row), w + 6 * n, c, o.m);
+          o.a = __ldcg(w + 5 * n + c);
+        },
+        [&](int row, int c, const Mat& o, T(&a)[2]) {
+          const T tc = o.m.d * o.m.xc + off_sum(p, o.m, c, false, T(0));
+          W(row)[7 * n + c] = tc;
+          a[0] += tc * o.a;
+          a[1] += tc * tc;
+        });
+    rows_reduce<T, 2>(grid, p, rw, rw.wrk, nwrk, 6);
+    for (int q = threadIdx.x; q < B; q += kThreads) {
+      RowState<T>& s = st[q];
+      if (s.bits & kWork) {
+        const T ts = rw.tot[q], tt = rw.tot[B + q];
+        s.omega = ts / nz(tt);
+        // a step that is not finite fails the row (it returns x0 and res0)
+        if (!(isfinite(s.alpha) && isfinite(s.omega) && isfinite(ts) && isfinite(tt)))
+          s.bits = (s.bits & ~kWork) | kFailed;
+      }
+    }
+    nwrk = rows_list(rw, kWork, rw.wrk);
+    if (nwrk == 0) continue;
+    // x += α p-hat + ω s-hat, r = s − ωt; Σ|r|, rhat·r, r·r
+    rows_pass<T, 3, CB, Six>(
+        p, rw, rw.wrk, nwrk, false, 8,
+        [&](int row, int c, Six& o) {
+          const T* w = W(row);
+          o.a = __ldcg(p.x + row * n + c);
+          o.b = __ldcg(w + 4 * n + c);
+          o.c = __ldcg(w + 6 * n + c);
+          o.d = __ldcg(w + 5 * n + c);
+          o.e = __ldcg(w + 7 * n + c);
+          o.f = __ldcg(w + n + c);
+        },
+        [&](int row, int c, const Six& o, T(&a)[3]) {
+          const RowState<T>& s = st[row];
+          p.x[row * n + c] = o.a + s.alpha * o.b + s.omega * o.c;
+          const T rc = o.d - s.omega * o.e;
+          W(row)[c] = rc;
+          a[0] += fabs(rc);
+          a[1] += o.f * rc;
+          a[2] += rc * rc;
+        });
+    rows_reduce<T, 3>(grid, p, rw, rw.wrk, nwrk, 8);
+    for (int q = threadIdx.x; q < B; q += kThreads) {
+      RowState<T>& s = st[q];
+      if (s.bits & kWork) {
+        s.res = rw.tot[q] / s.norm;
+        s.rhr = rw.tot[B + q];
+        s.rr = rw.tot[2 * B + q];
+        s.rho_old = s.rho;
+        ++s.it;
+      }
+    }
+  }
+  // rows whose step was not finite return x0 and res0
+  const int nfail = rows_list(rw, kFailed, rw.act);
+  rows_pass<T, 0, CB, One>(
+      p, rw, rw.act, nfail, false, 0,
+      [&](int row, int c, One& o) { o.a = __ldg(p.x0 + row * n + c); },
+      [&](int row, int c, const One& o, T(&)[1]) { p.x[row * n + c] = o.a; });
+  if (blockIdx.x == 0) {
+    for (int q = threadIdx.x; q < B; q += kThreads) {
+      p.res0[q] = st[q].res0;
+      p.res[q] = (st[q].bits & kFailed) ? st[q].res0 : st[q].res;
+      p.iters[q] = st[q].it;
+    }
+  }
 }
 
 // N grid barriers and nothing else: the yardstick for the kernels above.
@@ -905,12 +1457,13 @@ __global__ void __launch_bounds__(kThreads) smooth_grid_kernel(Params<T> p) {
   finish_grid(p, s, x, res0, res, it);
 }
 
-// The grid-wide kernels by index: 0 K2, 1 K1, 2 K3.
+// The cooperative kernels by index: 0 K2, 1 K1, 2 K3, 3 K1 for many rows.
 template <typename T>
 const void* grid_kernel(int which) {
   return which == 0   ? (const void*)pcg_grid_kernel<T>
          : which == 1 ? (const void*)bicgstab_grid_kernel<T>
-                      : (const void*)smooth_grid_kernel<T>;
+         : which == 2 ? (const void*)smooth_grid_kernel<T>
+                      : (const void*)bicgstab_rows_kernel<T, 3>;
 }
 
 template <typename T>
@@ -933,6 +1486,7 @@ Params<T> make_params(const T* diag, long long sd, const T* upper, long long su,
   p.check_every = 0;
   p.bpr = 1; p.L = nC; p.resident = 0;
   p.slots = nullptr; p.flags = nullptr;
+  p.rows = 0;
   return p;
 }
 
@@ -950,6 +1504,27 @@ int launch_grid(const void* kernel, Params<T> p, int B, T* slots, int* flags, in
   void* args[] = {&p};
   return (int)cudaLaunchCooperativeKernel(kernel, dim3(B * bpr), dim3(kThreads), args,
                                           (size_t)smem_bytes, (cudaStream_t)stream);
+}
+
+// The cooperative launch of bicgstab_rows_kernel: `nblk` blocks of `L` cells
+// (the wrapper's plan) and the partials and totals [kSlots, B, nblk + 1];
+// it sizes its own dynamic shared memory (rows_smem_bytes).
+template <typename T>
+int launch_rows(Params<T> p, int B, T* slots, int nblk, int L, void* stream) {
+  if (B > kMaxRows || nblk < 1 || L < 1 || L > kGroupItems * kChunk ||
+      (long long)nblk * L < p.nC)
+    return (int)cudaErrorInvalidValue;
+  p.rows = B;
+  p.bpr = nblk; p.L = L; p.slots = slots;
+  const size_t smem = rows_smem_bytes<T>(B);
+  const void* f = p.K == 3 ? (const void*)bicgstab_rows_kernel<T, 3>
+                           : (const void*)bicgstab_rows_kernel<T, kMaxOffsets>;
+  cudaError_t e =
+      cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&p};
+  return (int)cudaLaunchCooperativeKernel(f, dim3(nblk), dim3(kThreads), args, smem,
+                                          (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -996,12 +1571,36 @@ FFK_GRID_ENTRY(pcg, pcg_grid_kernel, double, f64)
 FFK_GRID_ENTRY(bicgstab, bicgstab_grid_kernel, float, f32)
 FFK_GRID_ENTRY(bicgstab, bicgstab_grid_kernel, double, f64)
 
-// How many blocks of a grid-wide kernel (which: 0 pcg, 1 bicgstab, 2 smooth) are
-// co-resident on the current device with `smem_bytes` of dynamic shared
-// memory each (0 when that is more than a block may have), and the most
-// dynamic shared memory a block of it may have; the kernel is opted in to
-// that much. Fails with cudaErrorNotSupported on a device without
-// cooperative launch.
+// K1 for many rows: the same operands, then the partial-sum slots, the
+// blocks and the cells per block.
+#define FFK_ROWS_ENTRY(T, SUF)                                                        \
+  extern "C" int ffk_bicgstab_rows_##SUF(                                             \
+      const T* diag, long long sd, const T* upper, long long su, const T* lower,     \
+      long long sl, const T* b, const T* x0, T* x, T* res0, T* res, int* iters,      \
+      T* work, const int* offs, int K, int nC, int B, double tol, double rel_tol,    \
+      double floor_eps, int max_iter, T* slots, int nblk, int L, void* stream) {     \
+    if (K < 1 || K > kMaxOffsets || nC < 1 || B < 1) return (int)cudaErrorInvalidValue; \
+    Params<T> p = make_params<T>(diag, sd, upper, su, lower, sl, b, x0, x, res0,     \
+                                 res, iters, work, offs, K, nC, tol, rel_tol,        \
+                                 floor_eps, max_iter);                               \
+    return launch_rows<T>(p, B, slots, nblk, L, stream);                             \
+  }
+
+FFK_ROWS_ENTRY(float, f32)
+FFK_ROWS_ENTRY(double, f64)
+
+// The dynamic shared bytes a block of bicgstab_rows_kernel takes for B rows.
+extern "C" int ffk_rows_smem(int B, int is_f64) {
+  if (B < 1 || B > kMaxRows) return -1;
+  return (int)(is_f64 ? rows_smem_bytes<double>(B) : rows_smem_bytes<float>(B));
+}
+
+// How many blocks of a cooperative kernel (which: 0 pcg, 1 bicgstab, 2 smooth,
+// 3 bicgstab for many rows) are co-resident on the current device with
+// `smem_bytes` of dynamic shared memory each (0 when that is more than a
+// block may have), and the most dynamic shared memory a block of it may
+// have; the kernel is opted in to that much. Fails with
+// cudaErrorNotSupported on a device without cooperative launch.
 extern "C" int ffk_coop_blocks(int which, int is_f64, int smem_bytes, int* blocks,
                                int* max_smem_bytes) {
   int dev = 0, coop = 0, sms = 0, optin = 0, per_sm = 0;
@@ -1011,7 +1610,7 @@ extern "C" int ffk_coop_blocks(int which, int is_f64, int smem_bytes, int* block
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
-  if (!coop || which < 0 || which > 2) return (int)cudaErrorNotSupported;
+  if (!coop || which < 0 || which > 3) return (int)cudaErrorNotSupported;
   const void* f = is_f64 ? grid_kernel<double>(which) : grid_kernel<float>(which);
   cudaFuncAttributes fa;
   e = cudaFuncGetAttributes(&fa, f);

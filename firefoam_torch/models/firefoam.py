@@ -1468,6 +1468,9 @@ class FireFoamSolver:
             # radiation: first step + every solverFreq steps, after combustion
             if self.radiation is not None:
                 state["rad"] = self.radiation.maybe_correct(state, self.gas)
+                if getattr(self.radiation, "failed_rows", None) is not None:
+                    # fvDOM's ray rows left unsolved this step (ROADMAP R18)
+                    log["rad_failedRows"] = self.radiation.failed_rows
             hs_new, T_new, psi_new, mu_new, alpha_new = self._e_eqn(
                 state, Y_new, qdot, log, srcs, w_mv
             )

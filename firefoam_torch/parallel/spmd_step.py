@@ -37,7 +37,7 @@ from ..solvers import dia_krylov
 from . import comm as comm_mod
 from .localize import LocalContext, Localizer
 
-__all__ = ["SpmdFireFoam"]
+__all__ = ["SpmdFireFoam", "run_many"]
 
 
 def _is_field(x) -> bool:
@@ -244,22 +244,29 @@ class SpmdFireFoam:
         the same steps from the same state gave every rank the same state
         and logs bit for bit, "kernel_launches": the hand-written kernels'
         launches summed over the ranks}."""
-        with tempfile.TemporaryDirectory(prefix="ff_states_") as tmp:
-            # each rank reads only its own state
-            paths = []
-            for p, st in enumerate(self.scatter_state(state)):
-                paths.append(os.path.join(tmp, f"state{p}.pkl"))
-                with open(paths[-1], "wb") as f:
-                    pickle.dump(st, f, protocol=pickle.HIGHEST_PROTOCOL)
-            payload = {
-                "case_dir": self.case_dir, "cm": self.cm, "gg": self.gg, "lz": self.lz,
-                "walk_g": self.walk_g, "dtype": str(self.dtype).replace("torch.", ""),
-                "gmg": self.gmg, "cap_send": self.cap_send, "n_steps": int(n_steps),
-                "every_step": every_step, "profile": profile, "repeat": repeat,
-                "states": paths,
-            }
-            res = comm_mod.launch(rank_steps, self.n_parts, self.backend, self.device,
-                                  deadline_s, (payload,))
+        opts = dict(every_step=every_step, profile=profile, repeat=repeat)
+        return run_many([(self, state, n_steps, opts)], deadline_s)[0]
+
+    def _payload(self, tmp: str, tag: str, state, n_steps: int, every_step: bool = False,
+                 profile: bool = False, repeat: bool = False) -> Dict:
+        """One run's payload for rank_steps; each rank's state is written
+        to `tmp` (each rank reads only its own)."""
+        paths = []
+        for p, st in enumerate(self.scatter_state(state)):
+            paths.append(os.path.join(tmp, f"state{tag}_{p}.pkl"))
+            with open(paths[-1], "wb") as f:
+                pickle.dump(st, f, protocol=pickle.HIGHEST_PROTOCOL)
+        return {
+            "case_dir": self.case_dir, "cm": self.cm, "gg": self.gg, "lz": self.lz,
+            "walk_g": self.walk_g, "dtype": str(self.dtype).replace("torch.", ""),
+            "gmg": self.gmg, "cap_send": self.cap_send, "n_steps": int(n_steps),
+            "every_step": every_step, "profile": profile, "repeat": repeat,
+            "states": paths,
+        }
+
+    def _result(self, res: List, n_steps: int, every_step: bool = False,
+                profile: bool = False, repeat: bool = False) -> Dict:
+        """run's result from every rank's rank_steps report."""
         out = {
             "state": self.gather_state([r["state"] for r in res]),
             "logs": res[0]["logs"],
@@ -278,6 +285,26 @@ class SpmdFireFoam:
             out["states"] = [self.gather_state([r["states"][k] for r in res])
                              for k in range(n_steps)]
         return out
+
+
+def run_many(jobs: List, deadline_s: float = 300.0) -> List[Dict]:
+    """Several partitioned runs in ONE launch of the ranks, one after the
+    other in the same rank processes (which start once): jobs are
+    (SpmdFireFoam, global state, n_steps, {every_step, profile, repeat}),
+    every one with the same number of parts, backend and device. Returns
+    each job's result as SpmdFireFoam.run gives it; deadline_s covers the
+    whole launch."""
+    first = jobs[0][0]
+    key = lambda sp: (sp.n_parts, sp.backend, str(sp.device))
+    if any(key(sp) != key(first) for sp, _, _, _ in jobs):
+        raise ValueError("run_many: every job must have the same parts, backend and device")
+    with tempfile.TemporaryDirectory(prefix="ff_states_") as tmp:
+        calls = [(rank_steps, (sp._payload(tmp, str(j), state, n, **opts),))
+                 for j, (sp, state, n, opts) in enumerate(jobs)]
+        res = comm_mod.launch(comm_mod.rank_calls, first.n_parts, first.backend, first.device,
+                              deadline_s, (calls,))
+    return [sp._result([r[j] for r in res], n, **opts)
+            for j, (sp, _, n, opts) in enumerate(jobs)]
 
 
 def _stack(trees: List):

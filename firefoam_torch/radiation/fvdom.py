@@ -53,7 +53,7 @@ from ..config import small
 from ..io import Case
 from ..io.foamdict import FoamDict
 from ..ops.geometry import MeshGeometry
-from ..solvers.linear import solve_ldu
+from ..solvers.linear import failed_rows, solve_ldu
 
 __all__ = ["FvDOM", "SIGMA", "parse_grey_species", "read_ft_table", "grey_absorption"]
 
@@ -306,6 +306,9 @@ class FvDOM(RadiantFractionGate):
     # host-side bookkeeping, not part of the state
     sweeps: int = 0
     last_iters: Optional[torch.Tensor] = None  # [nR·nL] iterations of the last sweep
+    # (ray × band) rows whose step was not finite in this step's sweeps (they
+    # keep their intensity; ROADMAP R18), a device int; the step logs it
+    failed_rows: Optional[torch.Tensor] = None
     _rays: Optional[dict] = field(default=None, repr=False)
 
     # ------------------------------------------------------------ factory
@@ -585,6 +588,8 @@ class FvDOM(RadiantFractionGate):
         )
         self.sweeps += 1
         self.last_iters = res.n_iterations
+        n_failed = failed_rows(res, self.tol).sum(dtype=torch.int32)
+        self.failed_rows = n_failed if self.failed_rows is None else self.failed_rows + n_failed
         return torch.clamp(res.x, min=0.0).reshape(nR, nL, nC), torch.max(res.initial_residual)
 
     def _solve_rays(self, rad, state, gas):
@@ -646,6 +651,7 @@ class FvDOM(RadiantFractionGate):
 
     def maybe_correct(self, state, gas) -> Dict:
         rad = state["rad"]
+        self.failed_rows = torch.zeros((), dtype=torch.int32, device=rad["I"].device)
         return self._solve_rays(rad, state, gas) if self._due(rad) else self._skip(rad)
 
     # ------------------------------------------------------- energy source

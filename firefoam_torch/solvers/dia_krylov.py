@@ -28,14 +28,21 @@ firefoam_torch/_build/ (named by a hash of every source), and loaded with
 ctypes; each launch runs on the current PyTorch stream and adds one to
 LAUNCHES[name].
 
-K1, K2 and K3 have two kernels each. With G the number of blocks of the
-kernel that are co-resident on the card (its occupancy times the SM count,
-asked of the library once per kernel, dtype and shared-memory size), a batch
-of B <= G rows goes to the grid-wide kernel: a cooperative launch in which
-`grid_plan(B, nC, G)` gives every row a group of blocks and every block a
-contiguous range of cells, kept in the block's shared memory when it fits.
-B > G goes to the one-block-per-row kernel. The choice follows from B, nC
-and G alone.
+K2 and K3 have two kernels each, K1 three. With G the number of blocks of
+the kernel that are co-resident on the card (its occupancy times the SM
+count, asked of the library once per kernel, dtype and shared-memory size),
+`grid_plan(B, nC, G)` lays a batch of B rows out:
+  * K1 with ROWS_MIN <= B <= ROWS_MAX rows: the many-rows kernel
+    (`bicgstab_rows_kernel`), a cooperative launch in which every block owns
+    one contiguous range of cells of EVERY row and works it for every row
+    that still iterates;
+  * otherwise B <= G: the grid-wide kernel, a cooperative launch in which
+    every row gets a group of blocks and every block a contiguous range of
+    cells, kept in the block's shared memory when it fits;
+  * B > G: the one-block-per-row kernel.
+The choice follows from B, nC and G alone. DEVICE_LAUNCHES counts the
+launches by device kernel ("bicgstab_rows", "bicgstab_grid", "bicgstab",
+...); LAUNCHES by wrapper, as before.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from .linear import SolverResult
 
 __all__ = [
     "LAUNCHES",
+    "DEVICE_LAUNCHES",
     "dia_matvec",
     "dia_pcg",
     "dia_bicgstab",
@@ -87,16 +95,37 @@ _SLOTS = 16  # partial sums per block (kSlots in csrc)
 # them. On an H100 the grid barrier costs the same for 9 or 132 blocks, and
 # 512 measured best or tied among 128, 256, 512 and 1024 at 9k and 100k cells.
 MIN_CELLS = 512
+# K1's many-rows layout (bicgstab_rows_kernel): from ROWS_MIN rows up to its
+# row cap (kMaxRows in csrc: one thread a row in its list scan). ROWS_MIN is
+# chip_smoke.py phase 3's crossover on an H100 at 100k cells (PERF.md): at 3
+# and 4 rows the two layouts part by 4-7 % either way, from 5 rows the
+# many-rows kernel leads (by 14 % at 5, 40 % at 16 and 128 and, against the
+# one-block-per-row kernel, 55 % at 160). Its cells are cut over the card
+# as one row's are, with blocks of at least ROWS_MIN_CELLS cells: every
+# block works its cells of every live row, so a block has work even where
+# one row alone would give it little.
+ROWS_MIN = 5
+ROWS_MAX = 1024
+ROWS_MIN_CELLS = 32
+_ROWS_WHICH = 3  # ffk_coop_blocks' index of the many-rows kernel
+# From this many rows the many-rows kernel sums its row totals in two
+# stages, one more grid barrier each (csrc kRowsTwoStage; chip_smoke.py
+# counts the barriers with it).
+ROWS_TWO_STAGE = 64
 
 LAUNCHES = {"bicgstab": 0, "pcg": 0, "smooth": 0}
+# launches by device kernel: the entry point's name without ffk_ and the dtype
+DEVICE_LAUNCHES = {f"{name}{kind}": 0 for name in LAUNCHES for kind in ("", "_grid")}
+DEVICE_LAUNCHES["bicgstab_rows"] = 0
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def reset_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, DEVICE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ------------------------------------------------------------------ K0 twin
@@ -179,6 +208,7 @@ def signatures() -> dict:
     sig = {
         "ffk_coop_blocks": [ci, ci, ci, ip, ip],  # which, is_f64, smem; blocks, max smem
         "ffk_sync_bench": [ci, ci, vp],  # blocks, barriers, stream
+        "ffk_rows_smem": [ci, ci],  # B, is_f64 -> the many-rows kernel's shared bytes
     }
     for suf in ("f32", "f64"):
         for name in LAUNCHES:
@@ -186,6 +216,8 @@ def signatures() -> dict:
             sig[f"ffk_{name}_{suf}"] = common + extra + [vp]  # ..., stream
             # ..., slots, flags, blocks per row, cells per block, smem bytes, stream
             sig[f"ffk_{name}_grid_{suf}"] = common + extra + [vp, vp, ci, ci, ci, vp]
+        # ..., slots, blocks, cells per block, stream
+        sig[f"ffk_bicgstab_rows_{suf}"] = common + [vp, ci, ci, vp]
     return sig
 
 
@@ -205,27 +237,43 @@ def _load():
 # ------------------------------------------------------------------- plan
 class GridPlan(NamedTuple):
     grid_wide: bool  # False: one block per row (B > G), the other fields say so too
-    blocks_per_row: int
+    blocks_per_row: int  # the many-rows layout: the launch's blocks, each in every row
     cells_per_block: int
     ranges: tuple  # (first cell, end) of each of a row's blocks, in block order
+    rows: bool = False  # K1's many-rows layout (bicgstab_rows_kernel)
+
+
+def takes_rows(B: int) -> bool:
+    """Whether K1 lays B rows out with its many-rows kernel."""
+    return ROWS_MIN <= B <= ROWS_MAX
 
 
 @functools.lru_cache(maxsize=None)
-def grid_plan(B: int, nC: int, G: int, min_cells: int = MIN_CELLS) -> GridPlan:
+def grid_plan(B: int, nC: int, G: int, min_cells: int = MIN_CELLS,
+              many_rows: bool = True) -> GridPlan:
     """How B systems of nC cells are laid over G co-resident blocks: row i
     owns blocks [i·bpr, (i+1)·bpr), and block j of a row the cells
     [j·L, min((j+1)·L, nC)). bpr is at most G // B and at most what gives a
     block `min_cells` cells; L is a multiple of 32 (a warp's loads stay
     aligned) and no block is empty. More rows than blocks: one block per
-    row, not grid-wide."""
+    row, not grid-wide. `many_rows` (K1, which has the kernel for it) and
+    `takes_rows(B)`: the many-rows layout, the blocks and ranges of ONE row
+    of at least ROWS_MIN_CELLS cells a block, every block in every row."""
     if B < 1 or nC < 1 or G < 1:
         raise ValueError(f"grid_plan: B={B}, nC={nC}, G={G}")
+    if many_rows and takes_rows(B):
+        return _rows_plan(nC, G)
     if B > G:
         return GridPlan(False, 1, nC, ((0, nC),))
     bpr = max(1, min(G // B, -(-nC // min_cells)))
     L = -(-(-(-nC // bpr)) // 32) * 32
     bpr = -(-nC // L)
     return GridPlan(True, bpr, L, tuple((j * L, min((j + 1) * L, nC)) for j in range(bpr)))
+
+
+def _rows_plan(nC: int, G: int) -> GridPlan:
+    """The many-rows layout: one row's blocks and ranges, every row."""
+    return grid_plan(1, nC, G, ROWS_MIN_CELLS, False)._replace(rows=True)
 
 
 _coop = {}
@@ -238,7 +286,8 @@ def _coop_blocks(name: str, dtype, smem: int):
     key = (name, dtype, smem)
     if key not in _coop:
         blocks, max_smem = ctypes.c_int(0), ctypes.c_int(0)
-        err = _load().ffk_coop_blocks(_GRID[name][0], int(dtype == torch.float64), smem,
+        which = _ROWS_WHICH if name == "bicgstab_rows" else _GRID[name][0]
+        err = _load().ffk_coop_blocks(which, int(dtype == torch.float64), smem,
                                       ctypes.byref(blocks), ctypes.byref(max_smem))
         if err != 0:
             raise RuntimeError(f"dia_{name}: no cooperative launch on this device "
@@ -247,11 +296,35 @@ def _coop_blocks(name: str, dtype, smem: int):
     return _coop[key]
 
 
-def _grid_launch_plan(name, dtype, B, nC, K, esize, min_cells=MIN_CELLS):
+@functools.lru_cache(maxsize=None)
+def rows_smem(B: int, dtype) -> int:
+    """The dynamic shared bytes a block of the many-rows kernel takes for B
+    rows (its row scalars, row lists and partial sums), asked of the
+    library."""
+    smem = _load().ffk_rows_smem(int(B), int(dtype == torch.float64))
+    if smem < 0:
+        raise ValueError(f"dia_bicgstab: {B} rows, the many-rows kernel takes 1..{ROWS_MAX}")
+    return smem
+
+
+def _grid_launch_plan(name, dtype, B, nC, K, esize, min_cells=MIN_CELLS, rows=None):
     """(plan, dynamic shared bytes) for a launch; bytes 0: the slices do not
-    fit beside each other and are streamed from L2."""
+    fit beside each other and are streamed from L2. `rows` (K1 only; for
+    measurements and tests): None the rule, True the many-rows kernel at
+    any B up to ROWS_MAX, False never it."""
     G, max_smem = _coop_blocks(name, dtype, 0)
-    plan = grid_plan(B, nC, G, min_cells)
+    if rows and (name != "bicgstab" or not 1 <= B <= ROWS_MAX):
+        raise ValueError(f"dia_{name}: no many-rows kernel for {B} rows")
+    if rows:
+        plan = _rows_plan(nC, G)
+    else:
+        plan = grid_plan(B, nC, G, min_cells, many_rows=name == "bicgstab" and rows is None)
+    if plan.rows:
+        smem = rows_smem(B, dtype)
+        if _coop_blocks("bicgstab_rows", dtype, smem)[0] < plan.blocks_per_row:
+            raise RuntimeError(f"dia_{name}: {plan.blocks_per_row} blocks of the many-rows "
+                               f"kernel with {smem} shared bytes are not co-resident")
+        return plan, smem
     if not plan.grid_wide:
         return plan, 0
     smem = (_GRID[name][1] + 2 * K) * plan.cells_per_block * esize
@@ -282,11 +355,12 @@ def grid_sync_seconds(blocks: int, n: int = 2000) -> float:
 
 # ---------------------------------------------------------------- launcher
 def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, extra=(),
-            resident=True, min_cells=MIN_CELLS, grid_wide=True):
+            resident=True, min_cells=MIN_CELLS, grid_wide=True, rows=None):
     """Check the operands and launch kernel `name` on them. `resident`,
-    `min_cells` and `grid_wide` exist for measurements and tests (a
+    `min_cells`, `grid_wide` and `rows` exist for measurements and tests (a
     grid-wide kernel with its slices streamed from L2, with other block
-    counts, and against the one-block-per-row kernel on the same rows)."""
+    counts, against the one-block-per-row kernel on the same rows; K1's
+    many-rows kernel forced on (True) or off (False))."""
     dtype = x0.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dia_{name}: dtype {dtype} not supported")
@@ -310,10 +384,10 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
     if any(int(o) <= 0 or int(o) >= nC for o in offsets):
         raise ValueError(f"dia_{name}: offsets {tuple(offsets)} out of range for nC={nC}")
 
-    def rows(v):  # [B, nC] operands the kernel indexes with stride nC
+    def full(v):  # [B, nC] operands the kernel indexes with stride nC
         return v if v.ndim == 2 else v.expand(B, nC).contiguous()
 
-    b2, x02 = rows(b), rows(x0)
+    b2, x02 = full(b), full(x0)
     x = torch.empty((B, nC), dtype=dtype, device=dev)
     res0 = torch.empty((B,), dtype=dtype, device=dev)
     res = torch.empty((B,), dtype=dtype, device=dev)
@@ -323,8 +397,15 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
     suf = "f32" if dtype == torch.float32 else "f64"
     fn_name = f"ffk_{name}_{suf}"
     if grid_wide:
-        plan, smem = _grid_launch_plan(name, dtype, B, nC, K, x0.element_size(), min_cells)
-        if plan.grid_wide:
+        plan, smem = _grid_launch_plan(name, dtype, B, nC, K, x0.element_size(), min_cells,
+                                       rows)
+        if plan.rows:
+            fn_name = f"ffk_{name}_rows_{suf}"
+            nblk = plan.blocks_per_row
+            # partials [16, B, nblk] and, behind them, the row totals [16, B]
+            slots = torch.empty((_SLOTS * B * (nblk + 1),), dtype=dtype, device=dev)
+            extra = (slots.data_ptr(), nblk, plan.cells_per_block)
+        elif plan.grid_wide:
             fn_name = f"ffk_{name}_grid_{suf}"
             slots = torch.empty((_SLOTS, B * plan.blocks_per_row), dtype=dtype, device=dev)
             flags = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -345,6 +426,7 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
     if err != 0:
         raise RuntimeError(f"dia_{name} kernel launch ({fn_name}) failed: cudaError {err}")
     LAUNCHES[name] += 1
+    DEVICE_LAUNCHES[fn_name[4:-4]] += 1
     if squeeze:
         return SolverResult(x[0], res0[0], res[0], iters[0])
     return SolverResult(x, res0, res, iters)

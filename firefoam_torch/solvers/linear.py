@@ -59,6 +59,14 @@ def tol_floor(tol: float, dtype) -> float:
     return max(float(tol), TOL_FLOOR_EPS * torch.finfo(dtype).eps)
 
 
+def failed_rows(res: SolverResult, tol: float, rel_tol: float = 0.0) -> torch.Tensor:
+    """The rows of a `bicgstab` result whose step was not finite: they
+    return x0 and their initial residual, which lies above their stop (a
+    row that starts converged lies at or below it)."""
+    stop = torch.clamp(rel_tol * res.initial_residual, min=tol_floor(tol, res.x.dtype))
+    return (res.final_residual == res.initial_residual) & (res.initial_residual > stop)
+
+
 def _rows(x0, b, diag):
     """Promote [nC] operands to [1, nC]; returns (x0, b, diag, squeeze)."""
     squeeze = x0.ndim == 1 and b.ndim == 1
@@ -151,8 +159,13 @@ def bicgstab(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
     solver divides by the clamped value instead, its α or β overflows and
     the solve returns NaN: on the 100k-cell box fire one fvDOM ray's shadow
     residual decays to rounding noise (rhat·r ≈ 1e-18·r·r) until rhat·v is
-    exactly 0. Away from those cases both take the same steps. The
-    reducers are the SPMD injection points (see pcg)."""
+    exactly 0. A step whose α, ω, t·s or t·t is not finite fails its row:
+    the row returns x0 and res0 with the steps it took. In float32 a ray of
+    the 500k-cell box fire's first fvDOM sweep can grow its residual until
+    t·t overflows; the JAX solver returns NaN there, and the row's last
+    finite iterate is far from any solution. Away from those cases both
+    take the same steps. The reducers are the
+    SPMD injection points (see pcg)."""
     x0, b, diag, squeeze = _rows(x0, b, diag)
     rD = 1.0 / diag
     Ax0, norm = _norm_factor(matvec, x0, b, sum_fn, mean_fn)
@@ -169,9 +182,10 @@ def bicgstab(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
     rho_old, alpha, omega = one, one, one
     it = torch.zeros(res0.shape, dtype=torch.int32, device=x0.device)
     retry = torch.zeros(res0.shape, dtype=torch.bool, device=x0.device)
+    failed = torch.zeros_like(retry)
     res = res0.clone()
     while True:
-        active = (res > stop) & (it < max_iter)
+        active = (res > stop) & (it < max_iter) & ~failed
         if not bool(active.any()):
             break
         rho = dot_fn(rhat, r)
@@ -192,17 +206,22 @@ def bicgstab(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
         s = r - alpha_n[:, None] * v_n
         shat = rD * s
         t = matvec(shat)
-        omega_n = dot_fn(t, s) / _nz(dot_fn(t, t))
+        ts, tt = dot_fn(t, s), dot_fn(t, t)
+        omega_n = ts / _nz(tt)
         x_n = x + alpha_n[:, None] * phat + omega_n[:, None] * shat
         r_n = s - omega_n[:, None] * t
         res_n = sum_fn(torch.abs(r_n)) / norm
-        step = active & ~retry
+        finite = (torch.isfinite(alpha_n) & torch.isfinite(omega_n) & torch.isfinite(ts)
+                  & torch.isfinite(tt))
+        failed = failed | (active & ~retry & ~finite)
+        step = active & ~retry & finite
         x, r, rhat = _sel(step, x_n, x), _sel(step, r_n, r), _sel(step, rhat_n, rhat)
         p, v = _sel(step, p_n, p), _sel(step, v_n, v)
         rho_old = _sel(step, rho, rho_old)
         alpha, omega = _sel(step, alpha_n, alpha), _sel(step, omega_n, omega)
         res = _sel(step, res_n, res)
         it = it + step.to(it.dtype)
+    x, res = _sel(failed, x0, x), _sel(failed, res0, res)
     return _finish(x, res0, res, it, squeeze)
 
 

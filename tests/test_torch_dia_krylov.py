@@ -208,6 +208,30 @@ def test_bicgstab_restarts_where_jax_breaks_down():
     assert int(one.n_iterations) == int(got.n_iterations[1])
 
 
+def test_bicgstab_stops_a_row_whose_step_overflows():
+    """float32, a right-hand side of 1e20: r·r overflows, so the first
+    step's α is not finite. The JAX solver returns NaN; the port fails that
+    row: it returns x0 and its initial residual, after 0 iterations, and
+    the other row solves as it does alone."""
+    n = CHAIN_B.size
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    b = np.stack([1e20 * np.abs(CHAIN_B) + 1e19, np.array([1.0, 0.5, 0.25, -1.0, 2.0])])
+    ops = (np.ones(n), np.zeros(n), CHAIN_LOWER)
+    ref = jlinear.bicgstab(lambda v: v + jnp.concatenate([jnp.zeros(1, jnp.float32), jnp.asarray(
+        CHAIN_LOWER[:-1], jnp.float32) * v[:-1]]), jnp.zeros(n, jnp.float32),
+        jnp.asarray(b[0], jnp.float32), jnp.ones(n, jnp.float32), tol=1e-6, max_iter=50)
+    assert not np.all(np.isfinite(np.asarray(ref.x)))
+    got = dia_krylov.dia_bicgstab(*(f32(a) for a in ops), f32(b), f32(np.zeros((2, n))), (1,),
+                                  tol=1e-6, max_iter=50)
+    assert bool(torch.isfinite(got.x).all())
+    assert torch.equal(got.x[0], torch.zeros(n)) and int(got.n_iterations[0]) == 0
+    assert torch.equal(got.final_residual[0], got.initial_residual[0])
+    one = dia_krylov.dia_bicgstab(*(f32(a) for a in ops), f32(b[1]), f32(np.zeros(n)), (1,),
+                                  tol=1e-6, max_iter=50)
+    assert torch.equal(got.x[1], one.x)
+    assert int(got.n_iterations[1]) == int(one.n_iterations) > 0
+
+
 def test_jacobi_smooth_matches_jax():
     d, up, lo, b, x0 = _dia_system(seed=5, asym=0.2)
     ref = jlinear.jacobi_smooth(_jmv(*(jnp.asarray(a) for a in (d, up, lo))),

@@ -6,13 +6,18 @@
   divide, B = G, B > G): every cell of every row is owned exactly once, a
   row's ranges are contiguous and in block order, no block is empty, the
   launch fits in G blocks, and the plan is a pure function of its arguments.
+  K1's many-rows layout (B from ROWS_MIN to the row cap): the same for its
+  ranges, which every row shares; the routing rule by B at the fvDOM's
+  batch sizes, B = G, B = G + 68 and the cap.
 * The `extern "C"` entry points of csrc/dia_krylov.cu, parsed from the
   source (macros expanded), against the ctypes argtypes the wrapper sets: a
   mismatch would otherwise show only as a crash on the card.
 * `_launch` itself, with the library, the occupancy query and the stream
   replaced by recorders: which entry point each kernel's launch picks, and
   that the arguments it passes match that entry point's argtypes in number
-  and kind (K3's damping and sweeps per check before the grid's extras).
+  and kind (K3's damping and sweeps per check before the grid's extras;
+  K1's many-rows kernel with its slots, blocks, cells and options), and the
+  count by device kernel.
 * The shared-memory rule of `_grid_launch_plan`: K3 keeps 3 + 2K vectors of
   a block's cells resident, and streams them when that is over the limit.
 """
@@ -44,13 +49,20 @@ CASES = [
     (5, 1_000, 4),  # B > G
     (200, 9_000, G_H100),
     (3, 100_000, 264),  # another card: two blocks per SM
+    # K1's many-rows layout: the fvDOM's ray (x band) batches, B = G + 68, the cap
+    (128, 100_000, G_H100), (160, 100_000, G_H100), (G_H100 + 68, 100_000, G_H100),
+    (dia_krylov.ROWS_MAX, 100_000, G_H100), (dia_krylov.ROWS_MAX + 1, 9_000, G_H100),
 ]
 
 
 @pytest.mark.parametrize("B,nC,G", CASES)
 def test_grid_plan_owns_every_cell_once(B, nC, G):
     plan = dia_krylov.grid_plan(B, nC, G)
-    assert plan.grid_wide == (B <= G)
+    # K1's rule: the many-rows kernel from ROWS_MIN rows to its cap, else the
+    # grid-wide kernel up to G rows (K2 and K3 keep B <= G)
+    assert plan.rows == (dia_krylov.ROWS_MIN <= B <= dia_krylov.ROWS_MAX)
+    assert plan.grid_wide == (plan.rows or B <= G)
+    assert dia_krylov.grid_plan(B, nC, G, many_rows=False).grid_wide == (B <= G)
     assert len(plan.ranges) == plan.blocks_per_row
     owned = [0] * nC
     end = 0
@@ -63,7 +75,9 @@ def test_grid_plan_owns_every_cell_once(B, nC, G):
         end = c1
     assert end == nC and owned == [1] * nC
     if plan.grid_wide:
-        assert B * plan.blocks_per_row <= G  # the cooperative launch fits
+        # the cooperative launch fits: B groups of blocks, or (many rows)
+        # one set of blocks that every row shares
+        assert (1 if plan.rows else B) * plan.blocks_per_row <= G
         assert plan.cells_per_block % 32 == 0
     else:
         assert plan.blocks_per_row == 1 and plan.ranges == ((0, nC),)
@@ -82,7 +96,11 @@ def test_grid_plan_spreads_one_system_over_the_card():
     small systems take fewer blocks of at least MIN_CELLS cells."""
     assert dia_krylov.grid_plan(1, 100_000, G_H100).blocks_per_row > G_H100 - 4
     assert dia_krylov.grid_plan(3, 100_000, G_H100).blocks_per_row == G_H100 // 3
-    assert dia_krylov.grid_plan(16, 100_000, G_H100).blocks_per_row == G_H100 // 16
+    # 16 rows: K2/K3's grid-wide layout gives each 8 blocks; K1 takes its
+    # many-rows layout, every block in every row
+    assert dia_krylov.grid_plan(16, 100_000, G_H100, many_rows=False).blocks_per_row == (
+        G_H100 // 16)
+    assert dia_krylov.grid_plan(16, 100_000, G_H100).blocks_per_row == 131
     small = dia_krylov.grid_plan(1, 9_000, G_H100)
     assert small.cells_per_block >= dia_krylov.MIN_CELLS
     assert small.blocks_per_row == -(-9_000 // small.cells_per_block)
@@ -142,7 +160,8 @@ def test_c_entry_points_match_the_wrappers_argtypes():
     parsed = _c_entry_points()
     declared = dia_krylov.signatures()
     assert set(parsed) == set(declared)
-    assert len(parsed) == 14  # 3 kernels + 3 grid-wide, in f32 and f64; 2 helpers
+    # 3 kernels + 3 grid-wide + K1's many-rows kernel, in f32 and f64; 3 helpers
+    assert len(parsed) == 17
     for name, argtypes in declared.items():
         assert parsed[name] == argtypes, name
 
@@ -158,6 +177,11 @@ def test_launch_arguments_match_the_signatures():
     assert len(sig["ffk_smooth_grid_f32"]) == 29  # + omega, check_every, then the grid's five
     assert sig["ffk_smooth_grid_f64"][:24] == sig["ffk_smooth_f64"][:-1] + [ctypes.c_void_p]
     assert sig["ffk_smooth_grid_f64"][21:23] == [ctypes.c_double, ctypes.c_int]
+    # + slots, blocks, cells per block
+    assert len(sig["ffk_bicgstab_rows_f64"]) == 25
+    assert sig["ffk_bicgstab_rows_f32"][:21] == sig["ffk_bicgstab_f32"][:21]
+    assert sig["ffk_bicgstab_rows_f32"][21:] == [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_void_p]
 
 
 # --------------------------------------------- K3's plan and shared memory
@@ -179,6 +203,9 @@ class _FakeCard:
 
     def coop_blocks(self, name, dtype, smem):
         return (self.G if smem <= self.max_smem else 0), self.max_smem
+
+    def ffk_rows_smem(self, B, is_f64):  # a stand-in for the kernel's own count
+        return 64 * B if 1 <= B <= dia_krylov.ROWS_MAX else -1
 
     def __getattr__(self, fn_name):
         if not fn_name.startswith("ffk_"):
@@ -259,3 +286,81 @@ def test_launch_takes_one_block_per_row_when_rows_outnumber_blocks(monkeypatch):
     ops, offs = _cpu_system(4, 1000, torch.float32)
     dia_krylov._launch("smooth", *ops, offs, 1e-6, 0.0, 50, extra=(0.8, 4))
     assert card.calls[0][0] == "ffk_smooth_f32" and len(card.calls[0][1]) == 24
+
+
+# ------------------------------------------- K1's layouts by number of rows
+@pytest.mark.parametrize("B,device_kernel", [
+    (1, "bicgstab_grid"), (3, "bicgstab_grid"), (4, "bicgstab_grid"),  # p_rgh-like, U
+    (5, "bicgstab_rows"),  # the wall fire's species with Fstar
+    (16, "bicgstab_rows"), (32, "bicgstab_rows"), (64, "bicgstab_rows"),  # fvDOM rays
+    (128, "bicgstab_rows"), (160, "bicgstab_rows"),  # rays x 4 and x 5 bands
+    (G_H100, "bicgstab_rows"), (G_H100 + 68, "bicgstab_rows"),
+    (dia_krylov.ROWS_MAX, "bicgstab_rows"), (dia_krylov.ROWS_MAX + 1, "bicgstab"),
+])
+def test_k1_routing_rule(B, device_kernel):
+    """Which device kernel K1 takes by B on an H100 (G = 132) at 100k cells:
+    a pure function of (B, nC, G); K2 and K3 keep the grid-wide rule."""
+    plan = dia_krylov.grid_plan(B, 100_000, G_H100)
+    got = ("bicgstab_rows" if plan.rows else "bicgstab_grid" if plan.grid_wide
+           else "bicgstab")
+    assert got == device_kernel
+    assert dia_krylov.takes_rows(B) == plan.rows
+    if plan.rows:  # the cells of one row over the card, shared by every row
+        assert plan == dia_krylov.grid_plan(1, 100_000, G_H100, dia_krylov.ROWS_MIN_CELLS,
+                                            False)._replace(rows=True)
+        assert (plan.blocks_per_row, plan.cells_per_block) == (131, 768)
+    # what K2's and K3's launches ask for
+    assert dia_krylov.grid_plan(B, 100_000, G_H100, many_rows=False).grid_wide == (B <= G_H100)
+
+
+def test_rows_layout_uses_every_block_at_small_sizes():
+    """A row of 9k cells alone takes 18 blocks of 512 cells; laid out for
+    many rows it takes blocks of at least ROWS_MIN_CELLS: 94 of 96."""
+    one = dia_krylov.grid_plan(1, 9_000, G_H100)
+    many = dia_krylov.grid_plan(200, 9_000, G_H100)
+    assert (one.blocks_per_row, one.cells_per_block) == (18, 512)
+    assert many.rows and (many.blocks_per_row, many.cells_per_block) == (94, 96)
+    assert dia_krylov.grid_plan(1, 50, G_H100, dia_krylov.ROWS_MIN_CELLS, False).blocks_per_row == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,rows,expect", [
+    (16, None, "rows"), (3, None, "grid"), (4, None, "grid"), (5, None, "rows"),  # the rule
+    (3, True, "rows"), (16, False, "grid"),  # forced either way, for phase 3
+    (200, False, ""), (200, None, "rows"),  # B > G: the old layout is one block a row
+])
+def test_launch_picks_the_many_rows_kernel(monkeypatch, dtype, B, rows, expect):
+    card = _FakeCard(monkeypatch)
+    ops, offs = _cpu_system(B, 200, dtype)
+    dia_krylov.reset_counts()
+    dia_krylov._launch("bicgstab", *ops, offs, 1e-6, 0.0, 50, rows=rows)
+    assert dia_krylov.LAUNCHES["bicgstab"] == 1
+    (fn_name, args), = card.calls
+    suf = "f32" if dtype == torch.float32 else "f64"
+    assert fn_name == f"ffk_bicgstab_{expect + '_' if expect else ''}{suf}"
+    assert dia_krylov.DEVICE_LAUNCHES == {
+        k: int(k == fn_name[4:-4]) for k in dia_krylov.DEVICE_LAUNCHES}
+    argtypes = dia_krylov.signatures()[fn_name]
+    assert len(args) == len(argtypes)
+    for a, t in zip(args, argtypes):
+        if t is ctypes.c_double:
+            assert isinstance(a, float), (a, t)
+        elif t in (ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p):
+            assert isinstance(a, int) and not isinstance(a, bool), (a, t)
+        else:
+            assert isinstance(a, ctypes.Array), (a, t)
+    if expect == "rows":
+        nblk, L = args[-3:-1]
+        plan = dia_krylov.grid_plan(1, 200, G_H100, dia_krylov.ROWS_MIN_CELLS, False)
+        assert (nblk, L) == (plan.blocks_per_row, plan.cells_per_block) == (7, 32)
+        assert args[16] == B
+
+
+def test_many_rows_kernel_is_k1_only_and_capped(monkeypatch):
+    _FakeCard(monkeypatch)
+    ops, offs = _cpu_system(2, 200, torch.float32)
+    with pytest.raises(ValueError):
+        dia_krylov._launch("pcg", *ops, offs, 1e-6, 0.0, 50, rows=True)
+    with pytest.raises(ValueError):
+        dia_krylov._grid_launch_plan("bicgstab", torch.float32, dia_krylov.ROWS_MAX + 1,
+                                     200, 3, 4, rows=True)

@@ -30,10 +30,17 @@ JAX, so it also runs on a machine that has only PyTorch:
   solves on the card bitwise equal, and three steps of the fire with each of
   them on against the CPU's.
 * K1 at the banded fvDOM's shapes, 128 and 160 rows of 100k cells with a
-  matrix each (grid-wide with one block a row; one block per row), against
-  its plain version; the banded (ray × band) ray solve, P1's G solve and one
-  step of each radiation case (write_radiation_fire_case) on the card in
-  float64 against the CPU.
+  matrix each (the many-rows kernel), against its plain version; the
+  banded (ray × band) ray solve, P1's G solve and one step of each
+  radiation case (write_radiation_fire_case) on the card in float64
+  against the CPU.
+* K1's many-rows kernel (`bicgstab_rows_kernel`) against its plain version
+  in float64 and float32, with shared and per-row operands, at 16, 128 and
+  160 rows of 100k cells and 200 rows of 9k: rows that stop far apart
+  (0 to some 18 iterations), the restart on a breakdown, two launches bit
+  equal, its reduction and walk options bit equal, and the rule's layout.
+* Each K1 kernel on a float32 row whose step overflows: it fails that row
+  (x0 and its initial residual), as the plain version does.
 * The SEG layout (castellated meshes, no kernel): its face→cell sums
   bitwise repeatable on the card, its matvec within 1e-12 of the CPU's in
   float64, and three castellated steps on the card against the CPU.
@@ -495,17 +502,16 @@ def test_step_with_the_solver_family_on_cuda(tmp_path, config):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("rows", [128, 160])
 def test_bicgstab_at_the_banded_shapes(rows, dtype):
-    """K1 on 128 (grid-wide, one block a row) and 160 (one block per row)
-    per-row systems of 100k cells, the banded fvDOM's batches, against
-    its plain version."""
+    """K1 on 128 and 160 per-row systems of 100k cells, the banded fvDOM's
+    batches (the many-rows kernel, whatever G), against its plain
+    version."""
     _need_cuda()
     nxyz = (50, 40, 50)
     offs = _offs(nxyz)
     ops = _system(43, rows, False, False, dtype, torch.device("cuda"), nxyz, 1.0)
     plan, _ = dia_krylov._grid_launch_plan("bicgstab", dtype, rows, ops[0].shape[-1], 3,
                                            ops[0].element_size())
-    G, _ = dia_krylov._coop_blocks("bicgstab", dtype, 0)
-    assert plan.grid_wide == (rows <= G)
+    assert plan.rows == (dia_krylov.ROWS_MIN <= rows <= dia_krylov.ROWS_MAX) and plan.grid_wide
     before = dia_krylov.LAUNCHES["bicgstab"]
     got = dia_krylov.dia_bicgstab(*ops, offs, tol=1e-8, max_iter=500)
     torch.cuda.synchronize()
@@ -516,6 +522,123 @@ def test_bicgstab_at_the_banded_shapes(rows, dtype):
     assert np.all(np.abs(its[0] - its[1]) <= slack), its
     rel = float((got.x - ref.x).abs().max() / ref.x.abs().max())
     assert rel <= xtol, rel
+
+
+ROWS_SHAPES = {"100kx16": ((50, 40, 50), 16), "100kx128": ((50, 40, 50), 128),
+               "100kx160": ((50, 40, 50), 160), "9kx200": ((30, 15, 20), 200)}
+
+
+def _rows_check(got, ref, dtype):
+    slack, xtol = _tolerances("bicgstab", dtype)
+    its = (got.n_iterations.cpu().numpy(), ref.n_iterations.cpu().numpy())
+    assert np.all(np.abs(its[0] - its[1]) <= slack), its
+    rel = (got.x - ref.x).abs().amax(dim=-1) / ref.x.abs().amax(dim=-1)
+    assert float(rel.max()) <= xtol, rel
+    return its[1]
+
+
+@pytest.mark.parametrize("shape", list(ROWS_SHAPES))
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rows_kernel_matches_plain_version(dtype, shared, shape):
+    """The many-rows kernel through the wrapper's rule (which takes it at
+    these sizes) against the plain version; a second launch bit-equal."""
+    _need_cuda()
+    nxyz, B = ROWS_SHAPES[shape]
+    ops = _system(71, B, False, shared, dtype, torch.device("cuda"), nxyz, 1.0)
+    dia_krylov.reset_counts()
+    got = dia_krylov.dia_bicgstab(*ops, _offs(nxyz), tol=1e-8, max_iter=500)
+    torch.cuda.synchronize()
+    assert dia_krylov.DEVICE_LAUNCHES["bicgstab_rows"] == 1
+    _rows_check(got, _plain("bicgstab", *ops, _offs(nxyz), tol=1e-8, max_iter=500), dtype)
+    again = dia_krylov._launch("bicgstab", *ops, _offs(nxyz), 1e-8, 0.0, 500, rows=True)
+    assert torch.equal(again.x, got.x)
+    assert torch.equal(again.final_residual, got.final_residual)
+    assert again.n_iterations.tolist() == got.n_iterations.tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rows_kernel_rows_stop_far_apart(dtype):
+    """128 rows of 100k cells: heavier diagonals converge sooner, right-hand
+    sides over six decades, and 8 rows start converged (b = A·x0, 0
+    iterations). Every row stops at its own count, as the plain version's
+    rows do; the stopped rows keep their x."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    nxyz, B = (50, 40, 50), 128
+    d, up, lo, b, x0 = _system(73, B, False, False, dtype, dev, nxyz, 1.0)
+    d = (d + torch.linspace(0, 6, B, dtype=dtype, device=dev)[:, None] ** 2).contiguous()
+    b = (b * (10.0 ** torch.linspace(-3, 3, B, dtype=dtype, device=dev))[:, None]).contiguous()
+    b[:8] = dia_krylov.dia_matvec(d, up, lo, _offs(nxyz), x0)[:8]
+    got = dia_krylov.dia_bicgstab(d, up, lo, b, x0, _offs(nxyz), tol=1e-7, max_iter=500)
+    ref = _plain("bicgstab", d, up, lo, b, x0, _offs(nxyz), tol=1e-7, max_iter=500)
+    its = _rows_check(got, ref, dtype)
+    assert (its[:8] == 0).all() and len(set(its.tolist())) > 8, its
+    assert torch.equal(got.x[:8], x0[:8])
+
+
+def test_rows_kernel_restarts_on_breakdown():
+    """The 5-cell upwind chain whose rhat·v is exactly 0 at BiCGStab's second
+    step in float64 (test_bicgstab_kernel_restarts_on_breakdown), 16 rows of
+    it beside rows that never break down: the many-rows kernel restarts as
+    the twin does, with the same per-row counts."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    n = 5
+    lower = np.array([2.0, 1.0, -1.0, 1.0, 0.0])
+    b = np.array([[1.0, -2.0, 2.0, -1.0, 0.0], [1.0, 0.5, 0.25, -1.0, 2.0]] * 8)
+    ops = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+           for a in (np.ones(n), np.zeros(n), lower, b, np.zeros((16, n)))]
+    assert dia_krylov._grid_launch_plan("bicgstab", torch.float64, 16, n, 1, 8)[0].rows
+    got = dia_krylov.dia_bicgstab(*ops, (1,), tol=1e-12, max_iter=50)
+    ref = dia_krylov.plain(linear.bicgstab, *ops, (1,), tol=1e-12, max_iter=50)
+    A = np.eye(n)
+    A[np.arange(1, n), np.arange(n - 1)] = lower[:-1]
+    x = np.linalg.solve(A, b.T).T
+    assert bool(torch.isfinite(got.x).all())
+    np.testing.assert_allclose(got.x.cpu().numpy(), x, rtol=0, atol=1e-12)
+    assert got.n_iterations.tolist() == ref.n_iterations.tolist()
+
+
+@pytest.mark.parametrize("layout", [dict(rows=True), dict(rows=False),
+                                    dict(grid_wide=False)])
+def test_bicgstab_kernels_stop_a_row_whose_step_overflows(layout):
+    """float32, a right-hand side of 1e20 (r·r overflows): each K1 kernel
+    fails that row as the plain version does (x0, its initial residual, 0
+    iterations), and the other row solves as there."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    n = 5
+    lower = np.array([2.0, 1.0, -1.0, 1.0, 0.0])
+    b = np.array([[1e20, 3e20, 3e20, 2e20, 1e19], [1.0, 0.5, 0.25, -1.0, 2.0]])
+    ops = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+           for a in (np.ones(n), np.zeros(n), lower, b, np.zeros((2, n)))]
+    got = dia_krylov._launch("bicgstab", *ops, (1,), 1e-6, 0.0, 50, **layout)
+    ref = dia_krylov.plain(linear.bicgstab, *ops, (1,), tol=1e-6, max_iter=50)
+    assert bool(torch.isfinite(got.x).all()) and bool(torch.isfinite(ref.x).all())
+    assert torch.equal(got.x[0], ops[4][0])
+    assert torch.equal(got.final_residual[0], got.initial_residual[0])
+    assert got.n_iterations.tolist() == ref.n_iterations.tolist()
+    assert got.n_iterations.tolist()[0] == 0
+    _, xtol = _tolerances("bicgstab", torch.float32)
+    rel = float((got.x[1] - ref.x[1]).abs().max() / ref.x[1].abs().max())
+    assert rel <= xtol, rel
+
+
+def test_rows_kernel_at_the_row_cap():
+    """ROWS_MAX rows of a 960-cell lattice in float64 (the kernel's largest
+    shared memory) against the plain version; one row more goes to the
+    one-block-per-row kernel."""
+    _need_cuda()
+    B = dia_krylov.ROWS_MAX
+    ops = _system(79, B, False, True, torch.float64, torch.device("cuda"), NXYZ, 1.0)
+    smem = dia_krylov.rows_smem(B, torch.float64)
+    plan = dia_krylov._grid_launch_plan("bicgstab", torch.float64, B, 960, 3, 8)[0]
+    assert plan.rows and dia_krylov._coop_blocks("bicgstab_rows", torch.float64, smem)[0] >= (
+        plan.blocks_per_row)
+    got = dia_krylov.dia_bicgstab(*ops, OFFS, tol=1e-8, max_iter=500)
+    _rows_check(got, _plain("bicgstab", *ops, OFFS, tol=1e-8, max_iter=500), torch.float64)
+    assert not dia_krylov._grid_launch_plan("bicgstab", torch.float64, B + 1, 960, 3, 8)[0].rows
 
 
 @pytest.mark.parametrize("model", RADIATION_MODELS)

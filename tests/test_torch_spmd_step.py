@@ -24,6 +24,8 @@ max-abs):
     capacity of one parcel a round, which holds parcels back for a later
     round: the same counts and mass, fields to 1e-10, positions and cells;
   * scatter_state/gather_state round trips, bitwise;
+  * run_many: two runs in one launch of the ranks give what separate
+    launches give, bit for bit;
   * pyrolysis, the film and fvOptions zones raise under `local` in both
     packages.
 
@@ -41,7 +43,7 @@ import jax
 
 from firefoam_torch.models.firefoam import FireFoamSolver as TSolver
 from firefoam_torch.models.firefoam import state_from_numpy, state_to_numpy
-from firefoam_torch.parallel.spmd_step import SpmdFireFoam
+from firefoam_torch.parallel.spmd_step import SpmdFireFoam, _tree_equal, run_many
 from firefoam_torch.utils.synthcase import write_box_fire_case, write_spray_fire_case
 
 torch.set_num_threads(1)
@@ -163,6 +165,23 @@ def test_scatter_gather_round_trip(rcb_run, jax_run):
     assert sorted(ref) == sorted(got)
     for k, v in ref.items():
         assert np.array_equal(np.asarray(v), np.asarray(got[k])), k
+
+
+def test_runs_in_one_launch_match_separate_launches(box):
+    """run_many runs its jobs one after the other in the same rank
+    processes: each job's state and logs equal those of its own launch,
+    bit for bit; jobs over other numbers of parts are refused."""
+    sp = SpmdFireFoam(box, 2, device="cpu", partition="rcb")
+    st = sp.ref.initial_state()
+    alone = sp.run(st, 1)
+    one, two = run_many([(sp, st, 1, {}), (sp, st, 2, {"every_step": True})], DEADLINE)
+    assert _tree_equal(one["state"], alone["state"]) and one["logs"] == alone["logs"]
+    assert _tree_equal(two["states"][0], alone["state"])
+    assert two["logs"][0] == alone["logs"][0] and len(two["logs"]) == 2
+    assert not _tree_equal(two["state"], alone["state"])
+    sp4 = SpmdFireFoam(box, 4, device="cpu", partition="rcb", build_ref=False)
+    with pytest.raises(ValueError):
+        run_many([(sp, st, 1, {}), (sp4, st, 1, {})])
 
 
 def test_slab_gmg_matches_single_device_gmg(box):
