@@ -21,7 +21,12 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      bicgstab_kernel where the rule takes the many-rows kernel), held to the
      plain version too, and the many-rows kernel launched twice, bit-equal;
      at CROSSOVER_ROWS and at 200 rows of 9k cells both layouts timed in
-     float32 with their bounds;
+     float32 with their bounds; then K1 (B = 1, 3 shared, 16 per row), K2
+     and K3 on systems of 100k cells with 12 offsets (OFFS_12: the hybrid
+     layout's lane count), float32 and float64, against their plain
+     versions, timed with their bounds; and K1 in float64 on a poorly
+     conditioned 12-offset system (the lattice's diagonal excess), held to
+     the plain version by its true residual;
   4. the main path at 100k cells in float32: write_box_fire_case(50,40,50)
      → FireFoamSolver(device="cuda") → initial_state() → one warm-up step →
      make_chunk(20), with the kernels' launch counters checked, every logged
@@ -120,7 +125,17 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      in float64, SEG against DIA within CPU_TOL;
      then the castellated fire at 10k cells, 10 steps, float64 on the card
      against float64 on the CPU within CPU_TOL and float32 against float64
-     within the T drift band;
+     within the T drift band. Every SEG run forces layout="seg". Then the
+     hybrid layout (DIA lanes for the dominant offsets and the rest tail;
+     PairMG on p_rgh; no kernel serves it): the same 117k fire with
+     layout="hybrid" in float32, make_chunk(10) from t = 0 with no K1-K3
+     launch, finite, heating, a second run bitwise equal; its ms/step
+     beside the SEG run's, launches, host reads and device-busy ms of a
+     step, the lanes, their coverage and the rest faces, PairMG's levels
+     and host seconds; one p_rgh system through PairMG-CG and the
+     Jacobi-CG twin on hybrid, beside amg_pcg's on SEG; and the 10k fire on
+     hybrid with PairMG, 5 steps, card float64 against the CPU within CPU_TOL and
+     float32 against float64 within the T drift band;
  12. the Lagrangian sprinkler spray (write_spray_fire_case: the box fire with
      a detailed-sprinkler head spraying from t = 0, cloud radiation in
      fvDOM, a collector; the JAX package's capacity, 262,144 parcel slots;
@@ -238,6 +253,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -257,7 +273,9 @@ from firefoam_torch.models import run as run_cli  # noqa: E402
 from firefoam_torch.models import firefoam as firefoam_mod  # noqa: E402
 from firefoam_torch.models.firefoam import FireFoamSolver  # noqa: E402
 from firefoam_torch.solvers import dia_krylov, dic, linear  # noqa: E402
-from firefoam_torch.profile_step import _busy_us  # noqa: E402
+from firefoam_torch.ops import MeshGeometry  # noqa: E402
+from firefoam_torch.solvers.pairmg import PairMG  # noqa: E402
+from firefoam_torch.profile_step import busy_us, device_events, kernel_launches  # noqa: E402
 from firefoam_torch.radiation import fvdom as fvdom_mod  # noqa: E402
 from firefoam_torch.spray_sensitivity import float64_draws  # noqa: E402
 from firefoam_torch.utils.synthcase import (  # noqa: E402
@@ -295,6 +313,9 @@ PROFILE_STEPS = 1
 # fire's chunk (the next step solves the rays, as after CHUNK)
 SEG_F64_STEPS = 10
 CASTEL_CHUNK = 10
+# the 10k castellated fire on hybrid against the CPU (the CPU's hybrid step
+# is the slowest of phase 11's 10k runs)
+HYBRID_SMALL_STEPS = 5
 # above propane's adiabatic flame temperature in air (about 2,270 K) and
 # below the thermo's upper clip: a diverged run sits at the clip
 T_FLAME_MAX = 3000.0
@@ -426,6 +447,9 @@ REPLACES = {
 # (x rel, iteration slack); K3's f32 slack is one round of 4 sweeps: its
 # float32 stagnation exit can fire a round apart from the plain version's
 TOL = {torch.float64: (1e-9, 0), torch.float32: (1e-4, 2)}
+# K1 on the poorly conditioned 12-offset system (k12_lattice_excess): the
+# kernel's true normalised residual against max(the plain version's, tol)
+K12_RES_FACTOR = 10.0
 SMOOTH_F32_SLACK = 4
 SMOOTH_SWEEPS = 800  # the fire step's budget: max(maxIter, 200)·4
 SMOOTH_EXTRA = (0.8, 4)  # dia_smooth's defaults: damping, sweeps per residual check
@@ -439,6 +463,15 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # residual check (once per 4 sweeps) 17
 FLOPS_PROLOGUE = 40
 FLOPS_ITER = {"pcg": 29, "bicgstab": 58, "smooth": 18 + 17 / 4}
+# DIA rows (matvecs) an iteration (sweep) computes: each offset beyond 3 adds
+# 4 operations a row (a product and a sum on each side) and 2 streamed vectors
+# (its upper and lower coefficients); the prologue computes 2 rows
+ROWS_ITER = {"pcg": 1, "bicgstab": 2, "smooth": 1 + 1 / 4}
+ROWS_PROLOGUE = 2
+# phase 3's systems with 12 offsets (the hybrid layout's lanes reach 9-16 on
+# the castellated meshes: 11 at 117k cells), on N_MAIN's 100k cells: the
+# lattice's three axes with their next neighbours and a second layer
+OFFS_12 = (1, 2, 49, 50, 51, 100, 1950, 1999, 2000, 2001, 2050, 4000)
 # vectors of nC values each iteration (sweep) of a row streams, counted from
 # the kernels' passes: CG 20, BiCGStab 39, a Jacobi sweep 10 plus its
 # residual check (9, once per 4 sweeps)
@@ -544,6 +577,129 @@ def dia_system(gen, nxyz, B, per_row, sym, dtype, dev):
     return offs, t(diag), t(up), t(lo), t(b), t(x0)
 
 
+def dia_system_k(gen, n, offs, B, per_row, sym, dtype, dev, excess=None):
+    """As dia_system, on n cells with the stencil `offs` (a face where the
+    neighbour exists). `excess`: the diagonal's excess over the row's
+    off-diagonals, 1 + 0.1·U(0, 1) times this (None: K/3)."""
+    f8 = dict(dtype=torch.float64, device=dev)
+    K = len(offs)
+    c = torch.arange(n, device=dev)
+    rows = B if per_row else 1
+    rand = lambda *shape: torch.rand(shape, generator=gen, **f8)
+    up = torch.zeros((rows, K, n), **f8)
+    lo = torch.zeros((rows, K, n), **f8)
+    for kk, o in enumerate(offs):
+        v = -(0.5 + rand(rows, n)) * (c + o < n)
+        up[:, kk] = v
+        lo[:, kk] = v if sym else v * (1.0 + 0.3 * rand(rows, n))
+    # by default the diagonal's excess over the row's off-diagonals grows
+    # with K as the off-diagonals do, so the system is as well conditioned
+    # as the lattice's (its solves take as many iterations)
+    diag = (K / 3.0 if excess is None else excess) * (1.0 + 0.1 * rand(B, n))
+    for kk, o in enumerate(offs):
+        u, l_ = up[:, kk].expand(B, n), lo[:, kk].expand(B, n)
+        diag[:, : n - o] -= u[:, : n - o]
+        diag[:, o:] -= l_[:, : n - o]
+    b = torch.randn((B, n), generator=gen, **f8)
+    x0 = 0.1 * torch.randn((B, n), generator=gen, **f8)
+    t = lambda a: a.to(dtype).contiguous()
+    up, lo = up.reshape(rows, K * n), lo.reshape(rows, K * n)
+    if not per_row:
+        up, lo = up[0], lo[0]
+    return t(diag), t(up), t(lo), t(b), t(x0)
+
+
+def phase_kernels_k12(dev, stats):
+    """K1 (B = 1, 3 shared, 16 per row), K2 and K3 (B = 1) on random
+    diagonally dominant systems of N_MAIN's cells with the 12 offsets
+    OFFS_12, float64 and float32, each against its plain version with
+    phase 3's tolerances; float32's times, bounds and plain times go into
+    stats[name]["k12"]."""
+    rng = torch.Generator(device=dev).manual_seed(12)
+    n = int(np.prod(N_MAIN))
+    K = len(OFFS_12)
+    cases = (("bicgstab", 1, False), ("bicgstab", 3, False), ("bicgstab", 16, True),
+             ("pcg", 1, False), ("smooth", 1, False))
+    for dtype in (torch.float64, torch.float32):
+        for name, B, per_row in cases:
+            xtol, slack = TOL[dtype]
+            if name == "smooth" and dtype == torch.float32:
+                slack = SMOOTH_F32_SLACK
+            d, up, lo, b, x0 = dia_system_k(rng, n, OFFS_12, B, per_row, name == "pcg", dtype,
+                                            dev)
+            args = dict(tol=1e-8, rel_tol=0.0,
+                        max_iter=SMOOTH_SWEEPS if name == "smooth" else 1000)
+            kern = getattr(dia_krylov, f"dia_{name}")
+            if name == "smooth":
+                plain = dia_krylov.plain_smooth
+            else:
+                plain = lambda *a, _n=name, **k: dia_krylov.plain(getattr(linear, _n), *a, **k)
+            run_k = lambda: kern(d, up, lo, b, x0, OFFS_12, **args)
+            run_p = lambda: plain(d, up, lo, b, x0, OFFS_12, **args)
+            rk, rp = run_k(), run_p()
+            torch.cuda.synchronize()
+            it_k, it_p = rk.n_iterations.cpu().numpy(), rp.n_iterations.cpu().numpy()
+            rel = float(((rk.x - rp.x).abs().amax(-1) / rp.x.abs().amax(-1)).max())
+            err = float((rk.x - rp.x).abs().max())
+            ok = (rel <= xtol and np.all(np.abs(it_k - it_p) <= slack)
+                  and bool(torch.isfinite(rk.x).all()))
+            ms_k, ms_p = time_ms(run_k, reps=20), time_ms(run_p, reps=2)
+            plan, _ = dia_krylov._grid_launch_plan(name, dtype, B, n, K, x0.element_size())
+            kernel = (device_kernel(plan) if name == "bicgstab" else
+                      f"{name}_grid" if plan.grid_wide else name)
+            bnd, by = bound(name, dtype, (d, up, lo, b, x0), it_k, K)
+            stm = streamed_ms(name, dtype, n, it_k, K)
+            say(3, f"{name} {str(dtype)[6:]} {n} cells {K} offsets B={B} "
+                   f"{'per-row' if per_row else 'shared'} ({kernel}): iters kernel "
+                   f"{it_k.tolist()} plain {it_p.tolist()} max rel err {rel:.3e} kernel "
+                   f"{ms_k:.3f} ms plain {ms_p:.3f} ms; bound {bnd:.4f} ms ({by}); streamed "
+                   f"{stm:.4f} ms")
+            if not ok:
+                raise SystemExit(f"phase 3: {name} at {K} offsets disagrees with its plain "
+                                 f"version")
+            st = stats[name]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if dtype == torch.float32:
+                st.setdefault("k12", {})[f"B{B}"] = {
+                    "offsets": K, "device_kernel": kernel, "ms": ms_k, "plain_ms": ms_p,
+                    "bound_ms": bnd, "bound_by": by, "streamed_ms": stm,
+                    "iterations": int(np.max(it_k)), "max_abs_err": err}
+            else:
+                st.setdefault("k12_f64", {})[f"B{B}"] = {
+                    "ms": ms_k, "plain_ms": ms_p, "iterations": int(np.max(it_k))}
+    k12_lattice_excess(rng, n, dev, stats)
+
+
+def k12_lattice_excess(rng, n, dev, stats):
+    """K1 in float64 at 12 offsets with the lattice's diagonal excess (1,
+    not K/3): a poorly conditioned system, on which the plain version's own
+    x moves by far more than phase 3's 1e-9 when b moves by one ulp. The
+    kernel is held to the plain version by the true residual Σ|b − A·x| /
+    normFactor, recomputed from the operands, and the x gap is printed
+    beside that one-ulp spread of the plain version."""
+    d, up, lo, b, x0 = dia_system_k(rng, n, OFFS_12, 1, False, False, torch.float64, dev,
+                                    excess=1.0)
+    args = dict(tol=1e-8, rel_tol=0.0, max_iter=1000)
+    plain = lambda bb: dia_krylov.plain(linear.bicgstab, d, up, lo, bb, x0, OFFS_12, **args)
+    rk = dia_krylov.dia_bicgstab(d, up, lo, b, x0, OFFS_12, **args)
+    rp, rq = plain(b), plain(torch.nextafter(b, torch.full_like(b, math.inf)))
+    rel = lambda x: float((x - rp.x).abs().max() / rp.x.abs().max())
+    res_k, res_p = (float(true_residual(d, up, lo, b, x0, OFFS_12, r.x)[0]) for r in (rk, rp))
+    it_k, it_p = int(rk.n_iterations[0]), int(rp.n_iterations[0])
+    ok = (bool(torch.isfinite(rk.x).all())
+          and res_k <= K12_RES_FACTOR * max(res_p, args["tol"]))
+    say(3, f"bicgstab float64 {n} cells 12 offsets, the lattice's diagonal excess: iters "
+           f"kernel {it_k} plain {it_p}; true residual kernel {res_k:.3e} plain {res_p:.3e} "
+           f"(tolerance {args['tol']:.0e}); x kernel vs plain {rel(rk.x):.3e}; plain with b "
+           f"one ulp up vs plain {rel(rq.x):.3e}")
+    if not ok:
+        raise SystemExit("phase 3: bicgstab at 12 offsets with the lattice's diagonal excess "
+                         "stops at a worse residual than its plain version")
+    stats["bicgstab"]["k12_lattice_excess_f64"] = {
+        "iterations": it_k, "plain_iterations": it_p, "residual": res_k,
+        "plain_residual": res_p, "x_rel_gap": rel(rk.x), "plain_one_ulp_rel_gap": rel(rq.x)}
+
+
 def time_ms(fn, reps=5):
     fn()
     torch.cuda.synchronize()
@@ -557,24 +713,28 @@ def time_ms(fn, reps=5):
     return t0.elapsed_time(t1) / reps
 
 
-def bound(name, dtype, ops, iters):
+def bound(name, dtype, ops, iters, K=3):
     """(bound_ms, bound_by): the least time the card could take for one
     solve of these operands — the larger of the bytes the function must
     move (each operand read once, x written once) over HBM's rate and the
-    operations this run's iteration counts needed over the peak rate."""
+    operations this run's iteration counts needed over the peak rate, for
+    a stencil of K offsets."""
     nbytes = sum(t.numel() for t in ops) * ops[0].element_size()
     nbytes += ops[-1].numel() * ops[-1].element_size()  # x, the shape of x0
     nC = ops[-1].shape[-1]
     B = ops[-1].shape[0] if ops[-1].ndim == 2 else 1
-    flops = nC * (B * FLOPS_PROLOGUE + FLOPS_ITER[name] * float(np.sum(iters)))
+    extra = 4 * (K - 3)
+    flops = nC * (B * (FLOPS_PROLOGUE + ROWS_PROLOGUE * extra)
+                  + (FLOPS_ITER[name] + ROWS_ITER[name] * extra) * float(np.sum(iters)))
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def streamed_ms(name, dtype, nC, iters):
+def streamed_ms(name, dtype, nC, iters, K=3):
     """The time HBM takes to stream every iteration's vectors once (no
     reuse from cache between passes): a looser bound than `bound`."""
-    nbytes = VECTORS_ITER[name] * nC * torch.finfo(dtype).bits // 8 * float(np.sum(iters))
+    vectors = VECTORS_ITER[name] + ROWS_ITER[name] * 2 * (K - 3)
+    nbytes = vectors * nC * torch.finfo(dtype).bits // 8 * float(np.sum(iters))
     return 1e3 * nbytes / HBM_BYTES_S
 
 
@@ -901,11 +1061,8 @@ def launches_and_reads(fn):
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    kernels = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.lower().startswith("memcpy") and not e.key.lower().startswith("memset"))
-    reads = sum(e.count for e in avgs if e.key == "aten::_local_scalar_dense")
-    return (kernels or None), reads
+    dev, reads = device_events(prof)
+    return (kernel_launches(dev) or None), reads
 
 
 def p_rgh_solver_times(phase, solvers, state, what):
@@ -1140,11 +1297,9 @@ def step_profile(step, state, n_steps):
         for _ in range(n_steps):
             state, _ = step(state)
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    kernels = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.lower().startswith(("memcpy", "memset")))
-    reads = sum(e.count for e in avgs if e.key == "aten::_local_scalar_dense")
-    return state, kernels / n_steps, reads / n_steps, _busy_us(prof) / 1e3 / n_steps
+    dev, reads = device_events(prof)
+    return (state, kernel_launches(dev) / n_steps, reads / n_steps,
+            busy_us(dev) / 1e3 / n_steps)
 
 
 _BOX_PROFILE = []
@@ -1368,13 +1523,10 @@ def profiled(step, state, n_steps):
         for _ in range(n_steps):
             state, _ = step(state)
         torch.cuda.synchronize()
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.lower().startswith(("memcpy", "memset")))
-    k1 = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and "bicgstab" in e.name]
-    k1_us = sum(e.time_range.end - e.time_range.start for e in k1)
-    return (state, kernels / n_steps, _busy_us(prof) / 1e3 / n_steps,
+    dev, _ = device_events(prof)
+    k1 = [(s, e) for name, s, e in dev if "bicgstab" in name]
+    k1_us = sum(e - s for s, e in k1) / 1e3
+    return (state, kernel_launches(dev) / n_steps, busy_us(dev) / 1e3 / n_steps,
             k1_us / 1e3 / n_steps, len(k1) / n_steps)
 
 
@@ -1977,7 +2129,7 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
     # ---- the 117k-cell castellated fire, float32
     t0 = time.perf_counter()
     case = write_castellated_fire_case(os.path.join(tmp, "castel"), n=N_CASTEL, **CASTEL_KW)
-    solver = FireFoamSolver(case, device=dev)
+    solver = FireFoamSolver(case, device=dev, layout="seg")
     build_s = time.perf_counter() - t0
     g = solver.geom
     if g.layout != "seg" or solver.amg is None or solver._ldu is not None:
@@ -2055,6 +2207,7 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
               "twin_bicgstab": twins,
               "seg_sum": sums}
     del solver, flat, state, again, state0
+    castel["hybrid"] = hybrid_castellated(dev, case, ms, p_rgh["amg_pcg"])
 
     # ---- the 100k box fire on SEG beside phase 4's DIA run of the same steps
     seg = FireFoamSolver(box_case, device=dev, layout="seg", amg=False)
@@ -2117,7 +2270,7 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
     out, ms_run = {}, {}
     for run, d, dtype in (("f32", dev, torch.float32), ("f64", dev, torch.float64),
                           ("cpu", torch.device("cpu"), torch.float64)):
-        s = FireFoamSolver(small, device=d, dtype=dtype)  # the automatic rule
+        s = FireFoamSolver(small, device=d, dtype=dtype, layout="seg")  # the automatic rule
         st = s.initial_state()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2142,7 +2295,141 @@ def phase_castellated(dev, tmp, box_case, box_solver, box_state, box_ms):
         raise SystemExit(f"phase 11: the card's float64 run differs from the CPU's beyond "
                          f"{CPU_TOL}")
     castel["small"] = {"cells": int(T64.size), "drift": drift, "vs_cpu": vs_cpu, "ms": ms_run}
+    castel["hybrid_small"] = hybrid_small(dev, small)
     return launches, castel
+
+
+def hybrid_castellated(dev, case, seg_ms, amg_solve):
+    """The 117k castellated fire on the hybrid layout (DIA lanes for the
+    dominant offsets and the rest tail; PairMG on p_rgh), float32, beside
+    the SEG run of this phase: make_chunk(CASTEL_CHUNK) from t = 0, finite,
+    heats the gas, no K1-K3 launch, a second run bitwise equal; launches,
+    host reads and device-busy ms of one step; the lanes; PairMG's levels
+    and host seconds; one p_rgh system through PairMG-CG and the Jacobi-CG
+    twin on hybrid (amg_pcg's is the SEG run's, from the SEG state of the
+    same step)."""
+    t0 = time.perf_counter()
+    solver = FireFoamSolver(case, device=dev, layout="hybrid")
+    build_s = time.perf_counter() - t0
+    g = solver.geom
+    if g.layout != "hybrid" or solver.pairmg is None or solver.amg is not None:
+        raise SystemExit("phase 11: layout='hybrid' did not give PairMG without AMG on p_rgh")
+    t0 = time.perf_counter()
+    mg = PairMG.from_geom(g)
+    mg_s = time.perf_counter() - t0
+    # what the automatic rule takes on this mesh on the card
+    auto = MeshGeometry.from_polymesh(solver.cm.mesh, device=dev).layout
+    n, nK = g.n_cells, len(g.offsets)
+    n_faces = int(g.face_mask.sum())
+    rest = int(g.own_r.numel())
+    say(11, f"hybrid castellated fire {n} cells: {nK} lanes at offsets {list(g.offsets)} hold "
+            f"{n_faces - rest} of {n_faces} internal faces "
+            f"({100.0 * (n_faces - rest) / n_faces:.2f} %), {rest} in the rest tail; "
+            f"{n_faces - rest} of {nK * n} lane slots real; PairMG {len(mg.levels)} levels "
+            f"({' > '.join(str(lv.n) for lv in mg.levels)} cells), built in {mg_s:.3f} s on "
+            f"the host; host seconds: geometry {solver.setup_seconds['geometry']:.2f}, solver "
+            f"tables {solver.setup_seconds['solvers']:.2f}; case and solver {build_s:.1f} s; "
+            f"layout='auto' takes {auto}")
+    dia_krylov.reset_counts()
+    state0 = solver.initial_state()
+    T0_max = float(state0["T"].i.max())
+    chunk = solver.make_chunk(CASTEL_CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logs = chunk(state0)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / CASTEL_CHUNK
+    launches = dict(dia_krylov.LAUNCHES)
+    fields = ("T", "U", "p_rgh", "Y", "k", "phi")
+    finite = all(bool(torch.isfinite(state[f].i).all() and torch.isfinite(state[f].b).all())
+                 for f in fields)
+    bad_logs = [k for k, v in logs.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    rays_finite = bool(torch.isfinite(state["rad"]["I"]).all())
+    T_max = float(state["T"].i.max())
+    p_its = [[int(a), int(b)] for a, b in zip(logs["p_rgh_iters_0"], logs["p_rgh_iters_1"])]
+    say(11, f"hybrid castellated fire float32, make_chunk({CASTEL_CHUNK}) from t = 0: "
+            f"{ms:.3f} ms/step (SEG in this run {seg_ms:.3f}), {n / (ms * 1e-3):.6e} "
+            f"cell-updates/s; T max {T_max:.3f} K (initially {T0_max:.3f} K); fields finite "
+            f"{finite}, non-finite log entries {bad_logs}, ray intensities finite "
+            f"{rays_finite}; launches K1 {launches['bicgstab']}, K2 {launches['pcg']}, K3 "
+            f"{launches['smooth']} (expected 0: no kernel serves hybrid); PairMG-CG "
+            f"iterations per corrector {p_its}")
+    if not finite or bad_logs or not rays_finite:
+        raise SystemExit("phase 11: the hybrid castellated fire is not finite")
+    if not T0_max + 1.0 < T_max < T_FLAME_MAX:
+        raise SystemExit("phase 11: the hybrid castellated fire did not heat the gas")
+    if sum(launches.values()):
+        raise SystemExit("phase 11: a DIA kernel was launched on a hybrid mesh")
+    again, logs2 = chunk(state0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(again[f].i, state[f].i) and torch.equal(again[f].b, state[f].b)
+               for f in fields) and all(torch.equal(logs2[k], logs[k]) for k in logs)
+    say(11, f"the same {CASTEL_CHUNK} hybrid steps again: states and logs bitwise equal: "
+            f"{same}")
+    if not same:
+        raise SystemExit("phase 11: two runs of the hybrid castellated fire differ")
+    _, k_step, r_step, busy = step_profile(solver.make_step(), state, PROFILE_STEPS)
+    say(11, f"hybrid castellated fire per step (torch.profiler, {PROFILE_STEPS} steps after "
+            f"the chunk): {k_step:.0f} kernel launches, {r_step:.0f} host reads, device busy "
+            f"{busy:.3f} ms of {ms:.3f} ms ({100.0 * (1.0 - busy / ms):.1f} % idle)")
+    flat = copy.copy(solver)
+    flat.pairmg = None  # the same solver with the Jacobi-CG twin on p_rgh
+    p_rgh = p_rgh_solver_times(11, {"PairMG-CG": solver, "CG twin (hybrid)": flat}, state,
+                               "117k hybrid castellated")
+    say(11, f"p_rgh a solve: PairMG-CG {p_rgh['PairMG-CG'][0]:.3f} ms, "
+            f"{p_rgh['PairMG-CG'][1]} iterations; the CG twin on hybrid "
+            f"{p_rgh['CG twin (hybrid)'][0]:.3f} ms, {p_rgh['CG twin (hybrid)'][1]} iterations; "
+            f"amg_pcg on SEG {amg_solve[0]:.3f} ms, {amg_solve[1]} iterations")
+    out = {"cells": n, "auto_layout": auto, "lanes": nK, "offsets": list(g.offsets),
+           "lane_faces": n_faces - rest,
+           "rest_faces": rest, "coverage": (n_faces - rest) / n_faces,
+           "pairmg_levels": [lv.n for lv in mg.levels], "pairmg_build_s": mg_s,
+           "ms_per_step": ms, "seg_ms_per_step": seg_ms, "launches_per_step": k_step,
+           "host_reads_per_step": r_step, "device_busy_ms": busy,
+           "launches": launches, "p_rgh": {k: {"ms": v[0], "iterations": v[1]}
+                                           for k, v in p_rgh.items()},
+           "amg_pcg_seg": {"ms": amg_solve[0], "iterations": amg_solve[1]}}
+    del solver, flat, state, again, state0
+    return out
+
+
+def hybrid_small(dev, small):
+    """The 10k castellated fire on the hybrid layout with PairMG on p_rgh
+    (forced: the rule takes it from 50,000 cells) and the DIC schedule off,
+    HYBRID_SMALL_STEPS steps: float64 on the card against the CPU within
+    CPU_TOL, float32 against float64 within T_DRIFT."""
+    out, ms_run = {}, {}
+    for run, d, dtype in (("f32", dev, torch.float32), ("f64", dev, torch.float64),
+                          ("cpu", torch.device("cpu"), torch.float64)):
+        s = FireFoamSolver(small, device=d, dtype=dtype, layout="hybrid", pairmg=True,
+                           exact_solvers=False)
+        if s.geom.layout != "hybrid" or s.pairmg is None:
+            raise SystemExit("phase 11: the 10k fire did not take hybrid with PairMG")
+        st = s.initial_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = s.make_chunk(HYBRID_SMALL_STEPS)(st)
+        torch.cuda.synchronize()
+        ms_run[run] = 1e3 * (time.perf_counter() - t0) / HYBRID_SMALL_STEPS
+        out[run] = {f: st[f].i.double().cpu().numpy() for f in ("T", "U")}
+        lanes = len(s.geom.offsets)
+    T32, T64 = out["f32"]["T"], out["f64"]["T"]
+    drift = float(np.max(np.abs(T32 - T64) / np.maximum(T64, 1.0)))
+    vs_cpu = {f: float(np.max(np.abs(out["f64"][f] - out["cpu"][f])) /
+                       np.max(np.abs(out["cpu"][f]))) for f in ("T", "U")}
+    say(11, f"hybrid castellated fire {T64.size} cells ({lanes} lanes, PairMG-CG on p_rgh), "
+            f"{HYBRID_SMALL_STEPS} steps: float32 {ms_run['f32']:.3f} ms/step, float64 "
+            f"{ms_run['f64']:.3f} ms/step, CPU float64 {ms_run['cpu']:.1f} ms/step; max "
+            f"relative T drift float32 vs float64 {drift:.6e}; float64 card vs CPU: T "
+            f"{vs_cpu['T']:.3e}, U {vs_cpu['U']:.3e}")
+    if not np.all(np.isfinite(T32)) or not drift <= T_DRIFT:
+        raise SystemExit("phase 11: the hybrid fire's float32 drifts from float64 beyond the "
+                         "band")
+    if not max(vs_cpu.values()) <= CPU_TOL:
+        raise SystemExit(f"phase 11: the hybrid fire's float64 run on the card differs from "
+                         f"the CPU's beyond {CPU_TOL}")
+    return {"cells": int(T64.size), "lanes": lanes, "drift": drift, "vs_cpu": vs_cpu,
+            "ms": ms_run}
 
 
 
@@ -2192,11 +2479,8 @@ def profiled_call(fn):
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    kernels = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.lower().startswith(("memcpy", "memset")))
-    reads = sum(e.count for e in avgs if e.key == "aten::_local_scalar_dense")
-    return kernels, reads, _busy_us(prof) / 1e3
+    dev, reads = device_events(prof)
+    return kernel_launches(dev), reads, busy_us(dev) / 1e3
 
 
 def phase_spray(dev, tmp, box_solver, box_state, box_ms):
@@ -3458,6 +3742,7 @@ def main():
 
     G, sync_s = phase_sync()
     stats = phase_kernels(dev, G, sync_s)
+    phase_kernels_k12(dev, stats)
 
     with tempfile.TemporaryDirectory(prefix="firefoam_smoke_") as tmp:
         main_case = write_box_fire_case(os.path.join(tmp, "main"), n=N_MAIN)
@@ -3495,6 +3780,9 @@ def main():
             "launches_radiation_path": banded["launches"][name_k],
             # phase 11's 117k-cell castellated run: no kernel serves SEG
             "launches_castellated_path": castel_launches[name_k],
+            # phase 11's 117k-cell castellated run on the hybrid layout: no
+            # kernel serves it either
+            "launches_hybrid_path": castel["hybrid"]["launches"][name_k],
             # phase 12's 100k-cell sprinkler fire: the spray runs no kernel of
             # its own; K1 and K2 serve its gas step and its fvDOM rays
             "launches_spray_path": spray_launches[name_k],
@@ -3519,6 +3807,10 @@ def main():
             "us_per_iteration": stats[name_k]["us_per_iteration"],
             "blocks": stats[name_k]["blocks"],
             "grid_sync_us": 1e6 * sync_s,
+            # phase 3's systems with 12 offsets (the hybrid layout's lane
+            # count), float32 and float64
+            "k12": stats[name_k]["k12"],
+            "k12_f64": stats[name_k]["k12_f64"],
         }
         for name_k in ("bicgstab", "pcg", "smooth")
     ]
@@ -3531,6 +3823,8 @@ def main():
         m: dict(r["solve"], in_step_ms=r["k1_step_ms"]) for m, r in rad_runs.items()})
     kernels[0]["launches_by_device_kernel"] = main_by_kernel
     kernels[0]["launches_by_device_kernel_radiation_path"] = banded["launches"]["by_kernel"]
+    # phase 3: K1 at 12 offsets on the poorly conditioned system
+    kernels[0]["k12_lattice_excess_f64"] = stats["bicgstab"]["k12_lattice_excess_f64"]
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the slice was never launched")
     p_rgh = {str(n): {k: {"ms": v[0], "iterations": v[1]} for k, v in t.items()}

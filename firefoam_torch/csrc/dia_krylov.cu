@@ -73,7 +73,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kMaxOffsets = 8;
+constexpr int kMaxOffsets = 16;
+// bicgstab_rows_kernel's offsets held in registers: K = 3 (a lattice) or up
+// to kRegOffsets; from there to kMaxOffsets the stencil is read in a loop
+constexpr int kRegOffsets = 8;
 
 template <typename T> struct Lim;
 template <> struct Lim<float> {
@@ -1040,9 +1043,11 @@ __device__ __forceinline__ void rows_reduce(cg::grid_group& grid, const Params<T
 
 // One cell's operands of K0 (row c of M·x): d, x at c, and for each offset
 // the upper coefficient with x[c+o] and the lower one with x[c−o]. KK is K
-// (3 on a lattice) or kMaxOffsets with offsets k >= K read as offset 0; an
+// (3 on a lattice) or kRegOffsets with offsets k >= K read as offset 0; an
 // absent neighbour's pair is read at cell c itself. Both are left out of
-// the sums, which add in dia_row_s's order.
+// the sums, which add in dia_row's order. KK = kMaxOffsets (9-16 offsets):
+// 4·16 + 2 operands would spill, so the cell keeps d, x at c and its row's
+// pointers, and off_sum reads the stencil in a loop.
 template <typename T, int KK>
 struct Cell0 {
   T d, xc, u[KK], xu[KK], l[KK], xl[KK];
@@ -1078,6 +1083,44 @@ __device__ __forceinline__ T off_sum(const Params<T>& p, const Cell0<T, KK>& s, 
 #pragma unroll
   for (int k = 0; k < KK; ++k)
     if (k < p.K && c >= p.off[k]) nei += s.l[k] * (constant ? xr : s.xl[k]);
+  return own + nei;
+}
+
+template <typename T>
+struct Cell0<T, kMaxOffsets> {
+  T d, xc;
+  const T* up;
+  const T* lo;
+  const T* x;
+};
+
+template <typename T>
+__device__ __forceinline__ void load_cell(const Params<T>& p, const T* d, const T* up,
+                                          const T* lo, const T* xrow, int c,
+                                          Cell0<T, kMaxOffsets>& s) {
+  s.d = __ldg(d + c);
+  s.xc = __ldcg(xrow + c);
+  s.up = up;
+  s.lo = lo;
+  s.x = xrow;
+}
+
+template <typename T>
+__device__ __forceinline__ T off_sum(const Params<T>& p, const Cell0<T, kMaxOffsets>& s, int c,
+                                     bool constant, T xr) {
+  T own = T(0), nei = T(0);
+#pragma unroll 4
+  for (int k = 0; k < p.K; ++k) {
+    const int o = p.off[k];
+    if (c + o < p.nC)
+      own += __ldg(s.up + (long long)k * p.nC + c) * (constant ? xr : __ldcg(s.x + c + o));
+  }
+#pragma unroll 4
+  for (int k = 0; k < p.K; ++k) {
+    const int o = p.off[k];
+    if (c >= o)
+      nei += __ldg(s.lo + (long long)k * p.nC + c - o) * (constant ? xr : __ldcg(s.x + c - o));
+  }
   return own + nei;
 }
 
@@ -1457,13 +1500,16 @@ __global__ void __launch_bounds__(kThreads) smooth_grid_kernel(Params<T> p) {
   finish_grid(p, s, x, res0, res, it);
 }
 
-// The cooperative kernels by index: 0 K2, 1 K1, 2 K3, 3 K1 for many rows.
+// The cooperative kernels by index: 0 K2, 1 K1, 2 K3, 3-5 K1 for many rows
+// (3, up to kRegOffsets and up to kMaxOffsets offsets).
 template <typename T>
 const void* grid_kernel(int which) {
   return which == 0   ? (const void*)pcg_grid_kernel<T>
          : which == 1 ? (const void*)bicgstab_grid_kernel<T>
          : which == 2 ? (const void*)smooth_grid_kernel<T>
-                      : (const void*)bicgstab_rows_kernel<T, 3>;
+         : which == 3 ? (const void*)bicgstab_rows_kernel<T, 3>
+         : which == 4 ? (const void*)bicgstab_rows_kernel<T, kRegOffsets>
+                      : (const void*)bicgstab_rows_kernel<T, kMaxOffsets>;
 }
 
 template <typename T>
@@ -1517,8 +1563,7 @@ int launch_rows(Params<T> p, int B, T* slots, int nblk, int L, void* stream) {
   p.rows = B;
   p.bpr = nblk; p.L = L; p.slots = slots;
   const size_t smem = rows_smem_bytes<T>(B);
-  const void* f = p.K == 3 ? (const void*)bicgstab_rows_kernel<T, 3>
-                           : (const void*)bicgstab_rows_kernel<T, kMaxOffsets>;
+  const void* f = grid_kernel<T>(p.K == 3 ? 3 : p.K <= kRegOffsets ? 4 : 5);
   cudaError_t e =
       cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -1596,14 +1641,15 @@ extern "C" int ffk_rows_smem(int B, int is_f64) {
 }
 
 // How many blocks of a cooperative kernel (which: 0 pcg, 1 bicgstab, 2 smooth,
-// 3 bicgstab for many rows) are co-resident on the current device with
-// `smem_bytes` of dynamic shared memory each (0 when that is more than a
-// block may have), and the most dynamic shared memory a block of it may
-// have; the kernel is opted in to that much. Fails with
-// cudaErrorNotSupported on a device without cooperative launch.
+// 3 bicgstab for many rows: the least over its instantiations by offsets)
+// are co-resident on the current device with `smem_bytes` of dynamic shared
+// memory each (0 when that is more than a block may have), and the most
+// dynamic shared memory a block of it may have; the kernel is opted in to
+// that much. Fails with cudaErrorNotSupported on a device without
+// cooperative launch.
 extern "C" int ffk_coop_blocks(int which, int is_f64, int smem_bytes, int* blocks,
                                int* max_smem_bytes) {
-  int dev = 0, coop = 0, sms = 0, optin = 0, per_sm = 0;
+  int dev = 0, coop = 0, sms = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1611,19 +1657,26 @@ extern "C" int ffk_coop_blocks(int which, int is_f64, int smem_bytes, int* block
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop || which < 0 || which > 3) return (int)cudaErrorNotSupported;
-  const void* f = is_f64 ? grid_kernel<double>(which) : grid_kernel<float>(which);
-  cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, f);
-  if (e != cudaSuccess) return (int)e;
-  const int max_dyn = optin - (int)fa.sharedSizeBytes;
-  e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dyn);
-  if (e != cudaSuccess) return (int)e;
-  *max_smem_bytes = max_dyn;
-  *blocks = 0;
-  if (smem_bytes > max_dyn) return 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, kThreads, (size_t)smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  *blocks = per_sm * sms;
+  int least_blocks = -1, least_dyn = optin;
+  for (int w = which; w <= (which == 3 ? 5 : which); ++w) {
+    const void* f = is_f64 ? grid_kernel<double>(w) : grid_kernel<float>(w);
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, f);
+    if (e != cudaSuccess) return (int)e;
+    const int max_dyn = optin - (int)fa.sharedSizeBytes;
+    e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dyn);
+    if (e != cudaSuccess) return (int)e;
+    int per_sm = 0;
+    if (smem_bytes <= max_dyn) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, kThreads,
+                                                        (size_t)smem_bytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+    least_dyn = max_dyn < least_dyn ? max_dyn : least_dyn;
+    least_blocks = least_blocks < 0 || per_sm * sms < least_blocks ? per_sm * sms : least_blocks;
+  }
+  *max_smem_bytes = least_dyn;
+  *blocks = least_blocks;
   return 0;
 }
 

@@ -12,20 +12,23 @@ with adaptive Δt, matching the reference equation set:
   solver/setMultiRegionDeltaT.H:34-63  Courant-limited Δt growth
 
 The mesh takes the DIA layout where it fits (a lattice) and the SEG layout
-otherwise (a snappyHexMesh castellation; `layout=` forces either, as the
-JAX package's FIREFOAM_TPU_LAYOUT does). The linear solves of the step are
-U (3 rows), the species (one row each), h, k, the fvDOM rays and both
+otherwise (a snappyHexMesh castellation); `layout=` forces either, or the
+hybrid layout (DIA lanes for a castellation's dominant offsets and the
+rest), as the JAX package's FIREFOAM_TPU_LAYOUT does. The linear solves of
+the step are U (3 rows), the species (one row each), h, k, the fvDOM rays and both
 p_rgh correctors, hydrostatic init included. The solver is picked as the
 JAX package picks it. With the wavefront LDU schedule (`exact_solvers`:
 automatic in float64), PCG+DIC and smoothSolver+*GaussSeidel entries run
 the OpenFOAM-exact solvers of solvers/dic.py. p_rgh then goes, in this
 order, to the lattice multigrid (`gmg`, solvers/gmg.py, DIA only), the
+index-pair multigrid on hybrid (`pairmg`, solvers/pairmg.py), the
 agglomeration multigrid (`amg`, solvers/amg.py) or the
 Jacobi-preconditioned CG. Every other solve goes through
 solvers/linear.py's `solve_ldu`: on DIA to the whole-solve kernels of
 solvers/dia_krylov.py (their plain PyTorch twins on the CPU), K1
-(PBiCGStab), K2 (PCG) or K3 (smoothSolver, damped Jacobi); on SEG to the
-twins on either device, as the JAX package runs its flat solvers there.
+(PBiCGStab), K2 (PCG) or K3 (smoothSolver, damped Jacobi); on SEG and
+hybrid to the twins on either device, as the JAX package runs its flat
+solvers there.
 
 The run features come along: fvOptions sources in UEqn and EEqn, the
 controlDict function objects (reduced into the step log), the RTI probes
@@ -97,6 +100,7 @@ from ..solvers.amg import AMGHierarchy, amg_pcg
 from ..solvers.dic import build_schedule, dic_pcg, sgs_solve
 from ..solvers.gmg import LatticeMG, gmg_pcg
 from ..solvers.linear import ldu_matvec, solve_ldu, solve_scalar
+from ..solvers.pairmg import PairMG, pairmg_pcg
 from ..thermo import GasThermo, SingleStepReaction
 from ..turbulence.kEqn import KEqnLES
 from .fvoptions import FvOptions
@@ -175,13 +179,16 @@ class FireFoamSolver:
                  exact_solvers: Optional[bool] = None, gmg: Optional[bool] = None,
                  gmg_coarsest: int = 64, amg: Optional[bool] = None,
                  p_rgh_f64: bool = False, layout: Optional[str] = None,
+                 pairmg: Optional[bool] = None,
                  enable_cloud: bool = True, local=None):
         """exact_solvers, gmg, amg: True forces, False forbids, None leaves
         the choice to the automatic rule of `_pick_solvers`. gmg_coarsest:
         the lattice multigrid stops coarsening at this many cells.
         p_rgh_f64: solve p_rgh in float64 inside a float32 step. layout:
-        None/"auto" (DIA where the mesh fits, else SEG), "dia" or "seg"
-        (MeshGeometry.from_polymesh). enable_cloud=False leaves out the
+        None/"auto" (DIA where the mesh fits, else SEG), "dia", "seg" or
+        "hybrid" (MeshGeometry.from_polymesh). pairmg: the
+        index-pair multigrid on p_rgh (hybrid only; True, False or None as
+        the others). enable_cloud=False leaves out the
         Lagrangian cloud of a case that has one. `setup_seconds` holds the
         host's seconds for the mesh, the geometry and the solver tables.
         local: a parallel.localize.LocalContext — builds this instance over
@@ -189,6 +196,9 @@ class FireFoamSolver:
         partitioned step."""
         self._local = local
         if local is not None:
+            if layout == "hybrid":
+                raise ValueError("the partitioned step localizes from SEG: layout='hybrid' "
+                                 "is not partitioned")
             device, dtype = local.geom.device, local.geom.dtype
         self.device = torch.device(device) if device is not None else default_device()
         self.dtype = dtype or real_dtype(self.device)
@@ -312,7 +322,7 @@ class FireFoamSolver:
         self.u_div_scheme = self._parse_div_scheme("div(phi,U)", ("LUST",))
         self.turb.div_scheme = self._parse_div_scheme("div(phi,k)", ("limitedLinear", 1.0))
         t0 = time.perf_counter()
-        self._pick_solvers(exact_solvers, gmg, int(gmg_coarsest), amg)
+        self._pick_solvers(exact_solvers, gmg, int(gmg_coarsest), amg, pairmg)
         self.setup_seconds["solvers"] = time.perf_counter() - t0
         self.p_rgh_f64 = bool(p_rgh_f64)
         rf = self.fv_solution.get_dict("relaxationFactors", FoamDict())
@@ -412,7 +422,7 @@ class FireFoamSolver:
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype, device=self.device)
 
-    def _pick_solvers(self, exact_solvers, gmg, gmg_coarsest, amg):
+    def _pick_solvers(self, exact_solvers, gmg, gmg_coarsest, amg, pairmg=None):
         """Build what the p_rgh solver family needs, by the JAX package's
         rule; each argument is True (force), False (forbid) or None:
 
@@ -426,9 +436,13 @@ class FireFoamSolver:
             or when the dictionary says GAMG, or when the schedule is off.
             On a DIA mesh on the card the whole-solve kernels K1-K3 serve
             both dtypes (as the JAX package's fused kernels serve float32
-            on its accelerator), so there AMG is on only when forced.
+            on its accelerator), so there AMG is on only when forced. On a
+            hybrid mesh AMG is on only when forced, on either device (the JAX
+            package's rule: its V-cycle does not run on the lanes);
+          * `pairmg`, the index-pair multigrid: on a hybrid mesh, automatic
+            from 50000 cells.
 
-        Partitioned (`local`): none of the three (they are global-topology
+        Partitioned (`local`): none of the four (they are global-topology
         objects); `_sgmg`, the sharded lattice multigrid, when the partition
         is a z-slab decomposition of a lattice and `gmg` is True, or None
         and the global mesh has at least 50000 cells (the JAX package's
@@ -437,6 +451,7 @@ class FireFoamSolver:
         self._ldu = None
         self.gmg = None
         self.amg = None
+        self.pairmg = None
         self._sgmg = None
         if self._local is not None:
             sl = self._local.slab_info()
@@ -460,11 +475,13 @@ class FireFoamSolver:
             gmg or (gmg_min is not None and g.n_cells >= gmg_min)
         ):
             self.gmg = LatticeMG.build(g.offsets, g.n_cells, n_coarsest=gmg_coarsest)
+        if pairmg is not False and g.layout == "hybrid" and (pairmg or g.n_cells >= 50000):
+            self.pairmg = PairMG.from_geom(g)
         try:
             p_solver = _solver_controls(self.fv_solution, "p_rgh")["solver"]
             fused = g.layout == "dia" and self.device.type == "cuda"
             want_amg = bool(amg) or (
-                amg is not False and not fused
+                amg is not False and not fused and g.layout != "hybrid"
                 and (g.n_cells >= 50000 or p_solver == "GAMG" or self._ldu is None)
             )
         except KeyError:
@@ -1223,7 +1240,8 @@ class FireFoamSolver:
         Jacobi-CG, K2's float64 kernel on the card) → the OpenFOAM-exact
         DIC-PCG (the fidelity path comes first: a multigrid solve at the
         same stated tolerance leaves other error modes) → the lattice
-        multigrid → AMG → the Jacobi-CG (K2 on DIA). The tolerances are
+        multigrid → the index-pair multigrid (hybrid) → AMG → the
+        Jacobi-CG (K2 on DIA). The tolerances are
         p_rghFinal's on the last corrector; solver, preconditioner and
         maxIter are p_rgh's. On the card K2 (also in float64 for
         `p_rgh_f64`) stops at the dictionary's maxIter, as the JAX package's
@@ -1254,6 +1272,9 @@ class FireFoamSolver:
             return gmg_pcg(self.gmg, dtot, m.lower, m.upper, b, x0, tol=tol, rel_tol=rel)
         if self._sgmg is not None:
             return self._sharded_gmg_solve(dtot, m, b, x0, tol, rel, c0["maxIter"])
+        if self.pairmg is not None:
+            return pairmg_pcg(self.pairmg, ldu_matvec(g, dtot, m.upper, m.lower), dtot,
+                              m.upper, b, x0, tol=tol, rel_tol=rel, max_iter=c0["maxIter"])
         if self.amg is not None:
             return amg_pcg(self.amg, dtot, m.lower, m.upper, b, x0, tol=tol, rel_tol=rel)
         return solve_ldu(g, "PCG", dtot, m.upper, m.lower, b, x0, tol=tol, rel_tol=rel,

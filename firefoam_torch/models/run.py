@@ -81,6 +81,7 @@ def run_case(
     amg: Optional[bool] = None,
     p_rgh_f64: bool = False,
     layout: Optional[str] = None,
+    pairmg: Optional[bool] = None,
 ):
     """Run a case to end_time (or max_steps); returns (solver, final_state,
     step_logs), the logs as numpy. A non-finite number in a step's log
@@ -93,9 +94,10 @@ def run_case(
     step; writes are checked after each call. `stats`, if given, receives
     the step seconds (host clock around the step calls and the host copy of
     their logs, which waits for the device), the steps and the write
-    seconds. exact_solvers, gmg, gmg_coarsest, amg and p_rgh_f64 choose the
-    linear solvers (FireFoamSolver's arguments; None: its automatic rule);
-    layout the mesh layout (None/"auto", "dia" or "seg").
+    seconds. exact_solvers, gmg, gmg_coarsest, amg, pairmg and p_rgh_f64
+    choose the linear solvers (FireFoamSolver's arguments; None: its
+    automatic rule); layout the mesh layout (None/"auto", "dia", "seg" or
+    "hybrid").
     """
     if verbose:
         print(f"firefoam_torch {__version__}")
@@ -103,7 +105,7 @@ def run_case(
         solver = FireFoamSolver(
             case_dir, device=device, radiation=radiation, exact_solvers=exact_solvers,
             gmg=gmg, gmg_coarsest=gmg_coarsest, amg=amg, p_rgh_f64=p_rgh_f64,
-            layout=layout,
+            layout=layout, pairmg=pairmg,
         )
     state = solver.initial_state()
     if resume:
@@ -205,7 +207,9 @@ def main(argv=None) -> int:
                             "names them (auto: in float64)"),
         ("--gmg", "the lattice multigrid on p_rgh (auto: from the device's measured size)"),
         ("--amg", "the agglomeration multigrid on p_rgh (auto: the CPU's rule; on the card "
-                  "only on a SEG mesh)"),
+                  "only on a SEG mesh; never on hybrid)"),
+        ("--pairmg", "the index-pair multigrid on p_rgh (hybrid only; auto: from 50,000 "
+                     "cells)"),
     ):
         ap.add_argument(flag, choices=sorted(_TRISTATE), default="auto",
                         help=f"{what}; 1 forces, 0 forbids")
@@ -213,9 +217,9 @@ def main(argv=None) -> int:
                     help="the lattice multigrid stops coarsening at this many cells")
     ap.add_argument("--p-rgh-f64", choices=("0", "1"), default="0",
                     help="solve p_rgh in float64 inside a float32 step")
-    ap.add_argument("--layout", choices=("auto", "dia", "seg"), default="auto",
+    ap.add_argument("--layout", choices=("auto", "dia", "seg", "hybrid"), default="auto",
                     help="the mesh layout: DIA where the mesh fits and SEG otherwise (auto), "
-                         "or forced")
+                         "or forced (hybrid: DIA lanes for the dominant offsets and the rest)")
     args = ap.parse_args(argv)
 
     device = "cpu" if args.cpu else None
@@ -235,6 +239,7 @@ def main(argv=None) -> int:
             exact_solvers=_TRISTATE[args.exact_solvers], gmg=_TRISTATE[args.gmg],
             gmg_coarsest=args.gmg_coarsest, amg=_TRISTATE[args.amg],
             p_rgh_f64=args.p_rgh_f64 == "1", layout=args.layout,
+            pairmg=_TRISTATE[args.pairmg],
         )
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)

@@ -153,8 +153,11 @@ class FvMatrix:
         return (-off + self.source + b) / _bcol(g.V, x)
 
     def _H_off(self, x):
-        """Off-diagonal apply Σ_f upper·x_N (to own) + lower·x_P (to nei)."""
+        """Off-diagonal apply Σ_f upper·x_N (to own) + lower·x_P (to nei);
+        on hybrid lane by lane, then the rest tail (`lane_product`)."""
         g = self.geom
+        if g.layout == "hybrid":
+            return g.lane_product(self.upper, self.lower)(x)
         return g.face_to_both_sum(
             self.upper * g.gather_nei(x), self.lower * g.gather_own(x)
         )

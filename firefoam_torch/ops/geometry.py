@@ -1,8 +1,8 @@
 """Device-side mesh geometry for the port: tensors for the step.
 
-Extracted once from the host-side PolyMesh, in one of two layouts (the JAX
-package's `dia` and `seg`; its hybrid, banded and lattice-slab layouts are
-TPU work and are not ported):
+Extracted once from the host-side PolyMesh, in one of three layouts (the
+JAX package's `dia`, `seg` and `hybrid`; its banded and lattice-slab
+layouts are not ported):
 
   * DIA (offset stencil): internal faces live in a padded array of nO·nC
     slots; slot (o, c) holds the face from cell c to cell c + offsets[o]
@@ -36,6 +36,67 @@ from ..mesh.polymesh import PolyMesh
 __all__ = ["PatchInfo", "MeshGeometry", "SegSum"]
 
 _MAX_OFFSETS = 16
+# the hybrid layout's lanes (the JAX package's rule): an offset earns a lane
+# when it fills at least 1/LANE_FILL of one and holds LANE_MIN_FACES
+# faces; at most _MAX_OFFSETS lanes, and only if they cover at least half
+# of the faces
+LANE_FILL = 256
+LANE_MIN_FACES = 64
+
+
+def lane_indices(offsets, n: int):
+    """(pairs, shift) gather indices of DIA lanes on n cells. pairs, flat
+    over [2K, n]: row 2k holds (c + o_k) mod n, the roll's source cell, and
+    row 2k + 1 holds c − o_k (0 before the start), the shifted product's
+    cell; the two terms each lane adds. shift, flat over the [K, n] lanes:
+    k·(n + 1) + c − o_k where c ≥ o_k, else k·(n + 1) + n, a slot of the
+    lanes padded to [K, n + 1] with a zero column."""
+    c = np.arange(n, dtype=np.int64)
+    pairs = [a for o in offsets for a in ((c + o) % n, np.maximum(c - o, 0))]
+    shift = [k * (n + 1) + np.where(c >= o, c - o, n) for k, o in enumerate(offsets)]
+    return (np.concatenate(pairs) if pairs else c[:0]), (np.concatenate(shift) if shift else c[:0])
+
+
+def lane_terms(upper: torch.Tensor, lower: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """[..., K, n] upper and lower lanes → [..., 2K, n] coefficients of the
+    `lane_indices` pairs' gathered x: row 2k upper_k, row 2k + 1 lower_k
+    moved down by o_k (zero before the start)."""
+    lo = shift_lanes(lower, shift)
+    up, lo = torch.broadcast_tensors(upper, lo)
+    return torch.stack([up, lo], dim=-2).flatten(-3, -2)
+
+
+def shift_lanes(v: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """[..., K, n] lanes → [..., K, n] with lane k moved down by o_k cells
+    (zero before the start): `lane_indices`' shift gather."""
+    vp = torch.cat([v, v.new_zeros(v.shape[:-1] + (1,))], dim=-1)
+    return vp.flatten(-2).index_select(-1, shift).unflatten(-1, v.shape[-2:])
+
+
+def sum_in_order(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """Σ along `dim` in index order, ((v0 + v1) + v2) + …: the order of a
+    loop of additions, as the JAX package's lane loops add (a scan, which
+    the CPU runs in that order)."""
+    return v.cumsum(dim).select(dim, -1)
+
+
+def hybrid_lanes(own: np.ndarray, nei: np.ndarray, n_cells: int):
+    """(lane offsets ascending, is_top mask over the faces) of the hybrid
+    layout, or None where the mesh has no dominant offsets."""
+    d = np.asarray(nei, np.int64) - np.asarray(own, np.int64)
+    if not len(d) or not (d > 0).all():
+        return None
+    uniq, cnt = np.unique(d, return_counts=True)
+    order = np.argsort(-cnt)
+    sel = [i for i in order if cnt[i] * LANE_FILL >= n_cells and cnt[i] >= LANE_MIN_FACES]
+    sel = sel[:_MAX_OFFSETS]
+    if not sel:
+        return None
+    top = np.sort(uniq[sel])
+    is_top = np.isin(d, top)
+    if is_top.mean() < 0.5:
+        return None
+    return top, is_top
 
 
 @dataclass(frozen=True)
@@ -91,7 +152,7 @@ class MeshGeometry:
     DIA: the internal-face arrays are padded to n_internal = nO·n_cells
     slots and `face_mask` marks real faces. SEG: n_internal is the mesh's
     internal-face count, `face_mask` is all ones and `face_perm` the
-    identity."""
+    identity. hybrid: nO·n_cells lane slots as DIA, then the rest tail."""
 
     n_cells: int
     n_internal: int  # internal-face slots (DIA: padded)
@@ -132,24 +193,37 @@ class MeshGeometry:
     recon_inv: Optional[torch.Tensor] = None  # [nC,3,3]
 
     # SEG face→cell sums: owned faces, neighbouring faces, and both in one
-    # table (the owned faces first, then the neighbouring ones)
+    # table (the owned faces first, then the neighbouring ones); on hybrid
+    # seg_own/seg_nei sum the rest tail's faces
     seg_own: Optional[SegSum] = None
     seg_nei: Optional[SegSum] = None
     seg_both: Optional[SegSum] = None
+    # hybrid: the rest tail's owner and neighbour cells, in slot order
+    own_r: Optional[torch.Tensor] = None
+    nei_r: Optional[torch.Tensor] = None
+    # hybrid: every face slot's neighbour cell as the lanes' rolls read it
+    # (wrapped at pad slots), and the lanes' gathers (`lane_indices`)
+    lane_nei: Optional[torch.Tensor] = None
+    lane_pairs: Optional[torch.Tensor] = None
+    lane_shift: Optional[torch.Tensor] = None
 
     # ---------------------------------------------------------------- build
     @classmethod
     def from_polymesh(cls, mesh: PolyMesh, dtype=None, device=None,
                       layout: Optional[str] = None) -> "MeshGeometry":
         """`layout`: None or "auto" takes DIA where the mesh fits and SEG
-        otherwise; "seg" forces SEG on any mesh; "dia" raises where the mesh
-        does not fit."""
+        otherwise; "seg" forces SEG on any mesh; "dia" and "hybrid" raise
+        where the mesh does not fit them. (The JAX package's auto takes
+        hybrid on its accelerator from 20,000 cells; on an H100 the 117k
+        castellated fire's hybrid step keeps the card 1.5x as busy as its
+        SEG step and is no faster (chip_smoke.py phase 11, PERF.md), so
+        auto keeps SEG on either device.)"""
         device = torch.device(device) if device is not None else default_device()
         dtype = dtype or real_dtype(device)
         layout = layout or "auto"
-        if layout not in ("auto", "dia", "seg"):
-            raise ValueError(f"layout {layout!r}: 'auto', 'dia' or 'seg' (the JAX "
-                             "package's hybrid and banded layouts are not ported)")
+        if layout not in ("auto", "dia", "seg", "hybrid"):
+            raise ValueError(f"layout {layout!r}: 'auto', 'dia', 'seg' or 'hybrid' (the "
+                             "JAX package's banded layout is not ported)")
         n_int = mesh.n_internal_faces
         nC = mesh.n_cells
         w = mesh.weights()
@@ -165,7 +239,7 @@ class MeshGeometry:
 
         offs = ()
         use_dia = False
-        if layout != "seg" and n_int > 0:
+        if layout in ("auto", "dia") and n_int > 0:
             d = nei - own
             uniq = np.unique(d)
             if (uniq > 0).all() and len(uniq) <= _MAX_OFFSETS:
@@ -176,6 +250,12 @@ class MeshGeometry:
                     offs = tuple(int(o) for o in uniq)
         if layout == "dia" and not use_dia:
             raise ValueError("mesh is not DIA-compatible (offset stencil)")
+        hybrid = None
+        if layout == "hybrid" and n_int > 0:
+            hybrid = hybrid_lanes(own, nei, nC)
+        if layout == "hybrid" and hybrid is None:
+            raise ValueError("mesh has no dominant-offset structure for the hybrid layout "
+                             "(the top 16 offsets cover < 50% of the faces)")
 
         def r(a):
             return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=device)
@@ -183,11 +263,25 @@ class MeshGeometry:
         def ix(a):
             return torch.as_tensor(np.asarray(a, np.int64), dtype=INT_DTYPE, device=device)
 
+        own_r = nei_r = None
         if use_dia:
             nO = len(offs)
             nIp = nO * nC
             slot = o_idx.astype(np.int64) * nC + own
             own_p = np.tile(np.arange(nC, dtype=np.int64), nO)
+            nei_p = own_p.copy()
+            nei_p[slot] = nei
+        elif hybrid is not None:
+            top, is_top = hybrid
+            offs = tuple(int(o) for o in top)
+            nTop = len(offs) * nC
+            own_r = np.asarray(own[~is_top], np.int64)
+            nei_r = np.asarray(nei[~is_top], np.int64)
+            nIp = nTop + len(own_r)
+            slot = np.empty(n_int, np.int64)
+            slot[is_top] = np.searchsorted(top, (nei - own)[is_top]) * nC + own[is_top]
+            slot[~is_top] = nTop + np.arange(len(own_r))
+            own_p = np.concatenate([np.tile(np.arange(nC, dtype=np.int64), len(offs)), own_r])
             nei_p = own_p.copy()
             nei_p[slot] = nei
         else:
@@ -236,7 +330,19 @@ class MeshGeometry:
         )
 
         seg = {}
-        if not use_dia:
+        if own_r is not None:
+            lane_pairs, lane_shift = lane_indices(offs, nC)
+            lane_up = lane_pairs.reshape(len(offs), 2, nC)[:, 0].reshape(-1)
+            seg = dict(
+                own_r=ix(own_r),
+                nei_r=ix(nei_r),
+                lane_nei=ix(np.concatenate([lane_up, nei_r])),
+                lane_pairs=ix(lane_pairs),
+                lane_shift=ix(lane_shift),
+                seg_own=SegSum(own_r, nC, device),
+                seg_nei=SegSum(nei_r, nC, device),
+            )
+        elif not use_dia:
             seg = dict(
                 seg_own=SegSum(own_p, nC, device),
                 seg_nei=SegSum(nei_p, nC, device),
@@ -267,7 +373,7 @@ class MeshGeometry:
             patches=patches,
             offsets=offs,
             face_perm=slot,
-            layout="dia" if use_dia else "seg",
+            layout="dia" if use_dia else "seg" if own_r is None else "hybrid",
             C_own_f=r(C[own_p]),
             C_nei_f=r(C[nei_p]),
             d_face=r(C[nei_p] - C[own_p]),
@@ -305,37 +411,77 @@ class MeshGeometry:
         pad = torch.zeros((o,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
         return torch.cat([pad, x[:-o]], dim=0)
 
+    def hybrid_rest_gathers(self, x: torch.Tensor):
+        """(x[own], x[nei]) over the hybrid rest tail only."""
+        return x.index_select(0, self.own_r), x.index_select(0, self.nei_r)
+
     def gather_own(self, x: torch.Tensor) -> torch.Tensor:
         """Face array of the owner-cell values of x ([nC(,d)] → [nI(,d)])."""
-        if self.layout == "seg":
+        if self.layout in ("seg", "hybrid"):
             return x.index_select(0, self.own)
         reps = (len(self.offsets),) + (1,) * (x.ndim - 1)
         return x.repeat(*reps)
 
     def gather_nei(self, x: torch.Tensor) -> torch.Tensor:
-        """Face array of the neighbour-cell values of x. DIA pad slots
-        receive a wrapped (finite, in-range) cell value — consumers mask
-        with the zeroed face coefficients."""
+        """Face array of the neighbour-cell values of x. DIA (and hybrid
+        lane) pad slots receive a wrapped (finite, in-range) cell value —
+        consumers mask with the zeroed face coefficients."""
         if self.layout == "seg":
             return x.index_select(0, self.nei)
+        if self.layout == "hybrid":
+            return x.index_select(0, self.lane_nei)
         return torch.cat([torch.roll(x, -o, dims=0) for o in self.offsets], dim=0)
+
+    def _lanes(self, fv: torch.Tensor) -> torch.Tensor:
+        """The lane slots of a face array as [nO, nC(, d)]."""
+        nTop = len(self.offsets) * self.n_cells
+        return fv[:nTop].reshape((len(self.offsets), self.n_cells) + tuple(fv.shape[1:]))
 
     def face_to_own_sum(self, fv: torch.Tensor) -> torch.Tensor:
         """Σ over each cell's owned faces of fv ([nI(,d)] → [nC(,d)]).
         DIA pad-slot values must be zero."""
         if self.layout == "seg":
             return self.seg_own(fv)
-        parts = fv.reshape((len(self.offsets), self.n_cells) + tuple(fv.shape[1:]))
-        return torch.sum(parts, dim=0)
+        y = torch.sum(self._lanes(fv), dim=0)
+        if self.layout == "hybrid":
+            return y + self.seg_own(fv[len(self.offsets) * self.n_cells:])
+        return y
 
     def face_to_nei_sum(self, fv: torch.Tensor) -> torch.Tensor:
         """Σ over each cell's neighbouring faces of fv."""
         if self.layout == "seg":
             return self.seg_nei(fv)
-        parts = fv.reshape((len(self.offsets), self.n_cells) + tuple(fv.shape[1:]))
-        return sum(
-            self._shift_down(parts[k], o) for k, o in enumerate(self.offsets)
-        )
+        parts = self._lanes(fv)
+        if self.layout == "hybrid":
+            # the lanes' shifts in one gather (lanes and cells moved to the
+            # last axes), added in lane order
+            lanes = shift_lanes(parts.movedim((0, 1), (-2, -1)), self.lane_shift)
+            lanes = lanes.movedim((-2, -1), (0, 1))
+            y = sum_in_order(lanes, 0)
+            return y + self.seg_nei(fv[len(self.offsets) * self.n_cells:])
+        return sum(self._shift_down(parts[k], o) for k, o in enumerate(self.offsets))
+
+    def lane_product(self, upper: torch.Tensor, lower: torch.Tensor):
+        """x ↦ Σ_owned upper·x[nei] + Σ_neighbouring lower·x[own] on the
+        hybrid layout, cells along the last axis of x ([..., nC];
+        upper/lower [nI] or [..., nI]): each lane's roll and shift added in
+        turn, then the rest tail's sums (the JAX package's FvMatrix._H_off
+        order). The lanes' coefficients are laid out once; a product is then
+        one gather, one multiply and one ordered sum whatever the lane
+        count, plus the rest tail's."""
+        nC, K = self.n_cells, len(self.offsets)
+        nTop = K * nC
+        coef = lane_terms(upper[..., :nTop].unflatten(-1, (K, nC)),
+                          lower[..., :nTop].unflatten(-1, (K, nC)), self.lane_shift)
+        u_r, l_r = upper[..., nTop:], lower[..., nTop:]
+
+        def off(x):
+            xg = x.index_select(-1, self.lane_pairs).unflatten(-1, (2 * K, nC))
+            y = sum_in_order(coef * xg, -2)
+            y = y + self.seg_own.last(u_r * x.index_select(-1, self.nei_r))
+            return y + self.seg_nei.last(l_r * x.index_select(-1, self.own_r))
+
+        return off
 
     def boundary_to_cell_sum(self, bv: torch.Tensor) -> torch.Tensor:
         """Σ of boundary-face values into their owner cells, in face order

@@ -31,13 +31,35 @@ from .utils.synthcase import write_box_fire_case, write_smooth_fire_case, write_
 WARMUP = 12
 
 
+def device_events(prof):
+    """([(name, start ns, end ns)] of the device's kernels, copies and sets,
+    host reads of a device scalar) of a finished torch.profiler window, from
+    its raw events: prof.events() and key_averages() first build an event
+    tree in Python, which takes tens of seconds for a step of 40,000
+    launches."""
+    dev, reads = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            s = e.start_ns()
+            dev.append((e.name(), s, s + e.duration_ns()))
+        elif e.name() == "aten::_local_scalar_dense":
+            reads += 1
+    return dev, reads
+
+
+def kernel_launches(dev) -> int:
+    """Device kernels among device_events' events (no copy or set)."""
+    return sum(1 for name, _, _ in dev if not name.lower().startswith(("memcpy", "memset")))
+
+
 def _busy_us(prof) -> float:
-    """Union of the device kernels' [start, end) intervals, in µs."""
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
+    """Union of the device events' [start, end) intervals, in µs."""
+    return busy_us(device_events(prof)[0])
+
+
+def busy_us(dev) -> float:
+    """Union of the [start, end) intervals of device_events' events, in µs."""
+    spans = sorted((s, e) for _, s, e in dev)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -48,7 +70,7 @@ def _busy_us(prof) -> float:
             cur_e = max(cur_e, e)
     if cur_e is not None:
         busy += cur_e - cur_s
-    return busy
+    return busy / 1e3
 
 
 def main():
@@ -95,13 +117,11 @@ def main():
             kernel = e.key.split("::", 1)[1].split("(", 1)[0]
             print(f"{kernel}: {e.count} launches, {e.self_device_time_total / e.count / 1e3:.4f} "
                   f"ms each, {e.self_device_time_total / args.steps / 1e3:.4f} ms/step")
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.lower().startswith(("memcpy", "memset")))
-    reads = sum(e.count for e in prof.key_averages() if e.key == "aten::_local_scalar_dense")
+    dev, reads = device_events(prof)
+    kernels = kernel_launches(dev)
     print(f"{kernels / args.steps:.0f} kernel launches and {reads / args.steps:.1f} host reads "
           f"of a device scalar per step")
-    busy = _busy_us(prof)
+    busy = busy_us(dev)
     print(f"{n} cells, {args.steps} steps: wall {wall_us / args.steps / 1e3:.3f} ms/step, "
           f"device busy {busy / args.steps / 1e3:.3f} ms/step "
           f"({100.0 * busy / wall_us:.1f}% of wall; idle {100.0 - 100.0 * busy / wall_us:.1f}%)")

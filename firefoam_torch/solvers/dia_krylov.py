@@ -82,7 +82,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _SRC = os.path.join(_CSRC, "dia_krylov.cu")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-_MAX_OFFSETS = 8
+_MAX_OFFSETS = 16  # kMaxOffsets in csrc: every DIA mesh ops/geometry.py takes
 # scratch vectors per batch row (see the kernels' work layout)
 _WORK = {"pcg": 3, "bicgstab": 8, "smooth": 1}
 
@@ -179,9 +179,12 @@ def _build() -> str:
         return out
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    # -split-compile=0: the optimizer and ptxas work the kernels' template
+    # instantiations on every host core at once (the SASS is the same as a
+    # serial build's)
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SRC,
+        "-split-compile=0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SRC,
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

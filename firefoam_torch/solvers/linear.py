@@ -15,8 +15,8 @@ and freezes every row at its own stop — the semantics of `jax.vmap` over
 the JAX solvers — so `n_iterations` is per row. The data-dependent loop is
 a Python loop that reads the stop test on the host each iteration. On a
 DIA mesh the twins are the CPU path and the reference the CUDA kernels
-(solvers/dia_krylov.py) are held against; on a SEG mesh they are the path
-on either device, as the JAX package's flat solvers are there.
+(solvers/dia_krylov.py) are held against; on a SEG or hybrid mesh they are
+the path on either device, as the JAX package's flat solvers are there.
 
 `solve_scalar` routes an FvMatrix system to the OpenFOAM-exact solvers of
 solvers/dic.py when the caller holds their schedule and the dictionary names
@@ -260,7 +260,8 @@ def jacobi_smooth(matvec, x0, b, diag, tol=1e-6, rel_tol=0.0, max_iter=1000,
 def ldu_matvec(g, diag, upper, lower):
     """x ↦ M·x for raw LDU coefficients on the layout of geometry g, for x
     [nC] or [B, nC]; upper/lower are shared [nI] or per row [B, nI]. DIA:
-    the product of dia_krylov.dia_matvec (K0's plain version). SEG:
+    the product of dia_krylov.dia_matvec (K0's plain version). hybrid:
+    d·x + the geometry's `lane_product` (FvMatrix.matvec's product). SEG:
     d·x + Σ_owned upper·x[nei] + Σ_neighbouring lower·x[own] through the
     geometry's order-fixed tables, after the geometry's halo refresh of x
     (`sync`: the identity on the global geometry; a partition's Krylov
@@ -269,6 +270,9 @@ def ldu_matvec(g, diag, upper, lower):
         from . import dia_krylov
 
         return lambda x: dia_krylov.dia_matvec(diag, upper, lower, g.offsets, x)
+    if g.layout == "hybrid":
+        off = g.lane_product(upper, lower)
+        return lambda x: diag * x + off(x)
     own, nei = g.own, g.nei
 
     def mv(x):
@@ -285,8 +289,9 @@ def solve_ldu(g, solver: str, diag, upper, lower, b, x0, tol: float = 1e-6,
     by the fvSolution `solver` name: PCG/GAMG → CG, smoothSolver → damped
     Jacobi with max(maxIter, 200) rounds of 4 sweeps, any other → BiCGStab.
     DIA: the whole-solve kernels of dia_krylov (K2, K3, K1 on the card; the
-    twins on the CPU). SEG: the twins with the SEG product on either device,
-    as the JAX package runs its flat solvers there; no kernel is launched.
+    twins on the CPU). SEG and hybrid: the twins with the layout's product
+    on either device, as the JAX package runs its flat solvers there; no
+    kernel is launched.
     The twins take the geometry's reducers (`solver_reducers`) and the
     solution its halo refresh (`sync`): both the identity's equivalent on
     the global geometry, psum-reduced and exchanged on a partition."""

@@ -249,3 +249,73 @@ def test_non_cpu_non_cuda_tensor_raises():
     d, up, lo, b, x0 = (_t(a).to("meta") for a in _dia_system(seed=1))
     with pytest.raises(NotImplementedError):
         dia_krylov.dia_pcg(d, up, up, b, x0, OFFS)
+
+
+# ------------------------------------------------------- 9-16 offsets
+# a stencil of 12 offsets (the hybrid layout's lanes reach 9-16 on the
+# castellated meshes), on 700 cells; a face where the neighbour exists
+OFFS12 = (1, 2, 3, 5, 8, 13, 21, 34, 55, 89, 144, 233)
+N12 = 700
+
+
+def _dia_system12(seed, asym):
+    rng = np.random.RandomState(seed)
+    K = len(OFFS12)
+    up = np.zeros((K, N12))
+    lo = np.zeros((K, N12))
+    diag = np.full(N12, 0.1)
+    for k, o in enumerate(OFFS12):
+        v = -(0.5 + rng.rand(N12 - o))
+        up[k, : N12 - o] = v
+        lo[k, : N12 - o] = v * (1.0 + asym * rng.rand(N12 - o))
+        diag[: N12 - o] -= up[k, : N12 - o]
+        diag[o:] -= lo[k, : N12 - o]
+    return diag, up.reshape(-1), lo.reshape(-1), rng.randn(N12), 0.1 * rng.randn(N12)
+
+
+def _jmv12(diag, up, lo):
+    """FvMatrix.matvec's DIA product on the 12 offsets, in JAX."""
+
+    def mv(x):
+        y = diag * x
+        for k, o in enumerate(OFFS12):
+            y = y + up[k * N12:(k + 1) * N12] * jnp.concatenate([x[o:], jnp.zeros(o, x.dtype)])
+            lx = lo[k * N12:(k + 1) * N12] * x
+            y = y + jnp.concatenate([jnp.zeros(o, x.dtype), lx[: N12 - o]])
+        return y
+
+    return mv
+
+
+@pytest.mark.parametrize("name", ["pcg", "bicgstab", "smooth"])
+def test_twins_take_12_offsets_and_match_jax(name):
+    """dia_pcg/dia_bicgstab/dia_smooth on CPU tensors (their twins) accept
+    a 12-offset stencil and match firefoam_tpu/solvers/linear.py's solvers
+    with the same product: equal iterations, x within 1e-12."""
+    d, up, lo, b, x0 = _dia_system12(seed=12, asym=0.0 if name == "pcg" else 0.3)
+    jd, jup, jlo, jb, jx0 = (jnp.asarray(a) for a in (d, up, lo, b, x0))
+    got = dia_krylov.dia_matvec(_t(d), _t(up), _t(lo), OFFS12, _t(b)[None])[0].numpy()
+    np.testing.assert_allclose(got, np.asarray(_jmv12(jd, jup, jlo)(jb)), rtol=1e-13, atol=1e-13)
+    if name == "smooth":
+        # K3 counts sweeps: 800 sweeps are linear.jacobi_smooth's 200 rounds of 4
+        ref = jlinear.jacobi_smooth(_jmv12(jd, jup, jlo), jx0, jb, jd, tol=1e-8, max_iter=200)
+        res = dia_krylov.dia_smooth(*(_t(a) for a in (d, up, lo, b, x0)), OFFS12, tol=1e-8,
+                                    max_iter=800)
+    else:
+        fn = getattr(jlinear, name)
+        ref = fn(_jmv12(jd, jup, jlo), jx0, jb, jd, tol=1e-10, max_iter=1000)
+        res = getattr(dia_krylov, f"dia_{name}")(*(_t(a) for a in (d, up, lo, b, x0)), OFFS12,
+                                                 tol=1e-10, max_iter=1000)
+    assert int(res.n_iterations) == int(ref.n_iterations) > 0
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(ref.x), rtol=0, atol=1e-12)
+
+
+def test_the_launcher_refuses_more_than_16_offsets():
+    """The kernels take 1..16 offsets (kMaxOffsets); the launcher refuses a
+    17th before it reaches the library."""
+    offs = OFFS12 + (300, 350, 400, 450, 500)
+    n = N12
+    ops = [torch.ones(n), torch.zeros(17 * n), torch.zeros(17 * n), torch.ones(n),
+           torch.zeros(n)]
+    with pytest.raises(ValueError, match="17 offsets"):
+        dia_krylov._launch("pcg", *ops, offs, 1e-6, 0.0, 10)

@@ -44,6 +44,13 @@ JAX, so it also runs on a machine that has only PyTorch:
 * The SEG layout (castellated meshes, no kernel): its face→cell sums
   bitwise repeatable on the card, its matvec within 1e-12 of the CPU's in
   float64, and three castellated steps on the card against the CPU.
+* K1/K2/K3 at 9, 12 and 16 offsets (the DIA layout's cap; the hybrid
+  layout's lanes reach them) against their plain versions in float32 and
+  float64 (K1 on one row, 3 shared rows and 6 per-row rows: its grid-wide
+  and many-rows kernels), and the launcher's refusal of a 17th offset.
+* The hybrid layout (no kernel): its face→cell sums and its product
+  bitwise repeatable on the card, and one castellated step on the card
+  with PairMG on p_rgh against the CPU's.
 """
 
 import numpy as np
@@ -765,6 +772,198 @@ def test_castellated_step_on_cuda_matches_cpu(tmp_path):
         if k.endswith("_iters") or "iters_" in k:
             assert int(log_g[k]) == int(log_c[k]), (k, int(log_g[k]), int(log_c[k]))
     for f in ("T", "U", "p_rgh", "Y", "k"):
+        a, b = st_g[f].i.cpu().numpy(), st_c[f].i.numpy()
+        rel = np.max(np.abs(a - b)) / np.max(np.abs(b))
+        assert rel <= 1e-9, (f, rel)
+
+
+# ------------------------------------------------------------------------
+# 9-16 offsets (the DIA layout's cap; the hybrid layout's lane counts)
+# ------------------------------------------------------------------------
+def _system_k(seed, B, sym, shared, dtype, offs, n=20000, excess=None):
+    """B random diagonally dominant DIA systems on n cells with the stencil
+    `offs` (a face where the neighbour exists). `excess`: the diagonal's
+    excess over the off-diagonals, 1 + 0.1·U(0, 1) times this (None: K/3)."""
+    rng = np.random.RandomState(seed)
+    K = len(offs)
+    R = 1 if shared else B
+    up = np.zeros((R, K, n))
+    lo = np.zeros((R, K, n))
+    # by default the diagonal's excess grows with K as the off-diagonals do:
+    # as well conditioned as the lattice systems
+    d = (K / 3.0 if excess is None else excess) * (1.0 + 0.1 * rng.rand(B, n))
+    for k, o in enumerate(offs):
+        v = -(0.5 + rng.rand(R, n - o))
+        up[:, k, : n - o] = v
+        lo[:, k, : n - o] = v if sym else v * (1.0 + 0.3 * rng.rand(R, n - o))
+        d[:, : n - o] -= up[:, k, : n - o]
+        d[:, o:] -= lo[:, k, : n - o]
+    up, lo = up.reshape(R, -1), lo.reshape(R, -1)
+    if shared:
+        up, lo = up[0], lo[0]
+    arrs = (d, up, lo, rng.randn(B, n), 0.1 * rng.randn(B, n))
+    return [torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrs]
+
+
+OFFSETS_K = {
+    9: (1, 2, 40, 41, 42, 1600, 1640, 1641, 3200),
+    12: (1, 2, 39, 40, 41, 80, 1560, 1599, 1600, 1601, 1640, 3200),
+    16: (1, 2, 3, 38, 39, 40, 41, 42, 80, 1560, 1599, 1600, 1601, 1640, 3200, 4800),
+}
+
+
+@pytest.mark.parametrize("rows", [(1, True), (3, True), (6, False)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K", sorted(OFFSETS_K))
+@pytest.mark.parametrize("name", NAMES)
+def test_kernels_at_9_to_16_offsets(name, K, dtype, rows):
+    _need_cuda()
+    B, shared = rows
+    if name != "bicgstab" and B == 6:
+        B, shared = 2, False
+    offs = OFFSETS_K[K]
+    ops = _system_k(K + B, B, name == "pcg", shared, dtype, offs)
+    mx = 800 if name == "smooth" else 500
+    before = dia_krylov.LAUNCHES[name]
+    got = getattr(dia_krylov, f"dia_{name}")(*ops, offs, tol=1e-8, max_iter=mx)
+    torch.cuda.synchronize()
+    assert dia_krylov.LAUNCHES[name] == before + 1
+    ref = _plain(name, *ops, offs, tol=1e-8, max_iter=mx)
+    slack, xtol = _tolerances(name, dtype)
+    its = (got.n_iterations.cpu().numpy(), ref.n_iterations.cpu().numpy())
+    assert np.all(np.abs(its[0] - its[1]) <= slack), its
+    assert np.all(its[1] > 0)
+    rel = float((got.x - ref.x).abs().max() / ref.x.abs().max())
+    assert rel <= xtol, rel
+
+
+def test_k1_at_12_offsets_poorly_conditioned_by_residual():
+    """With the lattice's diagonal excess (1, not K/3) a one-ulp move of b
+    moves the plain version's x by more than the 1e-9 that x is held to
+    elsewhere; the kernel is held to the plain version by the true residual
+    Σ|b − A·x| / normFactor, recomputed in float64."""
+    _need_cuda()
+    offs = OFFSETS_K[12]
+    d, up, lo, b, x0 = _system_k(12, 1, False, True, torch.float64, offs, excess=1.0)
+    kw = dict(tol=1e-8, rel_tol=0.0, max_iter=1000)
+    got = dia_krylov.dia_bicgstab(d, up, lo, b, x0, offs, **kw)
+    ref = _plain("bicgstab", d, up, lo, b, x0, offs, **kw)
+
+    def residual(x):
+        mv = lambda v: dia_krylov.dia_matvec(d, up, lo, offs, v)
+        _, norm = linear._norm_factor(mv, x0, b)
+        return float(torch.sum(torch.abs(b - mv(x))) / norm)
+
+    assert bool(torch.isfinite(got.x).all())
+    assert int(ref.n_iterations[0]) > 0
+    assert residual(got.x) <= 10.0 * max(residual(ref.x), kw["tol"])
+
+
+def test_profile_raw_events_match_the_event_tree():
+    """profile_step.device_events reads the profiler's raw events; on a
+    window of launches, copies and host reads its counts and busy time are
+    those of key_averages() and events()."""
+    _need_cuda()
+    from firefoam_torch.profile_step import busy_us, device_events, kernel_launches
+
+    offs = OFFSETS_K[12]
+    ops = _system_k(5, 1, True, True, torch.float32, offs)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        dia_krylov.dia_pcg(*ops, offs, tol=1e-8, max_iter=500)
+        for _ in range(20):
+            float((ops[3] * 2.0 + 1.0).sum())
+        ops[3].cpu()
+        torch.cuda.synchronize()
+    dev, reads = device_events(prof)
+    avgs = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    assert kernel_launches(dev) == sum(
+        e.count for e in avgs
+        if e.device_type == cuda and not e.key.lower().startswith(("memcpy", "memset")))
+    assert reads == sum(e.count for e in avgs if e.key == "aten::_local_scalar_dense") >= 20
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    union, end = 0.0, None
+    for a, b in spans:
+        union += max(0.0, b - max(a, end)) if end is not None else b - a
+        end = b if end is None else max(end, b)
+    assert kernel_launches(dev) > 20
+    assert busy_us(dev) == pytest.approx(union, rel=1e-6, abs=1e-3)
+
+
+def test_kernels_refuse_17_offsets():
+    _need_cuda()
+    offs = OFFSETS_K[16] + (6400,)
+    ops = _system_k(3, 1, True, True, torch.float64, offs)
+    for name in NAMES:
+        with pytest.raises(ValueError, match="17 offsets"):
+            getattr(dia_krylov, f"dia_{name}")(*ops, offs)
+
+
+# ------------------------------------------------------------------------
+# The hybrid layout on the card (plain PyTorch ops: no kernel serves it)
+# ------------------------------------------------------------------------
+def _hybrid_geom(tmp_path, device, n=(16, 12, 16)):
+    from firefoam_torch.mesh import build_case_mesh
+    from firefoam_torch.ops import MeshGeometry
+    from firefoam_torch.utils.synthcase import write_castellated_fire_case
+
+    mesh = build_case_mesh(write_castellated_fire_case(str(tmp_path / "castel"), n=n)).mesh
+    return MeshGeometry.from_polymesh(mesh, dtype=torch.float64, device=device, layout="hybrid")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hybrid_sums_are_bitwise_repeatable_on_cuda(tmp_path, dtype):
+    """The lanes are rolls and shifts and the rest tail sums through
+    host-sorted tables: repeats on the card are bitwise equal, and so is
+    the product of a batch of rows."""
+    _need_cuda()
+    g = _hybrid_geom(tmp_path, "cuda")
+    assert g.layout == "hybrid" and len(g.offsets) == 14
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mask = g.face_mask.to(dtype)
+    for shape in ((g.n_internal,), (g.n_internal, 3)):
+        m = mask if len(shape) == 1 else mask[:, None]
+        a = torch.randn(shape, generator=gen, device="cuda", dtype=dtype) * m * 1e3
+        b = torch.randn(shape, generator=gen, device="cuda", dtype=dtype) * m
+        first = (g.face_to_own_sum(a), g.face_to_nei_sum(b), g.face_to_both_sum(a, b))
+        for _ in range(5):
+            again = (g.face_to_own_sum(a), g.face_to_nei_sum(b), g.face_to_both_sum(a, b))
+            assert all(torch.equal(x, y) for x, y in zip(first, again))
+    up = -torch.rand((4, g.n_internal), generator=gen, device="cuda", dtype=dtype) * mask
+    d = 6.0 + torch.rand((4, g.n_cells), generator=gen, device="cuda", dtype=dtype)
+    x = torch.randn((4, g.n_cells), generator=gen, device="cuda", dtype=dtype)
+    mv = linear.ldu_matvec(g, d, up, up)
+    y = mv(x)
+    assert all(torch.equal(mv(x), y) for _ in range(5))
+
+
+def test_hybrid_castellated_step_on_cuda_matches_cpu(tmp_path):
+    """One step of the castellated fire at (8,6,8) on the hybrid layout
+    with PairMG on p_rgh (the DIC schedule off), on the card from the CPU's
+    state after 10 steps, against the CPU's step in float64: 1e-9, equal
+    counts, no K1-K3 launch."""
+    _need_cuda()
+    from firefoam_torch.utils.synthcase import write_castellated_fire_case
+
+    root = write_castellated_fire_case(str(tmp_path / "castel"), n=(8, 6, 8))
+    kw = dict(dtype=torch.float64, layout="hybrid", pairmg=True, exact_solvers=False)
+    cpu = FireFoamSolver(root, device="cpu", **kw)
+    card = FireFoamSolver(root, device="cuda", **kw)
+    assert cpu.geom.layout == card.geom.layout == "hybrid"
+    assert cpu.pairmg is not None and card.pairmg is not None
+    state, _ = cpu.make_chunk(10)(cpu.initial_state())
+    st_c, log_c = cpu.step(state)
+    dia_krylov.reset_counts()
+    st_g, log_g = card.step(state_from_numpy(state_to_numpy(state), device="cuda",
+                                             dtype=torch.float64))
+    assert sum(dia_krylov.LAUNCHES.values()) == 0
+    for k in log_c:
+        if k.endswith("_iters") or "iters_" in k:
+            assert int(log_g[k]) == int(log_c[k]), (k, int(log_g[k]), int(log_c[k]))
+    for f in ("T", "U", "p_rgh", "Y", "k", "phi"):
         a, b = st_g[f].i.cpu().numpy(), st_c[f].i.numpy()
         rel = np.max(np.abs(a - b)) / np.max(np.abs(b))
         assert rel <= 1e-9, (f, rel)
