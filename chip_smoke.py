@@ -23,8 +23,10 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      at CROSSOVER_ROWS and at 200 rows of 9k cells both layouts timed in
      float32 with their bounds; then K1 (B = 1, 3 shared, 16 per row), K2
      and K3 on systems of 100k cells with 12 offsets (OFFS_12: the hybrid
-     layout's lane count), float32 and float64, against their plain
-     versions, timed with their bounds; and K1 in float64 on a poorly
+     layout's lane count), 34 (OFFS_34: the banded shaft's) and 62
+     (OFFS_62: the renumbered box's), float32 and float64, against their
+     plain versions (float64: equal counts), timed with their bounds and
+     launch modes; and K1 in float64 on a poorly
      conditioned 12-offset system (the lattice's diagonal excess), held to
      the plain version by its true residual;
   4. the main path at 100k cells in float32: write_box_fire_case(50,40,50)
@@ -224,25 +226,40 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      CUDA payloads staged through host buffers (counted and printed). The
      100k box fire in 4 RCB parts: one float64 step from the single card's
      SEG flat state after 10 steps within 1e-10 with equal iteration
-     counts, the same step again bitwise equal; 4 float32 steps timed
+     counts, the same step again bitwise equal; 3 float32 steps timed
      (ms/step, device-busy ms, collectives and bytes a step by kind, bytes
      staged) beside phase 4's box fire; the 100k box fire in 2 z-slabs,
-     p_rgh by the sharded lattice multigrid, 3 float64 steps from t = 0
+     p_rgh by the sharded lattice multigrid, 2 float64 steps from t = 0
      against the single card's DIA multigrid: at the case's tolerances the
      p_rgh iterations (tests/test_spmd_gmg.py's bounds), and with every
      solve taken to 1e-10 the fields (that test's bounds on T, p_rgh and
      U); the 100k sprinkler fire in 4
-     RCB parts, 5 float64 steps: parcels equal and spray mass within 1e-8
+     RCB parts, 3 float64 steps: parcels equal and spray mass within 1e-8
      each step against the single card's SEG flat run, parcels migrating
      (seeded across the parts if none cross by themselves), none
      overflowing, alive on more than one rank. The three runs in 4 parts
      share one launch of the ranks, the two slab runs another (the rank
      processes start once a launch); each launch's seconds;
- 16. the kernels' JSON line (with launches_multiphase_path,
-     launches_dem_path and launches_sharded_path; K1's entry with its
-     layouts by rows, `by_rows`, and its launches by device kernel on the
-     main path and the banded fvDOM's), the DEM lattice's line,
-     the partitions' line, the card line, and the final JSON line.
+ 16. the banded DIA layout (up to 64 offsets; K1 and K2 serve it): the
+     104,280-cell "shaft" (write_castellated_fire_case (8,8,1500), 0.4 x
+     0.4 x 75 m, long along z: 34 offsets in its own numbering) with
+     layout="banded" in float32, make_chunk(6) from t = 0 with the K1/K2
+     launch counts checked against the solves and by device kernel,
+     finite, heating, rad_failedRows printed, a second run bitwise equal;
+     ms/step, launches, host reads, device-busy ms and the top device
+     kernels of a step beside the same mesh (meshed once) on SEG (AMG and
+     the twins) in this call; one p_rgh system through
+     K2, its plain version (the CG twin) and, on SEG, amg_pcg; the (4,4,60)
+     column in float64, 10 steps card vs CPU within CPU_TOL and one step
+     from the CPU's state within STEP_TOL with equal counts; the (8,6,6)
+     box renumbered by RCM (62 offsets): K2 against its plain version and
+     the SEG twin through the permutation, equal float64 iterations;
+ 17. the kernels' JSON line (with launches_multiphase_path,
+     launches_dem_path, launches_sharded_path and launches_banded_path; K1's
+     entry with its layouts by rows, `by_rows`, and its launches by device
+     kernel on the main path and the banded fvDOM's; the 12-, 34- and
+     62-offset systems' rows), the DEM lattice's line, the partitions' line,
+     the banded layout's line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
@@ -260,6 +277,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -292,6 +310,21 @@ N_LARGE = (100, 50, 100)  # 500,000 cells
 N_CASTEL = (54, 40, 54)
 CASTEL_KW = dict(size=(2.0, 1.5, 2.0), mdot=0.01)
 N_CASTEL_SMALL = (24, 16, 24)  # 10,064 cells
+# phase 16: the banded layout's "shaft", the castellated fire stretched to
+# 0.4 x 0.4 x 75 m at 5 cm cells: a duct 75 m long along z (gravity along
+# -y, the burner in its floor at mid-length, the obstruction 6-24 m along
+# from it), 104,280 cells and 34 offsets in its own numbering; SHAFT_STEPS
+# float32 steps from t = 0 (the flame heats the gas from the fourth); the
+# (4,4,60) column of the CPU tests (1,240 cells, 34 offsets) card vs CPU in
+# float64; and the (8,6,6) box (68 offsets; 62 after RCM, as the reference
+# singleBox's 83 become 63)
+N_SHAFT = (8, 8, 1500)
+SHAFT_KW = dict(size=(0.4, 0.4, 75.0))
+SHAFT_STEPS = 6
+N_COLUMN = (4, 4, 60)
+COLUMN_KW = dict(size=(0.2, 0.2, 3.0))
+COLUMN_STEPS = 10
+N_RENUMBER = (8, 6, 6)
 GMG_STEPS = 5  # steps of each run of a K2/multigrid pair
 # T [K] and U [m/s] of a multigrid run against the K2 run of the same steps
 # from t = 0 (the comparison and the bound of the JAX package's multigrid
@@ -426,9 +459,11 @@ SOURCE_TOL = 1e-6
 SHARD_P = 4
 SHARD_BACKEND = "gloo"
 SHARD_WARM = 10
-SHARD_F32_STEPS = 4
-SHARD_GMG_STEPS = 3
-SHARD_SPRAY_STEPS = 5
+# short depths: with phase 16 the script must still end well inside its
+# 1200 s limit on the slowest host measured (PERF.md §7)
+SHARD_F32_STEPS = 3
+SHARD_GMG_STEPS = 2
+SHARD_SPRAY_STEPS = 3
 SHARD_TOL = 1e-10
 SHARD_GMG_TOL = {"T": 1e-6, "p_rgh": 1e-4, "U": 1e-5}
 SHARD_MASS_TOL = 1e-8
@@ -472,6 +507,13 @@ ROWS_PROLOGUE = 2
 # the castellated meshes: 11 at 117k cells), on N_MAIN's 100k cells: the
 # lattice's three axes with their next neighbours and a second layer
 OFFS_12 = (1, 2, 49, 50, 51, 100, 1950, 1999, 2000, 2001, 2050, 4000)
+# the banded layout's offsets: the 104k-cell shaft's 34 in its own numbering
+# (phase 16 checks its geometry takes exactly these) and the renumbered
+# (8,6,6) box's 62 (mesh/renumber.py; phase 16 checks them too), phase 3's
+# systems with more than 16 offsets on N_MAIN's cells
+OFFS_34 = (1, 2, 3, 4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 21, 64, 66, 68, 69, 71,
+           72, 73, 74, 76, 77, 78, 79, 81, 82, 84, 86, 87)
+OFFS_62 = tuple(range(1, 63))
 # vectors of nC values each iteration (sweep) of a row streams, counted from
 # the kernels' passes: CG 20, BiCGStab 39, a Jacobi sweep 10 plus its
 # residual check (9, once per 4 sweeps)
@@ -609,15 +651,17 @@ def dia_system_k(gen, n, offs, B, per_row, sym, dtype, dev, excess=None):
     return t(diag), t(up), t(lo), t(b), t(x0)
 
 
-def phase_kernels_k12(dev, stats):
+def phase_kernels_k(dev, stats, sync_s, offs, seed):
     """K1 (B = 1, 3 shared, 16 per row), K2 and K3 (B = 1) on random
-    diagonally dominant systems of N_MAIN's cells with the 12 offsets
-    OFFS_12, float64 and float32, each against its plain version with
-    phase 3's tolerances; float32's times, bounds and plain times go into
-    stats[name]["k12"]."""
-    rng = torch.Generator(device=dev).manual_seed(12)
+    diagonally dominant systems of N_MAIN's cells with the stencil `offs`,
+    float64 and float32, each against its plain version with phase 3's
+    tolerances (float64: equal iteration counts); float32's times, bounds,
+    blocks, the launch's mode (slices resident in shared memory, streamed
+    from L2, or the many-rows kernel) and plain times go into
+    stats[name]["k<K>"], float64's into stats[name]["k<K>_f64"]."""
+    rng = torch.Generator(device=dev).manual_seed(seed)
     n = int(np.prod(N_MAIN))
-    K = len(OFFS_12)
+    K = len(offs)
     cases = (("bicgstab", 1, False), ("bicgstab", 3, False), ("bicgstab", 16, True),
              ("pcg", 1, False), ("smooth", 1, False))
     for dtype in (torch.float64, torch.float32):
@@ -625,7 +669,7 @@ def phase_kernels_k12(dev, stats):
             xtol, slack = TOL[dtype]
             if name == "smooth" and dtype == torch.float32:
                 slack = SMOOTH_F32_SLACK
-            d, up, lo, b, x0 = dia_system_k(rng, n, OFFS_12, B, per_row, name == "pcg", dtype,
+            d, up, lo, b, x0 = dia_system_k(rng, n, offs, B, per_row, name == "pcg", dtype,
                                             dev)
             args = dict(tol=1e-8, rel_tol=0.0,
                         max_iter=SMOOTH_SWEEPS if name == "smooth" else 1000)
@@ -634,8 +678,8 @@ def phase_kernels_k12(dev, stats):
                 plain = dia_krylov.plain_smooth
             else:
                 plain = lambda *a, _n=name, **k: dia_krylov.plain(getattr(linear, _n), *a, **k)
-            run_k = lambda: kern(d, up, lo, b, x0, OFFS_12, **args)
-            run_p = lambda: plain(d, up, lo, b, x0, OFFS_12, **args)
+            run_k = lambda: kern(d, up, lo, b, x0, offs, **args)
+            run_p = lambda: plain(d, up, lo, b, x0, offs, **args)
             rk, rp = run_k(), run_p()
             torch.cuda.synchronize()
             it_k, it_p = rk.n_iterations.cpu().numpy(), rp.n_iterations.cpu().numpy()
@@ -644,30 +688,36 @@ def phase_kernels_k12(dev, stats):
             ok = (rel <= xtol and np.all(np.abs(it_k - it_p) <= slack)
                   and bool(torch.isfinite(rk.x).all()))
             ms_k, ms_p = time_ms(run_k, reps=20), time_ms(run_p, reps=2)
-            plan, _ = dia_krylov._grid_launch_plan(name, dtype, B, n, K, x0.element_size())
+            plan, smem = dia_krylov._grid_launch_plan(name, dtype, B, n, K, x0.element_size())
             kernel = (device_kernel(plan) if name == "bicgstab" else
                       f"{name}_grid" if plan.grid_wide else name)
+            mode = ("rows" if plan.rows else "resident" if smem else
+                    "streamed" if plan.grid_wide else "one block a row")
+            blocks = plan.blocks_per_row if plan.rows else B * plan.blocks_per_row
             bnd, by = bound(name, dtype, (d, up, lo, b, x0), it_k, K)
             stm = streamed_ms(name, dtype, n, it_k, K)
+            lat = latency_ms(name, it_k, sync_s, B if plan.rows else None)
             say(3, f"{name} {str(dtype)[6:]} {n} cells {K} offsets B={B} "
-                   f"{'per-row' if per_row else 'shared'} ({kernel}): iters kernel "
-                   f"{it_k.tolist()} plain {it_p.tolist()} max rel err {rel:.3e} kernel "
-                   f"{ms_k:.3f} ms plain {ms_p:.3f} ms; bound {bnd:.4f} ms ({by}); streamed "
-                   f"{stm:.4f} ms")
+                   f"{'per-row' if per_row else 'shared'} ({kernel}, {blocks} blocks, {mode}): "
+                   f"iters kernel {it_k.tolist()} plain {it_p.tolist()} max rel err {rel:.3e} "
+                   f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms; bound {bnd:.4f} ms ({by}); "
+                   f"streamed {stm:.4f} ms; latency {lat:.4f} ms")
             if not ok:
                 raise SystemExit(f"phase 3: {name} at {K} offsets disagrees with its plain "
                                  f"version")
             st = stats[name]
             st["max_abs_err"] = max(st["max_abs_err"], err)
             if dtype == torch.float32:
-                st.setdefault("k12", {})[f"B{B}"] = {
-                    "offsets": K, "device_kernel": kernel, "ms": ms_k, "plain_ms": ms_p,
-                    "bound_ms": bnd, "bound_by": by, "streamed_ms": stm,
-                    "iterations": int(np.max(it_k)), "max_abs_err": err}
+                st.setdefault(f"k{K}", {})[f"B{B}"] = {
+                    "offsets": K, "device_kernel": kernel, "blocks": blocks, "mode": mode,
+                    "ms": ms_k, "plain_ms": ms_p, "bound_ms": bnd, "bound_by": by,
+                    "streamed_ms": stm, "latency_ms": lat, "iterations": int(np.max(it_k)),
+                    "max_abs_err": err}
             else:
-                st.setdefault("k12_f64", {})[f"B{B}"] = {
+                st.setdefault(f"k{K}_f64", {})[f"B{B}"] = {
                     "ms": ms_k, "plain_ms": ms_p, "iterations": int(np.max(it_k))}
-    k12_lattice_excess(rng, n, dev, stats)
+    if K == len(OFFS_12):
+        k12_lattice_excess(rng, n, dev, stats)
 
 
 def k12_lattice_excess(rng, n, dev, stats):
@@ -3727,6 +3777,290 @@ def phase_partitions(dev, tmp, main_case, main_ms):
     return launches, readings
 
 
+# ---------------------------------------------------------------- phase 16
+def run_chunk(solver, state0, n_steps):
+    """make_chunk(n_steps) from state0, timed on the host clock around the
+    call and a synchronisation: (state, logs, ms/step, K1-K3 launches by
+    wrapper and by device kernel)."""
+    chunk = solver.make_chunk(n_steps)
+    dia_krylov.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logs = chunk(state0)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    by_kernel = {k: v for k, v in dia_krylov.DEVICE_LAUNCHES.items() if v}
+    return state, logs, ms, dict(dia_krylov.LAUNCHES), by_kernel
+
+
+def finite_run(state, logs):
+    """(every field and ray intensity finite, the non-finite log keys)."""
+    fields = ("T", "U", "p_rgh", "Y", "k", "phi")
+    ok = all(bool(torch.isfinite(state[f].i).all() and torch.isfinite(state[f].b).all())
+             for f in fields) and bool(torch.isfinite(state["rad"]["I"]).all())
+    bad = [k for k, v in logs.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    return ok, bad
+
+
+def top_kernels(step, state, n=6):
+    """One profiled step from `state`: the n device kernels with the most
+    device time, [(name, ms, launches)], and the step's busy ms."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(state)
+        torch.cuda.synchronize()
+    dev, _ = device_events(prof)
+    by = {}
+    for name, t0, t1 in dev:
+        key = re.sub(r"^std::enable_if<.*?>::type ", "", name)
+        key = re.split(r"[<(]", re.sub(r"^void ", "", key))[0][:48]
+        ms, count = by.get(key, (0.0, 0))
+        by[key] = (ms + (t1 - t0) / 1e6, count + 1)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(k, v[0], v[1]) for k, v in top], busy_us(dev) / 1e3
+
+
+@contextlib.contextmanager
+def mesh_from(cm):
+    """FireFoamSolver builds on `cm` instead of meshing the case again (one
+    castellation of the shaft serves both of its layouts)."""
+    orig = firefoam_mod.build_case_mesh
+    firefoam_mod.build_case_mesh = lambda case_dir: cm
+    try:
+        yield
+    finally:
+        firefoam_mod.build_case_mesh = orig
+
+
+def plain_p_rgh(solver):
+    """The banded solver's own p_rgh solve with K2's launches sent to its
+    plain version (the Jacobi-CG twin, same operands and stopping rule), as
+    p_rgh_solver_times takes a solver."""
+    def solve(m, x0, final):
+        orig = dia_krylov._launch
+
+        def twin(name, diag, upper, lower, b, x0_, offsets, tol, rel_tol, max_iter, **kw):
+            assert name == "pcg", name
+            return dia_krylov.plain(linear.pcg, diag, upper, lower, b, x0_, offsets, tol,
+                                    rel_tol, max_iter)
+
+        dia_krylov._launch = twin
+        try:
+            return solver._solve_p_rgh(m, x0, final)
+        finally:
+            dia_krylov._launch = orig
+
+    return types.SimpleNamespace(_solve_p_rgh=solve, fv_solution=solver.fv_solution,
+                                 step=solver.step)
+
+
+def banded_shaft(dev, tmp, n=None):
+    """The slender castellated fire (the "shaft", long along z) on the
+    banded layout in float32 (K1 and K2 serve it) beside the same mesh on
+    SEG (AMG and the twins) in this call; returns its launches and
+    numbers."""
+    n = n or N_SHAFT
+    t0 = time.perf_counter()
+    case = write_castellated_fire_case(os.path.join(tmp, "shaft"), n=n, **SHAFT_KW)
+    solver = FireFoamSolver(case, device=dev, layout="banded")
+    build_s = time.perf_counter() - t0
+    g = solver.geom
+    nC, K = g.n_cells, len(g.offsets)
+    faces = int(g.face_mask.sum())
+    if g.layout != "dia" or (n == N_SHAFT and g.offsets != OFFS_34):
+        raise SystemExit(f"phase 16: the shaft did not take the banded layout at OFFS_34 "
+                         f"({g.layout}, {K} offsets)")
+    if solver.gmg is not None or solver.amg is not None or solver._ldu is not None:
+        raise SystemExit("phase 16: the banded shaft did not leave p_rgh to K2")
+    plan, smem = dia_krylov._grid_launch_plan("pcg", torch.float32, 1, nC, K, 4)
+    mode = "resident" if smem else "streamed from L2"
+    say(16, f"banded shaft {nC} cells, {faces} internal faces in {K} offsets x {nC} slots "
+            f"({100.0 * faces / (K * nC):.2f} % real), largest offset {max(g.offsets)}; K2 "
+            f"on {plan.blocks_per_row} blocks of {plan.cells_per_block} cells, slices {mode} "
+            f"((5 + 2K) x L x 4 = {(5 + 2 * K) * plan.cells_per_block * 4} bytes a block); "
+            f"host seconds: mesh {solver.setup_seconds['mesh']:.2f}, geometry "
+            f"{solver.setup_seconds['geometry']:.2f}; case and solver {build_s:.1f} s")
+    dia_krylov.reset_counts()
+    state0 = solver.initial_state()
+    init = dict(dia_krylov.LAUNCHES)
+    T0_max = float(state0["T"].i.max())
+    count0 = int(state0["rad"]["count"])
+    state, logs, ms, launches, by_kernel = run_chunk(solver, state0, SHAFT_STEPS)
+    exp_k1, exp_k2 = expected_launches(solver.radiation, count0, SHAFT_STEPS)
+    finite, bad_logs = finite_run(state, logs)
+    T_max = float(state["T"].i.max())
+    failed = int(np.sum(np.asarray(torch.as_tensor(logs["rad_failedRows"]).cpu())))
+    p_its = [[int(a), int(b)] for a, b in zip(logs["p_rgh_iters_0"], logs["p_rgh_iters_1"])]
+    say(16, f"banded shaft float32, make_chunk({SHAFT_STEPS}) from t = 0: {ms:.3f} ms/step, "
+            f"{nC / (ms * 1e-3):.6e} cell-updates/s; T max {T_max:.3f} K (initially "
+            f"{T0_max:.3f} K), Qdot_total {float(logs['Qdot_total'][-1]):.6e} W; finite "
+            f"{finite}, non-finite log entries {bad_logs}; rad_failedRows {failed}; launches "
+            f"K1 {launches['bicgstab']} (expected {exp_k1}), K2 {launches['pcg']} (expected "
+            f"{exp_k2}), K3 {launches['smooth']}, by device kernel {by_kernel} (the "
+            f"hydrostatic init: K2 {init['pcg']}); K2 iterations per corrector {p_its}")
+    if not finite or bad_logs:
+        raise SystemExit("phase 16: the banded shaft is not finite")
+    if not T0_max + 1.0 < T_max < T_FLAME_MAX:
+        raise SystemExit("phase 16: the banded shaft did not heat the gas, or ran away")
+    if (launches["bicgstab"], launches["pcg"], launches["smooth"]) != (exp_k1, exp_k2, 0):
+        raise SystemExit("phase 16: the banded shaft's launch counts do not match its solves")
+    if not (by_kernel.get("pcg_grid", 0) > 0 and by_kernel.get("bicgstab_grid", 0) > 0):
+        raise SystemExit("phase 16: K1 or K2 did not serve the banded shaft grid-wide")
+    again, logs2, _, _, _ = run_chunk(solver, state0, SHAFT_STEPS)
+    fields = ("T", "U", "p_rgh", "Y", "k", "phi")
+    same = all(torch.equal(again[f].i, state[f].i) and torch.equal(again[f].b, state[f].b)
+               for f in fields) and all(torch.equal(logs2[k], logs[k]) for k in logs)
+    say(16, f"the same {SHAFT_STEPS} banded steps again: states and logs bitwise equal: {same}")
+    if not same:
+        raise SystemExit("phase 16: two runs of the banded shaft differ")
+    _, k_step, r_step, busy = step_profile(solver.make_step(), state, PROFILE_STEPS)
+    top, _ = top_kernels(solver.make_step(), state)
+    cm = solver.cm
+    p_rgh = p_rgh_solver_times(16, {"K2": solver, "CG twin (banded)": plain_p_rgh(solver)},
+                               state, "104k banded shaft")
+    out = {"cells": nC, "offsets": K, "internal_faces": faces, "slots": K * nC,
+           "fill": faces / (K * nC), "k2_mode": mode, "k2_blocks": plan.blocks_per_row,
+           "ms_per_step": ms, "launches_per_step": k_step, "host_reads_per_step": r_step,
+           "device_busy_ms": busy, "top_kernels": top, "launches": launches,
+           "by_kernel": by_kernel,
+           "rad_failed_rows": failed, "host_seconds": dict(solver.setup_seconds),
+           "p_rgh": {k: {"ms": v[0], "iterations": v[1]} for k, v in p_rgh.items()}}
+    del solver, state, again, state0
+
+    # ---- the same mesh on SEG (the automatic rule: AMG on p_rgh, the twins)
+    with mesh_from(cm):
+        seg = FireFoamSolver(case, device=dev, layout="seg")
+    if seg.geom.layout != "seg" or seg.amg is None:
+        raise SystemExit("phase 16: the shaft on SEG did not take AMG on p_rgh")
+    st, logs_s, ms_seg, launches_s, _ = run_chunk(seg, seg.initial_state(), SHAFT_STEPS)
+    finite_s, bad_s = finite_run(st, logs_s)
+    if not finite_s or bad_s or sum(launches_s.values()):
+        raise SystemExit("phase 16: the shaft on SEG is not finite or launched a kernel")
+    _, k_seg, r_seg, busy_seg = step_profile(seg.make_step(), st, PROFILE_STEPS)
+    top_seg, _ = top_kernels(seg.make_step(), st)
+    amg = p_rgh_solver_times(16, {"amg_pcg": seg}, st, "104k shaft on SEG")["amg_pcg"]
+    say(16, f"shaft per step (torch.profiler, {PROFILE_STEPS} step after the chunk): banded "
+            f"{ms:.3f} ms/step, {k_step:.0f} launches, {r_step:.0f} host reads, device busy "
+            f"{busy:.3f} ms ({100.0 * (1.0 - busy / ms):.1f} % idle); SEG {ms_seg:.3f} "
+            f"ms/step, {k_seg:.0f} launches, {r_seg:.0f} host reads, device busy "
+            f"{busy_seg:.3f} ms ({100.0 * (1.0 - busy_seg / ms_seg):.1f} % idle); p_rgh a "
+            f"solve: K2 {p_rgh['K2'][0]:.3f} ms ({p_rgh['K2'][1]} it.), the CG twin on banded "
+            f"{p_rgh['CG twin (banded)'][0]:.3f} ms ({p_rgh['CG twin (banded)'][1]} it.), "
+            f"amg_pcg on SEG {amg[0]:.3f} ms ({amg[1]} it.)")
+    for what, rows in (("banded", top), ("SEG", top_seg)):
+        say(16, f"shaft on {what}, a step's device time by kernel: " + "; ".join(
+            f"{k} {ms:.3f} ms ({c} launches)" for k, ms, c in rows))
+    out["seg"] = {"ms_per_step": ms_seg, "launches_per_step": k_seg,
+                  "host_reads_per_step": r_seg, "device_busy_ms": busy_seg,
+                  "top_kernels": top_seg, "amg_pcg": {"ms": amg[0], "iterations": amg[1]},
+                  "host_seconds": dict(seg.setup_seconds)}
+    del seg, st
+    return launches, out
+
+
+def banded_column(dev, tmp):
+    """The (4,4,60) column on the banded layout (34 offsets) in float64,
+    COLUMN_STEPS steps from t = 0 on the card against the CPU within CPU_TOL,
+    and one step from the CPU's state within STEP_TOL with equal counts."""
+    case = write_castellated_fire_case(os.path.join(tmp, "column"), n=N_COLUMN, **COLUMN_KW)
+    kw = dict(dtype=torch.float64, layout="banded", exact_solvers=False, gmg=False, amg=False)
+    cpu = FireFoamSolver(case, device="cpu", **kw)
+    card = FireFoamSolver(case, device=dev, **kw)
+    if card.geom.offsets != cpu.geom.offsets or len(card.geom.offsets) != 34:
+        raise SystemExit("phase 16: the column did not take 34 banded offsets")
+    st_c, _ = cpu.make_chunk(COLUMN_STEPS)(cpu.initial_state())
+    dia_krylov.reset_counts()
+    st_g, _ = card.make_chunk(COLUMN_STEPS)(card.initial_state())
+    launched = dict(dia_krylov.LAUNCHES)
+    vs_cpu = {f: float((st_g[f].i.cpu() - st_c[f].i).abs().max() / st_c[f].i.abs().max())
+              for f in ("T", "U")}
+    nxt_c, log_c = cpu.step(st_c)
+    nxt_g, log_g = card.step(firefoam_mod.state_from_numpy(
+        firefoam_mod.state_to_numpy(st_c), device=dev, dtype=torch.float64))
+    step = {f: float((nxt_g[f].i.cpu() - nxt_c[f].i).abs().max() / nxt_c[f].i.abs().max())
+            for f in ("T", "U", "p_rgh")}
+    counts = all(int(log_g[k]) == int(log_c[k]) for k in log_c if "iters" in k)
+    say(16, f"banded column {card.geom.n_cells} cells (34 offsets) float64, {COLUMN_STEPS} "
+            f"steps card vs CPU: T {vs_cpu['T']:.3e}, U {vs_cpu['U']:.3e} (K1 "
+            f"{launched['bicgstab']}, K2 {launched['pcg']} launches); one step from the CPU's "
+            f"state: " + ", ".join(f"{f} {v:.3e}" for f, v in step.items())
+            + f", iteration counts equal {counts}")
+    if not (max(vs_cpu.values()) <= CPU_TOL and max(step.values()) <= STEP_TOL and counts
+            and launched["bicgstab"] > 0 and launched["pcg"] > 0):
+        raise SystemExit("phase 16: the banded column on the card differs from the CPU's")
+    return {"cells": card.geom.n_cells, "vs_cpu": vs_cpu, "step_vs_cpu": step}
+
+
+def renumbered_box(dev, tmp):
+    """The (8,6,6) castellated box (too many offsets for `banded` in its own
+    numbering) renumbered by RCM: its diffusion system (tests/test_banded.py's)
+    through K2 on the card in float64 against K2's plain version and against
+    the Jacobi-CG twin on the raw mesh's SEG layout, through the
+    permutation: equal iterations."""
+    from firefoam_torch.mesh.case_mesh import build_case_mesh
+    from firefoam_torch.mesh.renumber import renumber_mesh
+    from firefoam_torch.ops import SurfaceField, VolField, fvm
+
+    case = write_castellated_fire_case(os.path.join(tmp, "box866"), n=N_RENUMBER)
+    mesh = build_case_mesh(case).mesh
+    try:
+        MeshGeometry.from_polymesh(mesh, device=dev, layout="banded")
+        raise SystemExit("phase 16: the raw (8,6,6) box was taken as banded")
+    except ValueError:
+        pass
+    mesh2, perm = renumber_mesh(mesh)
+    f8 = torch.float64
+    gb = MeshGeometry.from_polymesh(mesh2, dtype=f8, device=dev, layout="banded")
+    gs = MeshGeometry.from_polymesh(mesh, dtype=f8, device=dev, layout="seg")
+    if gb.offsets != OFFS_62:
+        raise SystemExit(f"phase 16: the renumbered box has {len(gb.offsets)} offsets, not "
+                         f"OFFS_62")
+    src = torch.as_tensor(np.random.RandomState(3).randn(gb.n_cells), dtype=f8, device=dev)
+
+    def system(g, s):
+        gamma = SurfaceField(torch.ones(g.n_internal, dtype=f8, device=dev) * g.face_mask,
+                             torch.ones(g.n_boundary, dtype=f8, device=dev))
+        psi = VolField(torch.zeros(g.n_cells, dtype=f8, device=dev),
+                       torch.zeros(g.n_boundary, dtype=f8, device=dev))
+        m = fvm.laplacian(g, gamma, psi, -g.b_dc, torch.zeros_like(g.b_dc))
+        return m.diag_total(), m.upper, m.lower, m.rhs_total() + s * g.V
+
+    pidx = torch.as_tensor(perm, device=dev)
+    dB, uB, lB, bB = system(gb, src[pidx])
+    dS, uS, lS, bS = system(gs, src)
+    kw = dict(tol=1e-10, rel_tol=0.0, max_iter=2000)
+    x0 = torch.zeros(gb.n_cells, dtype=f8, device=dev)
+    dia_krylov.reset_counts()
+    k2 = dia_krylov.dia_pcg(dB, uB, lB, bB, x0, gb.offsets, **kw)
+    if dia_krylov.LAUNCHES["pcg"] != 1:
+        raise SystemExit("phase 16: K2 did not serve the renumbered box")
+    plain = dia_krylov.plain(linear.pcg, dB, uB, lB, bB, x0, gb.offsets, **kw)
+    seg = linear.solve_ldu(gs, "PCG", dS, uS, lS, bS, x0, **kw)
+    its = [int(r.n_iterations) for r in (k2, plain, seg)]
+    vs_plain = float((k2.x - plain.x).abs().max())
+    vs_seg = float((k2.x - seg.x[pidx]).abs().max())
+    say(16, f"renumbered (8,6,6) box {gb.n_cells} cells, {len(gb.offsets)} offsets after RCM "
+            f"(refused as banded before): K2 float64 {its[0]} iterations, plain {its[1]}, SEG "
+            f"twin {its[2]}; max |x - plain x| {vs_plain:.3e}, max |x - SEG x[perm]| "
+            f"{vs_seg:.3e}")
+    scale = float(plain.x.abs().max())
+    if not (its[0] == its[1] == its[2] > 0 and vs_plain <= TOL[f8][0] * scale
+            and vs_seg <= 1e-8 * scale):
+        raise SystemExit("phase 16: K2 on the renumbered box disagrees")
+    return {"cells": gb.n_cells, "offsets": len(gb.offsets), "iterations": its,
+            "vs_plain": vs_plain, "vs_seg": vs_seg}
+
+
+def phase_banded(dev, tmp):
+    """The banded DIA layout (see the module docstring); returns the shaft's
+    launch counts and the phase's numbers."""
+    launches, out = banded_shaft(dev, tmp)
+    out["column"] = banded_column(dev, tmp)
+    out["renumbered_box"] = renumbered_box(dev, tmp)
+    return launches, out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3742,7 +4076,8 @@ def main():
 
     G, sync_s = phase_sync()
     stats = phase_kernels(dev, G, sync_s)
-    phase_kernels_k12(dev, stats)
+    for seed, offs in ((12, OFFS_12), (34, OFFS_34), (62, OFFS_62)):
+        phase_kernels_k(dev, stats, sync_s, offs, seed)
 
     with tempfile.TemporaryDirectory(prefix="firefoam_smoke_") as tmp:
         main_case = write_box_fire_case(os.path.join(tmp, "main"), n=N_MAIN)
@@ -3766,6 +4101,7 @@ def main():
         dem_launches, lattice = phase_dem(dev, tmp)
         phase_stock_small(dev, tmp)
         shard_launches, shards = phase_partitions(dev, tmp, main_case, main_ms)
+        band_launches, band = phase_banded(dev, tmp)
 
     kernels = [
         {
@@ -3797,6 +4133,9 @@ def main():
             # phase 15's partitioned runs, summed over the ranks: the
             # partitions are SEG, where no kernel serves
             "launches_sharded_path": shard_launches[name_k],
+            # phase 16's 104k-cell shaft on the banded layout (34 offsets):
+            # K1 and K2 serve it, no case runs smoothSolver there
+            "launches_banded_path": band_launches[name_k],
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],
@@ -3811,6 +4150,12 @@ def main():
             # count), float32 and float64
             "k12": stats[name_k]["k12"],
             "k12_f64": stats[name_k]["k12_f64"],
+            # phase 3's systems with the banded layout's 34 offsets (the
+            # shaft's) and 62 (the renumbered box's), float32 and float64
+            "k34": stats[name_k]["k34"],
+            "k34_f64": stats[name_k]["k34_f64"],
+            "k62": stats[name_k]["k62"],
+            "k62_f64": stats[name_k]["k62_f64"],
         }
         for name_k in ("bicgstab", "pcg", "smooth")
     ]
@@ -3833,6 +4178,7 @@ def main():
     print(json.dumps({"castellated": castel}))
     print(json.dumps({"dem_collide": lattice}))
     print(json.dumps({"partitions": shards}))
+    print(json.dumps({"banded_layout": band}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -73,7 +73,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kMaxOffsets = 16;
+constexpr int kMaxOffsets = 64;  // the banded layout's budget (ops/geometry.py)
 // bicgstab_rows_kernel's offsets held in registers: K = 3 (a lattice) or up
 // to kRegOffsets; from there to kMaxOffsets the stencil is read in a loop
 constexpr int kRegOffsets = 8;
@@ -1045,9 +1045,9 @@ __device__ __forceinline__ void rows_reduce(cg::grid_group& grid, const Params<T
 // the upper coefficient with x[c+o] and the lower one with x[c−o]. KK is K
 // (3 on a lattice) or kRegOffsets with offsets k >= K read as offset 0; an
 // absent neighbour's pair is read at cell c itself. Both are left out of
-// the sums, which add in dia_row's order. KK = kMaxOffsets (9-16 offsets):
-// 4·16 + 2 operands would spill, so the cell keeps d, x at c and its row's
-// pointers, and off_sum reads the stencil in a loop.
+// the sums, which add in dia_row's order. KK = kMaxOffsets (9-64 offsets):
+// 4·K + 2 operands a cell spill already at K = 16, so the cell keeps d, x
+// at c and its row's pointers, and off_sum reads the stencil in a loop.
 template <typename T, int KK>
 struct Cell0 {
   T d, xc, u[KK], xu[KK], l[KK], xl[KK];

@@ -12,9 +12,11 @@ with adaptive Δt, matching the reference equation set:
   solver/setMultiRegionDeltaT.H:34-63  Courant-limited Δt growth
 
 The mesh takes the DIA layout where it fits (a lattice) and the SEG layout
-otherwise (a snappyHexMesh castellation); `layout=` forces either, or the
-hybrid layout (DIA lanes for a castellation's dominant offsets and the
-rest), as the JAX package's FIREFOAM_TPU_LAYOUT does. The linear solves of
+otherwise (a snappyHexMesh castellation); `layout=` forces either, the
+banded DIA layout (up to 64 offsets: a slender castellation in its own
+numbering, or one renumbered by mesh/renumber.py) or the hybrid layout
+(DIA lanes for a castellation's dominant offsets and the rest), as the JAX
+package's FIREFOAM_TPU_LAYOUT does. The linear solves of
 the step are U (3 rows), the species (one row each), h, k, the fvDOM rays and both
 p_rgh correctors, hydrostatic init included. The solver is picked as the
 JAX package picks it. With the wavefront LDU schedule (`exact_solvers`:
@@ -185,8 +187,9 @@ class FireFoamSolver:
         the choice to the automatic rule of `_pick_solvers`. gmg_coarsest:
         the lattice multigrid stops coarsening at this many cells.
         p_rgh_f64: solve p_rgh in float64 inside a float32 step. layout:
-        None/"auto" (DIA where the mesh fits, else SEG), "dia", "seg" or
-        "hybrid" (MeshGeometry.from_polymesh). pairmg: the
+        None/"auto" (DIA where the mesh fits, else SEG), "dia", "banded"
+        (DIA up to 64 offsets), "seg" or "hybrid"
+        (MeshGeometry.from_polymesh). pairmg: the
         index-pair multigrid on p_rgh (hybrid only; True, False or None as
         the others). enable_cloud=False leaves out the
         Lagrangian cloud of a case that has one. `setup_seconds` holds the
@@ -196,8 +199,8 @@ class FireFoamSolver:
         partitioned step."""
         self._local = local
         if local is not None:
-            if layout == "hybrid":
-                raise ValueError("the partitioned step localizes from SEG: layout='hybrid' "
+            if layout in ("hybrid", "banded"):
+                raise ValueError(f"the partitioned step localizes from SEG: layout={layout!r} "
                                  "is not partitioned")
             device, dtype = local.geom.device, local.geom.dtype
         self.device = torch.device(device) if device is not None else default_device()

@@ -96,8 +96,8 @@ def run_case(
     their logs, which waits for the device), the steps and the write
     seconds. exact_solvers, gmg, gmg_coarsest, amg, pairmg and p_rgh_f64
     choose the linear solvers (FireFoamSolver's arguments; None: its
-    automatic rule); layout the mesh layout (None/"auto", "dia", "seg" or
-    "hybrid").
+    automatic rule); layout the mesh layout (None/"auto", "dia", "banded",
+    "seg" or "hybrid").
     """
     if verbose:
         print(f"firefoam_torch {__version__}")
@@ -217,9 +217,11 @@ def main(argv=None) -> int:
                     help="the lattice multigrid stops coarsening at this many cells")
     ap.add_argument("--p-rgh-f64", choices=("0", "1"), default="0",
                     help="solve p_rgh in float64 inside a float32 step")
-    ap.add_argument("--layout", choices=("auto", "dia", "seg", "hybrid"), default="auto",
+    ap.add_argument("--layout", choices=("auto", "dia", "banded", "seg", "hybrid"),
+                    default="auto",
                     help="the mesh layout: DIA where the mesh fits and SEG otherwise (auto), "
-                         "or forced (hybrid: DIA lanes for the dominant offsets and the rest)")
+                         "or forced (banded: DIA with up to 64 offsets; hybrid: DIA lanes for "
+                         "the dominant offsets and the rest)")
     args = ap.parse_args(argv)
 
     device = "cpu" if args.cpu else None

@@ -1,14 +1,18 @@
 """Device-side mesh geometry for the port: tensors for the step.
 
-Extracted once from the host-side PolyMesh, in one of three layouts (the
-JAX package's `dia`, `seg` and `hybrid`; its banded and lattice-slab
-layouts are not ported):
+Extracted once from the host-side PolyMesh, in one of the JAX package's
+layouts `dia` (also as `banded`), `seg` and `hybrid` (its lattice-slab
+boundary scatter is not ported):
 
   * DIA (offset stencil): internal faces live in a padded array of nO·nC
     slots; slot (o, c) holds the face from cell c to cell c + offsets[o]
     (zero coefficients where absent). blockMesh lattices are lexicographic,
-    so they fit with 3 offsets (1, nx, nx·ny). Face↔cell motion is a roll
-    or a shift plus elementwise math.
+    so they fit with 3 offsets (1, nx, nx·ny): face↔cell motion is a roll
+    or a shift per offset plus elementwise math. With more offsets (up to
+    16; up to 64 under `banded`, a castellated mesh in its own numbering or
+    renumbered by mesh/renumber.py) it goes through the lanes' gathers
+    (`lane_indices`): one gather, or one gather and one ordered sum, for
+    any number of offsets.
   * SEG (any mesh, e.g. a snappyHexMesh castellation): internal faces in
     the mesh's own order, unpadded. Cell→face motion is a gather x[own] /
     x[nei]; face→cell sums go through tables the host sorted once
@@ -36,6 +40,12 @@ from ..mesh.polymesh import PolyMesh
 __all__ = ["PatchInfo", "MeshGeometry", "SegSum"]
 
 _MAX_OFFSETS = 16
+# the banded layout's offset budget (the JAX package's default
+# FIREFOAM_TPU_BANDED_MAX_OFFSETS); K1-K3 take 1..64 offsets
+_BANDED_MAX_OFFSETS = 64
+# a lattice's offsets: DIA meshes with more move faces through the lanes'
+# gathers instead of one roll or shift an offset
+LATTICE_OFFSETS = 3
 # the hybrid layout's lanes (the JAX package's rule): an offset earns a lane
 # when it fills at least 1/LANE_FILL of one and holds LANE_MIN_FACES
 # faces; at most _MAX_OFFSETS lanes, and only if they cover at least half
@@ -201,8 +211,9 @@ class MeshGeometry:
     # hybrid: the rest tail's owner and neighbour cells, in slot order
     own_r: Optional[torch.Tensor] = None
     nei_r: Optional[torch.Tensor] = None
-    # hybrid: every face slot's neighbour cell as the lanes' rolls read it
-    # (wrapped at pad slots), and the lanes' gathers (`lane_indices`)
+    # hybrid, and DIA with more than LATTICE_OFFSETS offsets: every face
+    # slot's neighbour cell as the lanes' rolls read it (wrapped at pad
+    # slots), and the lanes' gathers (`lane_indices`; lane_pairs hybrid only)
     lane_nei: Optional[torch.Tensor] = None
     lane_pairs: Optional[torch.Tensor] = None
     lane_shift: Optional[torch.Tensor] = None
@@ -211,19 +222,19 @@ class MeshGeometry:
     @classmethod
     def from_polymesh(cls, mesh: PolyMesh, dtype=None, device=None,
                       layout: Optional[str] = None) -> "MeshGeometry":
-        """`layout`: None or "auto" takes DIA where the mesh fits and SEG
-        otherwise; "seg" forces SEG on any mesh; "dia" and "hybrid" raise
-        where the mesh does not fit them. (The JAX package's auto takes
-        hybrid on its accelerator from 20,000 cells; on an H100 the 117k
+        """`layout`: None or "auto" takes DIA where the mesh fits (up to 16
+        offsets) and SEG otherwise; "seg" forces SEG on any mesh; "dia",
+        "banded" (DIA with up to 64 offsets, reported as "dia") and
+        "hybrid" raise where the mesh does not fit them. (The JAX package's
+        auto takes hybrid on its accelerator from 20,000 cells; on an H100 the 117k
         castellated fire's hybrid step keeps the card 1.5x as busy as its
         SEG step and is no faster (chip_smoke.py phase 11, PERF.md), so
         auto keeps SEG on either device.)"""
         device = torch.device(device) if device is not None else default_device()
         dtype = dtype or real_dtype(device)
         layout = layout or "auto"
-        if layout not in ("auto", "dia", "seg", "hybrid"):
-            raise ValueError(f"layout {layout!r}: 'auto', 'dia', 'seg' or 'hybrid' (the "
-                             "JAX package's banded layout is not ported)")
+        if layout not in ("auto", "dia", "banded", "seg", "hybrid"):
+            raise ValueError(f"layout {layout!r}: 'auto', 'dia', 'banded', 'seg' or 'hybrid'")
         n_int = mesh.n_internal_faces
         nC = mesh.n_cells
         w = mesh.weights()
@@ -239,17 +250,20 @@ class MeshGeometry:
 
         offs = ()
         use_dia = False
-        if layout in ("auto", "dia") and n_int > 0:
+        max_offs = _BANDED_MAX_OFFSETS if layout == "banded" else _MAX_OFFSETS
+        if layout in ("auto", "dia", "banded") and n_int > 0:
             d = nei - own
             uniq = np.unique(d)
-            if (uniq > 0).all() and len(uniq) <= _MAX_OFFSETS:
+            if (uniq > 0).all() and len(uniq) <= max_offs:
                 o_idx = np.searchsorted(uniq, d)
                 key = o_idx.astype(np.int64) * nC + own
                 if len(np.unique(key)) == n_int:
                     use_dia = True
                     offs = tuple(int(o) for o in uniq)
-        if layout == "dia" and not use_dia:
-            raise ValueError("mesh is not DIA-compatible (offset stencil)")
+        if layout in ("dia", "banded") and not use_dia:
+            raise ValueError(
+                "mesh is not DIA-compatible (offset stencil)"
+                + (" — renumber first (mesh/renumber.py)" if layout == "banded" else ""))
         hybrid = None
         if layout == "hybrid" and n_int > 0:
             hybrid = hybrid_lanes(own, nei, nC)
@@ -330,15 +344,16 @@ class MeshGeometry:
         )
 
         seg = {}
-        if own_r is not None:
+        if own_r is not None or len(offs) > LATTICE_OFFSETS:
             lane_pairs, lane_shift = lane_indices(offs, nC)
             lane_up = lane_pairs.reshape(len(offs), 2, nC)[:, 0].reshape(-1)
-            seg = dict(
+            seg = dict(lane_nei=ix(lane_up), lane_shift=ix(lane_shift))
+        if own_r is not None:
+            seg.update(
                 own_r=ix(own_r),
                 nei_r=ix(nei_r),
                 lane_nei=ix(np.concatenate([lane_up, nei_r])),
                 lane_pairs=ix(lane_pairs),
-                lane_shift=ix(lane_shift),
                 seg_own=SegSum(own_r, nC, device),
                 seg_nei=SegSum(nei_r, nC, device),
             )
@@ -428,7 +443,7 @@ class MeshGeometry:
         consumers mask with the zeroed face coefficients."""
         if self.layout == "seg":
             return x.index_select(0, self.nei)
-        if self.layout == "hybrid":
+        if self.lane_nei is not None:
             return x.index_select(0, self.lane_nei)
         return torch.cat([torch.roll(x, -o, dims=0) for o in self.offsets], dim=0)
 
@@ -452,14 +467,15 @@ class MeshGeometry:
         if self.layout == "seg":
             return self.seg_nei(fv)
         parts = self._lanes(fv)
+        if self.lane_shift is None:
+            return sum(self._shift_down(parts[k], o) for k, o in enumerate(self.offsets))
+        # the lanes' shifts in one gather (lanes and cells moved to the last
+        # axes), added in lane order
+        lanes = shift_lanes(parts.movedim((0, 1), (-2, -1)), self.lane_shift)
+        y = sum_in_order(lanes.movedim((-2, -1), (0, 1)), 0)
         if self.layout == "hybrid":
-            # the lanes' shifts in one gather (lanes and cells moved to the
-            # last axes), added in lane order
-            lanes = shift_lanes(parts.movedim((0, 1), (-2, -1)), self.lane_shift)
-            lanes = lanes.movedim((-2, -1), (0, 1))
-            y = sum_in_order(lanes, 0)
             return y + self.seg_nei(fv[len(self.offsets) * self.n_cells:])
-        return sum(self._shift_down(parts[k], o) for k, o in enumerate(self.offsets))
+        return y
 
     def lane_product(self, upper: torch.Tensor, lower: torch.Tensor):
         """x ↦ Σ_owned upper·x[nei] + Σ_neighbouring lower·x[own] on the

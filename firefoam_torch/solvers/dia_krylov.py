@@ -82,7 +82,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _SRC = os.path.join(_CSRC, "dia_krylov.cu")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-_MAX_OFFSETS = 16  # kMaxOffsets in csrc: every DIA mesh ops/geometry.py takes
+_MAX_OFFSETS = 64  # kMaxOffsets in csrc: every DIA mesh ops/geometry.py takes (banded: 64)
 # scratch vectors per batch row (see the kernels' work layout)
 _WORK = {"pcg": 3, "bicgstab": 8, "smooth": 1}
 

@@ -311,11 +311,12 @@ def test_twins_take_12_offsets_and_match_jax(name):
 
 
 def test_the_launcher_refuses_more_than_16_offsets():
-    """The kernels take 1..16 offsets (kMaxOffsets); the launcher refuses a
-    17th before it reaches the library."""
-    offs = OFFS12 + (300, 350, 400, 450, 500)
+    """The kernels take 1..64 offsets (kMaxOffsets, the banded layout's
+    budget; 16 before it); the launcher refuses a 65th before it reaches
+    the library."""
+    offs = tuple(range(1, 66))
     n = N12
-    ops = [torch.ones(n), torch.zeros(17 * n), torch.zeros(17 * n), torch.ones(n),
+    ops = [torch.ones(n), torch.zeros(65 * n), torch.zeros(65 * n), torch.ones(n),
            torch.zeros(n)]
-    with pytest.raises(ValueError, match="17 offsets"):
+    with pytest.raises(ValueError, match=r"65 offsets \(1..64 supported\)"):
         dia_krylov._launch("pcg", *ops, offs, 1e-6, 0.0, 10)

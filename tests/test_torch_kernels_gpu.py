@@ -45,9 +45,12 @@ JAX, so it also runs on a machine that has only PyTorch:
   bitwise repeatable on the card, its matvec within 1e-12 of the CPU's in
   float64, and three castellated steps on the card against the CPU.
 * K1/K2/K3 at 9, 12 and 16 offsets (the DIA layout's cap; the hybrid
-  layout's lanes reach them) against their plain versions in float32 and
-  float64 (K1 on one row, 3 shared rows and 6 per-row rows: its grid-wide
-  and many-rows kernels), and the launcher's refusal of a 17th offset.
+  layout's lanes reach them) and at 17, 34 and 64 (the banded layout's)
+  against their plain versions in float32 and float64 (K1 on one row, 3
+  shared rows and 6 per-row rows: its grid-wide and many-rows kernels),
+  the launcher's refusal of a 65th offset, the banded layout's sums
+  bitwise repeatable on the card, and one step of the banded castellated
+  column (34 offsets) on the card against the CPU's.
 * The hybrid layout (no kernel): its face→cell sums and its product
   bitwise repeatable on the card, and one castellated step on the card
   with PairMG on p_rgh against the CPU's.
@@ -894,12 +897,117 @@ def test_profile_raw_events_match_the_event_tree():
 
 
 def test_kernels_refuse_17_offsets():
+    """The kernels take 1..64 offsets (the banded layout's budget; 16
+    before it): a 65th is refused before anything is launched."""
     _need_cuda()
-    offs = OFFSETS_K[16] + (6400,)
+    offs = OFFSETS_BANDED[64] + (6400,)
     ops = _system_k(3, 1, True, True, torch.float64, offs)
+    before = dict(dia_krylov.LAUNCHES)
     for name in NAMES:
-        with pytest.raises(ValueError, match="17 offsets"):
+        with pytest.raises(ValueError, match="65 offsets"):
             getattr(dia_krylov, f"dia_{name}")(*ops, offs)
+    assert dia_krylov.LAUNCHES == before
+
+
+# ------------------------------------------------------------------------
+# 17-64 offsets (the banded layout: a slender castellation in its own
+# numbering, or one renumbered by mesh/renumber.py)
+# ------------------------------------------------------------------------
+# the 104k-cell shaft's 34 offsets (write_castellated_fire_case
+# n=(8,8,1500)), the first 17 of them, and 64 spread over two bands
+OFFS_SHAFT = (1, 2, 3, 4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 21, 64, 66, 68, 69,
+              71, 72, 73, 74, 76, 77, 78, 79, 81, 82, 84, 86, 87)
+OFFSETS_BANDED = {
+    17: OFFS_SHAFT[:17],
+    34: OFFS_SHAFT,
+    64: tuple(range(1, 33)) + tuple(range(2001, 2033)),
+}
+
+
+@pytest.mark.parametrize("rows", [(1, True), (3, True), (6, False)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K", sorted(OFFSETS_BANDED))
+@pytest.mark.parametrize("name", NAMES)
+def test_kernels_at_17_to_64_offsets(name, K, dtype, rows):
+    """K1 (grid-wide and many-rows kernels), K2 and K3 against their plain
+    versions at 17, 34 and 64 offsets, one launch each."""
+    _need_cuda()
+    B, shared = rows
+    if name != "bicgstab" and B == 6:
+        B, shared = 2, False
+    offs = OFFSETS_BANDED[K]
+    ops = _system_k(K + B, B, name == "pcg", shared, dtype, offs)
+    mx = 800 if name == "smooth" else 500
+    before = dia_krylov.LAUNCHES[name]
+    got = getattr(dia_krylov, f"dia_{name}")(*ops, offs, tol=1e-8, max_iter=mx)
+    torch.cuda.synchronize()
+    assert dia_krylov.LAUNCHES[name] == before + 1
+    ref = _plain(name, *ops, offs, tol=1e-8, max_iter=mx)
+    slack, xtol = _tolerances(name, dtype)
+    its = (got.n_iterations.cpu().numpy(), ref.n_iterations.cpu().numpy())
+    assert np.all(np.abs(its[0] - its[1]) <= slack), its
+    assert np.all(its[1] > 0)
+    rel = float((got.x - ref.x).abs().max() / ref.x.abs().max())
+    assert rel <= xtol, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_banded_sums_are_bitwise_repeatable_on_cuda(tmp_path, dtype):
+    """Above 3 offsets the DIA face motion is the lanes' gather and ordered
+    sum: repeats on the card are bitwise equal, and the gather equals the
+    rolls' concatenation."""
+    _need_cuda()
+    from firefoam_torch.mesh import build_case_mesh
+    from firefoam_torch.ops import MeshGeometry
+    from firefoam_torch.utils.synthcase import write_castellated_fire_case
+
+    root = write_castellated_fire_case(str(tmp_path / "column"), n=(4, 4, 60),
+                                       size=(0.2, 0.2, 3.0))
+    g = MeshGeometry.from_polymesh(build_case_mesh(root).mesh, dtype=dtype, device="cuda",
+                                   layout="banded")
+    assert g.layout == "dia" and len(g.offsets) == 34 and g.lane_shift is not None
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    mask = g.face_mask.to(dtype)
+    for shape in ((g.n_internal,), (g.n_internal, 3)):
+        m = mask if len(shape) == 1 else mask[:, None]
+        a = torch.randn(shape, generator=gen, device="cuda", dtype=dtype) * m * 1e3
+        b = torch.randn(shape, generator=gen, device="cuda", dtype=dtype) * m
+        first = (g.face_to_own_sum(a), g.face_to_nei_sum(b), g.face_to_both_sum(a, b))
+        for _ in range(5):
+            again = (g.face_to_own_sum(a), g.face_to_nei_sum(b), g.face_to_both_sum(a, b))
+            assert all(torch.equal(x, y) for x, y in zip(first, again))
+        x = torch.randn((g.n_cells,) + shape[1:], generator=gen, device="cuda", dtype=dtype)
+        rolls = torch.cat([torch.roll(x, -o, dims=0) for o in g.offsets], dim=0)
+        assert torch.equal(g.gather_nei(x), rolls)
+
+
+def test_banded_column_step_on_cuda_matches_cpu(tmp_path):
+    """One step of the slender castellated column (4,4,60) on the banded
+    layout (34 offsets: K1 and K2 serve it), on the card from the CPU's
+    state after 10 steps, against the CPU's step in float64: 1e-9, equal
+    counts."""
+    _need_cuda()
+    from firefoam_torch.utils.synthcase import write_castellated_fire_case
+
+    root = write_castellated_fire_case(str(tmp_path / "column"), n=(4, 4, 60),
+                                       size=(0.2, 0.2, 3.0))
+    kw = dict(dtype=torch.float64, layout="banded", exact_solvers=False, gmg=False, amg=False)
+    cpu = FireFoamSolver(root, device="cpu", **kw)
+    card = FireFoamSolver(root, device="cuda", **kw)
+    assert cpu.geom.layout == card.geom.layout == "dia" and len(card.geom.offsets) == 34
+    state, _ = cpu.make_chunk(10)(cpu.initial_state())
+    st_c, log_c = cpu.step(state)
+    dia_krylov.reset_counts()
+    st_g, log_g = card.step(state_from_numpy(state_to_numpy(state), device="cuda",
+                                             dtype=torch.float64))
+    assert dia_krylov.LAUNCHES["bicgstab"] > 0 and dia_krylov.LAUNCHES["pcg"] > 0
+    for k in log_c:
+        if k.endswith("_iters") or "iters_" in k:
+            assert int(log_g[k]) == int(log_c[k]), (k, int(log_g[k]), int(log_c[k]))
+    for f in ("T", "U", "p_rgh", "Y", "k", "phi"):
+        a, b = st_g[f].i.cpu().numpy(), st_c[f].i.numpy()
+        rel = np.max(np.abs(a - b)) / np.max(np.abs(b))
+        assert rel <= 1e-9, (f, rel)
 
 
 # ------------------------------------------------------------------------
