@@ -26,7 +26,11 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      layout's lane count), 34 (OFFS_34: the banded shaft's) and 62
      (OFFS_62: the renumbered box's), float32 and float64, against their
      plain versions (float64: equal counts), timed with their bounds and
-     launch modes; and K1 in float64 on a poorly
+     launch modes; there K1's grid-wide rows and K2 (the split kernels:
+     their window's W and residency split printed) also run with window=0,
+     bitwise equal in x, residuals and counts, timed in turns beside it
+     (at 12 offsets also a window that serves every offset); and K1 in
+     float64 on a poorly
      conditioned 12-offset system (the lattice's diagonal excess), held to
      the plain version by its true residual;
   4. the main path at 100k cells in float32: write_box_fire_case(50,40,50)
@@ -248,7 +252,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      finite, heating, rad_failedRows printed, a second run bitwise equal;
      ms/step, launches, host reads, device-busy ms and the top device
      kernels of a step beside the same mesh (meshed once) on SEG (AMG and
-     the twins) in this call; one p_rgh system through
+     the twins) in this call, K1's and K2's device ms a launch in that
+     profiled step, K2's residency split; one p_rgh system through
      K2, its plain version (the CG twin) and, on SEG, amg_pcg; the (4,4,60)
      column in float64, 10 steps card vs CPU within CPU_TOL and one step
      from the CPU's state within STEP_TOL with equal counts; the (8,6,6)
@@ -657,8 +662,13 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
     float64 and float32, each against its plain version with phase 3's
     tolerances (float64: equal iteration counts); float32's times, bounds,
     blocks, the launch's mode (slices resident in shared memory, streamed
-    from L2, or the many-rows kernel) and plain times go into
-    stats[name]["k<K>"], float64's into stats[name]["k<K>_f64"]."""
+    from L2, the residency split, or the many-rows kernel) and plain times
+    go into stats[name]["k<K>"], float64's into stats[name]["k<K>_f64"].
+    K1's grid-wide rows and K2 above 3 offsets (the split kernels) also run
+    with window=0 (every offset from L2 through the same unrolled stencil):
+    x, residuals and counts must be bitwise equal, and both are timed in
+    turns (window, window=0, window=0, window); at 12 offsets also with a
+    window that serves every offset (W = the largest offset)."""
     rng = torch.Generator(device=dev).manual_seed(seed)
     n = int(np.prod(N_MAIN))
     K = len(offs)
@@ -687,12 +697,32 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
             err = float((rk.x - rp.x).abs().max())
             ok = (rel <= xtol and np.all(np.abs(it_k - it_p) <= slack)
                   and bool(torch.isfinite(rk.x).all()))
-            ms_k, ms_p = time_ms(run_k, reps=20), time_ms(run_p, reps=2)
-            plan, smem = dia_krylov._grid_launch_plan(name, dtype, B, n, K, x0.element_size())
+            plan, split = dia_krylov._grid_launch_plan(name, dtype, B, n, offs,
+                                                       x0.element_size())
             kernel = (device_kernel(plan) if name == "bicgstab" else
                       f"{name}_grid" if plan.grid_wide else name)
-            mode = ("rows" if plan.rows else "resident" if smem else
-                    "streamed" if plan.grid_wide else "one block a row")
+            wide = name != "smooth" and plan.grid_wide and not plan.rows and K > 3
+            if wide:
+                mode = (f"split: window W={split.window}, Krylov slices "
+                        f"{split.krylov}/{dia_krylov._GRID[name][1] - 1}, diagonal "
+                        f"{'resident' if split.diag else 'streamed'}, pairs {split.pairs}/{K} "
+                        f"resident")
+                run_0 = lambda **w: dia_krylov._launch(name, d, up, lo, b, x0, offs, 1e-8, 0.0,
+                                                       args["max_iter"], **w)
+                r0 = run_0(window=0)
+                same = (torch.equal(r0.x, rk.x) and torch.equal(r0.n_iterations, rk.n_iterations)
+                        and torch.equal(r0.final_residual, rk.final_residual)
+                        and torch.equal(r0.initial_residual, rk.initial_residual))
+                ms_a, ms_0a = time_ms(run_k, reps=20), time_ms(lambda: run_0(window=0), reps=20)
+                ms_0b, ms_b = time_ms(lambda: run_0(window=0), reps=20), time_ms(run_k, reps=20)
+                ms_k, ms_0 = min(ms_a, ms_b), min(ms_0a, ms_0b)
+                ms_all = (time_ms(lambda: run_0(window=max(offs)), reps=20)
+                          if K == len(OFFS_12) and dtype == torch.float32 else None)
+            else:
+                mode = ("rows" if plan.rows else "resident" if split.bytes else
+                        "streamed" if plan.grid_wide else "one block a row")
+                ms_k = time_ms(run_k, reps=20)
+            ms_p = time_ms(run_p, reps=2)
             blocks = plan.blocks_per_row if plan.rows else B * plan.blocks_per_row
             bnd, by = bound(name, dtype, (d, up, lo, b, x0), it_k, K)
             stm = streamed_ms(name, dtype, n, it_k, K)
@@ -702,20 +732,36 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
                    f"iters kernel {it_k.tolist()} plain {it_p.tolist()} max rel err {rel:.3e} "
                    f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms; bound {bnd:.4f} ms ({by}); "
                    f"streamed {stm:.4f} ms; latency {lat:.4f} ms")
+            if wide:
+                say(3, f"{name} {str(dtype)[6:]} {K} offsets B={B}: window=0 (every offset from "
+                       f"L2, the same stencil): x, residuals and iterations bitwise equal "
+                       f"{same}; in turns window {ms_a:.3f} / {ms_b:.3f} ms, window=0 "
+                       f"{ms_0a:.3f} / {ms_0b:.3f} ms"
+                       + ("" if ms_all is None else
+                          f"; a window serving every offset (W={max(offs)}) {ms_all:.3f} ms"))
+                if not same:
+                    raise SystemExit(f"phase 3: {name} at {K} offsets differs between the "
+                                     f"window and window=0")
             if not ok:
                 raise SystemExit(f"phase 3: {name} at {K} offsets disagrees with its plain "
                                  f"version")
             st = stats[name]
             st["max_abs_err"] = max(st["max_abs_err"], err)
+            row = {"ms": ms_k, "plain_ms": ms_p, "iterations": int(np.max(it_k))}
+            if wide:
+                row.update(window=split.window, krylov=split.krylov, diag=split.diag,
+                           pairs=split.pairs, window0_ms=ms_0,
+                           ms_turns=[ms_a, ms_b], window0_ms_turns=[ms_0a, ms_0b])
+                if ms_all is not None:
+                    row["window_all_ms"] = ms_all
             if dtype == torch.float32:
-                st.setdefault(f"k{K}", {})[f"B{B}"] = {
+                row.update({
                     "offsets": K, "device_kernel": kernel, "blocks": blocks, "mode": mode,
-                    "ms": ms_k, "plain_ms": ms_p, "bound_ms": bnd, "bound_by": by,
-                    "streamed_ms": stm, "latency_ms": lat, "iterations": int(np.max(it_k)),
-                    "max_abs_err": err}
+                    "bound_ms": bnd, "bound_by": by, "streamed_ms": stm, "latency_ms": lat,
+                    "max_abs_err": err})
+                st.setdefault(f"k{K}", {})[f"B{B}"] = row
             else:
-                st.setdefault(f"k{K}_f64", {})[f"B{B}"] = {
-                    "ms": ms_k, "plain_ms": ms_p, "iterations": int(np.max(it_k))}
+                st.setdefault(f"k{K}_f64", {})[f"B{B}"] = row
     if K == len(OFFS_12):
         k12_lattice_excess(rng, n, dev, stats)
 
@@ -924,12 +970,12 @@ def phase_kernels(dev, G, sync_s):
                 if apart and B > 4 and not (it_p == 0).any():
                     raise SystemExit("phase 3: no row of the rows-apart batch started converged")
                 ms_k, ms_p = time_ms(run_k, reps=20), time_ms(run_p, reps=2)
-                plan, smem = dia_krylov._grid_launch_plan(name, dtype, B, nC, len(offs),
-                                                          x0.element_size())
+                plan, split = dia_krylov._grid_launch_plan(name, dtype, B, nC, offs,
+                                                           x0.element_size())
                 blocks = (f" many rows: {plan.blocks_per_row} blocks of {plan.cells_per_block} "
-                          f"cells in every row, {smem} B shared" if plan.rows else
+                          f"cells in every row, {split.bytes} B shared" if plan.rows else
                           f" grid-wide {B}x{plan.blocks_per_row} blocks of "
-                          f"{plan.cells_per_block} cells, {smem} B shared"
+                          f"{plan.cells_per_block} cells, {split.bytes} B shared"
                           if plan.grid_wide else " one block per row")
                 show = (lambda a: a.tolist()) if B <= 16 else (
                     lambda a: f"{int(a.min())}..{int(a.max())}")
@@ -1765,7 +1811,7 @@ def radiation_solve(solver, step, state, sync_s, what):
     res_k, res_p = (true_residual(*ops, a[5], x) for x in (rk.x, rp.x))
     worst = float(torch.max(res_k / torch.clamp(res_p, min=k["tol"])))
     plan, _ = dia_krylov._grid_launch_plan("bicgstab", x0.dtype, rows, x0.shape[-1],
-                                           len(a[5]), x0.element_size())
+                                           a[5], x0.element_size())
     old = dia_krylov.grid_plan(rows, x0.shape[-1], dia_krylov._coop_blocks(
         "bicgstab", x0.dtype, 0)[0], many_rows=False)
     out = {"device_kernel": served[0], "ms": time_ms(run_k, reps=3),
@@ -3804,7 +3850,9 @@ def finite_run(state, logs):
 
 def top_kernels(step, state, n=6):
     """One profiled step from `state`: the n device kernels with the most
-    device time, [(name, ms, launches)], and the step's busy ms."""
+    device time, [(name, ms, launches)], the step's busy ms and every
+    kernel's {name: (ms, launches)} (the port's own kernels by their names:
+    pcg_grid_kernel, bicgstab_grid_kernel, ...)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -3814,11 +3862,12 @@ def top_kernels(step, state, n=6):
     by = {}
     for name, t0, t1 in dev:
         key = re.sub(r"^std::enable_if<.*?>::type ", "", name)
-        key = re.split(r"[<(]", re.sub(r"^void ", "", key))[0][:48]
+        key = re.sub(r"^void ", "", key).replace("(anonymous namespace)::", "")
+        key = re.split(r"[<(]", key)[0][:48]
         ms, count = by.get(key, (0.0, 0))
         by[key] = (ms + (t1 - t0) / 1e6, count + 1)
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:n]
-    return [(k, v[0], v[1]) for k, v in top], busy_us(dev) / 1e3
+    return [(k, v[0], v[1]) for k, v in top], busy_us(dev) / 1e3, by
 
 
 @contextlib.contextmanager
@@ -3873,12 +3922,15 @@ def banded_shaft(dev, tmp, n=None):
                          f"({g.layout}, {K} offsets)")
     if solver.gmg is not None or solver.amg is not None or solver._ldu is not None:
         raise SystemExit("phase 16: the banded shaft did not leave p_rgh to K2")
-    plan, smem = dia_krylov._grid_launch_plan("pcg", torch.float32, 1, nC, K, 4)
-    mode = "resident" if smem else "streamed from L2"
+    plan, split = dia_krylov._grid_launch_plan("pcg", torch.float32, 1, nC, g.offsets, 4)
+    mode = (f"window W={split.window}, Krylov slices {split.krylov}/4, diagonal "
+            f"{'resident' if split.diag else 'streamed'}, pairs {split.pairs}/{K} resident, "
+            f"{split.bytes} B")
     say(16, f"banded shaft {nC} cells, {faces} internal faces in {K} offsets x {nC} slots "
             f"({100.0 * faces / (K * nC):.2f} % real), largest offset {max(g.offsets)}; K2 "
-            f"on {plan.blocks_per_row} blocks of {plan.cells_per_block} cells, slices {mode} "
-            f"((5 + 2K) x L x 4 = {(5 + 2 * K) * plan.cells_per_block * 4} bytes a block); "
+            f"on {plan.blocks_per_row} blocks of {plan.cells_per_block} cells, {mode} "
+            f"((5 + 2K) x L x 4 = {(5 + 2 * K) * plan.cells_per_block * 4} bytes a block "
+            f"would hold every slice); "
             f"host seconds: mesh {solver.setup_seconds['mesh']:.2f}, geometry "
             f"{solver.setup_seconds['geometry']:.2f}; case and solver {build_s:.1f} s")
     dia_krylov.reset_counts()
@@ -3915,7 +3967,14 @@ def banded_shaft(dev, tmp, n=None):
     if not same:
         raise SystemExit("phase 16: two runs of the banded shaft differ")
     _, k_step, r_step, busy = step_profile(solver.make_step(), state, PROFILE_STEPS)
-    top, _ = top_kernels(solver.make_step(), state)
+    top, _, by_name = top_kernels(solver.make_step(), state)
+    in_step = {k: {"ms_per_launch": by_name[k][0] / by_name[k][1], "launches": by_name[k][1]}
+               for k in ("bicgstab_grid_kernel", "pcg_grid_kernel") if k in by_name}
+    say(16, "banded shaft, K1 and K2 in a step (the profile of one step): " + "; ".join(
+        f"{k} {v['ms_per_launch']:.4f} ms a launch ({v['launches']} launches)"
+        for k, v in in_step.items()))
+    if len(in_step) != 2:
+        raise SystemExit("phase 16: the profiled step shows no K1 or K2 launch")
     cm = solver.cm
     p_rgh = p_rgh_solver_times(16, {"K2": solver, "CG twin (banded)": plain_p_rgh(solver)},
                                state, "104k banded shaft")
@@ -3923,7 +3982,7 @@ def banded_shaft(dev, tmp, n=None):
            "fill": faces / (K * nC), "k2_mode": mode, "k2_blocks": plan.blocks_per_row,
            "ms_per_step": ms, "launches_per_step": k_step, "host_reads_per_step": r_step,
            "device_busy_ms": busy, "top_kernels": top, "launches": launches,
-           "by_kernel": by_kernel,
+           "by_kernel": by_kernel, "k1_k2_in_step": in_step,
            "rad_failed_rows": failed, "host_seconds": dict(solver.setup_seconds),
            "p_rgh": {k: {"ms": v[0], "iterations": v[1]} for k, v in p_rgh.items()}}
     del solver, state, again, state0
@@ -3938,7 +3997,7 @@ def banded_shaft(dev, tmp, n=None):
     if not finite_s or bad_s or sum(launches_s.values()):
         raise SystemExit("phase 16: the shaft on SEG is not finite or launched a kernel")
     _, k_seg, r_seg, busy_seg = step_profile(seg.make_step(), st, PROFILE_STEPS)
-    top_seg, _ = top_kernels(seg.make_step(), st)
+    top_seg, _, _ = top_kernels(seg.make_step(), st)
     amg = p_rgh_solver_times(16, {"amg_pcg": seg}, st, "104k shaft on SEG")["amg_pcg"]
     say(16, f"shaft per step (torch.profiler, {PROFILE_STEPS} step after the chunk): banded "
             f"{ms:.3f} ms/step, {k_step:.0f} launches, {r_step:.0f} host reads, device busy "

@@ -34,7 +34,8 @@
 // lower one stored shifted, so slot i is the coefficient of x[c-o]), and of
 // the Krylov vectors — lives in its dynamic shared memory when the slice
 // fits (Params::resident), else it is streamed from L2 through the same
-// code (the pointers then aim at global memory).
+// code (the pointers then aim at global memory); K1 and K2 above 3 offsets
+// split that per operand (below).
 //   Reductions: each block sums its cells (block_sum), writes the partial to
 // its own slot, and after the grid barrier every block of the row adds the
 // row's slots in one fixed order (row_sum). No float atomics: every block
@@ -45,6 +46,37 @@
 // barriers each trip of the loop whatever its row does: a row that stopped
 // (or retries) does no work with x frozen, and the loop ends for the whole
 // grid when no row's flag (written before, read after a barrier) is set.
+//
+// Above 3 offsets (the hybrid and banded layouts' 4-64) K1 and K2 take
+// their split kernels (Wide = true). What bounded the lattice design there:
+// dia_row_s loops over a runtime K and each term waits for its loads before
+// the next term issues its own, so a block of 768 cells, one a thread, pays
+// one L2 round trip per offset and side (68 at 34 offsets) each matvec; and
+// residency was all or nothing, so from 34 offsets at 100k cells (10 + 2K or
+// 5 + 2K slices over the 227 KB a block may have) every slice, the Krylov
+// vectors too, came from L2. The split kernels change three things:
+//   - the window: after the grid barrier that publishes p (K2) or p-hat and
+//     s-hat (K1, one buffer for both), each block copies the vector's cells
+//     [c0 − W, c0 + n + W) into shared memory in one coalesced pass, and the
+//     stencil reads every offset up to W from there (the far ones from L2);
+//   - residency by operand: the wrapper's split (solvers/dia_krylov.py
+//     `residency`) fills shared memory with the window, then the Krylov
+//     slices, the diagonal and as many upper/lower pairs as still fit; the
+//     rest streams from L2;
+//   - the unrolled stencil: the terms run in three runs of offsets whose
+//     sources are known at compile time (both in shared memory, one, none),
+//     kStencilChunk at a time, all the chunk's loads issued before it adds
+//     any; absent neighbours read 0 from the zero-padded slices and window
+//     or a predicated-off load, so no term branches. About 6 instructions a
+//     term on sm_90a. The sources are fixed per run because choosing them
+//     per term inside the chunk compiles to branches and 64-bit address
+//     arithmetic, about 35 instructions a term: bound by instruction issue,
+//     that was no faster than the loop.
+// The sums add in dia_row_s's order, so x, the residuals and the counts are
+// bit for bit those of the same kernel without the window (the wrapper's
+// window=0). What remains is the iteration's fixed cost (its grid barriers
+// and vector passes) and, at B = 3 or in float64, the pairs that do not fit
+// and stream from L2.
 //
 // That layout fixes a row's blocks for the whole solve. With many rows it
 // leaves one block (one SM) a row, which cannot stream a 100k-cell row near
@@ -109,6 +141,11 @@ struct Params {
   int bpr;                       // blocks per batch row
   int L;                         // cells per block (the last of a row may own fewer)
   int resident;                  // 1: the block's slices live in dynamic shared memory
+  // K1 and K2 above 3 offsets (the wrapper's residency split) instead:
+  int W;                         // the window serves offsets up to W (0: no window)
+  int nkry;                      // Krylov slices resident, in the order the kernel takes them
+  int dres;                      // 1: the diagonal's slice resident
+  int npairs;                    // the first npairs offsets' upper and lower slices resident
   T* slots;                      // [kSlots, gridDim.x] per-block partial sums
   int* flags;                    // [B] row still iterating
   // bicgstab_rows_kernel only:
@@ -411,15 +448,28 @@ struct Slice {
   const T* l;
   long long us, ls;
   int lsh;
+  // above 3 offsets (stage_split): u and l hold the resident pairs (stride
+  // L, l shifted, both 0 where the neighbour is absent); gu and gl every
+  // offset's slices in global memory at the block's first cell (stride nC,
+  // gl not shifted); win the window, which serves the leading nwin offsets
+  const T* gu;
+  const T* gl;
+  T* win;
+  int nwin;
 };
 
 template <typename T>
-__device__ __forceinline__ T* stage_operands(const Params<T>& p, T* sh, Slice<T>& s) {
+__device__ __forceinline__ void place(const Params<T>& p, Slice<T>& s) {
   s.row = blockIdx.x / p.bpr;
   s.first = s.row * p.bpr;
   const long long at = (long long)(blockIdx.x - s.first) * p.L;
   s.c0 = at < p.nC ? (int)at : p.nC;
   s.n = min(p.L, p.nC - s.c0);
+}
+
+template <typename T>
+__device__ __forceinline__ T* stage_operands(const Params<T>& p, T* sh, Slice<T>& s) {
+  place(p, s);
   const T* gd = p.diag + s.row * p.sd + s.c0;
   const T* gu = p.upper + s.row * p.su + s.c0;
   const T* gl = p.lower + s.row * p.sl + s.c0;
@@ -448,11 +498,13 @@ __device__ __forceinline__ T* stage_operands(const Params<T>& p, T* sh, Slice<T>
   return sl + (long long)p.K * L;
 }
 
-// One Krylov vector's slice: shared memory when resident, else `global`
-// (which already points at the block's first cell).
+// One Krylov vector's slice: shared memory while `left` slices may still be
+// resident (all or none at 1-3 offsets and in K3, the first p.nkry above),
+// else `global` (which already points at the block's first cell).
 template <typename T>
-__device__ __forceinline__ T* take(const Params<T>& p, T*& sh, T* global) {
-  if (!p.resident) return global;
+__device__ __forceinline__ T* take(const Params<T>& p, T*& sh, int& left, T* global) {
+  if (left <= 0) return global;
+  --left;
   T* v = sh;
   sh += p.L;
   return v;
@@ -460,7 +512,12 @@ __device__ __forceinline__ T* take(const Params<T>& p, T*& sh, T* global) {
 
 // K0 on a slice: row c = c0 + i of M·x. `xrow` is the whole row of a vector
 // that other blocks write: read through L2 (ld.global.cg), after a grid
-// barrier; `xc` is the block's own copy of x[c].
+// barrier; `xc` is the block's own copy of x[c]. K3 and K1/K2 at 1-3
+// offsets: the loop over a runtime K waits for each term's loads before it
+// issues the next term's, one L2 round trip per offset and side, which sets
+// the pace from a few offsets up; above 3 offsets K1 and K2 take dia_row_w
+// instead (the window, the resident pairs and the unrolled chunk), which
+// adds the same terms in the same order.
 template <typename T>
 __device__ __forceinline__ T dia_row_s(const Slice<T>& s, const Params<T>& p, const T* xrow,
                                        T xc, int i) {
@@ -490,6 +547,174 @@ __device__ __forceinline__ T dia_row_const_s(const Slice<T>& s, const Params<T>&
     if (c >= o) nei += s.l[k * s.ls + i - s.lsh * o] * xr;
   }
   return s.d[i] * xr + (own + nei);
+}
+
+// ------------------------------------------- K1 and K2 above 3 offsets
+// Offsets a thread takes at once in dia_row_w: it issues the chunk's loads
+// (a coefficient and a neighbour each) before it adds any of them.
+constexpr int kStencilChunk = 8;
+
+// The block's place and its read-only operands above 3 offsets, laid out as
+// the wrapper's split says: the window (L + 2W values when W > 0), the
+// diagonal's slice (p.dres), the first p.npairs offsets' upper slices and
+// their lower slices (shifted as in stage_operands; both 0 where the
+// neighbour is absent); the Krylov slices follow (take). Everything not
+// resident is read from global memory.
+template <typename T>
+__device__ __forceinline__ T* stage_split(const Params<T>& p, T* sh, Slice<T>& s) {
+  place(p, s);
+  const int L = p.L;
+  const T* gd = p.diag + s.row * p.sd + s.c0;
+  s.gu = p.upper + s.row * p.su + s.c0;
+  s.gl = p.lower + s.row * p.sl + s.c0;
+  s.win = sh;
+  s.nwin = 0;
+  if (p.W > 0) {
+    sh += L + 2 * p.W;
+    while (s.nwin < p.K && p.off[s.nwin] <= p.W) ++s.nwin;
+  }
+  T* sd = sh;
+  if (p.dres) sh += L;
+  T* su = sh;
+  T* sl = su + (long long)p.npairs * L;
+  for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+    const int c = s.c0 + i;
+    if (p.dres) sd[i] = gd[i];
+    for (int k = 0; k < p.npairs; ++k) {
+      const int o = p.off[k];
+      su[k * L + i] = c + o < p.nC ? s.gu[(long long)k * p.nC + i] : T(0);
+      sl[k * L + i] = c >= o ? s.gl[(long long)k * p.nC + i - o] : T(0);
+    }
+  }
+  s.d = p.dres ? sd : gd;
+  s.u = su;
+  s.l = sl;
+  return sl + (long long)p.npairs * L;
+}
+
+// Copy x[c0 − W, c0 + n + W) of the row `xrow` (0 outside the row) into the
+// block's window in one coalesced pass, after the grid barrier that
+// published it; the block barrier at the end makes it whole for every
+// thread. Every block of a row calls it, or none.
+template <typename T>
+__device__ __forceinline__ void fill_window(const Slice<T>& s, const Params<T>& p,
+                                            const T* xrow) {
+  if (p.W == 0) return;
+  const int first = s.c0 - p.W, len = s.n + 2 * p.W;
+#pragma unroll 4
+  for (int j = threadIdx.x; j < len; j += blockDim.x) {
+    const int c = first + j;
+    s.win[j] = c >= 0 && c < p.nC ? __ldcg(xrow + c) : T(0);
+  }
+  __syncthreads();
+}
+
+// One term of a run: the coefficient `a` and the neighbour `v` of offset o
+// (Up: u_k[c]·x[c+o]; else l_k[c−o]·x[c−o]). `pa` points at the term's
+// coefficient (for the lower one in global memory, before the shift by o),
+// `xs` at x[c] in the window (Win) or in the row in L2; Const: v = xc. An
+// absent neighbour gives a = 0 or v = 0: the resident slices and the window
+// hold 0 there, and a load from global memory is predicated off.
+template <typename T, bool Res, bool Win, bool Up, bool Const>
+__device__ __forceinline__ void stencil_term(T& a, T& v, int o, const T* pa, const T* xs, T xc,
+                                             int c, int nC) {
+  const bool in = Up ? c + o < nC : c >= o;
+  a = T(0);
+  v = Const ? xc : T(0);
+  if (Res) a = *pa;
+  else if (in) a = Up ? *pa : pa[-o];
+  if (Const) return;
+  if (Win) v = Up ? xs[o] : xs[-o];
+  else if (in) v = __ldcg(Up ? xs + o : xs - o);
+}
+
+// The terms of offsets [kb, ke) added to `acc` in k order, kStencilChunk at
+// a time: a chunk issues all its loads before it adds any of them, the
+// run's last chunk too, whose terms past ke add 0. `coef` points at offset
+// kb's coefficient of the cell, `cs` is the stride between offsets (L
+// resident, nC in global memory). An absent term adds ±0, which leaves acc
+// as it is (acc starts at +0 and an exact sum is never −0 when rounding to
+// nearest), so the sum is bit for bit dia_row_s's, which skips the term.
+template <typename T, bool Res, bool Win, bool Up, bool Const>
+__device__ __forceinline__ void stencil_run(T& acc, const Params<T>& p, int kb, int ke,
+                                            const T* coef, long long cs, const T* xs, T xc,
+                                            int c) {
+  constexpr int C = kStencilChunk;
+  const T* pa = coef;
+  int k = kb;
+  auto chunk = [&](int n) {  // the next n <= C terms
+    T a[C], v[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      a[j] = T(0);
+      v[j] = T(0);
+      if (j < n) stencil_term<T, Res, Win, Up, Const>(a[j], v[j], p.off[k + j], pa, xs, xc, c,
+                                                      p.nC);
+      pa += cs;
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc += a[j] * v[j];
+  };
+#pragma unroll 1
+  for (; k + C <= ke; k += C) chunk(C);
+  if (k < ke) chunk(ke - k);
+}
+
+// One side's sum (Up: own, else nei) over k = 0..K−1 as runs in k order.
+// Win: the first min(np, nw) offsets with both operands in shared memory,
+// then those with one of them there, then the rest from global memory (np:
+// the resident pairs, nw: the leading offsets the window serves). Without a
+// window (the prologue's x0 and A·x̄), the resident pairs, then the rest.
+template <typename T, bool Up, bool Const, bool Win>
+__device__ __forceinline__ T stencil_side(const Slice<T>& s, const Params<T>& p, int nw,
+                                          const T* xw, const T* xg, T xc, int i, int c) {
+  const int np = p.npairs, L = p.L;
+  const long long nC = p.nC;
+  const T* res = (Up ? s.u : s.l) + i;
+  const T* glob = (Up ? s.gu : s.gl) + i;
+  T acc = T(0);
+  if constexpr (!Win) {
+    stencil_run<T, true, false, Up, Const>(acc, p, 0, np, res, L, xg, xc, c);
+    stencil_run<T, false, false, Up, Const>(acc, p, np, p.K, glob + np * nC, nC, xg, xc, c);
+    return acc;
+  }
+  const int lo = min(np, nw), hi = max(np, nw);
+  stencil_run<T, true, true, Up, Const>(acc, p, 0, lo, res, L, xw, xc, c);
+  if (np > nw)
+    stencil_run<T, true, false, Up, Const>(acc, p, lo, hi, res + (long long)lo * L, L, xg, xc, c);
+  else
+    stencil_run<T, false, true, Up, Const>(acc, p, lo, hi, glob + lo * nC, nC, xw, xc, c);
+  stencil_run<T, false, false, Up, Const>(acc, p, hi, p.K, glob + hi * nC, nC, xg, xc, c);
+  return acc;
+}
+
+// dia_row_s above 3 offsets: row c = c0 + i of M·x (Const: of M·(xc·1), the
+// normFactor's A·x̄), the same terms added in the same order — own over
+// k = 0..K−1, then nei over k, then d·x + (own + nei) — so bit for bit
+// dia_row_s's result, whatever the operands' places: a coefficient from
+// shared memory for the resident pairs, else from global memory; the
+// neighbour x[c ± o] from the window for the leading `nw` offsets (those up
+// to W, s.nwin), else from L2 (`xrow`, as dia_row_s). Win = false: no
+// window (the prologue); nw = 0 reads every neighbour from L2 too (the
+// wrapper's window=0).
+template <typename T, bool Const, bool Win>
+__device__ __forceinline__ T dia_row_w(const Slice<T>& s, const Params<T>& p, const T* xrow,
+                                       int nw, T xc, int i) {
+  const int c = s.c0 + i;
+  const T* xw = s.win + p.W + i;  // xw[±o] = x[c ± o] for the window's offsets
+  const T* xg = xrow + c;
+  const T own = stencil_side<T, true, Const, Win>(s, p, nw, xw, xg, xc, i, c);
+  const T nei = stencil_side<T, false, Const, Win>(s, p, nw, xw, xg, xc, i, c);
+  return s.d[i] * xc + (own + nei);
+}
+
+// One matvec row on either path: dia_row_s at 1-3 offsets, dia_row_w above
+// (nw: the offsets the window serves for this vector, 0 where none holds it).
+template <typename T, bool Wide>
+__device__ __forceinline__ T mv_row(const Slice<T>& s, const Params<T>& p, const T* xrow, int nw,
+                                    T xc, int i) {
+  if constexpr (Wide) return dia_row_w<T, false, true>(s, p, xrow, nw, xc, i);
+  else return dia_row_s(s, p, xrow, xc, i);
 }
 
 // Sum N values over a batch row's blocks; one grid barrier. Every block —
@@ -545,8 +770,9 @@ __device__ __forceinline__ bool any_row_active(cg::grid_group& grid, const Param
 
 // The prologue of K1, K2 and K3 over a row's blocks (two grid barriers): as
 // `prologue`, with x and r the block's slices. x0 is read-only for the
-// launch, so its neighbours are read from it directly.
-template <typename T>
+// launch, so its neighbours are read from it directly (Wide: through
+// dia_row_w without a window).
+template <typename T, bool Wide = false>
 __device__ void prologue_grid(cg::grid_group& grid, const Params<T>& p, const Slice<T>& s,
                               T* x, T* r, T* sm, T& norm, T& res0, T& rr, T& rzr) {
   const T* b = p.b + (long long)s.row * p.nC + s.c0;
@@ -561,8 +787,14 @@ __device__ void prologue_grid(cg::grid_group& grid, const Params<T>& p, const Sl
   const T xref = s1[0] / T(p.nC);
   T s4[4] = {T(0), T(0), T(0), T(0)};
   for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
-    const T ax = dia_row_s(s, p, x0, x[i], i);
-    const T ar = dia_row_const_s(s, p, xref, i);
+    T ax, ar;
+    if constexpr (Wide) {
+      ax = dia_row_w<T, false, false>(s, p, x0, 0, x[i], i);
+      ar = dia_row_w<T, true, false>(s, p, x0, 0, xref, i);
+    } else {
+      ax = dia_row_s(s, p, x0, x[i], i);
+      ar = dia_row_const_s(s, p, xref, i);
+    }
     const T rc = b[i] - ax;
     r[i] = rc;
     s4[0] += fabs(ax - ar) + fabs(b[i] - ar);
@@ -577,11 +809,12 @@ __device__ void prologue_grid(cg::grid_group& grid, const Params<T>& p, const Sl
   rzr = s4[3];
 }
 
+// x's slice back to p.x where it was resident, and the row's results.
 template <typename T>
 __device__ __forceinline__ void finish_grid(const Params<T>& p, const Slice<T>& s, const T* x,
                                             T res0, T res, int it) {
-  if (p.resident) {
-    T* xg = p.x + (long long)s.row * p.nC + s.c0;
+  T* xg = p.x + (long long)s.row * p.nC + s.c0;
+  if (x != xg) {
     for (int i = threadIdx.x; i < s.n; i += blockDim.x) xg[i] = x[i];
   }
   if (blockIdx.x == s.first && threadIdx.x == 0) {
@@ -593,25 +826,34 @@ __device__ __forceinline__ void finish_grid(const Params<T>& p, const Slice<T>& 
 
 extern __shared__ __align__(16) unsigned char ffk_dyn_smem[];
 
+// The Krylov slices each grid-wide kernel takes (in this order): K2 x, r,
+// p, Ap; K1 x, r, rhat, p, v, phat, s, shat, t.
+constexpr int kKrylovPcg = 4;
+constexpr int kKrylovBicgstab = 9;
+
 // K2 over the grid: the arithmetic of pcg_kernel, three grid barriers per
 // iteration (p published; p·Ap; Σ|r| and r·z). work: r, p, Ap as pcg_kernel.
-// Resident slices: d, K upper, K lower, x, r, p, Ap (5 + 2K vectors of L).
-template <typename T>
+// Wide = false (1-3 offsets): the slices d, K upper, K lower, x, r, p, Ap
+// (5 + 2K vectors of L) all resident or all streamed. Wide (above 3): the
+// split of stage_split, and p read through the window.
+template <typename T, bool Wide>
 __global__ void __launch_bounds__(kThreads) pcg_grid_kernel(Params<T> p) {
   __shared__ T sm[32 * 4];
   cg::grid_group grid = cg::this_grid();
   Slice<T> s;
-  T* sh = stage_operands(p, reinterpret_cast<T*>(ffk_dyn_smem), s);
+  T* const dyn = reinterpret_cast<T*>(ffk_dyn_smem);
+  T* sh = Wide ? stage_split(p, dyn, s) : stage_operands(p, dyn, s);
+  int left = Wide ? p.nkry : (p.resident ? kKrylovPcg : 0);
   const long long n = p.nC;
   T* w = p.work + (long long)s.row * 3 * n;
-  T* x = take(p, sh, p.x + (long long)s.row * n + s.c0);
-  T* r = take(p, sh, w + s.c0);
+  T* x = take(p, sh, left, p.x + (long long)s.row * n + s.c0);
+  T* r = take(p, sh, left, w + s.c0);
   T* pg = w + n;  // the whole row's p, exchanged between blocks
-  T* pv = take(p, sh, pg + s.c0);
-  T* ap = take(p, sh, w + 2 * n + s.c0);
+  T* pv = take(p, sh, left, pg + s.c0);
+  T* ap = take(p, sh, left, w + 2 * n + s.c0);
 
   T norm, res0, rr, rz;
-  prologue_grid(grid, p, s, x, r, sm, norm, res0, rr, rz);
+  prologue_grid<T, Wide>(grid, p, s, x, r, sm, norm, res0, rr, rz);
   for (int i = threadIdx.x; i < s.n; i += blockDim.x) pv[i] = T(0);
   const T stop = stop_at(p, res0);
   T res = res0, rz_old = T(1);
@@ -629,8 +871,9 @@ __global__ void __launch_bounds__(kThreads) pcg_grid_kernel(Params<T> p) {
     if (!any_row_active(grid, p, s, active)) break;
     T s1[1] = {T(0)};
     if (active) {
+      if constexpr (Wide) fill_window(s, p, pg);
       for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
-        const T a = dia_row_s(s, p, pg, pv[i], i);
+        const T a = mv_row<T, Wide>(s, p, pg, s.nwin, pv[i], i);
         ap[i] = a;
         s1[0] += pv[i] * a;
       }
@@ -665,30 +908,34 @@ __global__ void __launch_bounds__(kThreads) pcg_grid_kernel(Params<T> p) {
 // as bicgstab_kernel's `continue` does, but walks on through the trip's
 // remaining barriers doing nothing; a row whose step is not finite fails as
 // bicgstab_kernel's does. work: as bicgstab_kernel.
-// Resident slices: d, K upper, K lower, x, r, rhat, p, v, phat, s, shat, t
-// (10 + 2K vectors of L).
-template <typename T>
+// Wide = false (1-3 offsets): the slices d, K upper, K lower, x, r, rhat,
+// p, v, phat, s, shat, t (10 + 2K vectors of L) all resident or all
+// streamed. Wide (above 3): the split of stage_split; p-hat and s-hat are
+// read through one window, filled anew for each matvec.
+template <typename T, bool Wide>
 __global__ void __launch_bounds__(kThreads) bicgstab_grid_kernel(Params<T> p) {
   __shared__ T sm[32 * 4];
   cg::grid_group grid = cg::this_grid();
   Slice<T> s;
-  T* sh = stage_operands(p, reinterpret_cast<T*>(ffk_dyn_smem), s);
+  T* const dyn = reinterpret_cast<T*>(ffk_dyn_smem);
+  T* sh = Wide ? stage_split(p, dyn, s) : stage_operands(p, dyn, s);
+  int left = Wide ? p.nkry : (p.resident ? kKrylovBicgstab : 0);
   const long long n = p.nC;
   T* w = p.work + (long long)s.row * 8 * n;
-  T* x = take(p, sh, p.x + (long long)s.row * n + s.c0);
-  T* r = take(p, sh, w + s.c0);
-  T* rhat = take(p, sh, w + n + s.c0);
-  T* pv = take(p, sh, w + 2 * n + s.c0);
-  T* v = take(p, sh, w + 3 * n + s.c0);
+  T* x = take(p, sh, left, p.x + (long long)s.row * n + s.c0);
+  T* r = take(p, sh, left, w + s.c0);
+  T* rhat = take(p, sh, left, w + n + s.c0);
+  T* pv = take(p, sh, left, w + 2 * n + s.c0);
+  T* v = take(p, sh, left, w + 3 * n + s.c0);
   T* phat_g = w + 4 * n;  // whole rows, exchanged between blocks
   T* shat_g = w + 6 * n;
-  T* phat = take(p, sh, phat_g + s.c0);
-  T* sv = take(p, sh, w + 5 * n + s.c0);
-  T* shat = take(p, sh, shat_g + s.c0);
-  T* t = take(p, sh, w + 7 * n + s.c0);
+  T* phat = take(p, sh, left, phat_g + s.c0);
+  T* sv = take(p, sh, left, w + 5 * n + s.c0);
+  T* shat = take(p, sh, left, shat_g + s.c0);
+  T* t = take(p, sh, left, w + 7 * n + s.c0);
 
   T norm, res0, rr, unused;
-  prologue_grid(grid, p, s, x, r, sm, norm, res0, rr, unused);
+  prologue_grid<T, Wide>(grid, p, s, x, r, sm, norm, res0, rr, unused);
   for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
     rhat[i] = r[i];
     pv[i] = T(0);
@@ -721,8 +968,9 @@ __global__ void __launch_bounds__(kThreads) bicgstab_grid_kernel(Params<T> p) {
     if (!any_row_active(grid, p, s, active)) break;
     T s1[1] = {T(0)};
     if (active) {
+      if constexpr (Wide) fill_window(s, p, phat_g);
       for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
-        const T vc = dia_row_s(s, p, phat_g, phat[i], i);
+        const T vc = mv_row<T, Wide>(s, p, phat_g, s.nwin, phat[i], i);
         v[i] = vc;
         s1[0] += rhat[i] * vc;
       }
@@ -744,8 +992,9 @@ __global__ void __launch_bounds__(kThreads) bicgstab_grid_kernel(Params<T> p) {
     grid.sync();
     T s2[2] = {T(0), T(0)};
     if (work) {
+      if constexpr (Wide) fill_window(s, p, shat_g);
       for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
-        const T tc = dia_row_s(s, p, shat_g, shat[i], i);
+        const T tc = mv_row<T, Wide>(s, p, shat_g, s.nwin, shat[i], i);
         t[i] = tc;
         s2[0] += tc * sv[i];
         s2[1] += tc * tc;
@@ -1447,7 +1696,8 @@ __global__ void __launch_bounds__(kThreads) smooth_grid_kernel(Params<T> p) {
     for (int i = threadIdx.x; i < s.n; i += blockDim.x) bs[i] = b[i];
     b = bs;
   }
-  T* x = take(p, sh, xa + s.c0);  // the block's own cells of the iterate
+  int left = p.resident;
+  T* x = take(p, sh, left, xa + s.c0);  // the block's own cells of the iterate
 
   T norm, res0, unused1, unused2;
   prologue_grid(grid, p, s, x, xb + s.c0, sm, norm, res0, unused1, unused2);
@@ -1501,15 +1751,18 @@ __global__ void __launch_bounds__(kThreads) smooth_grid_kernel(Params<T> p) {
 }
 
 // The cooperative kernels by index: 0 K2, 1 K1, 2 K3, 3-5 K1 for many rows
-// (3, up to kRegOffsets and up to kMaxOffsets offsets).
+// (3, up to kRegOffsets and up to kMaxOffsets offsets), 6 K2 and 7 K1 above
+// 3 offsets.
 template <typename T>
 const void* grid_kernel(int which) {
-  return which == 0   ? (const void*)pcg_grid_kernel<T>
-         : which == 1 ? (const void*)bicgstab_grid_kernel<T>
+  return which == 0   ? (const void*)pcg_grid_kernel<T, false>
+         : which == 1 ? (const void*)bicgstab_grid_kernel<T, false>
          : which == 2 ? (const void*)smooth_grid_kernel<T>
          : which == 3 ? (const void*)bicgstab_rows_kernel<T, 3>
          : which == 4 ? (const void*)bicgstab_rows_kernel<T, kRegOffsets>
-                      : (const void*)bicgstab_rows_kernel<T, kMaxOffsets>;
+         : which == 5 ? (const void*)bicgstab_rows_kernel<T, kMaxOffsets>
+         : which == 6 ? (const void*)pcg_grid_kernel<T, true>
+                      : (const void*)bicgstab_grid_kernel<T, true>;
 }
 
 template <typename T>
@@ -1531,6 +1784,7 @@ Params<T> make_params(const T* diag, long long sd, const T* upper, long long su,
   p.omega = 0.0;
   p.check_every = 0;
   p.bpr = 1; p.L = nC; p.resident = 0;
+  p.W = 0; p.nkry = 0; p.dres = 0; p.npairs = 0;
   p.slots = nullptr; p.flags = nullptr;
   p.rows = 0;
   return p;
@@ -1550,6 +1804,29 @@ int launch_grid(const void* kernel, Params<T> p, int B, T* slots, int* flags, in
   void* args[] = {&p};
   return (int)cudaLaunchCooperativeKernel(kernel, dim3(B * bpr), dim3(kThreads), args,
                                           (size_t)smem_bytes, (cudaStream_t)stream);
+}
+
+// The grid-wide K1 or K2 (which: 0 or 1): at 1-3 offsets its lattice
+// kernel, all slices resident when smem_bytes > 0; above 3 offsets
+// the split kernel with the wrapper's split (window W, Krylov slices, the
+// diagonal, pairs), refused unless it is a split of the kernel's slices
+// that fits in smem_bytes.
+template <typename T>
+int launch_split(int which, int nkry_all, Params<T> p, int B, T* slots, int* flags, int bpr,
+                 int L, int smem_bytes, int window, int nkry, int dres, int npairs,
+                 void* stream) {
+  if (p.K <= 3)
+    return launch_grid<T>(grid_kernel<T>(which), p, B, slots, flags, bpr, L, smem_bytes, stream);
+  if (window < 0 || nkry < 0 || nkry > nkry_all || dres < 0 || dres > 1 || npairs < 0 ||
+      npairs > p.K || L < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long values = (window > 0 ? (long long)L + 2LL * window : 0LL) +
+                           (long long)(nkry + dres + 2 * npairs) * L;
+  const long long need = values * (long long)sizeof(T);
+  if (need > smem_bytes) return (int)cudaErrorInvalidValue;
+  p.W = window; p.nkry = nkry; p.dres = dres; p.npairs = npairs;
+  return launch_grid<T>(grid_kernel<T>(which + 6), p, B, slots, flags, bpr, L, smem_bytes,
+                        stream);
 }
 
 // The cooperative launch of bicgstab_rows_kernel: `nblk` blocks of `L` cells
@@ -1595,26 +1872,28 @@ FFK_ENTRY(pcg, pcg_kernel, double, f64)
 FFK_ENTRY(bicgstab, bicgstab_kernel, float, f32)
 FFK_ENTRY(bicgstab, bicgstab_kernel, double, f64)
 
-// The grid-wide K1 and K2: the same operands plus launch_grid's.
-#define FFK_GRID_ENTRY(NAME, KERNEL, T, SUF)                                         \
+// The grid-wide K1 and K2: the same operands plus launch_grid's, then the
+// split above 3 offsets (window W, Krylov slices, diagonal, pairs resident;
+// ignored at 1-3 offsets).
+#define FFK_GRID_ENTRY(NAME, WHICH, NKRY, T, SUF)                                    \
   extern "C" int ffk_##NAME##_grid_##SUF(                                            \
       const T* diag, long long sd, const T* upper, long long su, const T* lower,     \
       long long sl, const T* b, const T* x0, T* x, T* res0, T* res, int* iters,      \
       T* work, const int* offs, int K, int nC, int B, double tol, double rel_tol,    \
       double floor_eps, int max_iter, T* slots, int* flags, int bpr, int L,          \
-      int smem_bytes, void* stream) {                                                \
+      int smem_bytes, int window, int krylov, int diag_res, int pairs, void* stream) { \
     if (K < 1 || K > kMaxOffsets || nC < 1 || B < 1) return (int)cudaErrorInvalidValue; \
     Params<T> p = make_params<T>(diag, sd, upper, su, lower, sl, b, x0, x, res0,     \
                                  res, iters, work, offs, K, nC, tol, rel_tol,        \
                                  floor_eps, max_iter);                               \
-    return launch_grid<T>((const void*)KERNEL<T>, p, B, slots, flags, bpr, L,        \
-                          smem_bytes, stream);                                       \
+    return launch_split<T>(WHICH, NKRY, p, B, slots, flags, bpr, L, smem_bytes,      \
+                           window, krylov, diag_res, pairs, stream);                 \
   }
 
-FFK_GRID_ENTRY(pcg, pcg_grid_kernel, float, f32)
-FFK_GRID_ENTRY(pcg, pcg_grid_kernel, double, f64)
-FFK_GRID_ENTRY(bicgstab, bicgstab_grid_kernel, float, f32)
-FFK_GRID_ENTRY(bicgstab, bicgstab_grid_kernel, double, f64)
+FFK_GRID_ENTRY(pcg, 0, kKrylovPcg, float, f32)
+FFK_GRID_ENTRY(pcg, 0, kKrylovPcg, double, f64)
+FFK_GRID_ENTRY(bicgstab, 1, kKrylovBicgstab, float, f32)
+FFK_GRID_ENTRY(bicgstab, 1, kKrylovBicgstab, double, f64)
 
 // K1 for many rows: the same operands, then the partial-sum slots, the
 // blocks and the cells per block.
@@ -1641,10 +1920,11 @@ extern "C" int ffk_rows_smem(int B, int is_f64) {
 }
 
 // How many blocks of a cooperative kernel (which: 0 pcg, 1 bicgstab, 2 smooth,
-// 3 bicgstab for many rows: the least over its instantiations by offsets)
-// are co-resident on the current device with `smem_bytes` of dynamic shared
+// 3 bicgstab for many rows; the least over its instantiations: by offsets
+// for many rows, 1-3 and above 3 offsets for pcg and bicgstab) are
+// co-resident on the current device with `smem_bytes` of dynamic shared
 // memory each (0 when that is more than a block may have), and the most
-// dynamic shared memory a block of it may have; the kernel is opted in to
+// dynamic shared memory a block of it may have; the kernels are opted in to
 // that much. Fails with cudaErrorNotSupported on a device without
 // cooperative launch.
 extern "C" int ffk_coop_blocks(int which, int is_f64, int smem_bytes, int* blocks,
@@ -1657,8 +1937,10 @@ extern "C" int ffk_coop_blocks(int which, int is_f64, int smem_bytes, int* block
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop || which < 0 || which > 3) return (int)cudaErrorNotSupported;
+  const int kinds[4][3] = {{0, 6, -1}, {1, 7, -1}, {2, -1, -1}, {3, 4, 5}};
   int least_blocks = -1, least_dyn = optin;
-  for (int w = which; w <= (which == 3 ? 5 : which); ++w) {
+  for (int q = 0; q < 3 && kinds[which][q] >= 0; ++q) {
+    const int w = kinds[which][q];
     const void* f = is_f64 ? grid_kernel<double>(w) : grid_kernel<float>(w);
     cudaFuncAttributes fa;
     e = cudaFuncGetAttributes(&fa, f);

@@ -38,7 +38,9 @@ count, asked of the library once per kernel, dtype and shared-memory size),
     that still iterates;
   * otherwise B <= G: the grid-wide kernel, a cooperative launch in which
     every row gets a group of blocks and every block a contiguous range of
-    cells, kept in the block's shared memory when it fits;
+    cells, kept in the block's shared memory when it fits (K1 and K2 above
+    3 offsets: operand by operand, with a window of the exchanged vector,
+    as `residency` splits it);
   * B > G: the one-block-per-row kernel.
 The choice follows from B, nC and G alone. DEVICE_LAUNCHES counts the
 launches by device kernel ("bicgstab_rows", "bicgstab_grid", "bicgstab",
@@ -72,6 +74,8 @@ __all__ = [
     "dia_smooth",
     "grid_plan",
     "GridPlan",
+    "residency",
+    "Residency",
     "grid_sync_seconds",
     "plain",
     "build_seconds",
@@ -90,6 +94,8 @@ _WORK = {"pcg": 3, "bicgstab": 8, "smooth": 1}
 # vectors of L cells a block keeps in shared memory besides the 2K
 # off-diagonals (d, x and the kernel's Krylov vectors; K3: d, b and x)
 _GRID = {"pcg": (0, 5), "bicgstab": (1, 10), "smooth": (2, 3)}
+# K1 and K2 above this many offsets take the split kernels (residency)
+_SPLIT_ABOVE = 3
 _SLOTS = 16  # partial sums per block (kSlots in csrc)
 # A block (1024 threads) gets at least this many cells where the row has
 # them. On an H100 the grid barrier costs the same for 9 or 132 blocks, and
@@ -217,8 +223,10 @@ def signatures() -> dict:
         for name in LAUNCHES:
             extra = [cd, ci] if name == "smooth" else []  # omega, check_every
             sig[f"ffk_{name}_{suf}"] = common + extra + [vp]  # ..., stream
-            # ..., slots, flags, blocks per row, cells per block, smem bytes, stream
-            sig[f"ffk_{name}_grid_{suf}"] = common + extra + [vp, vp, ci, ci, ci, vp]
+            # ..., slots, flags, blocks per row, cells per block, smem bytes,
+            # (K1, K2: window, Krylov slices, diagonal, pairs resident), stream
+            split = [] if name == "smooth" else [ci, ci, ci, ci]
+            sig[f"ffk_{name}_grid_{suf}"] = common + extra + [vp, vp, ci, ci, ci] + split + [vp]
         # ..., slots, blocks, cells per block, stream
         sig[f"ffk_bicgstab_rows_{suf}"] = common + [vp, ci, ci, vp]
     return sig
@@ -310,11 +318,77 @@ def rows_smem(B: int, dtype) -> int:
     return smem
 
 
-def _grid_launch_plan(name, dtype, B, nC, K, esize, min_cells=MIN_CELLS, rows=None):
-    """(plan, dynamic shared bytes) for a launch; bytes 0: the slices do not
-    fit beside each other and are streamed from L2. `rows` (K1 only; for
-    measurements and tests): None the rule, True the many-rows kernel at
-    any B up to ROWS_MAX, False never it."""
+class Residency(NamedTuple):
+    """Where a block of a grid-wide kernel keeps its operands. `window`: a
+    copy of the exchanged vector's cells [c0 − W, c0 + L + W) serves every
+    offset up to W (0: none); the first `krylov` Krylov slices (in the
+    kernel's order: K2 x, r, p, Ap; K1 x, r, rhat, p, v, p-hat, s, s-hat, t;
+    K3 b, x), the diagonal's slice (`diag`) and the upper and lower slices of
+    the first `pairs` offsets live in shared memory, the rest is read from
+    global memory (L2); `bytes` is that shared memory a block."""
+    window: int
+    krylov: int
+    diag: int
+    pairs: int
+    bytes: int
+
+
+NOTHING = Residency(0, 0, 0, 0, 0)
+
+
+def residency(name: str, offsets: Sequence[int], L: int, esize: int, max_bytes: int,
+              window=None) -> Residency:
+    """The residency split of a block of L cells of the grid-wide kernel
+    `name` with `max_bytes` of shared memory, values of `esize` bytes.
+
+    At 1-3 offsets (the lattice kernels), and in K3 at any count, all or
+    nothing: every slice resident if d, the kernel's vectors and the 2K
+    off-diagonals fit, else none. K1 and K2 above 3 offsets fill the bytes
+    in this order: the window, the Krylov slices, the diagonal, as many
+    upper/lower pairs as still fit (one slice a Krylov vector or the
+    diagonal, two a pair, L + 2W for the window). W is the largest offset
+    whose halo is at most half a block (2·o <= L) and whose window fits:
+    the near band, where the offsets are dense (the banded shaft's 34 lie
+    within 87 cells, the renumbered box's 62 within 62), read into shared
+    memory once a matvec and there by every cell at each of its offsets. A
+    far, sparse band (OFFS_12's 1,950-4,000 at 768 cells a block) would
+    cost a halo of thousands of cells a side for a few offsets and take the
+    bytes of coefficient pairs, so its loads stay in L2. 0 when no window
+    fits. `window` (measurements and tests; above 3 offsets): W as given
+    instead, 0 for none; a window that does not fit raises."""
+    K = len(offsets)
+    vectors = _GRID[name][1]  # d and the Krylov slices
+    kry = vectors - 1
+    if K <= _SPLIT_ABOVE or name == "smooth":
+        full = (vectors + 2 * K) * L * esize
+        return Residency(0, kry, 1, K, full) if full <= max_bytes else NOTHING
+    slice_b = L * esize
+    if window is None:
+        window = max((o for o in offsets if 2 * o <= L and (L + 2 * o) * esize <= max_bytes),
+                     default=0)
+    win_b = (L + 2 * window) * esize if window else 0
+    if window < 0 or win_b > max_bytes:
+        raise ValueError(f"dia_{name}: a window of {window} cells a side over {L} cells "
+                         f"takes {win_b} bytes, over the {max_bytes} a block may have")
+    left = max_bytes - win_b
+    krylov = min(kry, left // slice_b)
+    left -= krylov * slice_b
+    diag = int(krylov == kry and left >= slice_b)
+    left -= diag * slice_b
+    pairs = min(K, left // (2 * slice_b)) if diag else 0
+    return Residency(window, krylov, diag, pairs,
+                     win_b + (krylov + diag + 2 * pairs) * slice_b)
+
+
+def _grid_launch_plan(name, dtype, B, nC, offsets, esize, min_cells=MIN_CELLS, rows=None,
+                      window=None):
+    """(plan, Residency) for a launch: the grid plan and, for a grid-wide
+    plan, where a block's operands live (`residency` on the card's shared
+    memory; NOTHING where its bytes would leave the launch not
+    co-resident). The many-rows kernel's Residency holds its bytes alone.
+    `rows` (K1 only; for measurements and tests): None the rule, True the
+    many-rows kernel at any B up to ROWS_MAX, False never it. `window`: see
+    `residency`."""
     G, max_smem = _coop_blocks(name, dtype, 0)
     if rows and (name != "bicgstab" or not 1 <= B <= ROWS_MAX):
         raise ValueError(f"dia_{name}: no many-rows kernel for {B} rows")
@@ -327,13 +401,14 @@ def _grid_launch_plan(name, dtype, B, nC, K, esize, min_cells=MIN_CELLS, rows=No
         if _coop_blocks("bicgstab_rows", dtype, smem)[0] < plan.blocks_per_row:
             raise RuntimeError(f"dia_{name}: {plan.blocks_per_row} blocks of the many-rows "
                                f"kernel with {smem} shared bytes are not co-resident")
-        return plan, smem
+        return plan, NOTHING._replace(bytes=smem)
     if not plan.grid_wide:
-        return plan, 0
-    smem = (_GRID[name][1] + 2 * K) * plan.cells_per_block * esize
-    if smem > max_smem or _coop_blocks(name, dtype, smem)[0] < B * plan.blocks_per_row:
-        smem = 0
-    return plan, smem
+        return plan, NOTHING
+    L = plan.cells_per_block
+    split = residency(name, offsets, L, esize, max_smem, window)
+    if split.bytes and _coop_blocks(name, dtype, split.bytes)[0] < B * plan.blocks_per_row:
+        split = residency(name, offsets, L, esize, 0, window)
+    return plan, split
 
 
 def grid_sync_seconds(blocks: int, n: int = 2000) -> float:
@@ -358,12 +433,14 @@ def grid_sync_seconds(blocks: int, n: int = 2000) -> float:
 
 # ---------------------------------------------------------------- launcher
 def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, extra=(),
-            resident=True, min_cells=MIN_CELLS, grid_wide=True, rows=None):
+            resident=True, min_cells=MIN_CELLS, grid_wide=True, rows=None, window=None):
     """Check the operands and launch kernel `name` on them. `resident`,
-    `min_cells`, `grid_wide` and `rows` exist for measurements and tests (a
-    grid-wide kernel with its slices streamed from L2, with other block
-    counts, against the one-block-per-row kernel on the same rows; K1's
-    many-rows kernel forced on (True) or off (False))."""
+    `min_cells`, `grid_wide`, `rows` and `window` exist for measurements and
+    tests (a grid-wide kernel with its slices streamed from L2, with other
+    block counts, against the one-block-per-row kernel on the same rows;
+    K1's many-rows kernel forced on (True) or off (False); K1/K2 above 3
+    offsets with the window's W set, 0: every offset read from L2 through
+    the same unrolled stencil)."""
     dtype = x0.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dia_{name}: dtype {dtype} not supported")
@@ -400,8 +477,8 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
     suf = "f32" if dtype == torch.float32 else "f64"
     fn_name = f"ffk_{name}_{suf}"
     if grid_wide:
-        plan, smem = _grid_launch_plan(name, dtype, B, nC, K, x0.element_size(), min_cells,
-                                       rows)
+        plan, split = _grid_launch_plan(name, dtype, B, nC, offsets, x0.element_size(),
+                                        min_cells, rows, window)
         if plan.rows:
             fn_name = f"ffk_{name}_rows_{suf}"
             nblk = plan.blocks_per_row
@@ -412,8 +489,12 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
             fn_name = f"ffk_{name}_grid_{suf}"
             slots = torch.empty((_SLOTS, B * plan.blocks_per_row), dtype=dtype, device=dev)
             flags = torch.empty((B,), dtype=torch.int32, device=dev)
+            if not resident:
+                split = NOTHING
             extra = tuple(extra) + (slots.data_ptr(), flags.data_ptr(), plan.blocks_per_row,
-                                    plan.cells_per_block, smem if resident else 0)
+                                    plan.cells_per_block, split.bytes)
+            if name != "smooth":
+                extra += (split.window, split.krylov, split.diag, split.pairs)
     fn = getattr(_load(), fn_name)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(

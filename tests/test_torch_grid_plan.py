@@ -20,6 +20,13 @@
   count by device kernel.
 * The shared-memory rule of `_grid_launch_plan`: K3 keeps 3 + 2K vectors of
   a block's cells resident, and streams them when that is over the limit.
+* K1/K2's residency split above 3 offsets (`dia_krylov.residency`, a pure
+  function): never over its bytes, the parts in their order (window, Krylov
+  slices, diagonal, pairs), the all-or-nothing rule kept at 1-3 offsets,
+  full residency where it fitted before (K2 at 34 offsets on 100k cells),
+  the window and the Krylov slices first on the shaft's 233,600 B and K1's
+  239,616 B cases, W = 0 where no window fits, the `window` argument, and
+  the split `_launch` hands the entry point.
 """
 
 import ctypes
@@ -172,10 +179,14 @@ def test_launch_arguments_match_the_signatures():
     sig = dia_krylov.signatures()
     assert len(sig["ffk_pcg_f32"]) == 22
     assert len(sig["ffk_smooth_f64"]) == 24  # + omega, check_every
-    assert len(sig["ffk_bicgstab_grid_f32"]) == 27  # + slots, flags, bpr, L, smem
+    # + slots, flags, bpr, L, smem, then the split above 3 offsets: window,
+    # Krylov slices, diagonal, pairs resident
+    assert len(sig["ffk_bicgstab_grid_f32"]) == 31
+    assert sig["ffk_bicgstab_grid_f32"][26:30] == [ctypes.c_int] * 4
     assert sig["ffk_pcg_grid_f64"] == sig["ffk_bicgstab_grid_f32"]
     assert len(sig["ffk_smooth_grid_f32"]) == 29  # + omega, check_every, then the grid's five
     assert sig["ffk_smooth_grid_f64"][:24] == sig["ffk_smooth_f64"][:-1] + [ctypes.c_void_p]
+    assert sig["ffk_smooth_grid_f64"][24:] == sig["ffk_pcg_grid_f64"][22:26] + [ctypes.c_void_p]
     assert sig["ffk_smooth_grid_f64"][21:23] == [ctypes.c_double, ctypes.c_int]
     # + slots, blocks, cells per block
     assert len(sig["ffk_bicgstab_rows_f64"]) == 25
@@ -186,6 +197,7 @@ def test_launch_arguments_match_the_signatures():
 
 # --------------------------------------------- K3's plan and shared memory
 MAX_SMEM_H100 = 232_448 - 1_024  # the opt-in limit less a kernel's static 1 KB (f64)
+LATTICE = (1, 50, 2000)  # a lattice's 3 offsets (the 100k box's)
 
 
 class _FakeCard:
@@ -225,9 +237,9 @@ class _FakeCard:
 def test_smooth_plan_on_the_main_path(monkeypatch, B, nC, bpr, L):
     _FakeCard(monkeypatch)
     for dtype, esize in ((torch.float32, 4), (torch.float64, 8)):
-        plan, smem = dia_krylov._grid_launch_plan("smooth", dtype, B, nC, 3, esize)
+        plan, split = dia_krylov._grid_launch_plan("smooth", dtype, B, nC, LATTICE, esize)
         assert plan.grid_wide and (plan.blocks_per_row, plan.cells_per_block) == (bpr, L)
-        assert smem == 9 * L * esize  # d, b, x and 2·3 off-diagonals, resident
+        assert split.bytes == 9 * L * esize  # d, b, x and 2·3 off-diagonals, resident
 
 
 def test_smooth_slices_are_streamed_when_they_do_not_fit(monkeypatch):
@@ -235,14 +247,15 @@ def test_smooth_slices_are_streamed_when_they_do_not_fit(monkeypatch):
     dynamic shared bytes. K2 keeps 11 and K1 16 vectors, so at one L they
     give up residency sooner."""
     _FakeCard(monkeypatch)
-    fits = dia_krylov._grid_launch_plan("smooth", torch.float64, 4, 100_000, 3, 8)
-    assert fits[1] == 9 * 3040 * 8 <= MAX_SMEM_H100
-    assert dia_krylov._grid_launch_plan("bicgstab", torch.float64, 4, 100_000, 3, 8)[1] == 0
-    plan, smem = dia_krylov._grid_launch_plan("smooth", torch.float64, 1, 500_000, 3, 8)
-    assert plan.grid_wide and plan.cells_per_block == 3808 and smem == 0
+    fits = dia_krylov._grid_launch_plan("smooth", torch.float64, 4, 100_000, LATTICE, 8)
+    assert fits[1].bytes == 9 * 3040 * 8 <= MAX_SMEM_H100
+    assert dia_krylov._grid_launch_plan("bicgstab", torch.float64, 4, 100_000, LATTICE,
+                                        8)[1] == dia_krylov.NOTHING
+    plan, split = dia_krylov._grid_launch_plan("smooth", torch.float64, 1, 500_000, LATTICE, 8)
+    assert plan.grid_wide and plan.cells_per_block == 3808 and split.bytes == 0
     _FakeCard(monkeypatch, max_smem=200_000)
-    plan, smem = dia_krylov._grid_launch_plan("smooth", torch.float64, 4, 100_000, 3, 8)
-    assert plan == fits[0] and smem == 0
+    plan, split = dia_krylov._grid_launch_plan("smooth", torch.float64, 4, 100_000, LATTICE, 8)
+    assert plan == fits[0] and split.bytes == 0
 
 
 def _cpu_system(B, nC, dtype):
@@ -276,9 +289,12 @@ def test_launch_passes_what_the_entry_point_takes(monkeypatch, name, grid_wide, 
     if name == "smooth":
         assert args[21:23] == (0.8, 4)
     if grid_wide:
-        bpr, L, smem = args[-4:-1]
+        split = () if name == "smooth" else args[-5:-1]  # window, Krylov, diagonal, pairs
+        bpr, L, smem = args[-4 - len(split):-1 - len(split)]
         assert (bpr, L) == (2, 512)
         assert smem == (dia_krylov._GRID[name][1] + 6) * L * ops[0].element_size()
+        if split:  # 3 offsets: the lattice kernels' all-resident slices
+            assert split == (0, dia_krylov._GRID[name][1] - 1, 1, 3)
 
 
 def test_launch_takes_one_block_per_row_when_rows_outnumber_blocks(monkeypatch):
@@ -363,4 +379,160 @@ def test_many_rows_kernel_is_k1_only_and_capped(monkeypatch):
         dia_krylov._launch("pcg", *ops, offs, 1e-6, 0.0, 50, rows=True)
     with pytest.raises(ValueError):
         dia_krylov._grid_launch_plan("bicgstab", torch.float32, dia_krylov.ROWS_MAX + 1,
-                                     200, 3, 4, rows=True)
+                                     200, LATTICE, 4, rows=True)
+
+
+# ------------------------- K1/K2 above 3 offsets: the residency split
+# the shapes of the main path's systems above 3 offsets: phase 3 of
+# chip_smoke.py (OFFS_12, OFFS_34, OFFS_62 at 100k cells) and the banded
+# shaft (34 offsets, 104,280 cells: 800 cells a block)
+OFFS_12 = (1, 2, 49, 50, 51, 100, 1950, 1999, 2000, 2001, 2050, 4000)
+OFFS_34 = (1, 2, 3, 4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 21, 64, 66, 68, 69, 71,
+           72, 73, 74, 76, 77, 78, 79, 81, 82, 84, 86, 87)
+OFFS_62 = tuple(range(1, 63))
+F32_H100 = 232_448 - 512  # the opt-in limit less the kernels' static 512 B (f32)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _slice_bytes(split, L, esize):
+    return ((L + 2 * split.window if split.window else 0)
+            + (split.krylov + split.diag + 2 * split.pairs) * L) * esize
+
+
+@pytest.mark.parametrize("name", ["pcg", "bicgstab", "smooth"])
+@pytest.mark.parametrize("offs", [(1, 50, 2000), OFFS_12, OFFS_34, OFFS_62, tuple(range(1, 65)),
+                                  (2000, 4000, 6000, 8000)])
+@pytest.mark.parametrize("L", [32, 96, 512, 768, 800, 2304, 3040, 12512])
+@pytest.mark.parametrize("esize", [4, 8])
+def test_residency_never_exceeds_its_bytes(name, offs, L, esize):
+    """Over a range of budgets, from none to the card's: the split's bytes
+    are what its parts take, never over the budget, and the parts come in
+    their order (Krylov slices before the diagonal before the pairs)."""
+    for max_bytes in (0, esize * L - 1, esize * (L + 2), 3 * esize * L, 10 * esize * L,
+                      100_000, F32_H100, MAX_SMEM_H100):
+        split = dia_krylov.residency(name, offs, L, esize, max_bytes)
+        assert split.bytes == _slice_bytes(split, L, esize) <= max_bytes, (max_bytes, split)
+        assert 0 <= split.pairs <= len(offs) and split.diag in (0, 1)
+        assert split.krylov <= dia_krylov._GRID[name][1] - 1
+        if split.diag:
+            assert split.krylov == dia_krylov._GRID[name][1] - 1
+        if split.pairs:
+            assert split.diag
+        if split.window:
+            assert split.window in offs and 2 * split.window <= L
+        assert dia_krylov.residency(name, offs, L, esize, max_bytes) == split
+
+
+@pytest.mark.parametrize("name", ["pcg", "bicgstab", "smooth"])
+@pytest.mark.parametrize("L,esize", [(768, 4), (768, 8), (2304, 4), (2304, 8), (3040, 8),
+                                     (512, 8), (12512, 4)])
+def test_residency_keeps_the_lattice_rule_at_3_offsets(name, L, esize):
+    """At 1-3 offsets (and in K3 at any count) every slice is resident when
+    d, the kernel's vectors and the 2K off-diagonals fit, else none; no
+    window."""
+    for offs in ((1,), (1, 50), (1, 50, 2000)):
+        full = (dia_krylov._GRID[name][1] + 2 * len(offs)) * L * esize
+        split = dia_krylov.residency(name, offs, L, esize, MAX_SMEM_H100)
+        if full <= MAX_SMEM_H100:
+            assert split == (0, dia_krylov._GRID[name][1] - 1, 1, len(offs), full)
+        else:
+            assert split == dia_krylov.NOTHING
+    if name == "smooth":  # K3 keeps all or nothing above 3 offsets too
+        split = dia_krylov.residency(name, OFFS_34, L, esize, MAX_SMEM_H100)
+        assert split.window == 0 and split.bytes in (0, (3 + 68) * L * esize)
+
+
+def test_residency_is_full_where_it_fitted_before():
+    """K2 at 34 offsets on 100k cells (768 cells a block, float32) kept its
+    5 + 2K slices resident: with the window in front it still does."""
+    split = dia_krylov.residency("pcg", OFFS_34, 768, 4, F32_H100)
+    assert (5 + 68) * 768 * 4 <= F32_H100
+    assert split == (87, 4, 1, 34, (768 + 174 + 73 * 768) * 4)
+    # and so does every system at 12 offsets on one block's 768 cells
+    for name in ("pcg", "bicgstab"):
+        for esize, budget in ((4, F32_H100), (8, MAX_SMEM_H100)):
+            split = dia_krylov.residency(name, OFFS_12, 768, esize, budget)
+            assert split.krylov == dia_krylov._GRID[name][1] - 1 and split.diag
+            assert split.pairs == 12 and split.window == 100
+
+
+@pytest.mark.parametrize("name,L,K,before", [
+    ("pcg", 800, 34, 233_600),  # the banded shaft's p_rgh: 1,152 B over the limit
+    ("bicgstab", 768, 34, 239_616),  # K1 at 34 offsets on 100k cells
+])
+def test_residency_keeps_window_and_krylov_first(name, L, K, before):
+    """Where the lattice rule streamed every slice (5 + 2K or 10 + 2K of L
+    over the limit), the split keeps the window and the Krylov slices, the
+    diagonal and all the pairs but a few."""
+    assert (dia_krylov._GRID[name][1] + 2 * K) * L * 4 == before > F32_H100
+    assert dia_krylov.residency(name, OFFS_34[:K], L, 4, 10**9).bytes > before  # all fits there
+    split = dia_krylov.residency(name, OFFS_34[:K], L, 4, F32_H100)
+    kry = dia_krylov._GRID[name][1] - 1
+    assert split.window == max(OFFS_34) == 87
+    assert split.krylov == kry and split.diag == 1
+    assert K - 4 <= split.pairs < K  # most of the slices resident
+    assert split.bytes <= F32_H100 < split.bytes + 2 * L * 4
+    # float64: the window and the Krylov slices still first, fewer pairs
+    split64 = dia_krylov.residency(name, OFFS_34, L, 8, MAX_SMEM_H100)
+    assert (split64.window, split64.krylov, split64.diag) == (87, kry, 1)
+    assert 0 < split64.pairs < split.pairs
+
+
+def test_residency_leaves_no_window_where_none_fits():
+    """W = 0 where no offset's window fits the budget, or every offset is
+    over half a block; a forced W that does not fit raises."""
+    for name in ("pcg", "bicgstab"):
+        tight = dia_krylov.residency(name, OFFS_34, 768, 4, (768 + 1) * 4)
+        assert tight.window == 0 and tight.krylov == 1 and tight.bytes == 768 * 4
+        assert dia_krylov.residency(name, OFFS_34, 768, 4, 0) == dia_krylov.NOTHING
+        far = dia_krylov.residency(name, (2000, 2001, 4000, 6000), 768, 4, F32_H100)
+        assert far.window == 0 and far.pairs == 4
+        # half a block is the reach: 9k cells' 512-cell blocks take 1-256
+        assert dia_krylov.residency(name, (1, 2, 256, 257), 512, 4, F32_H100).window == 256
+        with pytest.raises(ValueError):
+            dia_krylov.residency(name, OFFS_34, 768, 4, 1_000, window=87)
+
+
+def test_residency_window_argument():
+    """`window` sets W for measurements: 0 reads every offset from L2 (and
+    gives the freed bytes to the pairs), 4000 serves all of OFFS_12."""
+    rule = dia_krylov.residency("bicgstab", OFFS_34, 768, 4, F32_H100)
+    none = dia_krylov.residency("bicgstab", OFFS_34, 768, 4, F32_H100, window=0)
+    assert none.window == 0 and none.krylov == rule.krylov and none.pairs >= rule.pairs
+    wide = dia_krylov.residency("pcg", OFFS_12, 768, 8, MAX_SMEM_H100, window=4000)
+    assert wide.window == 4000 and wide.bytes <= MAX_SMEM_H100 and wide.pairs < 12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["pcg", "bicgstab"])
+@pytest.mark.parametrize("window", [None, 0, 3])
+def test_launch_passes_the_split_above_3_offsets(monkeypatch, name, dtype, window):
+    """K1/K2 on 34 offsets over 2 blocks of 512 cells: the entry point gets
+    the plan's residency split (`window` as asked), its bytes as the dynamic
+    shared memory; resident=False passes none."""
+    card = _FakeCard(monkeypatch)
+    g = torch.Generator().manual_seed(7)
+    nC, K = 1000, 34
+    r = lambda *shape: torch.rand(*shape, generator=g, dtype=dtype)
+    ops = (4.0 + r(nC), -r(K * nC), -r(K * nC), r(nC), r(nC))
+    for resident in (True, False):
+        dia_krylov._launch(name, *ops, OFFS_34, 1e-6, 0.0, 50, window=window,
+                           resident=resident)
+        fn_name, args = card.calls.pop()
+        assert fn_name == f"ffk_{name}_grid_{'f32' if dtype == torch.float32 else 'f64'}"
+        assert len(args) == len(dia_krylov.signatures()[fn_name])
+        bpr, L, smem = args[-8:-5]
+        esize = ops[0].element_size()
+        want = (dia_krylov.residency(name, OFFS_34, L, esize, MAX_SMEM_H100, window)
+                if resident else dia_krylov.NOTHING)
+        assert (bpr, L) == (2, 512)
+        assert args[-5:-1] == want[:4] and smem == want.bytes
+        if resident:
+            assert want.window == (87 if window is None else window) and want.pairs > 0

@@ -54,6 +54,13 @@ JAX, so it also runs on a machine that has only PyTorch:
 * The hybrid layout (no kernel): its face→cell sums and its product
   bitwise repeatable on the card, and one castellated step on the card
   with PairMG on p_rgh against the CPU's.
+* K1 (B = 1, 3) and K2 above 3 offsets (the split kernels: the window, the
+  residency split, the unrolled stencil) at 12, 34 and 62 offsets on 100k
+  cells in float32 and float64: bitwise the window=0 path's x, residuals
+  and counts, and the plain version's within the tolerances above; the
+  shaft's 800-cell blocks at 34 offsets keeping most slices resident; the
+  far offsets of OFFS_12 read from L2 (bitwise a window serving all of
+  them); the 64-offset maximum.
 """
 
 import numpy as np
@@ -237,8 +244,9 @@ def test_streamed_slices_equal_resident_ones(name, dtype):
     _need_cuda()
     nxyz = (30, 15, 20)
     ops = _system(59, 3, name == "pcg", False, dtype, torch.device("cuda"), nxyz, 1.0)
-    plan, smem = dia_krylov._grid_launch_plan(name, dtype, 3, 9000, 3, ops[0].element_size())
-    assert plan.grid_wide and smem > 0
+    plan, split = dia_krylov._grid_launch_plan(name, dtype, 3, 9000, _offs(nxyz),
+                                               ops[0].element_size())
+    assert plan.grid_wide and split.bytes > 0
     extra = (0.8, 4) if name == "smooth" else ()
     a, b = (dia_krylov._launch(name, *ops, _offs(nxyz), 1e-8, 0.0, 500, extra=extra,
                                resident=res) for res in (True, False))
@@ -280,19 +288,23 @@ def test_launch_picks_the_kernel_by_rows_and_blocks():
     G, max_smem = dia_krylov._coop_blocks("pcg", torch.float32, 0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert G >= sms and G % sms == 0 and max_smem > 48 * 1024
-    plan, smem = dia_krylov._grid_launch_plan("pcg", torch.float32, 1, 9000, 3, 4)
-    assert plan.grid_wide and plan.blocks_per_row > 1 and smem > 0
-    plan, smem = dia_krylov._grid_launch_plan("pcg", torch.float32, G + 1, 9000, 3, 4)
-    assert not plan.grid_wide and smem == 0
+    lattice = (1, 30, 450)
+    plan, split = dia_krylov._grid_launch_plan("pcg", torch.float32, 1, 9000, lattice, 4)
+    assert plan.grid_wide and plan.blocks_per_row > 1 and split.bytes > 0
+    plan, split = dia_krylov._grid_launch_plan("pcg", torch.float32, G + 1, 9000, lattice, 4)
+    assert not plan.grid_wide and split.bytes == 0
     assert dia_krylov.grid_sync_seconds(G, 200) > 0.0
     # K3 keeps fewer vectors resident, so at one plan it asks for less
     assert dia_krylov._coop_blocks("smooth", torch.float32, 0)[0] == G
     for B in (1, 4):
-        plan3, smem3 = dia_krylov._grid_launch_plan("smooth", torch.float32, B, 100_000, 3, 4)
-        plan2, smem2 = dia_krylov._grid_launch_plan("pcg", torch.float32, B, 100_000, 3, 4)
-        assert plan3 == plan2 and plan3.grid_wide and 0 < smem3 == smem2 * 9 // 11
-    plan, smem = dia_krylov._grid_launch_plan("smooth", torch.float64, G + 1, 9000, 3, 8)
-    assert not plan.grid_wide and smem == 0
+        plan3, split3 = dia_krylov._grid_launch_plan("smooth", torch.float32, B, 100_000,
+                                                     (1, 50, 2000), 4)
+        plan2, split2 = dia_krylov._grid_launch_plan("pcg", torch.float32, B, 100_000,
+                                                     (1, 50, 2000), 4)
+        assert plan3 == plan2 and plan3.grid_wide
+        assert 0 < split3.bytes == split2.bytes * 9 // 11
+    plan, split = dia_krylov._grid_launch_plan("smooth", torch.float64, G + 1, 9000, lattice, 8)
+    assert not plan.grid_wide and split.bytes == 0
 
 
 def test_bicgstab_kernel_restarts_on_breakdown():
@@ -519,7 +531,7 @@ def test_bicgstab_at_the_banded_shapes(rows, dtype):
     nxyz = (50, 40, 50)
     offs = _offs(nxyz)
     ops = _system(43, rows, False, False, dtype, torch.device("cuda"), nxyz, 1.0)
-    plan, _ = dia_krylov._grid_launch_plan("bicgstab", dtype, rows, ops[0].shape[-1], 3,
+    plan, _ = dia_krylov._grid_launch_plan("bicgstab", dtype, rows, ops[0].shape[-1], offs,
                                            ops[0].element_size())
     assert plan.rows == (dia_krylov.ROWS_MIN <= rows <= dia_krylov.ROWS_MAX) and plan.grid_wide
     before = dia_krylov.LAUNCHES["bicgstab"]
@@ -599,7 +611,7 @@ def test_rows_kernel_restarts_on_breakdown():
     b = np.array([[1.0, -2.0, 2.0, -1.0, 0.0], [1.0, 0.5, 0.25, -1.0, 2.0]] * 8)
     ops = [torch.as_tensor(a, dtype=torch.float64, device=dev)
            for a in (np.ones(n), np.zeros(n), lower, b, np.zeros((16, n)))]
-    assert dia_krylov._grid_launch_plan("bicgstab", torch.float64, 16, n, 1, 8)[0].rows
+    assert dia_krylov._grid_launch_plan("bicgstab", torch.float64, 16, n, (1,), 8)[0].rows
     got = dia_krylov.dia_bicgstab(*ops, (1,), tol=1e-12, max_iter=50)
     ref = dia_krylov.plain(linear.bicgstab, *ops, (1,), tol=1e-12, max_iter=50)
     A = np.eye(n)
@@ -643,12 +655,13 @@ def test_rows_kernel_at_the_row_cap():
     B = dia_krylov.ROWS_MAX
     ops = _system(79, B, False, True, torch.float64, torch.device("cuda"), NXYZ, 1.0)
     smem = dia_krylov.rows_smem(B, torch.float64)
-    plan = dia_krylov._grid_launch_plan("bicgstab", torch.float64, B, 960, 3, 8)[0]
+    plan = dia_krylov._grid_launch_plan("bicgstab", torch.float64, B, 960, OFFS, 8)[0]
     assert plan.rows and dia_krylov._coop_blocks("bicgstab_rows", torch.float64, smem)[0] >= (
         plan.blocks_per_row)
     got = dia_krylov.dia_bicgstab(*ops, OFFS, tol=1e-8, max_iter=500)
     _rows_check(got, _plain("bicgstab", *ops, OFFS, tol=1e-8, max_iter=500), torch.float64)
-    assert not dia_krylov._grid_launch_plan("bicgstab", torch.float64, B + 1, 960, 3, 8)[0].rows
+    assert not dia_krylov._grid_launch_plan("bicgstab", torch.float64, B + 1, 960, OFFS,
+                                            8)[0].rows
 
 
 @pytest.mark.parametrize("model", RADIATION_MODELS)
@@ -1075,3 +1088,114 @@ def test_hybrid_castellated_step_on_cuda_matches_cpu(tmp_path):
         a, b = st_g[f].i.cpu().numpy(), st_c[f].i.numpy()
         rel = np.max(np.abs(a - b)) / np.max(np.abs(b))
         assert rel <= 1e-9, (f, rel)
+
+
+# ------------------------------------------------------------------------
+# K1 and K2 above 3 offsets: the window of the exchanged vector, the
+# residency split and the unrolled stencil (bit for bit the L2 path's sums)
+# ------------------------------------------------------------------------
+# phase 3's systems of chip_smoke.py on 100k cells: 12 offsets with a far
+# band beyond the window's reach, the shaft's 34, the renumbered box's 62
+OFFS_12_MAIN = (1, 2, 49, 50, 51, 100, 1950, 1999, 2000, 2001, 2050, 4000)
+SPLIT_OFFSETS = {12: OFFS_12_MAIN, 34: OFFS_SHAFT, 62: tuple(range(1, 63)),
+                 64: tuple(range(1, 65))}
+
+
+def _same_solve(a, b):
+    return (a.n_iterations.tolist() == b.n_iterations.tolist() and torch.equal(a.x, b.x)
+            and torch.equal(a.final_residual, b.final_residual)
+            and torch.equal(a.initial_residual, b.initial_residual))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K", [12, 34, 62])
+@pytest.mark.parametrize("name,B", [("bicgstab", 1), ("bicgstab", 3), ("pcg", 1)])
+def test_window_path_equals_l2_path_bitwise(name, B, K, dtype):
+    """K1 (B = 1, 3 shared) and K2 on 100k cells at 12, 34 and 62 offsets:
+    the window path against window=0 (every offset from L2 through the same
+    unrolled stencil) bitwise in x, residuals and counts; both against the
+    plain version with the file's tolerances (float64: equal counts)."""
+    _need_cuda()
+    offs = SPLIT_OFFSETS[K]
+    n = 100_000
+    ops = _system_k(K + 7 * B, B, name == "pcg", True, dtype, offs, n=n)
+    plan, split = dia_krylov._grid_launch_plan(name, dtype, B, n, offs, ops[0].element_size())
+    assert plan.grid_wide and not plan.rows and 0 < split.window <= 100
+    kw = dict(tol=1e-8, rel_tol=0.0, max_iter=500)
+    before = dict(dia_krylov.DEVICE_LAUNCHES)
+    got = dia_krylov._launch(name, *ops, offs, kw["tol"], 0.0, kw["max_iter"])
+    l2 = dia_krylov._launch(name, *ops, offs, kw["tol"], 0.0, kw["max_iter"], window=0)
+    torch.cuda.synchronize()
+    assert dia_krylov.DEVICE_LAUNCHES[f"{name}_grid"] == before[f"{name}_grid"] + 2
+    assert _same_solve(got, l2)
+    ref = _plain(name, *ops, offs, **kw)
+    slack, xtol = _tolerances(name, dtype)
+    its = (got.n_iterations.cpu().numpy(), ref.n_iterations.cpu().numpy())
+    assert np.all(np.abs(its[0] - its[1]) <= slack), its
+    assert np.all(its[1] > 0)
+    rel = float((got.x - ref.x).abs().max() / ref.x.abs().max())
+    assert rel <= xtol, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_shaft_blocks_keep_most_slices_resident(dtype):
+    """K2 on the banded shaft's shape (104,280 cells, 34 offsets: 131 blocks
+    of 800 cells), whose 5 + 2K slices are 1,152 B over a block's shared
+    memory in float32: the split keeps the window, the Krylov slices, the
+    diagonal and most pairs resident, and solves as window=0 and the plain
+    version do."""
+    _need_cuda()
+    n = 104_280
+    ops = _system_k(3, 1, True, True, dtype, OFFS_SHAFT, n=n)
+    plan, split = dia_krylov._grid_launch_plan("pcg", dtype, 1, n, OFFS_SHAFT,
+                                               ops[0].element_size())
+    assert (plan.blocks_per_row, plan.cells_per_block) == (131, 800)
+    assert split.window == 87 and split.krylov == 4 and split.diag == 1
+    assert split.pairs >= (30 if dtype == torch.float32 else 12)
+    kw = dict(tol=1e-8, rel_tol=0.0, max_iter=500)
+    got = dia_krylov.dia_pcg(*ops, OFFS_SHAFT, **kw)
+    l2 = dia_krylov._launch("pcg", *ops, OFFS_SHAFT, kw["tol"], 0.0, kw["max_iter"], window=0)
+    streamed = dia_krylov._launch("pcg", *ops, OFFS_SHAFT, kw["tol"], 0.0, kw["max_iter"],
+                                  resident=False)
+    assert _same_solve(got, l2) and _same_solve(got, streamed)
+    ref = _plain("pcg", *ops, OFFS_SHAFT, **kw)
+    slack, xtol = _tolerances("pcg", dtype)
+    assert abs(int(got.n_iterations) - int(ref.n_iterations)) <= slack
+    assert float((got.x - ref.x).abs().max() / ref.x.abs().max()) <= xtol
+
+
+@pytest.mark.parametrize("name", ["pcg", "bicgstab"])
+def test_offsets_beyond_the_window_come_from_l2(name):
+    """OFFS_12 at 768 cells a block: the window serves 1-100 and the far
+    band (1,950-4,000) is read from L2; the same solve with a window that
+    serves every offset (W = 4000) and with none is bit-equal."""
+    _need_cuda()
+    n = 100_000
+    ops = _system_k(21, 1, name == "pcg", True, torch.float64, OFFS_12_MAIN, n=n)
+    _, split = dia_krylov._grid_launch_plan(name, torch.float64, 1, n, OFFS_12_MAIN, 8)
+    assert split.window == 100 < max(OFFS_12_MAIN)
+    runs = [dia_krylov._launch(name, *ops, OFFS_12_MAIN, 1e-8, 0.0, 500, window=w)
+            for w in (None, 4000, 0)]
+    assert int(runs[0].n_iterations) > 0
+    assert _same_solve(runs[0], runs[1]) and _same_solve(runs[0], runs[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_window_path_at_64_offsets(dtype):
+    """The 64-offset maximum (1-64: every offset in the window) through K1
+    and K2 on 20k cells: bitwise the L2 path's solve, near the plain
+    version; a 65th offset is refused as before
+    (test_kernels_refuse_17_offsets)."""
+    _need_cuda()
+    offs = SPLIT_OFFSETS[64]
+    for name in ("pcg", "bicgstab"):
+        ops = _system_k(64, 1, name == "pcg", True, dtype, offs)
+        _, split = dia_krylov._grid_launch_plan(name, dtype, 1, 20_000, offs,
+                                                ops[0].element_size())
+        assert split.window == 64
+        got = dia_krylov._launch(name, *ops, offs, 1e-8, 0.0, 500)
+        assert _same_solve(got, dia_krylov._launch(name, *ops, offs, 1e-8, 0.0, 500, window=0))
+        ref = _plain(name, *ops, offs, tol=1e-8, max_iter=500)
+        slack, xtol = _tolerances(name, dtype)
+        assert abs(int(got.n_iterations) - int(ref.n_iterations)) <= slack
+        assert float((got.x - ref.x).abs().max() / ref.x.abs().max()) <= xtol

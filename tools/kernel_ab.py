@@ -1,0 +1,153 @@
+"""Time the port's grid-wide K1/K2/K3 and the banded shaft's step for one
+checkout of firefoam_torch, so that two checkouts can be compared in one
+call on one card (run it for each, in turns: A, B, B, A).
+
+    python tools/kernel_ab.py --root <directory holding firefoam_torch> [--out file.json]
+
+Prints one JSON line (and writes it to --out):
+  * "build_s": the seconds the kernels took to build and load;
+  * "solves": float32 solves on random diagonally dominant systems of 100k
+    cells (numpy, seed 0): K1 (B = 1 and 3 shared rows), K2 and K3 (B = 1) on
+    the (50, 40, 50) lattice's 3 offsets and on the banded shaft's 34 and
+    the renumbered box's 62 (K3 on the lattice only): ms a solve (CUDA
+    events over 20 launches after one) and iterations;
+  * "shaft": the 104,280-cell castellated shaft on layout="banded" in
+    float32 (write_castellated_fire_case n=(8, 8, 1500), size (0.4, 0.4,
+    75)): ms/step of make_chunk(6) from t = 0 (host clock), then one step
+    under torch.profiler: device-busy ms, launches, and each of the port's
+    kernels' ms a launch.
+Needs a CUDA card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+OFFS_34 = (1, 2, 3, 4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 21, 64, 66, 68, 69, 71,
+           72, 73, 74, 76, 77, 78, 79, 81, 82, 84, 86, 87)
+OFFS_62 = tuple(range(1, 63))
+LATTICE = (50, 40, 50)
+
+
+def system(rng, n, offs, B, sym):
+    """diag [B, n], shared upper/lower [K·n], b and x0 [B, n] (float64
+    numpy): off-diagonals -U(0.5, 1.5) where the neighbour exists, the
+    diagonal their sum plus K/3·(1 + 0.1·U(0, 1))."""
+    K = len(offs)
+    c = np.arange(n)
+    up = np.zeros((K, n))
+    lo = np.zeros((K, n))
+    d = (K / 3.0) * (1.0 + 0.1 * rng.rand(B, n))
+    for k, o in enumerate(offs):
+        v = -(0.5 + rng.rand(n)) * (c + o < n)
+        up[k] = v
+        lo[k] = v if sym else v * (1.0 + 0.3 * rng.rand(n))
+        d[:, : n - o] -= up[k, : n - o]
+        d[:, o:] -= lo[k, : n - o]
+    return d, up.reshape(-1), lo.reshape(-1), rng.randn(B, n), 0.1 * rng.randn(B, n)
+
+
+def time_ms(torch, fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def solves(torch, dk):
+    rng = np.random.RandomState(0)
+    n = int(np.prod(LATTICE))
+    lattice = (1, LATTICE[0], LATTICE[0] * LATTICE[1])
+    out = {}
+    for offs in (lattice, OFFS_34, OFFS_62):
+        cases = [("bicgstab", 1), ("bicgstab", 3), ("pcg", 1)]
+        if len(offs) == 3:
+            cases.append(("smooth", 1))
+        for name, B in cases:
+            ops = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                   for a in system(rng, n, offs, B, name == "pcg")]
+            kw = dict(tol=1e-8, rel_tol=0.0, max_iter=60 if name == "smooth" else 1000)
+            fn = getattr(dk, f"dia_{name}")
+            run = lambda: fn(*ops, offs, **kw)
+            its = int(run().n_iterations.max())
+            out[f"{name}_B{B}_k{len(offs)}"] = {"ms": time_ms(torch, run), "iterations": its}
+    return out
+
+
+def kernel_key(name: str) -> str:
+    key = re.sub(r"^void ", "", name).replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", key)[0]
+
+
+def shaft(torch):
+    from firefoam_torch.models.firefoam import FireFoamSolver
+    from firefoam_torch.profile_step import busy_us, device_events, kernel_launches
+    from firefoam_torch.utils.synthcase import write_castellated_fire_case
+
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
+        case = write_castellated_fire_case(os.path.join(tmp, "shaft"), n=(8, 8, 1500),
+                                           size=(0.4, 0.4, 75.0))
+        solver = FireFoamSolver(case, device="cuda", layout="banded")
+        chunk = solver.make_chunk(6)
+        state0 = solver.initial_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = chunk(state0)
+        torch.cuda.synchronize()
+        ms_step = 1e3 * (time.perf_counter() - t0) / 6
+        step = solver.make_step()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            step(state)
+            torch.cuda.synchronize()
+        dev, _ = device_events(prof)
+        mine = {}
+        for name, s, e in dev:
+            key = kernel_key(name)
+            if key.endswith("_kernel") and ("grid" in key or "rows" in key):
+                ms, count = mine.get(key, (0.0, 0))
+                mine[key] = (ms + (e - s) / 1e6, count + 1)
+        return {"cells": solver.geom.n_cells, "offsets": len(solver.geom.offsets),
+                "ms_per_step": ms_step, "device_busy_ms": busy_us(dev) / 1e3,
+                "launches": kernel_launches(dev),
+                "kernels": {k: {"ms_per_launch": v[0] / v[1], "launches": v[1]}
+                            for k, v in mine.items()}}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    from firefoam_torch.solvers import dia_krylov as dk
+
+    out = {"root": args.root, "card": torch.cuda.get_device_name(0),
+           "build_s": dk.build_seconds(),
+           "solves": solves(torch, dk), "shaft": shaft(torch)}
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+
+
+if __name__ == "__main__":
+    main()
