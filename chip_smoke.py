@@ -22,11 +22,11 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      plain version too, and the many-rows kernel launched twice, bit-equal;
      at CROSSOVER_ROWS and at 200 rows of 9k cells both layouts timed in
      float32 with their bounds; then K1 (B = 1, 3 shared, 16 per row), K2
-     and K3 on systems of 100k cells with 12 offsets (OFFS_12: the hybrid
+     and K3 (B = 1, and 4 per row as the Yi batch) on systems of 100k cells with 12 offsets (OFFS_12: the hybrid
      layout's lane count), 34 (OFFS_34: the banded shaft's) and 62
      (OFFS_62: the renumbered box's), float32 and float64, against their
      plain versions (float64: equal counts), timed with their bounds and
-     launch modes; there K1's grid-wide rows and K2 (the split kernels:
+     launch modes; there K1's grid-wide rows, K2 and K3 (the split kernels:
      their window's W and residency split printed) also run with window=0,
      bitwise equal in x, residuals and counts, timed in turns beside it
      (at 12 offsets also a window that serves every offset); and K1 in
@@ -255,16 +255,33 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      the twins) in this call, K1's and K2's device ms a launch in that
      profiled step, K2's residency split; one p_rgh system through
      K2, its plain version (the CG twin) and, on SEG, amg_pcg; the (4,4,60)
-     column in float64, 10 steps card vs CPU within CPU_TOL and one step
-     from the CPU's state within STEP_TOL with equal counts; the (8,6,6)
+     column in float64, 10 steps card vs CPU within CPU_TOL with every
+     step's counts equal, and one step from the CPU's state within STEP_TOL
+     with equal counts; the (8,6,6)
      box renumbered by RCM (62 offsets): K2 against its plain version and
      the SEG twin through the permutation, equal float64 iterations;
- 17. the kernels' JSON line (with launches_multiphase_path,
-     launches_dem_path, launches_sharded_path and launches_banded_path; K1's
-     entry with its layouts by rows, `by_rows`, and its launches by device
-     kernel on the main path and the banded fvDOM's; the 12-, 34- and
-     62-offset systems' rows), the DEM lattice's line, the partitions' line,
-     the banded layout's line, the card line, and the final JSON line.
+ 17. the banded layout through the run CLI with K3: the smoothSolver fire
+     (write_smooth_fire_case: Yi, h and k on smoothSolver, function objects,
+     fvOptions, RTI links) castellated into phase 16's shaft (meshed once:
+     phase 16's castellation, whose inputs it must share) with --layout
+     banded in float32 and the card's automatic solver rule: phase 6's
+     checks at SMOOTH_SHAFT_DEPTH in chunks of SMOOTH_SHAFT_CHUNK (12 steps;
+     the first 8 writing once at step 8; 4 resumed, the fvDOM solve among
+     them), launch counts per step K3 3 (all on its grid-wide kernel), K2 2
+     plus the init's 3, K1 1 plus the fvDOM's (split over its grid-wide and
+     many-rows kernels); ms/step over chunks, write seconds, K3's residency
+     split per launch shape, and from one profiled step after the
+     checkpoint its launches, host reads, device-busy ms and K3's device ms
+     a launch; then the (4,4,60) smoothSolver column in float64, 10 steps
+     card vs CPU within SMOOTH_COLUMN_TOL with every step's counts equal,
+     and one step from the CPU's state within STEP_TOL with equal counts;
+ 18. the kernels' JSON line (with launches_multiphase_path,
+     launches_dem_path, launches_sharded_path, launches_banded_path and
+     launches_banded_cli_path; K1's entry with its layouts by rows,
+     `by_rows`, and its launches by device kernel on the main path and the
+     banded fvDOM's; the 12-, 34- and 62-offset systems' rows), the DEM
+     lattice's line, the partitions' line, the banded layout's line, the
+     banded CLI's line, the card line, and the final JSON line.
 
 Imports nothing of JAX. Needs a CUDA card, nvcc and the repository checkout.
 """
@@ -302,7 +319,7 @@ from firefoam_torch.profile_step import busy_us, device_events, kernel_launches 
 from firefoam_torch.radiation import fvdom as fvdom_mod  # noqa: E402
 from firefoam_torch.spray_sensitivity import float64_draws  # noqa: E402
 from firefoam_torch.utils.synthcase import (  # noqa: E402
-    write_box_fire_case, write_castellated_fire_case, write_dem_spray_fire_case,
+    castellate_case, write_box_fire_case, write_castellated_fire_case, write_dem_spray_fire_case,
     write_multiphase_spray_fire_case, write_panel_fire_case, write_pyrolysis_1d_case,
     write_radiation_fire_case, write_smooth_fire_case, write_spray_fire_case,
     write_wall_fire_case, write_wetted_panel_fire_case)
@@ -329,6 +346,11 @@ SHAFT_STEPS = 6
 N_COLUMN = (4, 4, 60)
 COLUMN_KW = dict(size=(0.2, 0.2, 3.0))
 COLUMN_STEPS = 10
+# phase 17: the smoothSolver fire castellated into the shaft, through the run
+# CLI: 12 steps; the first 8 writing once at step 8; the last 4 resumed (the
+# fvDOM solve at radiation count 10 among them), in chunks of 4
+SMOOTH_SHAFT_DEPTH = (12, 8, 4)
+SMOOTH_SHAFT_CHUNK = 4
 N_RENUMBER = (8, 6, 6)
 GMG_STEPS = 5  # steps of each run of a K2/multigrid pair
 # T [K] and U [m/s] of a multigrid run against the K2 run of the same steps
@@ -566,6 +588,14 @@ STEP_TOL = 1e-9
 # on whatever solves Yi, h and k (with K3 and its twin U reads 6.1e-05 after
 # 10 steps, with symGaussSeidel 7.9e-05, iteration counts equal throughout)
 SMOOTH_CHAIN_TOL = 1e-3
+# phase 17's banded smoothSolver column over COLUMN_STEPS steps from t = 0,
+# card f64 vs CPU f64: the column amplifies last-bit differences on its own.
+# On the CPU alone, a one-ulp move of the initial T parts two float64 chains
+# by T 1.9e-06 and U 9.8e-06 after 10 steps (tools/column_witness.py; phase
+# 16's castellated column by 7.4e-13 and 1.9e-12), and the card reads T
+# 2.0e-06 and U 1.0e-05 against the CPU, every step's counts equal. The
+# bound is ten times both readings
+SMOOTH_COLUMN_TOL = 1e-4
 # phase 8's depth: the exact solvers' 9k runs take 0.5-0.8 s a step on an
 # H100 and on its host's CPU alike
 EXACT_STEPS = 5
@@ -657,30 +687,34 @@ def dia_system_k(gen, n, offs, B, per_row, sym, dtype, dev, excess=None):
 
 
 def phase_kernels_k(dev, stats, sync_s, offs, seed):
-    """K1 (B = 1, 3 shared, 16 per row), K2 and K3 (B = 1) on random
+    """K1 (B = 1, 3 shared, 16 per row), K2 (B = 1) and K3 (B = 1 shared and
+    B = 4 per row, the Yi batch's shape) on random
     diagonally dominant systems of N_MAIN's cells with the stencil `offs`,
     float64 and float32, each against its plain version with phase 3's
     tolerances (float64: equal iteration counts); float32's times, bounds,
     blocks, the launch's mode (slices resident in shared memory, streamed
     from L2, the residency split, or the many-rows kernel) and plain times
     go into stats[name]["k<K>"], float64's into stats[name]["k<K>_f64"].
-    K1's grid-wide rows and K2 above 3 offsets (the split kernels) also run
-    with window=0 (every offset from L2 through the same unrolled stencil):
+    K1's grid-wide rows, K2 and K3 above 3 offsets (the split kernels) also
+    run with window=0 (every offset from L2 through the same unrolled stencil):
     x, residuals and counts must be bitwise equal, and both are timed in
     turns (window, window=0, window=0, window); at 12 offsets also with a
     window that serves every offset (W = the largest offset)."""
     rng = torch.Generator(device=dev).manual_seed(seed)
+    # K3's B = 4 rows draw from a generator of their own, so that the other
+    # systems stay those of the earlier runs
+    rng_b4 = torch.Generator(device=dev).manual_seed(seed + 1)
     n = int(np.prod(N_MAIN))
     K = len(offs)
     cases = (("bicgstab", 1, False), ("bicgstab", 3, False), ("bicgstab", 16, True),
-             ("pcg", 1, False), ("smooth", 1, False))
+             ("pcg", 1, False), ("smooth", 1, False), ("smooth", 4, True))
     for dtype in (torch.float64, torch.float32):
         for name, B, per_row in cases:
             xtol, slack = TOL[dtype]
             if name == "smooth" and dtype == torch.float32:
                 slack = SMOOTH_F32_SLACK
-            d, up, lo, b, x0 = dia_system_k(rng, n, offs, B, per_row, name == "pcg", dtype,
-                                            dev)
+            d, up, lo, b, x0 = dia_system_k(rng_b4 if per_row and name == "smooth" else rng,
+                                            n, offs, B, per_row, name == "pcg", dtype, dev)
             args = dict(tol=1e-8, rel_tol=0.0,
                         max_iter=SMOOTH_SWEEPS if name == "smooth" else 1000)
             kern = getattr(dia_krylov, f"dia_{name}")
@@ -690,8 +724,8 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
                 plain = lambda *a, _n=name, **k: dia_krylov.plain(getattr(linear, _n), *a, **k)
             run_k = lambda: kern(d, up, lo, b, x0, offs, **args)
             run_p = lambda: plain(d, up, lo, b, x0, offs, **args)
-            rk, rp = run_k(), run_p()
-            torch.cuda.synchronize()
+            rk = run_k()
+            rp, ms_p = timed_call(run_p)  # the plain version: one call, hundreds of ms
             it_k, it_p = rk.n_iterations.cpu().numpy(), rp.n_iterations.cpu().numpy()
             rel = float(((rk.x - rp.x).abs().amax(-1) / rp.x.abs().amax(-1)).max())
             err = float((rk.x - rp.x).abs().max())
@@ -701,14 +735,15 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
                                                        x0.element_size())
             kernel = (device_kernel(plan) if name == "bicgstab" else
                       f"{name}_grid" if plan.grid_wide else name)
-            wide = name != "smooth" and plan.grid_wide and not plan.rows and K > 3
+            wide = plan.grid_wide and not plan.rows and K > 3
             if wide:
                 mode = (f"split: window W={split.window}, Krylov slices "
                         f"{split.krylov}/{dia_krylov._GRID[name][1] - 1}, diagonal "
                         f"{'resident' if split.diag else 'streamed'}, pairs {split.pairs}/{K} "
                         f"resident")
+                extra = SMOOTH_EXTRA if name == "smooth" else ()
                 run_0 = lambda **w: dia_krylov._launch(name, d, up, lo, b, x0, offs, 1e-8, 0.0,
-                                                       args["max_iter"], **w)
+                                                       args["max_iter"], extra=extra, **w)
                 r0 = run_0(window=0)
                 same = (torch.equal(r0.x, rk.x) and torch.equal(r0.n_iterations, rk.n_iterations)
                         and torch.equal(r0.final_residual, rk.final_residual)
@@ -722,7 +757,6 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
                 mode = ("rows" if plan.rows else "resident" if split.bytes else
                         "streamed" if plan.grid_wide else "one block a row")
                 ms_k = time_ms(run_k, reps=20)
-            ms_p = time_ms(run_p, reps=2)
             blocks = plan.blocks_per_row if plan.rows else B * plan.blocks_per_row
             bnd, by = bound(name, dtype, (d, up, lo, b, x0), it_k, K)
             stm = streamed_ms(name, dtype, n, it_k, K)
@@ -807,6 +841,18 @@ def time_ms(fn, reps=5):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def timed_call(fn):
+    """(fn's result, the ms of that one call between CUDA events)."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def bound(name, dtype, ops, iters, K=3):
@@ -1990,7 +2036,7 @@ def phase_exact(dev, tmp, box_case):
 
 
 # ---------------------------------------------------------------- phase 6
-def cli(args):
+def cli(args, phase=6):
     """run.main(args) in this process; returns its printed output (echoing
     the last line). A failure inside raises."""
     buf = io.StringIO()
@@ -1998,8 +2044,8 @@ def cli(args):
         rc = run_cli.main(args)
     out = buf.getvalue()
     if rc != 0:
-        raise SystemExit(f"phase 6: run {' '.join(args)} exited {rc}")
-    say(6, out.strip().splitlines()[-1])
+        raise SystemExit(f"phase {phase}: run {' '.join(args)} exited {rc}")
+    say(phase, out.strip().splitlines()[-1])
     return out
 
 
@@ -2028,84 +2074,105 @@ DATS = ("HRR/0/volFieldValue.dat", "minMaxTU/0/fieldMinMax.dat", "plume/0/probes
         "rtis/0/rtis.dat")
 
 
-def phase_cli(tmp):
-    """The slice through the run CLI (see the module docstring); returns the
-    launch counts of its 20-step writing run."""
-    case = write_smooth_fire_case(os.path.join(tmp, "slice"), n=N_MAIN, end_time=100.0,
-                                  write_control="runTime", write_interval=1e3)
-    base = ["--case", case, "--chunk", str(CHUNK_CLI), "--quiet"]
+def phase_cli(tmp, case=None, phase=6, args=(), n_cells=None, depth=(30, 20, 10),
+              chunk=CHUNK_CLI):
+    """The slice through the run CLI (see the module docstring): `depth` =
+    (uninterrupted steps, the same first steps writing once at their last,
+    steps resumed from that checkpoint) in chunks of `chunk`, which divides
+    each; `case` (default: the 100k slice, written here) of `n_cells` cells
+    with the run features of write_smooth_fire_case, `args` more CLI
+    arguments (the layout). Returns the launch counts and K1's and K3's
+    launches by device kernel of the writing run, and the numbers printed."""
+    if case is None:
+        case = write_smooth_fire_case(os.path.join(tmp, "slice"), n=N_MAIN, end_time=100.0,
+                                      write_control="runTime", write_interval=1e3)
+        n_cells = int(np.prod(N_MAIN))
+    n_full, n_write, n_resume = depth
+    if n_write + n_resume != n_full or any(d % chunk for d in depth) or n_write <= chunk:
+        raise ValueError(f"phase {phase}: depths {depth} in chunks of {chunk}")
+    base = ["--case", case, "--chunk", str(chunk), "--quiet", *args]
     freq = 10  # the case's fvDOM solverFreq
 
-    def run(args, n_steps, count0):
+    def run(more, n_steps, count0):
         dia_krylov.reset_counts()
-        out = cli(base + args)
+        out = cli(base + more, phase)
         got = dict(dia_krylov.LAUNCHES)
         by_kernel = {k: v for k, v in dia_krylov.DEVICE_LAUNCHES.items() if v}
         exp = slice_launches(n_steps, count0, freq)
-        say(6, f"launches {got} (expected {exp}); by device kernel {by_kernel}")
+        say(phase, f"launches {got} (expected {exp}); by device kernel {by_kernel}")
         if got != exp:
-            raise SystemExit("phase 6: kernel launch counts do not match the solves")
+            raise SystemExit(f"phase {phase}: kernel launch counts do not match the solves")
         # the fvDOM's 16 ray rows go to K1's many-rows kernel, U's 3 to the
-        # grid-wide one
+        # grid-wide one; Yi, h and k to K3's grid-wide kernel
         if not (by_kernel.get("bicgstab_rows", 0) > 0 and by_kernel.get("bicgstab_grid", 0) > 0
                 and sum(v for k, v in by_kernel.items() if k.startswith("bicgstab"))
                 == got["bicgstab"]):
-            raise SystemExit("phase 6: K1's launches do not split over its device kernels")
+            raise SystemExit(f"phase {phase}: K1's launches do not split over its device "
+                             f"kernels")
+        if by_kernel.get("smooth_grid", 0) != got["smooth"]:
+            raise SystemExit(f"phase {phase}: K3's launches did not all go to its grid-wide "
+                             f"kernel")
         run.by_kernel = by_kernel
         rows = {sub: dat(case, sub) for sub in DATS}
         for sub, r in rows.items():
             if r.shape[0] != n_steps or not np.all(np.isfinite(r)):
-                raise SystemExit(f"phase 6: {sub} has {r.shape[0]} rows for {n_steps} steps "
-                                 f"or non-finite values")
+                raise SystemExit(f"phase {phase}: {sub} has {r.shape[0]} rows for {n_steps} "
+                                 f"steps or non-finite values")
         return out, got, rows
 
-    # 1. 30 uninterrupted steps
-    _, _, full = run(["--max-steps", "30"], 30, 0)
+    # 1. the uninterrupted steps
+    _, _, full = run(["--max-steps", str(n_full)], n_full, 0)
     t = full[DATS[0]][:, 0]
     T_max = full[DATS[1]][:, 1]  # columns: t, T_max, T_min, U_max, U_min (sorted keys)
-    say(6, f"30 steps: t {t[0]:.6g} … {t[-1]:.6g} s, T max {T_max[0]:.3f} → {T_max[-1]:.3f} K")
+    say(phase, f"{n_full} steps: t {t[0]:.6g} … {t[-1]:.6g} s, T max {T_max[0]:.3f} → "
+               f"{T_max[-1]:.3f} K")
     if not T_max[-1] > 298.15 + 1.0:
-        raise SystemExit("phase 6: the gas did not heat")
-    # 2. the same 20 steps, writing once at step 20 (runTime writes do not
-    # change the steps): a write interval between t(10) and t(20)
-    w = float(0.5 * (t[9] + t[19]))
+        raise SystemExit(f"phase {phase}: the gas did not heat")
+    # 2. the same first steps, writing once at their last (runTime writes do
+    # not change the steps): a write interval between the ends of the last
+    # two chunks
+    w = float(0.5 * (t[n_write - chunk - 1] + t[n_write - 1]))
     with open(os.path.join(case, "system", "controlDict")) as f:
         txt = f.read()
     with open(os.path.join(case, "system", "controlDict"), "w") as f:
-        f.write(txt.replace("writeInterval 1000.0;", f"writeInterval {w!r};"))
-    out_dir = os.path.join(tmp, "slice_out")
-    out, launches, first = run(["--max-steps", "20", "--output", out_dir], 20, 0)
+        f.write(re.sub(r"writeInterval [^;]*;", f"writeInterval {w!r};", txt))
+    out_dir = os.path.join(tmp, f"{os.path.basename(case)}_out")
+    out, launches, first = run(["--max-steps", str(n_write), "--output", out_dir], n_write, 0)
     by_kernel = run.by_kernel
     m = re.search(r"([0-9.]+) ms/step, writing ([0-9.]+) s", out)
     ms, write_s = float(m.group(1)), float(m.group(2))
     times = sorted(d for d in os.listdir(out_dir) if d[0].isdigit())
     ckpt = run_cli.latest_checkpoint(out_dir)
     if len(times) != 1 or ckpt is None:
-        raise SystemExit(f"phase 6: expected one write, found {times}")
+        raise SystemExit(f"phase {phase}: expected one write, found {times}")
     with np.load(ckpt) as z:
         state = {k: z[k] for k in z.files}
+    written = {}
     for f in ("T", "U"):
-        got = read_field_file(os.path.join(out_dir, times[0], f)).internal_array(
-            int(np.prod(N_MAIN)))
+        got = read_field_file(os.path.join(out_dir, times[0], f)).internal_array(n_cells)
         ref = state[f"['{f}'].i"].astype(np.float64)
         err = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)))
-        say(6, f"written {f} at t = {times[0]} vs the checkpoint: max rel {err:.3e}")
+        written[f] = err
+        say(phase, f"written {f} at t = {times[0]} vs the checkpoint: max rel {err:.3e}")
         if not err <= 1e-7:  # 8 significant digits
-            raise SystemExit(f"phase 6: written {f} differs from the state")
-    # two runs of the same 20 steps
-    rep20 = rows_diff(first, {s: full[s][:20] for s in DATS})
-    # 3. 10 steps resumed from the checkpoint at step 20
+            raise SystemExit(f"phase {phase}: written {f} differs from the state")
+    # two runs of the same first steps
+    rep = rows_diff(first, {s: full[s][:n_write] for s in DATS})
+    # 3. the rest resumed from the checkpoint
     count0 = int(state["['rad']['count']"])
-    _, _, resumed = run(["--max-steps", "10", "--resume", ckpt], 10, count0)
-    res10 = rows_diff(resumed, {s: full[s][20:] for s in DATS})
-    say(6, f"{int(np.prod(N_MAIN))} cells float32 CLI: {ms:.3f} ms/step over chunks of "
-           f"{CHUNK_CLI}, writing {write_s:.3f} s (one time directory + checkpoint); "
-           f"function-object/rtis rows, max rel difference: repeated 20 steps {rep20:.3e}, "
-           f"resumed steps 21-30 vs uninterrupted {res10:.3e}")
-    if not max(rep20, res10) <= RESUME_TOL:
-        raise SystemExit(f"phase 6: a repeated or resumed run differs from the uninterrupted "
-                         f"one beyond {RESUME_TOL}")
-    return launches, by_kernel
+    _, _, resumed = run(["--max-steps", str(n_resume), "--resume", ckpt], n_resume, count0)
+    res = rows_diff(resumed, {s: full[s][n_write:] for s in DATS})
+    say(phase, f"{n_cells} cells float32 CLI: {ms:.3f} ms/step over chunks of {chunk}, "
+               f"writing {write_s:.3f} s (one time directory + checkpoint); "
+               f"function-object/rtis rows, max rel difference: repeated {n_write} steps "
+               f"{rep:.3e}, resumed steps {n_write + 1}-{n_full} vs uninterrupted {res:.3e}")
+    if not max(rep, res) <= RESUME_TOL:
+        raise SystemExit(f"phase {phase}: a repeated or resumed run differs from the "
+                         f"uninterrupted one beyond {RESUME_TOL}")
+    return launches, by_kernel, {
+        "cells": n_cells, "ms_per_step": ms, "write_s": write_s, "written_vs_checkpoint": written,
+        "repeat_diff": rep, "resume_diff": res, "T_max": [float(T_max[0]), float(T_max[-1])],
+        "checkpoint": ckpt}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -4015,40 +4082,59 @@ def banded_shaft(dev, tmp, n=None):
                   "top_kernels": top_seg, "amg_pcg": {"ms": amg[0], "iterations": amg[1]},
                   "host_seconds": dict(seg.setup_seconds)}
     del seg, st
-    return launches, out
+    return launches, out, cm
 
 
-def banded_column(dev, tmp):
+def banded_column(dev, tmp, smooth=False):
     """The (4,4,60) column on the banded layout (34 offsets) in float64,
-    COLUMN_STEPS steps from t = 0 on the card against the CPU within CPU_TOL,
-    and one step from the CPU's state within STEP_TOL with equal counts."""
-    case = write_castellated_fire_case(os.path.join(tmp, "column"), n=N_COLUMN, **COLUMN_KW)
+    COLUMN_STEPS steps from t = 0 on the card against the CPU within CPU_TOL
+    with every step's iteration counts equal to the CPU's, and one step from
+    the CPU's state within STEP_TOL with equal counts. `smooth`: the
+    smoothSolver fire (write_smooth_fire_case) castellated the same way,
+    whose Yi, h and k K3 serves on the card (phase 17); its steps from t = 0
+    are held to SMOOTH_COLUMN_TOL (the column amplifies last-bit
+    differences, see there)."""
+    phase = 17 if smooth else 16
+    if smooth:
+        size = COLUMN_KW["size"]
+        case = write_smooth_fire_case(os.path.join(tmp, "smooth_column"), n=N_COLUMN, size=size)
+        castellate_case(case, size=size)
+    else:
+        case = write_castellated_fire_case(os.path.join(tmp, "column"), n=N_COLUMN, **COLUMN_KW)
     kw = dict(dtype=torch.float64, layout="banded", exact_solvers=False, gmg=False, amg=False)
     cpu = FireFoamSolver(case, device="cpu", **kw)
     card = FireFoamSolver(case, device=dev, **kw)
     if card.geom.offsets != cpu.geom.offsets or len(card.geom.offsets) != 34:
-        raise SystemExit("phase 16: the column did not take 34 banded offsets")
-    st_c, _ = cpu.make_chunk(COLUMN_STEPS)(cpu.initial_state())
+        raise SystemExit(f"phase {phase}: the column did not take 34 banded offsets")
+    st_c, logs_c = cpu.make_chunk(COLUMN_STEPS)(cpu.initial_state())
     dia_krylov.reset_counts()
-    st_g, _ = card.make_chunk(COLUMN_STEPS)(card.initial_state())
+    st_g, logs_g = card.make_chunk(COLUMN_STEPS)(card.initial_state())
     launched = dict(dia_krylov.LAUNCHES)
     vs_cpu = {f: float((st_g[f].i.cpu() - st_c[f].i).abs().max() / st_c[f].i.abs().max())
               for f in ("T", "U")}
+    chain_counts = all(np.array_equal(np.asarray(logs_g[k].cpu(), np.int64),
+                                      np.asarray(logs_c[k], np.int64))
+                       for k in logs_c if "iters" in k)
+    chain_tol = SMOOTH_COLUMN_TOL if smooth else CPU_TOL
     nxt_c, log_c = cpu.step(st_c)
     nxt_g, log_g = card.step(firefoam_mod.state_from_numpy(
         firefoam_mod.state_to_numpy(st_c), device=dev, dtype=torch.float64))
     step = {f: float((nxt_g[f].i.cpu() - nxt_c[f].i).abs().max() / nxt_c[f].i.abs().max())
             for f in ("T", "U", "p_rgh")}
     counts = all(int(log_g[k]) == int(log_c[k]) for k in log_c if "iters" in k)
-    say(16, f"banded column {card.geom.n_cells} cells (34 offsets) float64, {COLUMN_STEPS} "
-            f"steps card vs CPU: T {vs_cpu['T']:.3e}, U {vs_cpu['U']:.3e} (K1 "
-            f"{launched['bicgstab']}, K2 {launched['pcg']} launches); one step from the CPU's "
-            f"state: " + ", ".join(f"{f} {v:.3e}" for f, v in step.items())
-            + f", iteration counts equal {counts}")
-    if not (max(vs_cpu.values()) <= CPU_TOL and max(step.values()) <= STEP_TOL and counts
-            and launched["bicgstab"] > 0 and launched["pcg"] > 0):
-        raise SystemExit("phase 16: the banded column on the card differs from the CPU's")
-    return {"cells": card.geom.n_cells, "vs_cpu": vs_cpu, "step_vs_cpu": step}
+    say(phase, f"banded {'smoothSolver ' if smooth else ''}column {card.geom.n_cells} cells "
+               f"(34 offsets) float64, {COLUMN_STEPS} steps card vs CPU: T {vs_cpu['T']:.3e}, "
+               f"U {vs_cpu['U']:.3e} (bound {chain_tol:.0e}; every step's iteration counts "
+               f"equal {chain_counts}; K1 {launched['bicgstab']}, K2 {launched['pcg']}, K3 "
+               f"{launched['smooth']} launches); one step from the CPU's state: "
+               + ", ".join(f"{f} {v:.3e}" for f, v in step.items())
+               + f", iteration counts equal {counts}")
+    if not (max(vs_cpu.values()) <= chain_tol and max(step.values()) <= STEP_TOL and counts
+            and chain_counts and launched["bicgstab"] > 0 and launched["pcg"] > 0
+            and (launched["smooth"] > 0) == smooth):
+        raise SystemExit(f"phase {phase}: the banded column on the card differs from the CPU's")
+    return {"cells": card.geom.n_cells, "vs_cpu": vs_cpu, "step_vs_cpu": step,
+            "chain_counts_equal": chain_counts, "launches": launched}
 
 
 def renumbered_box(dev, tmp):
@@ -4113,10 +4199,84 @@ def renumbered_box(dev, tmp):
 
 def phase_banded(dev, tmp):
     """The banded DIA layout (see the module docstring); returns the shaft's
-    launch counts and the phase's numbers."""
-    launches, out = banded_shaft(dev, tmp)
+    launch counts, the phase's numbers and the shaft's castellation."""
+    launches, out, cm = banded_shaft(dev, tmp)
     out["column"] = banded_column(dev, tmp)
     out["renumbered_box"] = renumbered_box(dev, tmp)
+    return launches, out, cm
+
+
+# ---------------------------------------------------------------- phase 17
+# the files build_case_mesh reads to mesh a case written by utils/synthcase.py
+MESH_INPUTS = ("mesh.sh", "system/blockMeshDict", "system/snappyHexMeshDict",
+               "system/topoSetDict", "system/createPatchDict")
+
+
+def same_mesh_inputs(a, b) -> bool:
+    """Whether two case directories mesh from the same inputs."""
+    def text(root, name):
+        path = os.path.join(root, name)
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return f.read()
+    return all(text(a, f) == text(b, f) for f in MESH_INPUTS)
+
+
+def phase_smooth_shaft(dev, tmp, shaft_cm, shaft_case):
+    """The banded smoothSolver shaft through the run CLI (see the module
+    docstring); returns the launches of its writing run and its numbers."""
+    size = SHAFT_KW["size"]
+    case = write_smooth_fire_case(os.path.join(tmp, "smooth_shaft"), n=N_SHAFT, size=size,
+                                  end_time=100.0, write_control="runTime", write_interval=1e3)
+    castellate_case(case, size=size)
+    if not same_mesh_inputs(case, shaft_case):
+        raise SystemExit("phase 17: the smooth shaft does not mesh as phase 16's shaft")
+    nC = shaft_cm.mesh.n_cells
+    with mesh_from(shaft_cm):  # phase 16's castellation: the shaft is meshed once
+        launches, by_kernel, out = phase_cli(
+            tmp, case=case, phase=17, args=["--layout", "banded"], n_cells=nC,
+            depth=SMOOTH_SHAFT_DEPTH, chunk=SMOOTH_SHAFT_CHUNK)
+        solver = FireFoamSolver(case, device=dev, layout="banded")
+    if solver.geom.offsets != OFFS_34 or solver._ldu is not None:
+        raise SystemExit("phase 17: the smooth shaft did not take OFFS_34 and the kernels")
+    state = run_cli.load_checkpoint(out["checkpoint"], solver.initial_state())
+    # one step after the checkpoint (no ray solve), profiled twice: launches,
+    # host reads and busy ms; the device ms by kernel. K3's launch shapes are
+    # read from the first.
+    prof = []
+    shapes = capture(dia_krylov, "dia_smooth", lambda: prof.append(
+        step_profile(solver.make_step(), state, PROFILE_STEPS)))
+    _, k_step, r_step, busy = prof[0]
+    _, _, by_name = top_kernels(solver.make_step(), state)
+    if "smooth_grid_kernel" not in by_name:
+        raise SystemExit("phase 17: the profiled step shows no K3 launch")
+    k3_ms, k3_n = by_name["smooth_grid_kernel"]
+    rows = sorted({a[4].shape[0] if a[4].ndim == 2 else 1 for a in shapes})
+    splits = {}
+    for B in rows:
+        plan, split = dia_krylov._grid_launch_plan("smooth", torch.float32, B, nC, OFFS_34, 4)
+        splits[f"B{B}"] = {"blocks": B * plan.blocks_per_row, "cells_per_block":
+                           plan.cells_per_block, "window": split.window,
+                           "krylov": split.krylov, "diag": split.diag, "pairs": split.pairs,
+                           "bytes": split.bytes}
+    say(17, f"smooth shaft: K3 {len(shapes)} solves a step at B = {rows}; its split "
+            + "; ".join(f"{k}: {v['blocks']} blocks of {v['cells_per_block']} cells, W="
+                        f"{v['window']}, Krylov slices {v['krylov']}/2, diagonal "
+                        f"{'resident' if v['diag'] else 'streamed'}, pairs {v['pairs']}/34"
+                        for k, v in splits.items())
+            + f"; one profiled step: {k_step:.0f} launches, {r_step:.0f} host reads, device "
+              f"busy {busy:.3f} ms; smooth_grid_kernel {k3_ms / k3_n:.4f} ms a launch "
+              f"({k3_n} launches)")
+    if len(shapes) != 3 * PROFILE_STEPS or k3_n != 3:
+        raise SystemExit("phase 17: the profiled step did not solve Yi, h and k on K3")
+    out.update(k3_splits=splits, launches_per_step=k_step, host_reads_per_step=r_step,
+               device_busy_ms=busy, k3_in_step_ms=k3_ms / k3_n,
+               top_kernels={k: {"ms": v[0], "launches": v[1]} for k, v in sorted(
+                   by_name.items(), key=lambda kv: -kv[1][0])[:6]},
+               by_kernel=by_kernel)
+    del out["checkpoint"], solver, state
+    out["column"] = banded_column(dev, tmp, smooth=True)
     return launches, out
 
 
@@ -4143,7 +4303,7 @@ def main():
         main_solver, main_state, main_ms = phase_main(dev, main_case)
         small_case = write_box_fire_case(os.path.join(tmp, "small"), n=N_SMALL)
         phase_drift(dev, small_case)
-        launches, main_by_kernel = phase_cli(tmp)
+        launches, main_by_kernel, _ = phase_cli(tmp)
         gmg_launches, solve_ms = phase_gmg(dev, tmp, main_case, main_solver, main_state,
                                            small_case)
         phase_exact(dev, tmp, small_case)
@@ -4160,7 +4320,10 @@ def main():
         dem_launches, lattice = phase_dem(dev, tmp)
         phase_stock_small(dev, tmp)
         shard_launches, shards = phase_partitions(dev, tmp, main_case, main_ms)
-        band_launches, band = phase_banded(dev, tmp)
+        band_launches, band, shaft_cm = phase_banded(dev, tmp)
+        smooth_launches, smooth_shaft = phase_smooth_shaft(dev, tmp, shaft_cm,
+                                                           os.path.join(tmp, "shaft"))
+        del shaft_cm
 
     kernels = [
         {
@@ -4193,8 +4356,10 @@ def main():
             # partitions are SEG, where no kernel serves
             "launches_sharded_path": shard_launches[name_k],
             # phase 16's 104k-cell shaft on the banded layout (34 offsets):
-            # K1 and K2 serve it, no case runs smoothSolver there
+            # K1 and K2 serve it; its smoothSolver variant through the run
+            # CLI (phase 17's writing run): K3 too
             "launches_banded_path": band_launches[name_k],
+            "launches_banded_cli_path": smooth_launches[name_k],
             "max_abs_err": stats[name_k]["max_abs_err"],
             "ms": stats[name_k]["ms"],
             "plain_ms": stats[name_k]["plain_ms"],
@@ -4238,6 +4403,7 @@ def main():
     print(json.dumps({"dem_collide": lattice}))
     print(json.dumps({"partitions": shards}))
     print(json.dumps({"banded_layout": band}))
+    print(json.dumps({"banded_cli": smooth_shaft}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

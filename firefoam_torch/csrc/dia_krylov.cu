@@ -34,7 +34,7 @@
 // lower one stored shifted, so slot i is the coefficient of x[c-o]), and of
 // the Krylov vectors — lives in its dynamic shared memory when the slice
 // fits (Params::resident), else it is streamed from L2 through the same
-// code (the pointers then aim at global memory); K1 and K2 above 3 offsets
+// code (the pointers then aim at global memory); above 3 offsets the three
 // split that per operand (below).
 //   Reductions: each block sums its cells (block_sum), writes the partial to
 // its own slot, and after the grid barrier every block of the row adds the
@@ -47,16 +47,18 @@
 // (or retries) does no work with x frozen, and the loop ends for the whole
 // grid when no row's flag (written before, read after a barrier) is set.
 //
-// Above 3 offsets (the hybrid and banded layouts' 4-64) K1 and K2 take
+// Above 3 offsets (the hybrid and banded layouts' 4-64) K1, K2 and K3 take
 // their split kernels (Wide = true). What bounded the lattice design there:
 // dia_row_s loops over a runtime K and each term waits for its loads before
 // the next term issues its own, so a block of 768 cells, one a thread, pays
 // one L2 round trip per offset and side (68 at 34 offsets) each matvec; and
 // residency was all or nothing, so from 34 offsets at 100k cells (10 + 2K or
-// 5 + 2K slices over the 227 KB a block may have) every slice, the Krylov
-// vectors too, came from L2. The split kernels change three things:
-//   - the window: after the grid barrier that publishes p (K2) or p-hat and
-//     s-hat (K1, one buffer for both), each block copies the vector's cells
+// 5 + 2K slices over the 227 KB a block may have; K3's 3 + 2K from 62, in
+// float64 and for its Yi batch) every slice, the Krylov vectors too, came
+// from L2. The split kernels change three things:
+//   - the window: after the grid barrier that publishes p (K2), p-hat and
+//     s-hat (K1, one buffer for both) or the iterate a Jacobi sweep wrote
+//     (K3; and x0 before the first sweep), each block copies the vector's cells
 //     [c0 − W, c0 + n + W) into shared memory in one coalesced pass, and the
 //     stencil reads every offset up to W from there (the far ones from L2);
 //   - residency by operand: the wrapper's split (solvers/dia_krylov.py
@@ -499,7 +501,7 @@ __device__ __forceinline__ T* stage_operands(const Params<T>& p, T* sh, Slice<T>
 }
 
 // One Krylov vector's slice: shared memory while `left` slices may still be
-// resident (all or none at 1-3 offsets and in K3, the first p.nkry above),
+// resident (all or none at 1-3 offsets, the first p.nkry above),
 // else `global` (which already points at the block's first cell).
 template <typename T>
 __device__ __forceinline__ T* take(const Params<T>& p, T*& sh, int& left, T* global) {
@@ -512,12 +514,12 @@ __device__ __forceinline__ T* take(const Params<T>& p, T*& sh, int& left, T* glo
 
 // K0 on a slice: row c = c0 + i of M·x. `xrow` is the whole row of a vector
 // that other blocks write: read through L2 (ld.global.cg), after a grid
-// barrier; `xc` is the block's own copy of x[c]. K3 and K1/K2 at 1-3
-// offsets: the loop over a runtime K waits for each term's loads before it
-// issues the next term's, one L2 round trip per offset and side, which sets
-// the pace from a few offsets up; above 3 offsets K1 and K2 take dia_row_w
-// instead (the window, the resident pairs and the unrolled chunk), which
-// adds the same terms in the same order.
+// barrier; `xc` is the block's own copy of x[c]. At 1-3 offsets: the loop
+// over a runtime K waits for each term's loads before it issues the next
+// term's, one L2 round trip per offset and side, which sets the pace from a
+// few offsets up; above 3 offsets K1-K3 take dia_row_w instead (the window,
+// the resident pairs and the unrolled chunk), which adds the same terms in
+// the same order.
 template <typename T>
 __device__ __forceinline__ T dia_row_s(const Slice<T>& s, const Params<T>& p, const T* xrow,
                                        T xc, int i) {
@@ -549,7 +551,7 @@ __device__ __forceinline__ T dia_row_const_s(const Slice<T>& s, const Params<T>&
   return s.d[i] * xr + (own + nei);
 }
 
-// ------------------------------------------- K1 and K2 above 3 offsets
+// ---------------------------------------------- K1-K3 above 3 offsets
 // Offsets a thread takes at once in dia_row_w: it issues the chunk's loads
 // (a coefficient and a neighbour each) before it adds any of them.
 constexpr int kStencilChunk = 8;
@@ -827,9 +829,10 @@ __device__ __forceinline__ void finish_grid(const Params<T>& p, const Slice<T>& 
 extern __shared__ __align__(16) unsigned char ffk_dyn_smem[];
 
 // The Krylov slices each grid-wide kernel takes (in this order): K2 x, r,
-// p, Ap; K1 x, r, rhat, p, v, phat, s, shat, t.
+// p, Ap; K1 x, r, rhat, p, v, phat, s, shat, t; K3 b, x.
 constexpr int kKrylovPcg = 4;
 constexpr int kKrylovBicgstab = 9;
+constexpr int kKrylovSmooth = 2;  // K3: b, x
 
 // K2 over the grid: the arithmetic of pcg_kernel, three grid barriers per
 // iteration (p published; p·Ap; Σ|r| and r·z). work: r, p, Ap as pcg_kernel.
@@ -1679,34 +1682,60 @@ __global__ void __launch_bounds__(kThreads) smooth_kernel(Params<T> p) {
 // computed with smooth_kernel's expression, so x after n sweeps is bit-equal
 // to smooth_kernel's; only the residual sums, which steer the stop, add in
 // another order. work: the second x buffer (and r of the prologue).
-// Resident slices: d, K upper, K lower, b, x (3 + 2K vectors of L).
-template <typename T>
+// Wide = false (1-3 offsets): the slices d, K upper, K lower, b, x (3 + 2K
+// vectors of L) all resident or all streamed. Wide (above 3): the split of
+// stage_split, then b and x (p.nkry of them, in that order); after the
+// barrier that ends a sweep (and once for x0) each block copies the iterate
+// the next sweep and the residual check read, `cur`, into its window, and
+// the stencil is dia_row_w's, the same terms in the same order: x, the
+// residuals and the sweep counts are bit for bit those of window=0, and x
+// those of the lattice kernel's loop. At 34 offsets on 100k cells a block's
+// 3 + 2K slices fit in float32, yet the loop read every neighbour from L2
+// one term after another; the window and the unrolled runs are the change
+// there, and the split where the slices do not all fit (62 offsets, float64,
+// the Yi batch's blocks of some 3,200 cells).
+template <typename T, bool Wide>
 __global__ void __launch_bounds__(kThreads) smooth_grid_kernel(Params<T> p) {
   __shared__ T sm[32 * 4];
   cg::grid_group grid = cg::this_grid();
   Slice<T> s;
-  T* sh = stage_operands(p, reinterpret_cast<T*>(ffk_dyn_smem), s);
+  T* const dyn = reinterpret_cast<T*>(ffk_dyn_smem);
+  T* sh = Wide ? stage_split(p, dyn, s) : stage_operands(p, dyn, s);
   const long long n = p.nC;
   T* xa = p.x + (long long)s.row * n;     // whole rows, exchanged between blocks
   T* xb = p.work + (long long)s.row * n;
   const T* b = p.b + (long long)s.row * n + s.c0;
-  if (p.resident) {  // b is read in every sweep: its slice is staged as the matrix is
+  int left = Wide ? p.nkry : 2 * p.resident;  // b, then x
+  if (left > 0) {  // b is read in every sweep: its slice is staged as the matrix is
     T* bs = sh;
     sh += p.L;
     for (int i = threadIdx.x; i < s.n; i += blockDim.x) bs[i] = b[i];
     b = bs;
+    --left;
   }
-  int left = p.resident;
   T* x = take(p, sh, left, xa + s.c0);  // the block's own cells of the iterate
+  const bool xres = x != xa + s.c0;
 
   T norm, res0, unused1, unused2;
-  prologue_grid(grid, p, s, x, xb + s.c0, sm, norm, res0, unused1, unused2);
+  prologue_grid<T, Wide>(grid, p, s, x, xb + s.c0, sm, norm, res0, unused1, unused2);
   const T stop = stop_at(p, res0);
   const T omega = T(p.omega);
   T res = res0;
   T res_prev = res0;  // not read before it > 0
   const T* cur = p.x0 + (long long)s.row * n;
   T* nxt = xa;
+  // the row's value at cell c0 + i of `cur`: the block's slice, its window
+  // (Wide, which holds cur after every fill), or L2
+  auto own = [&](int i) -> T {
+    if (xres) return x[i];
+    if (Wide && p.W > 0) return s.win[p.W + i];
+    return __ldcg(cur + s.c0 + i);
+  };
+  auto row = [&](T xc, int i) -> T {
+    if constexpr (Wide) return dia_row_w<T, false, true>(s, p, cur, s.nwin, xc, i);
+    else return dia_row_s(s, p, cur, xc, i);
+  };
+  if constexpr (Wide) fill_window(s, p, cur);
   int it = 0;
   for (;;) {
     const bool active = res > stop && it < p.max_iter &&
@@ -1716,9 +1745,9 @@ __global__ void __launch_bounds__(kThreads) smooth_grid_kernel(Params<T> p) {
       if (active) {  // one sweep of the block's cells from `cur` into `nxt` (and the slice)
         for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
           const int c = s.c0 + i;
-          const T xc = p.resident ? x[i] : __ldcg(cur + c);
-          const T v = xc + (omega / s.d[i]) * (b[i] - dia_row_s(s, p, cur, xc, i));
-          if (p.resident) x[i] = v;
+          const T xc = own(i);
+          const T v = xc + (omega / s.d[i]) * (b[i] - row(xc, i));
+          if (xres) x[i] = v;
           nxt[c] = v;
         }
         cur = nxt;
@@ -1727,13 +1756,16 @@ __global__ void __launch_bounds__(kThreads) smooth_grid_kernel(Params<T> p) {
       // the round's first barrier also carries the rows' flags
       if (k == 0) any = any_row_active(grid, p, s, active);
       else grid.sync();
+      if constexpr (Wide) {
+        if (active && any) fill_window(s, p, cur);
+      }
     }
     if (!any) break;
     T s1[1] = {T(0)};
     if (active) {
       for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
-        const T xc = p.resident ? x[i] : __ldcg(cur + s.c0 + i);
-        s1[0] += fabs(b[i] - dia_row_s(s, p, cur, xc, i));
+        const T xc = own(i);
+        s1[0] += fabs(b[i] - row(xc, i));
       }
     }
     row_sum<T, 1>(grid, active, p, s, 5, s1, sm);
@@ -1744,25 +1776,26 @@ __global__ void __launch_bounds__(kThreads) smooth_grid_kernel(Params<T> p) {
     }
   }
   // streamed: x aims at p.x, which holds x0 (no sweep) or every other iterate
-  if (!p.resident && cur == xb) {
+  if (!xres && cur == xb) {
     for (int i = threadIdx.x; i < s.n; i += blockDim.x) x[i] = __ldcg(xb + s.c0 + i);
   }
   finish_grid(p, s, x, res0, res, it);
 }
 
 // The cooperative kernels by index: 0 K2, 1 K1, 2 K3, 3-5 K1 for many rows
-// (3, up to kRegOffsets and up to kMaxOffsets offsets), 6 K2 and 7 K1 above
-// 3 offsets.
+// (3, up to kRegOffsets and up to kMaxOffsets offsets), 6 K2, 7 K1 and 8 K3
+// above 3 offsets.
 template <typename T>
 const void* grid_kernel(int which) {
   return which == 0   ? (const void*)pcg_grid_kernel<T, false>
          : which == 1 ? (const void*)bicgstab_grid_kernel<T, false>
-         : which == 2 ? (const void*)smooth_grid_kernel<T>
+         : which == 2 ? (const void*)smooth_grid_kernel<T, false>
          : which == 3 ? (const void*)bicgstab_rows_kernel<T, 3>
          : which == 4 ? (const void*)bicgstab_rows_kernel<T, kRegOffsets>
          : which == 5 ? (const void*)bicgstab_rows_kernel<T, kMaxOffsets>
          : which == 6 ? (const void*)pcg_grid_kernel<T, true>
-                      : (const void*)bicgstab_grid_kernel<T, true>;
+         : which == 7 ? (const void*)bicgstab_grid_kernel<T, true>
+                      : (const void*)smooth_grid_kernel<T, true>;
 }
 
 template <typename T>
@@ -1806,8 +1839,8 @@ int launch_grid(const void* kernel, Params<T> p, int B, T* slots, int* flags, in
                                           (size_t)smem_bytes, (cudaStream_t)stream);
 }
 
-// The grid-wide K1 or K2 (which: 0 or 1): at 1-3 offsets its lattice
-// kernel, all slices resident when smem_bytes > 0; above 3 offsets
+// The grid-wide K1, K2 or K3 (which: 1, 0 or 2): at 1-3 offsets its
+// lattice kernel, all slices resident when smem_bytes > 0; above 3 offsets
 // the split kernel with the wrapper's split (window W, Krylov slices, the
 // diagonal, pairs), refused unless it is a split of the kernel's slices
 // that fits in smem_bytes.
@@ -1921,7 +1954,7 @@ extern "C" int ffk_rows_smem(int B, int is_f64) {
 
 // How many blocks of a cooperative kernel (which: 0 pcg, 1 bicgstab, 2 smooth,
 // 3 bicgstab for many rows; the least over its instantiations: by offsets
-// for many rows, 1-3 and above 3 offsets for pcg and bicgstab) are
+// for many rows, 1-3 and above 3 offsets for pcg, bicgstab and smooth) are
 // co-resident on the current device with `smem_bytes` of dynamic shared
 // memory each (0 when that is more than a block may have), and the most
 // dynamic shared memory a block of it may have; the kernels are opted in to
@@ -1937,7 +1970,7 @@ extern "C" int ffk_coop_blocks(int which, int is_f64, int smem_bytes, int* block
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop || which < 0 || which > 3) return (int)cudaErrorNotSupported;
-  const int kinds[4][3] = {{0, 6, -1}, {1, 7, -1}, {2, -1, -1}, {3, 4, 5}};
+  const int kinds[4][3] = {{0, 6, -1}, {1, 7, -1}, {2, 8, -1}, {3, 4, 5}};
   int least_blocks = -1, least_dyn = optin;
   for (int q = 0; q < 3 && kinds[which][q] >= 0; ++q) {
     const int w = kinds[which][q];
@@ -1991,14 +2024,16 @@ extern "C" int ffk_sync_bench(int blocks, int n, void* stream) {
 FFK_SMOOTH_ENTRY(float, f32)
 FFK_SMOOTH_ENTRY(double, f64)
 
-// The grid-wide K3: K3's operands, then launch_grid's.
+// The grid-wide K3: K3's operands, then launch_grid's and the split above 3
+// offsets (as the grid-wide K1 and K2).
 #define FFK_SMOOTH_GRID_ENTRY(T, SUF)                                                \
   extern "C" int ffk_smooth_grid_##SUF(                                              \
       const T* diag, long long sd, const T* upper, long long su, const T* lower,     \
       long long sl, const T* b, const T* x0, T* x, T* res0, T* res, int* iters,      \
       T* work, const int* offs, int K, int nC, int B, double tol, double rel_tol,    \
       double floor_eps, int max_iter, double omega, int check_every, T* slots,       \
-      int* flags, int bpr, int L, int smem_bytes, void* stream) {                    \
+      int* flags, int bpr, int L, int smem_bytes, int window, int krylov,            \
+      int diag_res, int pairs, void* stream) {                                       \
     if (K < 1 || K > kMaxOffsets || nC < 1 || B < 1 || check_every < 1)             \
       return (int)cudaErrorInvalidValue;                                             \
     Params<T> p = make_params<T>(diag, sd, upper, su, lower, sl, b, x0, x, res0,     \
@@ -2006,8 +2041,8 @@ FFK_SMOOTH_ENTRY(double, f64)
                                  floor_eps, max_iter);                               \
     p.omega = omega;                                                                 \
     p.check_every = check_every;                                                     \
-    return launch_grid<T>((const void*)smooth_grid_kernel<T>, p, B, slots, flags,    \
-                          bpr, L, smem_bytes, stream);                               \
+    return launch_split<T>(2, kKrylovSmooth, p, B, slots, flags, bpr, L, smem_bytes, \
+                           window, krylov, diag_res, pairs, stream);                 \
   }
 
 FFK_SMOOTH_GRID_ENTRY(float, f32)

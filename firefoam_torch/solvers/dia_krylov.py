@@ -38,8 +38,8 @@ count, asked of the library once per kernel, dtype and shared-memory size),
     that still iterates;
   * otherwise B <= G: the grid-wide kernel, a cooperative launch in which
     every row gets a group of blocks and every block a contiguous range of
-    cells, kept in the block's shared memory when it fits (K1 and K2 above
-    3 offsets: operand by operand, with a window of the exchanged vector,
+    cells, kept in the block's shared memory when it fits (above 3
+    offsets: operand by operand, with a window of the exchanged vector,
     as `residency` splits it);
   * B > G: the one-block-per-row kernel.
 The choice follows from B, nC and G alone. DEVICE_LAUNCHES counts the
@@ -94,7 +94,7 @@ _WORK = {"pcg": 3, "bicgstab": 8, "smooth": 1}
 # vectors of L cells a block keeps in shared memory besides the 2K
 # off-diagonals (d, x and the kernel's Krylov vectors; K3: d, b and x)
 _GRID = {"pcg": (0, 5), "bicgstab": (1, 10), "smooth": (2, 3)}
-# K1 and K2 above this many offsets take the split kernels (residency)
+# K1-K3 above this many offsets take the split kernels (residency)
 _SPLIT_ABOVE = 3
 _SLOTS = 16  # partial sums per block (kSlots in csrc)
 # A block (1024 threads) gets at least this many cells where the row has
@@ -224,9 +224,8 @@ def signatures() -> dict:
             extra = [cd, ci] if name == "smooth" else []  # omega, check_every
             sig[f"ffk_{name}_{suf}"] = common + extra + [vp]  # ..., stream
             # ..., slots, flags, blocks per row, cells per block, smem bytes,
-            # (K1, K2: window, Krylov slices, diagonal, pairs resident), stream
-            split = [] if name == "smooth" else [ci, ci, ci, ci]
-            sig[f"ffk_{name}_grid_{suf}"] = common + extra + [vp, vp, ci, ci, ci] + split + [vp]
+            # window, Krylov slices, diagonal, pairs resident, stream
+            sig[f"ffk_{name}_grid_{suf}"] = common + extra + [vp, vp, ci, ci, ci] + [ci] * 4 + [vp]
         # ..., slots, blocks, cells per block, stream
         sig[f"ffk_bicgstab_rows_{suf}"] = common + [vp, ci, ci, vp]
     return sig
@@ -341,10 +340,10 @@ def residency(name: str, offsets: Sequence[int], L: int, esize: int, max_bytes: 
     """The residency split of a block of L cells of the grid-wide kernel
     `name` with `max_bytes` of shared memory, values of `esize` bytes.
 
-    At 1-3 offsets (the lattice kernels), and in K3 at any count, all or
-    nothing: every slice resident if d, the kernel's vectors and the 2K
-    off-diagonals fit, else none. K1 and K2 above 3 offsets fill the bytes
-    in this order: the window, the Krylov slices, the diagonal, as many
+    At 1-3 offsets (the lattice kernels) all or nothing: every slice
+    resident if d, the kernel's vectors and the 2K off-diagonals fit, else
+    none. Above 3 offsets K1-K3 fill the bytes in this order: the window,
+    the Krylov slices (K3: b, then x), the diagonal, as many
     upper/lower pairs as still fit (one slice a Krylov vector or the
     diagonal, two a pair, L + 2W for the window). W is the largest offset
     whose halo is at most half a block (2·o <= L) and whose window fits:
@@ -359,7 +358,7 @@ def residency(name: str, offsets: Sequence[int], L: int, esize: int, max_bytes: 
     K = len(offsets)
     vectors = _GRID[name][1]  # d and the Krylov slices
     kry = vectors - 1
-    if K <= _SPLIT_ABOVE or name == "smooth":
+    if K <= _SPLIT_ABOVE:
         full = (vectors + 2 * K) * L * esize
         return Residency(0, kry, 1, K, full) if full <= max_bytes else NOTHING
     slice_b = L * esize
@@ -438,7 +437,7 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
     `min_cells`, `grid_wide`, `rows` and `window` exist for measurements and
     tests (a grid-wide kernel with its slices streamed from L2, with other
     block counts, against the one-block-per-row kernel on the same rows;
-    K1's many-rows kernel forced on (True) or off (False); K1/K2 above 3
+    K1's many-rows kernel forced on (True) or off (False); K1-K3 above 3
     offsets with the window's W set, 0: every offset read from L2 through
     the same unrolled stencil)."""
     dtype = x0.dtype
@@ -492,9 +491,8 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
             if not resident:
                 split = NOTHING
             extra = tuple(extra) + (slots.data_ptr(), flags.data_ptr(), plan.blocks_per_row,
-                                    plan.cells_per_block, split.bytes)
-            if name != "smooth":
-                extra += (split.window, split.krylov, split.diag, split.pairs)
+                                    plan.cells_per_block, split.bytes, split.window,
+                                    split.krylov, split.diag, split.pairs)
     fn = getattr(_load(), fn_name)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(

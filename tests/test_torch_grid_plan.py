@@ -20,13 +20,15 @@
   count by device kernel.
 * The shared-memory rule of `_grid_launch_plan`: K3 keeps 3 + 2K vectors of
   a block's cells resident, and streams them when that is over the limit.
-* K1/K2's residency split above 3 offsets (`dia_krylov.residency`, a pure
+* K1-K3's residency split above 3 offsets (`dia_krylov.residency`, a pure
   function): never over its bytes, the parts in their order (window, Krylov
   slices, diagonal, pairs), the all-or-nothing rule kept at 1-3 offsets,
   full residency where it fitted before (K2 at 34 offsets on 100k cells),
   the window and the Krylov slices first on the shaft's 233,600 B and K1's
   239,616 B cases, W = 0 where no window fits, the `window` argument, and
-  the split `_launch` hands the entry point.
+  the split `_launch` hands the entry point (K3's too); K3's split on the
+  blocks of phase 3's systems and the banded shaft's (one row and the Yi
+  batch of 4) at 12, 34 and 62 offsets.
 """
 
 import ctypes
@@ -184,9 +186,10 @@ def test_launch_arguments_match_the_signatures():
     assert len(sig["ffk_bicgstab_grid_f32"]) == 31
     assert sig["ffk_bicgstab_grid_f32"][26:30] == [ctypes.c_int] * 4
     assert sig["ffk_pcg_grid_f64"] == sig["ffk_bicgstab_grid_f32"]
-    assert len(sig["ffk_smooth_grid_f32"]) == 29  # + omega, check_every, then the grid's five
+    # + omega, check_every, then the grid's five and the split's four
+    assert len(sig["ffk_smooth_grid_f32"]) == 33
     assert sig["ffk_smooth_grid_f64"][:24] == sig["ffk_smooth_f64"][:-1] + [ctypes.c_void_p]
-    assert sig["ffk_smooth_grid_f64"][24:] == sig["ffk_pcg_grid_f64"][22:26] + [ctypes.c_void_p]
+    assert sig["ffk_smooth_grid_f64"][24:] == sig["ffk_pcg_grid_f64"][22:]
     assert sig["ffk_smooth_grid_f64"][21:23] == [ctypes.c_double, ctypes.c_int]
     # + slots, blocks, cells per block
     assert len(sig["ffk_bicgstab_rows_f64"]) == 25
@@ -289,12 +292,12 @@ def test_launch_passes_what_the_entry_point_takes(monkeypatch, name, grid_wide, 
     if name == "smooth":
         assert args[21:23] == (0.8, 4)
     if grid_wide:
-        split = () if name == "smooth" else args[-5:-1]  # window, Krylov, diagonal, pairs
-        bpr, L, smem = args[-4 - len(split):-1 - len(split)]
+        split = args[-5:-1]  # window, Krylov, diagonal, pairs
+        bpr, L, smem = args[-8:-5]
         assert (bpr, L) == (2, 512)
         assert smem == (dia_krylov._GRID[name][1] + 6) * L * ops[0].element_size()
-        if split:  # 3 offsets: the lattice kernels' all-resident slices
-            assert split == (0, dia_krylov._GRID[name][1] - 1, 1, 3)
+        # 3 offsets: the lattice kernels' all-resident slices
+        assert split == (0, dia_krylov._GRID[name][1] - 1, 1, 3)
 
 
 def test_launch_takes_one_block_per_row_when_rows_outnumber_blocks(monkeypatch):
@@ -434,9 +437,9 @@ def test_residency_never_exceeds_its_bytes(name, offs, L, esize):
 @pytest.mark.parametrize("L,esize", [(768, 4), (768, 8), (2304, 4), (2304, 8), (3040, 8),
                                      (512, 8), (12512, 4)])
 def test_residency_keeps_the_lattice_rule_at_3_offsets(name, L, esize):
-    """At 1-3 offsets (and in K3 at any count) every slice is resident when
-    d, the kernel's vectors and the 2K off-diagonals fit, else none; no
-    window."""
+    """At 1-3 offsets every slice is resident when d, the kernel's vectors
+    and the 2K off-diagonals fit, else none; no window. Above 3 offsets
+    every kernel, K3 too, takes the split: a window where one fits."""
     for offs in ((1,), (1, 50), (1, 50, 2000)):
         full = (dia_krylov._GRID[name][1] + 2 * len(offs)) * L * esize
         split = dia_krylov.residency(name, offs, L, esize, MAX_SMEM_H100)
@@ -444,9 +447,8 @@ def test_residency_keeps_the_lattice_rule_at_3_offsets(name, L, esize):
             assert split == (0, dia_krylov._GRID[name][1] - 1, 1, len(offs), full)
         else:
             assert split == dia_krylov.NOTHING
-    if name == "smooth":  # K3 keeps all or nothing above 3 offsets too
-        split = dia_krylov.residency(name, OFFS_34, L, esize, MAX_SMEM_H100)
-        assert split.window == 0 and split.bytes in (0, (3 + 68) * L * esize)
+    split = dia_krylov.residency(name, OFFS_34, L, esize, MAX_SMEM_H100)
+    assert split.window == 87 and split.krylov >= 1
 
 
 def test_residency_is_full_where_it_fitted_before():
@@ -488,7 +490,7 @@ def test_residency_keeps_window_and_krylov_first(name, L, K, before):
 def test_residency_leaves_no_window_where_none_fits():
     """W = 0 where no offset's window fits the budget, or every offset is
     over half a block; a forced W that does not fit raises."""
-    for name in ("pcg", "bicgstab"):
+    for name in ("pcg", "bicgstab", "smooth"):
         tight = dia_krylov.residency(name, OFFS_34, 768, 4, (768 + 1) * 4)
         assert tight.window == 0 and tight.krylov == 1 and tight.bytes == 768 * 4
         assert dia_krylov.residency(name, OFFS_34, 768, 4, 0) == dia_krylov.NOTHING
@@ -510,11 +512,59 @@ def test_residency_window_argument():
     assert wide.window == 4000 and wide.bytes <= MAX_SMEM_H100 and wide.pairs < 12
 
 
+# K3's split above 3 offsets on the main path's blocks: phase 3's 100k cells
+# (768 cells a block for one row, 3,040 for the Yi batch of 4) and the banded
+# shaft's 104,280 (800 and 3,168): (W, Krylov slices b and x, diagonal,
+# pairs) in float32 and float64
+K3_SPLITS = {
+    (12, 768): ((100, 2, 1, 12), (100, 2, 1, 12)),
+    (12, 800): ((100, 2, 1, 12), (100, 2, 1, 12)),
+    (12, 3040): ((100, 2, 1, 7), (100, 2, 1, 2)),
+    (12, 3168): ((100, 2, 1, 7), (100, 2, 1, 2)),
+    (34, 768): ((87, 2, 1, 34), (87, 2, 1, 16)),  # float32: every slice resident
+    (34, 800): ((87, 2, 1, 34), (87, 2, 1, 15)),
+    (34, 3040): ((87, 2, 1, 7), (87, 2, 1, 2)),
+    (34, 3168): ((87, 2, 1, 7), (87, 2, 1, 2)),
+    (62, 768): ((62, 2, 1, 35), (62, 2, 1, 16)),
+    (62, 800): ((62, 2, 1, 34), (62, 2, 1, 16)),
+    (62, 3040): ((62, 2, 1, 7), (62, 2, 1, 2)),
+    (62, 3168): ((62, 2, 1, 7), (62, 2, 1, 2)),
+}
+K3_OFFSETS = {12: OFFS_12, 34: OFFS_34, 62: OFFS_62}
+
+
+@pytest.mark.parametrize("esize", [4, 8])
+@pytest.mark.parametrize("K,L", sorted(K3_SPLITS))
+def test_smooth_residency_splits_above_3_offsets(K, L, esize):
+    """K3 above 3 offsets fills a block's bytes as K1 and K2 do: the window
+    (the near band: 1-100 of OFFS_12, all of OFFS_34 and OFFS_62), b and x,
+    the diagonal, then the pairs that still fit. Where the lattice rule
+    kept every slice (34 offsets, float32, 768 cells) the split keeps them
+    too; where it streamed every slice the split still keeps the window,
+    b, x, d and some pairs. window=0 gives the window's bytes to the pairs;
+    a window that does not fit raises."""
+    offs = K3_OFFSETS[K]
+    budget = F32_H100 if esize == 4 else MAX_SMEM_H100
+    split = dia_krylov.residency("smooth", offs, L, esize, budget)
+    assert split[:4] == K3_SPLITS[K, L][esize == 8]
+    assert split.bytes == _slice_bytes(split, L, esize) <= budget
+    assert split.bytes + 2 * L * esize > budget or split.pairs == K
+    lattice_rule = (3 + 2 * K) * L * esize <= budget
+    assert lattice_rule == ((K, L, esize) in ((12, 768, 4), (12, 768, 8), (12, 800, 4),
+                                              (12, 800, 8), (34, 768, 4), (34, 800, 4)))
+    if lattice_rule:
+        assert split.pairs == K
+    none = dia_krylov.residency("smooth", offs, L, esize, budget, window=0)
+    assert none.window == 0 and none[1:3] == split[1:3] and none.pairs >= split.pairs
+    with pytest.raises(ValueError):
+        dia_krylov.residency("smooth", offs, L, esize, budget, window=budget // esize)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name", ["pcg", "bicgstab"])
+@pytest.mark.parametrize("name", ["pcg", "bicgstab", "smooth"])
 @pytest.mark.parametrize("window", [None, 0, 3])
 def test_launch_passes_the_split_above_3_offsets(monkeypatch, name, dtype, window):
-    """K1/K2 on 34 offsets over 2 blocks of 512 cells: the entry point gets
+    """K1-K3 on 34 offsets over 2 blocks of 512 cells: the entry point gets
     the plan's residency split (`window` as asked), its bytes as the dynamic
     shared memory; resident=False passes none."""
     card = _FakeCard(monkeypatch)
@@ -524,7 +574,7 @@ def test_launch_passes_the_split_above_3_offsets(monkeypatch, name, dtype, windo
     ops = (4.0 + r(nC), -r(K * nC), -r(K * nC), r(nC), r(nC))
     for resident in (True, False):
         dia_krylov._launch(name, *ops, OFFS_34, 1e-6, 0.0, 50, window=window,
-                           resident=resident)
+                           resident=resident, extra=(0.8, 4) if name == "smooth" else ())
         fn_name, args = card.calls.pop()
         assert fn_name == f"ffk_{name}_grid_{'f32' if dtype == torch.float32 else 'f64'}"
         assert len(args) == len(dia_krylov.signatures()[fn_name])

@@ -61,6 +61,12 @@ JAX, so it also runs on a machine that has only PyTorch:
   shaft's 800-cell blocks at 34 offsets keeping most slices resident; the
   far offsets of OFFS_12 read from L2 (bitwise a window serving all of
   them); the 64-offset maximum.
+* K3 above 3 offsets (its split kernel: the window of the iterate, the
+  residency split, the unrolled stencil) at 12, 34 and 62 offsets on 100k
+  cells, one row and the Yi batch's 4 rows, float32 and float64: bitwise its
+  window=0 and all-streamed runs, the plain version's within the
+  tolerances above (float64: equal sweep counts); and at a fixed number of
+  sweeps on the shaft's blocks bitwise the one-block-per-row kernel's x.
 """
 
 import numpy as np
@@ -1199,3 +1205,61 @@ def test_window_path_at_64_offsets(dtype):
         slack, xtol = _tolerances(name, dtype)
         assert abs(int(got.n_iterations) - int(ref.n_iterations)) <= slack
         assert float((got.x - ref.x).abs().max() / ref.x.abs().max()) <= xtol
+
+
+# ------------------------------------------------------------------------
+# K3 above 3 offsets: the split kernel (window of the iterate, residency by
+# operand, unrolled stencil), bit for bit its window=0 run
+# ------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K", [12, 34, 62])
+@pytest.mark.parametrize("B", [1, 4])
+def test_smooth_window_path_equals_l2_path_bitwise(B, K, dtype):
+    """K3 on 100k cells at 12, 34 and 62 offsets, one row (h, k) and the Yi
+    batch's 4 rows (a matrix each, as the step stacks them): the split kernel against
+    window=0 (every neighbour from L2 through the same stencil) and against
+    every slice streamed, bitwise in x, residuals and sweep counts; against
+    plain_smooth with the file's tolerances (float64: equal counts)."""
+    _need_cuda()
+    offs = SPLIT_OFFSETS[K]
+    n, mx, extra = 100_000, 800, (0.8, 4)
+    ops = _system_k(K + 11 * B, B, False, B == 1, dtype, offs, n=n)
+    plan, split = dia_krylov._grid_launch_plan("smooth", dtype, B, n, offs,
+                                               ops[0].element_size())
+    assert plan.grid_wide and 0 < split.window <= 100 and split.krylov == 2 and split.diag
+    before = dia_krylov.DEVICE_LAUNCHES["smooth_grid"]
+    got = dia_krylov.dia_smooth(*ops, offs, tol=1e-8, max_iter=mx)
+    l2 = dia_krylov._launch("smooth", *ops, offs, 1e-8, 0.0, mx, extra=extra, window=0)
+    streamed = dia_krylov._launch("smooth", *ops, offs, 1e-8, 0.0, mx, extra=extra,
+                                  resident=False)
+    torch.cuda.synchronize()
+    assert dia_krylov.DEVICE_LAUNCHES["smooth_grid"] == before + 3
+    assert _same_solve(got, l2) and _same_solve(got, streamed)
+    ref = dia_krylov.plain_smooth(*ops, offs, tol=1e-8, max_iter=mx)
+    slack, xtol = _tolerances("smooth", dtype)
+    its = (got.n_iterations.cpu().numpy(), ref.n_iterations.cpu().numpy())
+    assert np.all(np.abs(its[0] - its[1]) <= slack), its
+    assert np.all(its[1] > 0)
+    rel = float((got.x - ref.x).abs().max() / ref.x.abs().max())
+    assert rel <= xtol, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K", [34, 62])
+def test_smooth_split_kernel_equals_one_block_per_row_bitwise(K, dtype):
+    """A fixed budget of sweeps (tol 0, as in
+    test_smooth_grid_kernel_equals_one_block_per_row_bitwise) through the
+    split K3 and through smooth_kernel, which reads its stencil in a loop
+    from global memory: the same x bitwise, on the banded shaft's 104,280
+    cells in its 800-cell blocks."""
+    _need_cuda()
+    offs = SPLIT_OFFSETS[K]
+    n = 104_280
+    ops = _system_k(K + 5, 1, False, True, dtype, offs, n=n)
+    plan, split = dia_krylov._grid_launch_plan("smooth", dtype, 1, n, offs,
+                                               ops[0].element_size())
+    assert plan.cells_per_block == 800 and split.window == max(o for o in offs if o <= 400)
+    runs = [dia_krylov._launch("smooth", *ops, offs, 0.0, 0.0, 32, extra=(0.8, 4), **kw)
+            for kw in (dict(), dict(grid_wide=False))]
+    assert [int(r.n_iterations) for r in runs] == [32, 32]
+    assert torch.equal(runs[0].x, runs[1].x)

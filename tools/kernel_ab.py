@@ -1,4 +1,4 @@
-"""Time the port's grid-wide K1/K2/K3 and the banded shaft's step for one
+"""Time the port's grid-wide K1/K2/K3 and the banded shaft's steps for one
 checkout of firefoam_torch, so that two checkouts can be compared in one
 call on one card (run it for each, in turns: A, B, B, A).
 
@@ -9,19 +9,25 @@ Prints one JSON line (and writes it to --out):
   * "solves": float32 solves on random diagonally dominant systems of 100k
     cells (numpy, seed 0): K1 (B = 1 and 3 shared rows), K2 and K3 (B = 1) on
     the (50, 40, 50) lattice's 3 offsets and on the banded shaft's 34 and
-    the renumbered box's 62 (K3 on the lattice only): ms a solve (CUDA
-    events over 20 launches after one) and iterations;
+    the renumbered box's 62: ms a solve (CUDA events over 20 launches after
+    one), iterations and the first 16 hex digits of the SHA-256 of x's bytes
+    (two checkouts whose kernels add in the same order print the same);
   * "shaft": the 104,280-cell castellated shaft on layout="banded" in
     float32 (write_castellated_fire_case n=(8, 8, 1500), size (0.4, 0.4,
     75)): ms/step of make_chunk(6) from t = 0 (host clock), then one step
     under torch.profiler: device-busy ms, launches, and each of the port's
-    kernels' ms a launch.
+    kernels' ms a launch;
+  * "smooth_shaft": the smoothSolver fire (write_smooth_fire_case, Yi, h and
+    k on K3) castellated into the same shaft (its mesh reused), through the
+    run CLI's engine (run_case, layout "banded", chunks of 4): ms/step over
+    8 steps from t = 0, then one step from there profiled as above.
 Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -73,17 +79,18 @@ def solves(torch, dk):
     lattice = (1, LATTICE[0], LATTICE[0] * LATTICE[1])
     out = {}
     for offs in (lattice, OFFS_34, OFFS_62):
-        cases = [("bicgstab", 1), ("bicgstab", 3), ("pcg", 1)]
-        if len(offs) == 3:
-            cases.append(("smooth", 1))
-        for name, B in cases:
+        for name, B in (("bicgstab", 1), ("bicgstab", 3), ("pcg", 1), ("smooth", 1)):
             ops = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
                    for a in system(rng, n, offs, B, name == "pcg")]
             kw = dict(tol=1e-8, rel_tol=0.0, max_iter=60 if name == "smooth" else 1000)
             fn = getattr(dk, f"dia_{name}")
             run = lambda: fn(*ops, offs, **kw)
-            its = int(run().n_iterations.max())
-            out[f"{name}_B{B}_k{len(offs)}"] = {"ms": time_ms(torch, run), "iterations": its}
+            res = run()
+            torch.cuda.synchronize()
+            sha = hashlib.sha256(res.x.cpu().numpy().tobytes()).hexdigest()[:16]
+            out[f"{name}_B{B}_k{len(offs)}"] = {"ms": time_ms(torch, run),
+                                                "iterations": int(res.n_iterations.max()),
+                                                "x_sha256": sha}
     return out
 
 
@@ -92,14 +99,39 @@ def kernel_key(name: str) -> str:
     return re.split(r"[<(]", key)[0]
 
 
-def shaft(torch):
-    from firefoam_torch.models.firefoam import FireFoamSolver
+def profile_one(torch, solver, state):
+    """One step from `state` under torch.profiler: device-busy ms, launches
+    and each of the port's grid-wide and many-rows kernels' ms a launch."""
     from firefoam_torch.profile_step import busy_us, device_events, kernel_launches
-    from firefoam_torch.utils.synthcase import write_castellated_fire_case
 
+    step = solver.make_step()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(state)
+        torch.cuda.synchronize()
+    dev, _ = device_events(prof)
+    mine = {}
+    for name, s, e in dev:
+        key = kernel_key(name)
+        if key.endswith("_kernel") and ("grid" in key or "rows" in key):
+            ms, count = mine.get(key, (0.0, 0))
+            mine[key] = (ms + (e - s) / 1e6, count + 1)
+    return {"device_busy_ms": busy_us(dev) / 1e3, "launches": kernel_launches(dev),
+            "kernels": {k: {"ms_per_launch": v[0] / v[1], "launches": v[1]}
+                        for k, v in mine.items()}}
+
+
+def shafts(torch):
+    import firefoam_torch.models.firefoam as firefoam_mod
+    from firefoam_torch.models import run as run_cli
+    from firefoam_torch.models.firefoam import FireFoamSolver
+    from firefoam_torch.utils.synthcase import (castellate_case, write_castellated_fire_case,
+                                                write_smooth_fire_case)
+
+    size = (0.4, 0.4, 75.0)
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
         case = write_castellated_fire_case(os.path.join(tmp, "shaft"), n=(8, 8, 1500),
-                                           size=(0.4, 0.4, 75.0))
+                                           size=size)
         solver = FireFoamSolver(case, device="cuda", layout="banded")
         chunk = solver.make_chunk(6)
         state0 = solver.initial_state()
@@ -108,23 +140,28 @@ def shaft(torch):
         state, _ = chunk(state0)
         torch.cuda.synchronize()
         ms_step = 1e3 * (time.perf_counter() - t0) / 6
-        step = solver.make_step()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            step(state)
-            torch.cuda.synchronize()
-        dev, _ = device_events(prof)
-        mine = {}
-        for name, s, e in dev:
-            key = kernel_key(name)
-            if key.endswith("_kernel") and ("grid" in key or "rows" in key):
-                ms, count = mine.get(key, (0.0, 0))
-                mine[key] = (ms + (e - s) / 1e6, count + 1)
-        return {"cells": solver.geom.n_cells, "offsets": len(solver.geom.offsets),
-                "ms_per_step": ms_step, "device_busy_ms": busy_us(dev) / 1e3,
-                "launches": kernel_launches(dev),
-                "kernels": {k: {"ms_per_launch": v[0] / v[1], "launches": v[1]}
-                            for k, v in mine.items()}}
+        out = {"shaft": {"cells": solver.geom.n_cells, "offsets": len(solver.geom.offsets),
+                         "ms_per_step": ms_step, **profile_one(torch, solver, state)}}
+        cm = solver.cm
+        del solver, state, state0, chunk
+
+        smooth = write_smooth_fire_case(os.path.join(tmp, "smooth_shaft"), n=(8, 8, 1500),
+                                        size=size, end_time=100.0, write_control="runTime",
+                                        write_interval=1e3)
+        castellate_case(smooth, size=size)
+        orig = firefoam_mod.build_case_mesh
+        firefoam_mod.build_case_mesh = lambda case_dir: cm  # the same castellation
+        try:
+            stats = {}
+            solver, state, _ = run_cli.run_case(smooth, max_steps=8, verbose=False, chunk=4,
+                                                layout="banded", stats=stats)
+        finally:
+            firefoam_mod.build_case_mesh = orig
+        out["smooth_shaft"] = {
+            "offsets": len(solver.geom.offsets),
+            "ms_per_step": 1e3 * stats["step_seconds"] / stats["steps"],
+            **profile_one(torch, solver, state)}
+        return out
 
 
 def main():
@@ -140,8 +177,7 @@ def main():
     from firefoam_torch.solvers import dia_krylov as dk
 
     out = {"root": args.root, "card": torch.cuda.get_device_name(0),
-           "build_s": dk.build_seconds(),
-           "solves": solves(torch, dk), "shaft": shaft(torch)}
+           "build_s": dk.build_seconds(), "solves": solves(torch, dk), **shafts(torch)}
     line = json.dumps(out)
     print(line)
     if args.out:
