@@ -27,9 +27,11 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      (OFFS_62: the renumbered box's), float32 and float64, against their
      plain versions (float64: equal counts), timed with their bounds and
      launch modes; there K1's grid-wide rows, K2 and K3 (the split kernels:
-     their window's W and residency split printed) also run with window=0,
-     bitwise equal in x, residuals and counts, timed in turns beside it
-     (at 12 offsets also a window that serves every offset); and K1 in
+     their window's W and residency split printed) and K1's 16 rows (the
+     many-rows kernel: its windows' W and the cells a lane takes at once in
+     the matvec passes printed) also run with window=0, bitwise equal in x,
+     residuals and counts, timed in turns beside it (the split kernels at
+     12 offsets also with a window that serves every offset); and K1 in
      float64 on a poorly
      conditioned 12-offset system (the lattice's diagonal excess), held to
      the plain version by its true residual;
@@ -140,7 +142,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      step, the lanes, their coverage and the rest faces, PairMG's levels
      and host seconds; one p_rgh system through PairMG-CG and the
      Jacobi-CG twin on hybrid, beside amg_pcg's on SEG; and the 10k fire on
-     hybrid with PairMG, 5 steps, card float64 against the CPU within CPU_TOL and
+     hybrid with PairMG, 3 steps, card float64 against the CPU within CPU_TOL and
      float32 against float64 within the T drift band;
  12. the Lagrangian sprinkler spray (write_spray_fire_case: the box fire with
      a detailed-sprinkler head spraying from t = 0, cloud radiation in
@@ -238,7 +240,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      p_rgh iterations (tests/test_spmd_gmg.py's bounds), and with every
      solve taken to 1e-10 the fields (that test's bounds on T, p_rgh and
      U); the 100k sprinkler fire in 4
-     RCB parts, 3 float64 steps: parcels equal and spray mass within 1e-8
+     RCB parts, 2 float64 steps: parcels equal and spray mass within 1e-8
      each step against the single card's SEG flat run, parcels migrating
      (seeded across the parts if none cross by themselves), none
      overflowing, alive on more than one rank. The three runs in 4 parts
@@ -253,7 +255,10 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      ms/step, launches, host reads, device-busy ms and the top device
      kernels of a step beside the same mesh (meshed once) on SEG (AMG and
      the twins) in this call, K1's and K2's device ms a launch in that
-     profiled step, K2's residency split; one p_rgh system through
+     profiled step, K2's residency split; one radiation step from the
+     state after the chunk (its counter set so that it solves the 16 rays)
+     profiled: the many-rows kernel's device ms on the rays at 34 offsets,
+     its windows' W, iterations and bounds; one p_rgh system through
      K2, its plain version (the CG twin) and, on SEG, amg_pcg; the (4,4,60)
      column in float64, 10 steps card vs CPU within CPU_TOL with every
      step's counts equal, and one step from the CPU's state within STEP_TOL
@@ -272,7 +277,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      many-rows kernels); ms/step over chunks, write seconds, K3's residency
      split per launch shape, and from one profiled step after the
      checkpoint its launches, host reads, device-busy ms and K3's device ms
-     a launch; then the (4,4,60) smoothSolver column in float64, 10 steps
+     a launch, with its three launches' sweep counts and bounds; then the
+     (4,4,60) smoothSolver column in float64, 10 steps
      card vs CPU within SMOOTH_COLUMN_TOL with every step's counts equal,
      and one step from the CPU's state within STEP_TOL with equal counts;
  18. the kernels' JSON line (with launches_multiphase_path,
@@ -374,8 +380,9 @@ PROFILE_STEPS = 1
 SEG_F64_STEPS = 10
 CASTEL_CHUNK = 10
 # the 10k castellated fire on hybrid against the CPU (the CPU's hybrid step
-# is the slowest of phase 11's 10k runs)
-HYBRID_SMALL_STEPS = 5
+# is the slowest of phase 11's 10k runs; 3 steps, cut from 5 for the
+# script's time limit)
+HYBRID_SMALL_STEPS = 3
 # above propane's adiabatic flame temperature in air (about 2,270 K) and
 # below the thermo's upper clip: a diverged run sits at the clip
 T_FLAME_MAX = 3000.0
@@ -490,7 +497,7 @@ SHARD_WARM = 10
 # 1200 s limit on the slowest host measured (PERF.md §7)
 SHARD_F32_STEPS = 3
 SHARD_GMG_STEPS = 2
-SHARD_SPRAY_STEPS = 3
+SHARD_SPRAY_STEPS = 2  # cut from 3 for the script's time limit
 SHARD_TOL = 1e-10
 SHARD_GMG_TOL = {"T": 1e-6, "p_rgh": 1e-4, "U": 1e-5}
 SHARD_MASS_TOL = 1e-8
@@ -695,11 +702,12 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
     blocks, the launch's mode (slices resident in shared memory, streamed
     from L2, the residency split, or the many-rows kernel) and plain times
     go into stats[name]["k<K>"], float64's into stats[name]["k<K>_f64"].
-    K1's grid-wide rows, K2 and K3 above 3 offsets (the split kernels) also
-    run with window=0 (every offset from L2 through the same unrolled stencil):
-    x, residuals and counts must be bitwise equal, and both are timed in
-    turns (window, window=0, window=0, window); at 12 offsets also with a
-    window that serves every offset (W = the largest offset)."""
+    K1's grid-wide rows, K2 and K3 above 3 offsets (the split kernels) and
+    K1's B = 16 rows above 8 (the many-rows kernel's windows) also run with
+    window=0 (every offset from L2 through the same unrolled stencil): x,
+    residuals and counts must be bitwise equal, and both are timed in turns
+    (window, window=0, window=0, window); the split kernels at 12 offsets
+    also with a window that serves every offset (W = the largest offset)."""
     rng = torch.Generator(device=dev).manual_seed(seed)
     # K3's B = 4 rows draw from a generator of their own, so that the other
     # systems stay those of the earlier runs
@@ -736,11 +744,20 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
             kernel = (device_kernel(plan) if name == "bicgstab" else
                       f"{name}_grid" if plan.grid_wide else name)
             wide = plan.grid_wide and not plan.rows and K > 3
-            if wide:
-                mode = (f"split: window W={split.window}, Krylov slices "
-                        f"{split.krylov}/{dia_krylov._GRID[name][1] - 1}, diagonal "
-                        f"{'resident' if split.diag else 'streamed'}, pairs {split.pairs}/{K} "
-                        f"resident")
+            # K1's many-rows kernel above 8 offsets: its windows (W) and the
+            # cells a lane takes at once (CB) in the matvec passes
+            rows_win = plan.rows and K > dia_krylov.ROWS_REG_OFFSETS
+            cells = dia_krylov.ROWS_MV_CELLS[x0.element_size()]
+            if wide or rows_win:
+                if wide:
+                    mode = (f"split: window W={split.window}, Krylov slices "
+                            f"{split.krylov}/{dia_krylov._GRID[name][1] - 1}, diagonal "
+                            f"{'resident' if split.diag else 'streamed'}, pairs "
+                            f"{split.pairs}/{K} resident")
+                else:
+                    served = sum(o <= split.window for o in offs)
+                    mode = (f"rows: windows W={split.window} ({served}/{K} offsets), CB={cells} "
+                            f"cells a lane in the matvec passes, {split.bytes} B shared")
                 extra = SMOOTH_EXTRA if name == "smooth" else ()
                 run_0 = lambda **w: dia_krylov._launch(name, d, up, lo, b, x0, offs, 1e-8, 0.0,
                                                        args["max_iter"], extra=extra, **w)
@@ -752,7 +769,7 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
                 ms_0b, ms_b = time_ms(lambda: run_0(window=0), reps=20), time_ms(run_k, reps=20)
                 ms_k, ms_0 = min(ms_a, ms_b), min(ms_0a, ms_0b)
                 ms_all = (time_ms(lambda: run_0(window=max(offs)), reps=20)
-                          if K == len(OFFS_12) and dtype == torch.float32 else None)
+                          if wide and K == len(OFFS_12) and dtype == torch.float32 else None)
             else:
                 mode = ("rows" if plan.rows else "resident" if split.bytes else
                         "streamed" if plan.grid_wide else "one block a row")
@@ -766,7 +783,7 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
                    f"iters kernel {it_k.tolist()} plain {it_p.tolist()} max rel err {rel:.3e} "
                    f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms; bound {bnd:.4f} ms ({by}); "
                    f"streamed {stm:.4f} ms; latency {lat:.4f} ms")
-            if wide:
+            if wide or rows_win:
                 say(3, f"{name} {str(dtype)[6:]} {K} offsets B={B}: window=0 (every offset from "
                        f"L2, the same stencil): x, residuals and iterations bitwise equal "
                        f"{same}; in turns window {ms_a:.3f} / {ms_b:.3f} ms, window=0 "
@@ -784,8 +801,12 @@ def phase_kernels_k(dev, stats, sync_s, offs, seed):
             row = {"ms": ms_k, "plain_ms": ms_p, "iterations": int(np.max(it_k))}
             if wide:
                 row.update(window=split.window, krylov=split.krylov, diag=split.diag,
-                           pairs=split.pairs, window0_ms=ms_0,
-                           ms_turns=[ms_a, ms_b], window0_ms_turns=[ms_0a, ms_0b])
+                           pairs=split.pairs)
+            if rows_win:
+                row.update(window=split.window, cells=cells, shared_bytes=split.bytes)
+            if wide or rows_win:
+                row.update(window0_ms=ms_0, ms_turns=[ms_a, ms_b],
+                           window0_ms_turns=[ms_0a, ms_0b])
                 if ms_all is not None:
                     row["window_all_ms"] = ms_all
             if dtype == torch.float32:
@@ -1180,13 +1201,17 @@ def norm_residual(m, x, x0):
     return float(torch.sum(torch.abs(b - mv(x))) / norm)
 
 
-def capture(obj, attr, call):
-    """The argument tuples `obj.attr` receives while `call()` runs."""
+def capture(obj, attr, call, results=None):
+    """The argument tuples `obj.attr` receives while `call()` runs (and its
+    return values appended to `results`, where given)."""
     got, orig = [], getattr(obj, attr)
 
     def shim(*a, **k):
         got.append(a)
-        return orig(*a, **k)
+        out = orig(*a, **k)
+        if results is not None:
+            results.append(out)
+        return out
 
     setattr(obj, attr, shim)
     try:
@@ -3971,6 +3996,39 @@ def plain_p_rgh(solver):
                                  step=solver.step)
 
 
+def shaft_rays(solver, state, nC):
+    """One radiation step of the banded shaft from `state` (its counter set
+    so that the step solves the rays), profiled: the many-rows kernel's
+    device ms on the rays' batch (34 offsets), its rows, windows,
+    iterations and bounds, and the step's device-busy ms."""
+    due = dict(state, rad=dict(state["rad"], count=torch.zeros_like(state["rad"]["count"])))
+    res, prof = [], []
+    args = capture(dia_krylov, "_launch", lambda: prof.append(
+        top_kernels(solver.make_step(), due)), res)
+    _, busy, by_name = prof[0]
+    rays = [(a, r) for a, r in zip(args, res) if a[0] == "bicgstab" and a[5].ndim == 2
+            and dia_krylov.takes_rows(a[5].shape[0])]
+    if "bicgstab_rows_kernel" not in by_name or len(rays) != 1:
+        raise SystemExit("phase 16: the shaft's radiation step did not solve its rays on the "
+                         "many-rows kernel")
+    ms, launches = by_name["bicgstab_rows_kernel"]
+    (a, r), = rays
+    B, K = a[5].shape[0], len(a[6])
+    its = r.n_iterations.cpu().numpy()
+    _, split = dia_krylov._grid_launch_plan("bicgstab", torch.float32, B, nC, a[6], 4)
+    out = {"ms_per_launch": ms / launches, "launches": launches, "rows": B, "offsets": K,
+           "window": split.window, "iterations": its.tolist(),
+           "bound_ms": bound("bicgstab", torch.float32, a[1:6], its, K)[0],
+           "streamed_ms": streamed_ms("bicgstab", torch.float32, nC, its, K),
+           "device_busy_ms": busy}
+    say(16, f"banded shaft's radiation step (profiled from the state after the chunk): "
+            f"bicgstab_rows_kernel {out['ms_per_launch']:.4f} ms a launch ({launches} launch) on "
+            f"{B} rays x {nC} cells, {K} offsets, windows W={split.window}, iterations "
+            f"{out['iterations']}; bound {out['bound_ms']:.4f} ms, streamed "
+            f"{out['streamed_ms']:.4f} ms; the step's device busy {busy:.3f} ms")
+    return out
+
+
 def banded_shaft(dev, tmp, n=None):
     """The slender castellated fire (the "shaft", long along z) on the
     banded layout in float32 (K1 and K2 serve it) beside the same mesh on
@@ -4042,6 +4100,7 @@ def banded_shaft(dev, tmp, n=None):
         for k, v in in_step.items()))
     if len(in_step) != 2:
         raise SystemExit("phase 16: the profiled step shows no K1 or K2 launch")
+    in_step["rays"] = shaft_rays(solver, state, nC)
     cm = solver.cm
     p_rgh = p_rgh_solver_times(16, {"K2": solver, "CG twin (banded)": plain_p_rgh(solver)},
                                state, "104k banded shaft")
@@ -4223,6 +4282,25 @@ def same_mesh_inputs(a, b) -> bool:
     return all(text(a, f) == text(b, f) for f in MESH_INPUTS)
 
 
+def k3_launch_bounds(shapes, results, nC, ms):
+    """The sweeps, bounds ((ms, by)) and streamed ms of K3's launches in a
+    step, from their arguments and results; printed beside `ms`, the
+    step's device ms a launch."""
+    sweeps = [np.asarray(r.n_iterations.cpu()).reshape(-1) for r in results]
+    bounds = [bound("smooth", a[4].dtype, a[:5], its, len(a[5])) for a, its in
+              zip(shapes, sweeps)]
+    streamed = [streamed_ms("smooth", a[4].dtype, nC, its, len(a[5])) for a, its in
+                zip(shapes, sweeps)]
+    say(17, f"smooth shaft: K3's {len(shapes)} launches in that step (B = "
+            f"{[a[4].shape[0] if a[4].ndim == 2 else 1 for a in shapes]}): sweeps "
+            f"{[its.tolist() for its in sweeps]}; bound "
+            + ", ".join(f"{b:.4f} ms ({by})" for b, by in bounds)
+            + f" (mean {np.mean([b for b, _ in bounds]):.4f}); streamed "
+            + ", ".join(f"{v:.4f}" for v in streamed)
+            + f" ms (mean {np.mean(streamed):.4f}) beside {ms:.4f} ms a launch")
+    return sweeps, bounds, streamed
+
+
 def phase_smooth_shaft(dev, tmp, shaft_cm, shaft_case):
     """The banded smoothSolver shaft through the run CLI (see the module
     docstring); returns the launches of its writing run and its numbers."""
@@ -4242,11 +4320,11 @@ def phase_smooth_shaft(dev, tmp, shaft_cm, shaft_case):
         raise SystemExit("phase 17: the smooth shaft did not take OFFS_34 and the kernels")
     state = run_cli.load_checkpoint(out["checkpoint"], solver.initial_state())
     # one step after the checkpoint (no ray solve), profiled twice: launches,
-    # host reads and busy ms; the device ms by kernel. K3's launch shapes are
-    # read from the first.
-    prof = []
+    # host reads and busy ms; the device ms by kernel. K3's launch shapes and
+    # sweep counts are read from the first.
+    prof, k3_res = [], []
     shapes = capture(dia_krylov, "dia_smooth", lambda: prof.append(
-        step_profile(solver.make_step(), state, PROFILE_STEPS)))
+        step_profile(solver.make_step(), state, PROFILE_STEPS)), k3_res)
     _, k_step, r_step, busy = prof[0]
     _, _, by_name = top_kernels(solver.make_step(), state)
     if "smooth_grid_kernel" not in by_name:
@@ -4270,8 +4348,11 @@ def phase_smooth_shaft(dev, tmp, shaft_cm, shaft_case):
               f"({k3_n} launches)")
     if len(shapes) != 3 * PROFILE_STEPS or k3_n != 3:
         raise SystemExit("phase 17: the profiled step did not solve Yi, h and k on K3")
+    sweeps, k3_bound, k3_streamed = k3_launch_bounds(shapes, k3_res, nC, k3_ms / k3_n)
     out.update(k3_splits=splits, launches_per_step=k_step, host_reads_per_step=r_step,
                device_busy_ms=busy, k3_in_step_ms=k3_ms / k3_n,
+               k3_in_step_sweeps=[its.tolist() for its in sweeps],
+               k3_in_step_bound_ms=[b for b, _ in k3_bound], k3_in_step_streamed_ms=k3_streamed,
                top_kernels={k: {"ms": v[0], "launches": v[1]} for k, v in sorted(
                    by_name.items(), key=lambda kv: -kv[1][0])[:6]},
                by_kernel=by_kernel)

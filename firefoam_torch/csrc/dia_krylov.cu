@@ -109,7 +109,8 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kMaxOffsets = 64;  // the banded layout's budget (ops/geometry.py)
 // bicgstab_rows_kernel's offsets held in registers: K = 3 (a lattice) or up
-// to kRegOffsets; from there to kMaxOffsets the stencil is read in a loop
+// to kRegOffsets; from there to kMaxOffsets its matvecs read the exchanged
+// vector through a window per warp and the stencil in unrolled runs
 constexpr int kRegOffsets = 8;
 
 template <typename T> struct Lim;
@@ -143,8 +144,9 @@ struct Params {
   int bpr;                       // blocks per batch row
   int L;                         // cells per block (the last of a row may own fewer)
   int resident;                  // 1: the block's slices live in dynamic shared memory
-  // K1 and K2 above 3 offsets (the wrapper's residency split) instead:
-  int W;                         // the window serves offsets up to W (0: no window)
+  // K1-K3 above 3 offsets (the wrapper's residency split) instead:
+  int W;                         // the window serves offsets up to W (0: no window;
+                                 // also bicgstab_rows_kernel's above kRegOffsets)
   int nkry;                      // Krylov slices resident, in the order the kernel takes them
   int dres;                      // 1: the diagonal's slice resident
   int npairs;                    // the first npairs offsets' upper and lower slices resident
@@ -1095,6 +1097,33 @@ __global__ void __launch_bounds__(kThreads) bicgstab_grid_kernel(Params<T> p) {
 // x[c±o] of p-hat and s-hat too. The passes after a publish (2 and 4) walk
 // the rows backwards, so the rows written last, still in L2, are read
 // first (0.7-3.4 % from 16 rows on an H100).
+//   Above kRegOffsets offsets (9-64: the hybrid and banded layouts) a
+// cell's matvec takes 2K coefficients, which stream from HBM, and 2K
+// neighbours, which a loop over a runtime K read from L2 a few terms a
+// round with a branch each (39 % of the streamed bound at 34 and 62
+// offsets, B = 16, on an H100). Its matvec passes (A·x0 and A·x̄ in the
+// prologue, v = A·p-hat, t = A·s-hat) change in three ways:
+//   - a window per warp: the warp that takes an item copies the row's
+//     vector over [cs − W, cs + kChunk + W) (cs: the chunk's first cell)
+//     into its own slice of shared memory in one coalesced pass of
+//     ld.global.cg, 0 outside the row, and the stencil reads every offset
+//     up to W there, the far ones from L2; a warp still never waits for a
+//     block barrier in a pass (RowsWindow, warp_window);
+//   - the unrolled stencil: the terms run in runs whose source is fixed at
+//     compile time (the window, L2), kRowsStencilChunk offsets at a time,
+//     every load of a chunk issued before any of its terms is added
+//     (rows_run);
+//   - kRowsMvCells cells of a lane at once in the matvec passes, where the
+//     loop took one.
+// The sums add in off_sum's order (own over k, then nei over k, then
+// d·x + (own + nei), each product fused or not as the loop compiled; see
+// RowsWindow), so x, the residuals and the counts are bit for bit the
+// loop's and those of the wrapper's window=0 (the same runs, every
+// neighbour from L2). The coefficients are not staged (see above): only x
+// is reused, 2K times a cell. W comes from the wrapper's rule
+// (solvers/dia_krylov.py `rows_window`): the near band, where the 32
+// windows fit beside the rows' own bytes (its times on an H100: PERF.md
+// §6).
 constexpr int kWarps = kThreads / 32;
 constexpr int kLaneCells = 4;
 constexpr int kChunk = 32 * kLaneCells;
@@ -1102,6 +1131,16 @@ constexpr int kGroupItems = 1024;  // items whose partials a block holds at once
 constexpr int kMaxRows = kThreads;  // one thread a row in the list scan
 // from this many rows the row totals are summed in two stages (rows_reduce)
 constexpr int kRowsTwoStage = 64;
+// the farthest offset a window of the many-rows kernel serves: a window
+// spans at most three chunks
+constexpr int kRowsReach = kChunk;
+// offsets a lane takes at once in rows_run, and the cells of a lane whose
+// stencils run together in the matvec passes above kRegOffsets offsets:
+// the fastest of the pairs tools/rows_sweep.py timed at B = 16 per row on
+// an H100 (PERF.md §6; ptxas caps the kernel at 64 registers)
+constexpr int kRowsStencilChunk = 2;
+template <typename T>
+constexpr int kRowsMvCells = sizeof(T) == 4 ? 4 : 2;
 enum : int { kActive = 1, kRestart = 2, kRetry = 4, kWork = 8, kFailed = 16 };
 
 template <typename T>
@@ -1122,6 +1161,13 @@ __host__ __device__ constexpr size_t rows_smem_bytes(int B) {
          align16(33 * sizeof(int));
 }
 
+// and behind them, above kRegOffsets offsets with a window of W cells a
+// side, the warps' windows [kWarps][kChunk + 2W]
+template <typename T>
+__host__ __device__ constexpr size_t rows_window_bytes(int W) {
+  return W > 0 ? (size_t)kWarps * (kChunk + 2 * (size_t)W) * sizeof(T) : 0;
+}
+
 template <typename T>
 struct Rows {
   int B, nblk, c0, n, nch;
@@ -1131,6 +1177,7 @@ struct Rows {
   int* act;
   int* wrk;
   int* scan;
+  T* win;  // this warp's window (p.W > 0)
 };
 
 template <typename T>
@@ -1153,6 +1200,8 @@ __device__ __forceinline__ Rows<T> rows_view(const Params<T>& p, unsigned char* 
   rw.wrk = rw.act + rw.B;
   m += align16(2 * (size_t)rw.B * sizeof(int));
   rw.scan = reinterpret_cast<int*>(m);
+  m += align16(33 * sizeof(int));
+  rw.win = reinterpret_cast<T*>(m) + (threadIdx.x >> 5) * (kChunk + 2 * p.W);
   return rw;
 }
 
@@ -1195,11 +1244,22 @@ __device__ __forceinline__ int rows_list(const Rows<T>& rw, int bit, int* list) 
 // to memory per cell and per dependent load instead of per batch. With
 // N > 0 the block's partial of each row goes to slots[site + j][row][block]
 // (the chunks added in chunk order); the block's threads then meet at two
-// block barriers a group of kGroupItems items.
-template <typename T, int N, int CB, typename Ops, typename Load, typename Apply>
+// block barriers a group of kGroupItems items. `hooks` (the matvec passes
+// above kRegOffsets offsets: RowsWindow): hooks.begin(row, cs), by the
+// whole warp, before the lanes take the cells of the item's chunk (cs its
+// first cell), and hooks.mid(ops, i) between a lane's loads and its
+// applies (i: the first of the CB cells, c0 + i + 32·k the others).
+struct NoHooks {
+  __device__ __forceinline__ void begin(int, int) {}
+  template <typename Ops, int CB>
+  __device__ __forceinline__ void mid(Ops (&)[CB], int) {}
+};
+
+template <typename T, int N, int CB, typename Ops, typename Load, typename Apply,
+          typename Hooks = NoHooks>
 __device__ __forceinline__ void rows_pass(const Params<T>& p, const Rows<T>& rw, const int* list,
                                           int nlist, bool reverse, int site, Load load,
-                                          Apply apply) {
+                                          Apply apply, Hooks hooks = Hooks()) {
   constexpr int M = N > 0 ? N : 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int per = max(1, kGroupItems / rw.nch);
@@ -1209,6 +1269,7 @@ __device__ __forceinline__ void rows_pass(const Params<T>& p, const Rows<T>& rw,
       const int q = g0 + item / rw.nch;
       const int row = list[reverse ? nlist - 1 - q : q];
       const int i0 = (item % rw.nch) * kChunk + lane;
+      hooks.begin(row, rw.c0 + i0 - lane);
       T acc[M];
 #pragma unroll
       for (int j = 0; j < M; ++j) acc[j] = T(0);
@@ -1219,6 +1280,7 @@ __device__ __forceinline__ void rows_pass(const Params<T>& p, const Rows<T>& rw,
 #pragma unroll
         for (int k = 0; k < CB; ++k)
           load(row, rw.c0 + min(i0 + 32 * (k0 + k), rw.n - 1), ops[k]);
+        hooks.mid(ops, i0 + 32 * k0);
 #pragma unroll
         for (int k = 0; k < CB; ++k) {
           const int i = i0 + 32 * (k0 + k);
@@ -1298,8 +1360,8 @@ __device__ __forceinline__ void rows_reduce(cg::grid_group& grid, const Params<T
 // (3 on a lattice) or kRegOffsets with offsets k >= K read as offset 0; an
 // absent neighbour's pair is read at cell c itself. Both are left out of
 // the sums, which add in dia_row's order. KK = kMaxOffsets (9-64 offsets):
-// 4·K + 2 operands a cell spill already at K = 16, so the cell keeps d, x
-// at c and its row's pointers, and off_sum reads the stencil in a loop.
+// 4·K + 2 operands a cell spill already at K = 16, so the cell keeps d and
+// x at c, and RowsWindow::mid leaves its row of M·x (and of M·x̄) in y (ar).
 template <typename T, int KK>
 struct Cell0 {
   T d, xc, u[KK], xu[KK], l[KK], xl[KK];
@@ -1338,12 +1400,22 @@ __device__ __forceinline__ T off_sum(const Params<T>& p, const Cell0<T, KK>& s, 
   return own + nei;
 }
 
+// Row c of M·x (mv_y) and of M·x̄ (mv_ar, x̄ = xr) from a matvec pass's
+// operands: computed here from the registers at 3 and up to kRegOffsets
+// offsets; above, the pass's RowsWindow::mid has left them in the cell.
+template <typename T, int KK>
+__device__ __forceinline__ T mv_y(const Params<T>& p, const Cell0<T, KK>& s, int c) {
+  return s.d * s.xc + off_sum(p, s, c, false, T(0));
+}
+
+template <typename T, int KK>
+__device__ __forceinline__ T mv_ar(const Params<T>& p, const Cell0<T, KK>& s, int c, T xr) {
+  return s.d * xr + off_sum(p, s, c, true, xr);
+}
+
 template <typename T>
 struct Cell0<T, kMaxOffsets> {
-  T d, xc;
-  const T* up;
-  const T* lo;
-  const T* x;
+  T d, xc, y, ar;
 };
 
 template <typename T>
@@ -1352,35 +1424,184 @@ __device__ __forceinline__ void load_cell(const Params<T>& p, const T* d, const 
                                           Cell0<T, kMaxOffsets>& s) {
   s.d = __ldg(d + c);
   s.xc = __ldcg(xrow + c);
-  s.up = up;
-  s.lo = lo;
-  s.x = xrow;
 }
 
 template <typename T>
-__device__ __forceinline__ T off_sum(const Params<T>& p, const Cell0<T, kMaxOffsets>& s, int c,
-                                     bool constant, T xr) {
-  T own = T(0), nei = T(0);
-#pragma unroll 4
-  for (int k = 0; k < p.K; ++k) {
-    const int o = p.off[k];
-    if (c + o < p.nC)
-      own += __ldg(s.up + (long long)k * p.nC + c) * (constant ? xr : __ldcg(s.x + c + o));
+__device__ __forceinline__ T mv_y(const Params<T>&, const Cell0<T, kMaxOffsets>& s, int) {
+  return s.y;
+}
+
+template <typename T>
+__device__ __forceinline__ T mv_ar(const Params<T>&, const Cell0<T, kMaxOffsets>& s, int, T) {
+  return s.ar;
+}
+
+// Copy x[cs − W, cs + kChunk + W) of the row `x` (0 outside the row) into
+// the warp's window `win` in one coalesced pass of ld.global.cg, every
+// load before any store. The leading __syncwarp keeps the copy behind the
+// lanes that still read the previous item's window, the closing one makes
+// the window whole for every lane.
+template <typename T>
+__device__ __forceinline__ void warp_window(T* win, const T* x, int cs, int W, int nC) {
+  constexpr int U = (kChunk + 2 * kRowsReach) / 32;
+  const int lane = threadIdx.x & 31, len = kChunk + 2 * W, first = cs - W;
+  T v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = lane + 32 * u, c = first + j;
+    v[u] = j < len && c >= 0 && c < nC ? __ldcg(x + c) : T(0);
   }
-#pragma unroll 4
-  for (int k = 0; k < p.K; ++k) {
-    const int o = p.off[k];
-    if (c >= o)
-      nei += __ldg(s.lo + (long long)k * p.nC + c - o) * (constant ? xr : __ldcg(s.x + c - o));
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (lane + 32 * u < len) win[lane + 32 * u] = v[u];
+  __syncwarp();
+}
+
+// d·x rounded, then + s: not fused (see RowsWindow::mid)
+__device__ __forceinline__ float rounded_product_plus(float d, float x, float s) {
+  return __fadd_rn(__fmul_rn(d, x), s);
+}
+__device__ __forceinline__ double rounded_product_plus(double d, double x, double s) {
+  return __dadd_rn(__dmul_rn(d, x), s);
+}
+
+// stencil_run's scheme for a lane's CB cells at once, every coefficient
+// from global memory: the terms of offsets [kb, ke) of one side (Up:
+// u_k[c]·x[c+o], else l_k[c−o]·x[c−o]) for the cells c + 32·q, added to
+// acc[q] (Ref: u or l times xr to ref[q] too) in k order,
+// kRowsStencilChunk offsets at a time: a chunk issues the loads of all its
+// terms of every cell before it adds any, the run's last chunk too, whose
+// terms past ke add 0. `coef`
+// points at offset kb's coefficient of cell c in global memory (stride nC
+// between offsets; the lower one before its shift by o), `xs` at x[c] in
+// the window (Win: no load predicated, the window holds 0 outside the row)
+// or in the row (L2). A term is there iff o < lim[q] (Up) or o <= lim[q]:
+// the cells past the block's range have lim 0 or −1. An absent term adds
+// ±0, which leaves acc as it is (see stencil_run), so each sum is bit for
+// bit off_sum's, which skips the term.
+template <typename T, int CB, bool Up, bool Win, bool Ref>
+__device__ __forceinline__ void rows_run(T (&acc)[CB], T (&ref)[CB], const Params<T>& p, int kb,
+                                         int ke, const T* coef, const T* xs,
+                                         const int (&lim)[CB], T xr) {
+  constexpr int C = kRowsStencilChunk;
+  const long long nC = p.nC;
+#pragma unroll 1
+  for (int k = kb; k < ke; k += C, coef += C * nC) {
+    T a[C][CB], v[C][CB];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const bool live = k + j < ke;
+      const int o = live ? p.off[k + j] : 0;
+      const T* pa = coef + j * nC - (Up ? 0 : o);
+      const T* px = xs + (Up ? o : -o);
+#pragma unroll
+      for (int q = 0; q < CB; ++q) {
+        const bool in = live && (Up ? o < lim[q] : o <= lim[q]);
+        a[j][q] = in ? __ldg(pa + 32 * q) : T(0);
+        if constexpr (Win) v[j][q] = live ? px[32 * q] : T(0);
+        else v[j][q] = in ? __ldcg(px + 32 * q) : T(0);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+#pragma unroll
+      for (int q = 0; q < CB; ++q) {
+        acc[q] += a[j][q] * v[j][q];
+        if constexpr (Ref) ref[q] += a[j][q] * xr;
+      }
+    }
   }
-  return own + nei;
+}
+
+// The matvec passes' hooks above kRegOffsets offsets (rows_pass): begin()
+// takes the item's row and, with a window (p.W > 0), copies the row's
+// vector around the item's chunk into the warp's window; mid() runs the
+// stencil of a lane's CB cells — own over k (the leading nw offsets from
+// the window, the rest from L2), then nei likewise — and leaves row c of
+// M·x, d·x + (own + nei), in each cell's y (Ref, the prologue: row c of
+// M·x̄ in ar too, x̄ its row's xref). The stencil's terms are fused
+// multiply-adds, as in the loop (off_sum); d·x is fused into the sum in
+// the prologue and rounded before it in the v and t passes, as the loop
+// kernel compiles on sm_90a (there the product is taken before the
+// stencil's loop and added after it), so that x, the residuals and the
+// counts stay bit for bit the loop's.
+template <typename T, bool Ref>
+struct RowsWindow {
+  const Params<T>& p;
+  const Rows<T>& rw;
+  const RowState<T>* st;
+  const T* xb;   // the rows' vector: xb + row·xs
+  long long xs;
+  int nw;        // the leading offsets the window serves (those up to W; 0: none)
+  // the item's
+  const T* x;
+  const T* up;
+  const T* lo;
+  int cs;
+  T xr;
+
+  __device__ __forceinline__ void begin(int row, int first) {
+    x = xb + row * xs;
+    up = p.upper + row * p.su;
+    lo = p.lower + row * p.sl;
+    cs = first;
+    if constexpr (Ref) xr = st[row].xref;
+    if (p.W > 0) warp_window(rw.win, x, cs, p.W, p.nC);
+  }
+
+  template <typename Ops, int CB>
+  __device__ __forceinline__ void mid(Ops (&o)[CB], int i) {
+    const int c = rw.c0 + i;
+    int lu[CB], ll[CB];
+#pragma unroll
+    for (int q = 0; q < CB; ++q) {
+      const bool cell = i + 32 * q < rw.n;
+      lu[q] = cell ? p.nC - (c + 32 * q) : 0;
+      ll[q] = cell ? c + 32 * q : -1;
+    }
+    const long long nC = p.nC;
+    const T* xw = rw.win + p.W + (c - cs);  // xw[32·q ± o] = x[c + 32·q ± o], o <= W
+    const T* xg = x + c;
+    T own[CB], nei[CB], rown[CB], rnei[CB];
+#pragma unroll
+    for (int q = 0; q < CB; ++q) own[q] = nei[q] = rown[q] = rnei[q] = T(0);
+    rows_run<T, CB, true, true, Ref>(own, rown, p, 0, nw, up + c, xw, lu, xr);
+    rows_run<T, CB, true, false, Ref>(own, rown, p, nw, p.K, up + nw * nC + c, xg, lu, xr);
+    rows_run<T, CB, false, true, Ref>(nei, rnei, p, 0, nw, lo + c, xw, ll, xr);
+    rows_run<T, CB, false, false, Ref>(nei, rnei, p, nw, p.K, lo + nw * nC + c, xg, ll, xr);
+#pragma unroll
+    for (int q = 0; q < CB; ++q) {
+      if constexpr (Ref) {
+        o[q].m.y = o[q].m.d * o[q].m.xc + (own[q] + nei[q]);
+        o[q].m.ar = o[q].m.d * xr + (rown[q] + rnei[q]);
+      } else {
+        o[q].m.y = rounded_product_plus(o[q].m.d, o[q].m.xc, own[q] + nei[q]);
+      }
+    }
+  }
+};
+
+// The hooks of a matvec pass over the rows' vector xb + row·xs: a window
+// and the unrolled stencil above kRegOffsets offsets, none below.
+template <typename T, int KK, bool Ref>
+__device__ __forceinline__ auto mv_hooks(const Params<T>& p, const Rows<T>& rw,
+                                         const RowState<T>* st, const T* xb, long long xs,
+                                         int nw) {
+  if constexpr (KK == kMaxOffsets) {
+    return RowsWindow<T, Ref>{p, rw, st, xb, xs, nw, nullptr, nullptr, nullptr, 0, T(0)};
+  } else {
+    return NoHooks();
+  }
 }
 
 // work: as bicgstab_kernel (r, rhat, p, v, phat, s, shat, t); x is written
-// in place in p.x. KK: see Cell0.
+// in place in p.x. KK: see Cell0; above kRegOffsets offsets the matvec
+// passes take their hooks (mv_hooks: the window, the unrolled stencil).
 template <typename T, int KK>
 __global__ void __launch_bounds__(kThreads) bicgstab_rows_kernel(Params<T> p) {
   constexpr int CB = sizeof(T) == 4 ? 4 : 2;  // cells a lane loads at once in the light passes
+  constexpr int MCB = KK == kMaxOffsets ? kRowsMvCells<T> : 1;  // and in the matvec passes
   cg::grid_group grid = cg::this_grid();
   const Rows<T> rw = rows_view(p, ffk_dyn_smem);
   const long long n = p.nC;
@@ -1394,6 +1615,9 @@ __global__ void __launch_bounds__(kThreads) bicgstab_rows_kernel(Params<T> p) {
   struct Three { T a, b, c; };
   struct Six { T a, b, c, d, e, f; };
   struct Mat { Cell0<T, KK> m; T a; };
+  int nw = 0;  // the leading offsets the windows serve
+  if (KK == kMaxOffsets && p.W > 0)
+    while (nw < p.K && p.off[nw] <= p.W) ++nw;
 
   // prologue (prologue_grid's arithmetic): x = x0 and Σx0; then r = b − A·x0,
   // the normFactor, Σ|r| and r·r; rhat = r, p = v = 0
@@ -1409,16 +1633,15 @@ __global__ void __launch_bounds__(kThreads) bicgstab_rows_kernel(Params<T> p) {
   rows_reduce<T, 1>(grid, p, rw, rw.act, B, 0);
   for (int q = threadIdx.x; q < B; q += kThreads) st[q].xref = rw.tot[q] / T(p.nC);
   __syncthreads();
-  rows_pass<T, 3, 1, Mat>(
+  rows_pass<T, 3, MCB, Mat>(
       p, rw, rw.act, B, false, 1,
       [&](int row, int c, Mat& o) {
         load_cell(p, D(row), U(row), Lo(row), p.x0 + row * n, c, o.m);
         o.a = __ldg(p.b + row * n + c);
       },
       [&](int row, int c, const Mat& o, T(&a)[3]) {
-        const T xref = st[row].xref;
-        const T ax = o.m.d * o.m.xc + off_sum(p, o.m, c, false, T(0));
-        const T ar = o.m.d * xref + off_sum(p, o.m, c, true, xref);
+        const T ax = mv_y(p, o.m, c);
+        const T ar = mv_ar(p, o.m, c, st[row].xref);
         const T rc = o.a - ax;
         T* w = W(row);
         w[c] = rc;
@@ -1428,7 +1651,8 @@ __global__ void __launch_bounds__(kThreads) bicgstab_rows_kernel(Params<T> p) {
         a[0] += fabs(ax - ar) + fabs(o.a - ar);
         a[1] += fabs(rc);
         a[2] += rc * rc;
-      });
+      },
+      mv_hooks<T, KK, true>(p, rw, st, p.x0, n, nw));
   rows_reduce<T, 3>(grid, p, rw, rw.act, B, 1);
   for (int q = threadIdx.x; q < B; q += kThreads) {
     RowState<T>& s = st[q];
@@ -1478,7 +1702,7 @@ __global__ void __launch_bounds__(kThreads) bicgstab_rows_kernel(Params<T> p) {
         });
     grid.sync();
     // v = A·p-hat, rhat·v
-    rows_pass<T, 1, 1, Mat>(
+    rows_pass<T, 1, MCB, Mat>(
         p, rw, rw.act, nact, true, 5,
         [&](int row, int c, Mat& o) {
           const T* w = W(row);
@@ -1486,10 +1710,11 @@ __global__ void __launch_bounds__(kThreads) bicgstab_rows_kernel(Params<T> p) {
           o.a = __ldcg(w + n + c);
         },
         [&](int row, int c, const Mat& o, T(&a)[1]) {
-          const T vc = o.m.d * o.m.xc + off_sum(p, o.m, c, false, T(0));
+          const T vc = mv_y(p, o.m, c);
           W(row)[3 * n + c] = vc;
           a[0] += o.a * vc;
-        });
+        },
+        mv_hooks<T, KK, false>(p, rw, st, p.work + 4 * n, 8 * n, nw));
     rows_reduce<T, 1>(grid, p, rw, rw.act, nact, 5);
     for (int q = threadIdx.x; q < B; q += kThreads) {
       RowState<T>& s = st[q];
@@ -1522,7 +1747,7 @@ __global__ void __launch_bounds__(kThreads) bicgstab_rows_kernel(Params<T> p) {
         });
     grid.sync();
     // t = A·s-hat, t·s and t·t
-    rows_pass<T, 2, 1, Mat>(
+    rows_pass<T, 2, MCB, Mat>(
         p, rw, rw.wrk, nwrk, true, 6,
         [&](int row, int c, Mat& o) {
           const T* w = W(row);
@@ -1530,11 +1755,12 @@ __global__ void __launch_bounds__(kThreads) bicgstab_rows_kernel(Params<T> p) {
           o.a = __ldcg(w + 5 * n + c);
         },
         [&](int row, int c, const Mat& o, T(&a)[2]) {
-          const T tc = o.m.d * o.m.xc + off_sum(p, o.m, c, false, T(0));
+          const T tc = mv_y(p, o.m, c);
           W(row)[7 * n + c] = tc;
           a[0] += tc * o.a;
           a[1] += tc * tc;
-        });
+        },
+        mv_hooks<T, KK, false>(p, rw, st, p.work + 6 * n, 8 * n, nw));
     rows_reduce<T, 2>(grid, p, rw, rw.wrk, nwrk, 6);
     for (int q = threadIdx.x; q < B; q += kThreads) {
       RowState<T>& s = st[q];
@@ -1864,15 +2090,19 @@ int launch_split(int which, int nkry_all, Params<T> p, int B, T* slots, int* fla
 
 // The cooperative launch of bicgstab_rows_kernel: `nblk` blocks of `L` cells
 // (the wrapper's plan) and the partials and totals [kSlots, B, nblk + 1];
-// it sizes its own dynamic shared memory (rows_smem_bytes).
+// above kRegOffsets offsets windows of `window` cells a side (0: none, every
+// neighbour from L2; ignored at 1-kRegOffsets offsets). It sizes its own
+// dynamic shared memory (rows_smem_bytes and rows_window_bytes); a launch
+// whose bytes a block may not have is refused with an error.
 template <typename T>
-int launch_rows(Params<T> p, int B, T* slots, int nblk, int L, void* stream) {
+int launch_rows(Params<T> p, int B, T* slots, int nblk, int L, int window, void* stream) {
   if (B > kMaxRows || nblk < 1 || L < 1 || L > kGroupItems * kChunk ||
-      (long long)nblk * L < p.nC)
+      (long long)nblk * L < p.nC || window < 0 || window > kRowsReach)
     return (int)cudaErrorInvalidValue;
   p.rows = B;
   p.bpr = nblk; p.L = L; p.slots = slots;
-  const size_t smem = rows_smem_bytes<T>(B);
+  p.W = p.K > kRegOffsets ? window : 0;
+  const size_t smem = rows_smem_bytes<T>(B) + rows_window_bytes<T>(p.W);
   const void* f = grid_kernel<T>(p.K == 3 ? 3 : p.K <= kRegOffsets ? 4 : 5);
   cudaError_t e =
       cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1929,24 +2159,26 @@ FFK_GRID_ENTRY(bicgstab, 1, kKrylovBicgstab, float, f32)
 FFK_GRID_ENTRY(bicgstab, 1, kKrylovBicgstab, double, f64)
 
 // K1 for many rows: the same operands, then the partial-sum slots, the
-// blocks and the cells per block.
+// blocks, the cells per block and the window's W above kRegOffsets offsets.
 #define FFK_ROWS_ENTRY(T, SUF)                                                        \
   extern "C" int ffk_bicgstab_rows_##SUF(                                             \
       const T* diag, long long sd, const T* upper, long long su, const T* lower,     \
       long long sl, const T* b, const T* x0, T* x, T* res0, T* res, int* iters,      \
       T* work, const int* offs, int K, int nC, int B, double tol, double rel_tol,    \
-      double floor_eps, int max_iter, T* slots, int nblk, int L, void* stream) {     \
+      double floor_eps, int max_iter, T* slots, int nblk, int L, int window,         \
+      void* stream) {                                                                \
     if (K < 1 || K > kMaxOffsets || nC < 1 || B < 1) return (int)cudaErrorInvalidValue; \
     Params<T> p = make_params<T>(diag, sd, upper, su, lower, sl, b, x0, x, res0,     \
                                  res, iters, work, offs, K, nC, tol, rel_tol,        \
                                  floor_eps, max_iter);                               \
-    return launch_rows<T>(p, B, slots, nblk, L, stream);                             \
+    return launch_rows<T>(p, B, slots, nblk, L, window, stream);                     \
   }
 
 FFK_ROWS_ENTRY(float, f32)
 FFK_ROWS_ENTRY(double, f64)
 
-// The dynamic shared bytes a block of bicgstab_rows_kernel takes for B rows.
+// The dynamic shared bytes a block of bicgstab_rows_kernel takes for B rows
+// (the rows' own: its windows come on top, rows_window_bytes).
 extern "C" int ffk_rows_smem(int B, int is_f64) {
   if (B < 1 || B > kMaxRows) return -1;
   return (int)(is_f64 ? rows_smem_bytes<double>(B) : rows_smem_bytes<float>(B));

@@ -35,7 +35,8 @@ count, asked of the library once per kernel, dtype and shared-memory size),
   * K1 with ROWS_MIN <= B <= ROWS_MAX rows: the many-rows kernel
     (`bicgstab_rows_kernel`), a cooperative launch in which every block owns
     one contiguous range of cells of EVERY row and works it for every row
-    that still iterates;
+    that still iterates (above ROWS_REG_OFFSETS offsets its matvecs read
+    the exchanged vector through a window per warp, `rows_window`);
   * otherwise B <= G: the grid-wide kernel, a cooperative launch in which
     every row gets a group of blocks and every block a contiguous range of
     cells, kept in the block's shared memory when it fits (above 3
@@ -76,6 +77,7 @@ __all__ = [
     "GridPlan",
     "residency",
     "Residency",
+    "rows_window",
     "grid_sync_seconds",
     "plain",
     "build_seconds",
@@ -118,6 +120,17 @@ _ROWS_WHICH = 3  # ffk_coop_blocks' index of the many-rows kernel
 # stages, one more grid barrier each (csrc kRowsTwoStage; chip_smoke.py
 # counts the barriers with it).
 ROWS_TWO_STAGE = 64
+# Above ROWS_REG_OFFSETS offsets (csrc kRegOffsets) the many-rows kernel's
+# matvecs read the exchanged vector through a window per warp: each of its
+# ROWS_WARPS warps (kWarps) copies the row's cells [cs − W, cs + ROWS_CHUNK
+# + W) around the item's chunk of ROWS_CHUNK cells (kChunk) into its own
+# slice of shared memory, for offsets up to W <= ROWS_CHUNK (kRowsReach).
+# ROWS_MV_CELLS: the cells of a lane whose stencils run together there, by
+# element size (kRowsMvCells).
+ROWS_REG_OFFSETS = 8
+ROWS_WARPS = 32
+ROWS_CHUNK = 128
+ROWS_MV_CELLS = {4: 4, 8: 2}
 
 LAUNCHES = {"bicgstab": 0, "pcg": 0, "smooth": 0}
 # launches by device kernel: the entry point's name without ffk_ and the dtype
@@ -226,8 +239,8 @@ def signatures() -> dict:
             # ..., slots, flags, blocks per row, cells per block, smem bytes,
             # window, Krylov slices, diagonal, pairs resident, stream
             sig[f"ffk_{name}_grid_{suf}"] = common + extra + [vp, vp, ci, ci, ci] + [ci] * 4 + [vp]
-        # ..., slots, blocks, cells per block, stream
-        sig[f"ffk_bicgstab_rows_{suf}"] = common + [vp, ci, ci, vp]
+        # ..., slots, blocks, cells per block, window, stream
+        sig[f"ffk_bicgstab_rows_{suf}"] = common + [vp, ci, ci, ci, vp]
     return sig
 
 
@@ -309,12 +322,48 @@ def _coop_blocks(name: str, dtype, smem: int):
 @functools.lru_cache(maxsize=None)
 def rows_smem(B: int, dtype) -> int:
     """The dynamic shared bytes a block of the many-rows kernel takes for B
-    rows (its row scalars, row lists and partial sums), asked of the
-    library."""
+    rows (its row scalars, row lists and partial sums; its windows come on
+    top, rows_window_bytes), asked of the library."""
     smem = _load().ffk_rows_smem(int(B), int(dtype == torch.float64))
     if smem < 0:
         raise ValueError(f"dia_bicgstab: {B} rows, the many-rows kernel takes 1..{ROWS_MAX}")
     return smem
+
+
+def rows_window_bytes(W: int, esize: int) -> int:
+    """The shared bytes of the many-rows kernel's windows of W cells a side
+    (csrc rows_window_bytes): ROWS_WARPS slices of ROWS_CHUNK + 2W values."""
+    return ROWS_WARPS * (ROWS_CHUNK + 2 * W) * esize if W > 0 else 0
+
+
+def rows_window(offsets: Sequence[int], B: int, dtype, max_bytes: int, window=None) -> int:
+    """W of the many-rows kernel's windows for B rows on the stencil
+    `offsets`, values of `dtype`, with `max_bytes` of dynamic shared memory
+    a block: the largest offset o <= ROWS_CHUNK whose windows fit beside the
+    rows' own bytes (rows_smem(B)), so the near band, where the offsets are
+    dense (the banded shaft's 34 lie within 87 cells, the renumbered box's
+    62 within 62), is read from shared memory by every cell of a chunk at
+    each of its offsets, while a far band (OFFS_12's 1,950-4,000) would cost
+    a halo of thousands of cells a side for a few offsets and stays in L2.
+    A window spans the chunk and W on either side: at W = 87 its 32 slices
+    take 38,656 B in float32 and 77,312 B in float64, so at many rows in
+    float64 (about 164 KB of rows' bytes at 1,024) W is smaller, or 0. 0 at
+    1 to ROWS_REG_OFFSETS offsets (the register kernels take no window) and
+    where none fits. `window` (measurements and tests): W as given instead,
+    0 for none; one that does not fit, or is over ROWS_CHUNK, raises."""
+    if len(offsets) <= ROWS_REG_OFFSETS:
+        return 0
+    esize = torch.finfo(dtype).bits // 8
+    left = max_bytes - rows_smem(B, dtype)
+    if window is None:
+        return max((int(o) for o in offsets
+                    if o <= ROWS_CHUNK and rows_window_bytes(int(o), esize) <= left), default=0)
+    if window < 0 or window > ROWS_CHUNK or rows_window_bytes(window, esize) > left:
+        raise ValueError(f"dia_bicgstab: windows of {window} cells a side take "
+                         f"{rows_window_bytes(window, esize)} bytes beside the rows' "
+                         f"{rows_smem(B, dtype)}, over the {max_bytes} a block may have (or W "
+                         f"over {ROWS_CHUNK})")
+    return int(window)
 
 
 class Residency(NamedTuple):
@@ -384,10 +433,10 @@ def _grid_launch_plan(name, dtype, B, nC, offsets, esize, min_cells=MIN_CELLS, r
     """(plan, Residency) for a launch: the grid plan and, for a grid-wide
     plan, where a block's operands live (`residency` on the card's shared
     memory; NOTHING where its bytes would leave the launch not
-    co-resident). The many-rows kernel's Residency holds its bytes alone.
-    `rows` (K1 only; for measurements and tests): None the rule, True the
-    many-rows kernel at any B up to ROWS_MAX, False never it. `window`: see
-    `residency`."""
+    co-resident). The many-rows kernel's Residency holds its window's W
+    (`rows_window`) and its bytes alone. `rows` (K1 only; for measurements
+    and tests): None the rule, True the many-rows kernel at any B up to
+    ROWS_MAX, False never it. `window`: see `residency` and `rows_window`."""
     G, max_smem = _coop_blocks(name, dtype, 0)
     if rows and (name != "bicgstab" or not 1 <= B <= ROWS_MAX):
         raise ValueError(f"dia_{name}: no many-rows kernel for {B} rows")
@@ -396,11 +445,12 @@ def _grid_launch_plan(name, dtype, B, nC, offsets, esize, min_cells=MIN_CELLS, r
     else:
         plan = grid_plan(B, nC, G, min_cells, many_rows=name == "bicgstab" and rows is None)
     if plan.rows:
-        smem = rows_smem(B, dtype)
+        W = rows_window(offsets, B, dtype, _coop_blocks("bicgstab_rows", dtype, 0)[1], window)
+        smem = rows_smem(B, dtype) + rows_window_bytes(W, esize)
         if _coop_blocks("bicgstab_rows", dtype, smem)[0] < plan.blocks_per_row:
             raise RuntimeError(f"dia_{name}: {plan.blocks_per_row} blocks of the many-rows "
                                f"kernel with {smem} shared bytes are not co-resident")
-        return plan, NOTHING._replace(bytes=smem)
+        return plan, NOTHING._replace(window=W, bytes=smem)
     if not plan.grid_wide:
         return plan, NOTHING
     L = plan.cells_per_block
@@ -438,8 +488,9 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
     tests (a grid-wide kernel with its slices streamed from L2, with other
     block counts, against the one-block-per-row kernel on the same rows;
     K1's many-rows kernel forced on (True) or off (False); K1-K3 above 3
-    offsets with the window's W set, 0: every offset read from L2 through
-    the same unrolled stencil)."""
+    offsets, and K1's many-rows kernel above ROWS_REG_OFFSETS, with the
+    window's W set, 0: every offset read from L2 through the same unrolled
+    stencil)."""
     dtype = x0.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dia_{name}: dtype {dtype} not supported")
@@ -483,7 +534,7 @@ def _launch(name, diag, upper, lower, b, x0, offsets, tol, rel_tol, max_iter, ex
             nblk = plan.blocks_per_row
             # partials [16, B, nblk] and, behind them, the row totals [16, B]
             slots = torch.empty((_SLOTS * B * (nblk + 1),), dtype=dtype, device=dev)
-            extra = (slots.data_ptr(), nblk, plan.cells_per_block)
+            extra = (slots.data_ptr(), nblk, plan.cells_per_block, split.window)
         elif plan.grid_wide:
             fn_name = f"ffk_{name}_grid_{suf}"
             slots = torch.empty((_SLOTS, B * plan.blocks_per_row), dtype=dtype, device=dev)

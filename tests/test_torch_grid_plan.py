@@ -29,6 +29,14 @@
   the split `_launch` hands the entry point (K3's too); K3's split on the
   blocks of phase 3's systems and the banded shaft's (one row and the Yi
   batch of 4) at 12, 34 and 62 offsets.
+* The windows of K1's many-rows kernel above 8 offsets
+  (`dia_krylov.rows_window`, a pure function of the offsets, B, the dtype
+  and the block's shared bytes, with the rows' own bytes from a copy of
+  the kernel's count): never over the block's limit at 5 to 1,024 rows in
+  float32 and float64, the near band served (OFFS_34's 87, OFFS_62's 62),
+  OFFS_12's far band left to L2, W = 0 where no window fits and at 1-8
+  offsets, the `window` argument, the W `_launch` hands the entry point,
+  and the wrapper's constants against the source's.
 """
 
 import ctypes
@@ -191,11 +199,11 @@ def test_launch_arguments_match_the_signatures():
     assert sig["ffk_smooth_grid_f64"][:24] == sig["ffk_smooth_f64"][:-1] + [ctypes.c_void_p]
     assert sig["ffk_smooth_grid_f64"][24:] == sig["ffk_pcg_grid_f64"][22:]
     assert sig["ffk_smooth_grid_f64"][21:23] == [ctypes.c_double, ctypes.c_int]
-    # + slots, blocks, cells per block
-    assert len(sig["ffk_bicgstab_rows_f64"]) == 25
+    # + slots, blocks, cells per block, the window's W above 8 offsets
+    assert len(sig["ffk_bicgstab_rows_f64"]) == 26
     assert sig["ffk_bicgstab_rows_f32"][:21] == sig["ffk_bicgstab_f32"][:21]
     assert sig["ffk_bicgstab_rows_f32"][21:] == [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                                  ctypes.c_void_p]
+                                                  ctypes.c_int, ctypes.c_void_p]
 
 
 # --------------------------------------------- K3's plan and shared memory
@@ -369,9 +377,10 @@ def test_launch_picks_the_many_rows_kernel(monkeypatch, dtype, B, rows, expect):
         else:
             assert isinstance(a, ctypes.Array), (a, t)
     if expect == "rows":
-        nblk, L = args[-3:-1]
+        nblk, L, W = args[-4:-1]
         plan = dia_krylov.grid_plan(1, 200, G_H100, dia_krylov.ROWS_MIN_CELLS, False)
         assert (nblk, L) == (plan.blocks_per_row, plan.cells_per_block) == (7, 32)
+        assert W == 0  # 3 offsets: the registers' kernel, no window
         assert args[16] == B
 
 
@@ -586,3 +595,145 @@ def test_launch_passes_the_split_above_3_offsets(monkeypatch, name, dtype, windo
         assert args[-5:-1] == want[:4] and smem == want.bytes
         if resident:
             assert want.window == (87 if window is None else window) and want.pairs > 0
+
+
+# ------------------- K1's many-rows kernel above 8 offsets: its windows
+# the opt-in limit: the many-rows kernels declare no static shared memory
+ROWS_SMEM_H100 = 232_448
+ROWS_BATCHES = (5, 16, 64, 128, 1024)
+
+
+def _rows_smem_bytes(B, dtype):
+    """csrc rows_smem_bytes: the row totals [3][B], the item partials
+    [1024][3], the rows' scalars [B] (12 values and 2 ints, aligned to the
+    value), the two row lists [B] and the scan's 33 ints, each part aligned
+    to 16 bytes."""
+    e = torch.finfo(dtype).bits // 8
+    a16 = lambda b: -(-b // 16) * 16
+    state = -(-(12 * e + 8) // e) * e
+    return a16(3 * B * e) + a16(1024 * 3 * e) + a16(B * state) + a16(2 * B * 4) + a16(33 * 4)
+
+
+@pytest.fixture
+def rows_bytes(monkeypatch):
+    monkeypatch.setattr(dia_krylov, "rows_smem", _rows_smem_bytes)
+
+
+ROWS_OFFSETS = [OFFS_12, OFFS_34, OFFS_62, tuple(range(1, 65)), (9, 18, 27, 36, 45, 54, 63, 72, 81)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", ROWS_BATCHES)
+def test_rows_window_never_exceeds_the_block(rows_bytes, B, dtype):
+    """Over budgets from the card's down to less than the rows' own bytes:
+    the windows and the rows' bytes fit the budget, W is an offset within
+    reach (ROWS_CHUNK) or 0, and no larger offset within reach would fit."""
+    e = torch.finfo(dtype).bits // 8
+    own = _rows_smem_bytes(B, dtype)
+    for offs in ROWS_OFFSETS:
+        for budget in (ROWS_SMEM_H100, 200_000, 120_000, own + 40_000, own + 1, own - 1):
+            W = dia_krylov.rows_window(offs, B, dtype, budget)
+            assert W == 0 or (W in offs and W <= dia_krylov.ROWS_CHUNK)
+            assert W == 0 or own + dia_krylov.rows_window_bytes(W, e) <= budget
+            assert all(own + dia_krylov.rows_window_bytes(o, e) > budget
+                       for o in offs if W < o <= dia_krylov.ROWS_CHUNK), (offs, budget, W)
+            assert dia_krylov.rows_window(offs, B, dtype, budget) == W
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_window_serves_the_near_band(rows_bytes, dtype):
+    """The banded shaft's 34 offsets lie within 87 cells and the renumbered
+    box's 62 within 62: at the fvDOM's batches the windows serve all of
+    them. At 1,024 rows in float64 (about 164 KB of rows' bytes) W is
+    smaller: OFFS_34's 69 (20 of its 34 offsets), OFFS_62 still 62."""
+    for B in (5, 16, 64, 128):
+        assert dia_krylov.rows_window(OFFS_34, B, dtype, ROWS_SMEM_H100) == 87
+        assert dia_krylov.rows_window(OFFS_62, B, dtype, ROWS_SMEM_H100) == 62
+    # W = 87 takes 32 slices of 128 + 174 values
+    assert dia_krylov.rows_window_bytes(87, 4) == 38_656
+    assert dia_krylov.rows_window_bytes(87, 8) == 77_312
+    w34 = dia_krylov.rows_window(OFFS_34, 1024, dtype, ROWS_SMEM_H100)
+    w62 = dia_krylov.rows_window(OFFS_62, 1024, dtype, ROWS_SMEM_H100)
+    assert (w34, w62) == ((87, 62) if dtype == torch.float32 else (69, 62))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_window_leaves_the_far_band_to_l2(rows_bytes, dtype):
+    """OFFS_12: the window serves its near band 1-100 (6 of 12 offsets;
+    1-51 at 1,024 rows in float64); the far band 1,950-4,000 is beyond
+    reach, read from L2."""
+    for B in ROWS_BATCHES:
+        W = dia_krylov.rows_window(OFFS_12, B, dtype, ROWS_SMEM_H100)
+        assert W == (51 if B == 1024 and dtype == torch.float64 else 100)
+        assert W < min(o for o in OFFS_12 if o > 100)
+    assert dia_krylov.rows_window((1950, 1999, 2000, 2001, 2050, 4000, 6000, 8000, 9000),
+                                  16, dtype, ROWS_SMEM_H100) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_window_is_0_where_none_fits(rows_bytes, dtype):
+    """W = 0 where not even the nearest offset's windows fit beside the rows'
+    bytes, and at 1-8 offsets (the register kernels take none), whatever the
+    `window` argument says there; window=0 forces none; a forced W that
+    does not fit, or is beyond reach, raises."""
+    e = torch.finfo(dtype).bits // 8
+    for B in ROWS_BATCHES:
+        own = _rows_smem_bytes(B, dtype)
+        tight = own + dia_krylov.rows_window_bytes(1, e) - 1
+        assert dia_krylov.rows_window(OFFS_34, B, dtype, tight) == 0
+        assert dia_krylov.rows_window(OFFS_34, B, dtype, tight + 1) == 1
+        assert dia_krylov.rows_window(OFFS_34, B, dtype, own - 1) == 0
+        for offs in ((1, 50, 2000), OFFS_34[:8]):
+            assert dia_krylov.rows_window(offs, B, dtype, ROWS_SMEM_H100) == 0
+            assert dia_krylov.rows_window(offs, B, dtype, ROWS_SMEM_H100, window=5) == 0
+        assert dia_krylov.rows_window(OFFS_34, B, dtype, ROWS_SMEM_H100, window=0) == 0
+        assert dia_krylov.rows_window(OFFS_34, B, dtype, ROWS_SMEM_H100, window=40) == 40
+        for bad in (-1, dia_krylov.ROWS_CHUNK + 1):
+            with pytest.raises(ValueError):
+                dia_krylov.rows_window(OFFS_34, B, dtype, ROWS_SMEM_H100, window=bad)
+        with pytest.raises(ValueError):
+            dia_krylov.rows_window(OFFS_34, B, dtype, tight, window=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("window,expect", [(None, 87), (0, 0), (5, 5)])
+def test_launch_passes_the_rows_window(monkeypatch, rows_bytes, dtype, window, expect):
+    """K1 on 16 rows at 34 offsets takes the many-rows kernel: its entry
+    point gets the rule's W (or the `window` asked for) after the cells per
+    block, and the Residency of the plan the bytes of rows and windows."""
+    card = _FakeCard(monkeypatch, max_smem=ROWS_SMEM_H100)
+    g = torch.Generator().manual_seed(9)
+    B, nC, K = 16, 1000, 34
+    r = lambda *shape: torch.rand(*shape, generator=g, dtype=dtype)
+    ops = (4.0 + r(B, nC), -r(B, K * nC), -r(B, K * nC), r(B, nC), r(B, nC))
+    dia_krylov._launch("bicgstab", *ops, OFFS_34, 1e-6, 0.0, 50, window=window)
+    (fn_name, args), = card.calls
+    assert fn_name == f"ffk_bicgstab_rows_{'f32' if dtype == torch.float32 else 'f64'}"
+    assert len(args) == len(dia_krylov.signatures()[fn_name])
+    assert args[-2] == expect and isinstance(args[-2], int)
+    plan, split = dia_krylov._grid_launch_plan("bicgstab", dtype, B, nC, OFFS_34,
+                                               ops[0].element_size(), window=window)
+    assert plan.rows and split.window == expect
+    assert split.bytes == (_rows_smem_bytes(B, dtype)
+                           + dia_krylov.rows_window_bytes(expect, ops[0].element_size()))
+
+
+def test_rows_constants_match_the_source():
+    """The wrapper's constants of the many-rows kernel's windows are those
+    of csrc/dia_krylov.cu (its window bytes and its reach are counted on
+    both sides)."""
+    with open(os.path.join(os.path.dirname(dia_krylov.__file__), "..", "csrc",
+                           "dia_krylov.cu")) as f:
+        src = f.read()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+
+    assert const("kThreads") == "1024" and const("kWarps") == "kThreads / 32"
+    assert dia_krylov.ROWS_WARPS == 1024 // 32
+    assert const("kLaneCells") == "4" and const("kChunk") == "32 * kLaneCells"
+    assert dia_krylov.ROWS_CHUNK == 32 * 4
+    assert const("kRowsReach") == "kChunk"
+    assert const("kRegOffsets") == str(dia_krylov.ROWS_REG_OFFSETS)
+    cells = re.search(r"constexpr int kRowsMvCells = sizeof\(T\) == 4 \? (\d+) : (\d+);", src)
+    assert {4: int(cells.group(1)), 8: int(cells.group(2))} == dia_krylov.ROWS_MV_CELLS

@@ -67,7 +67,15 @@ JAX, so it also runs on a machine that has only PyTorch:
   window=0 and all-streamed runs, the plain version's within the
   tolerances above (float64: equal sweep counts); and at a fixed number of
   sweeps on the shaft's blocks bitwise the one-block-per-row kernel's x.
+* K1's many-rows kernel above 8 offsets (a window of the exchanged vector
+  per warp, the unrolled stencil) at 9, 12, 16, 17, 34, 62 and 64 offsets,
+  float32 and float64, shared and per-row operators, 5, 16 and 128 rows of
+  20k cells: bitwise its window=0 run, the plain version's within the
+  tolerances above; at 34 offsets a float32 row whose step overflows fails
+  to x0 and is counted by linear.failed_rows (R18).
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -1263,3 +1271,72 @@ def test_smooth_split_kernel_equals_one_block_per_row_bitwise(K, dtype):
             for kw in (dict(), dict(grid_wide=False))]
     assert [int(r.n_iterations) for r in runs] == [32, 32]
     assert torch.equal(runs[0].x, runs[1].x)
+
+
+# ------------------------------------------------------------------------
+# K1's many-rows kernel above 8 offsets: a window of the exchanged vector
+# per warp, the unrolled stencil, more cells of a lane in flight (bit for bit
+# the L2 path's sums, which are the looped stencil's)
+# ------------------------------------------------------------------------
+ROWS_OFFSETS = {9: OFFSETS_K[9], 12: OFFSETS_K[12], 16: OFFSETS_K[16], 17: OFFSETS_BANDED[17],
+                34: OFFS_SHAFT, 62: tuple(range(1, 63)), 64: OFFSETS_BANDED[64]}
+
+
+@pytest.mark.parametrize("B", [5, 16, 128])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K", sorted(ROWS_OFFSETS))
+def test_rows_window_path_equals_l2_path_bitwise(K, dtype, shared, B):
+    """K1's many-rows kernel on B rows of 20k cells at 9-64 offsets, with
+    shared and per-row operators: the windows (the rule's W) against
+    window=0 (every neighbour from L2 through the same unrolled stencil),
+    bitwise in x, residuals and counts; against the plain version with the
+    file's tolerances (float64: equal counts)."""
+    _need_cuda()
+    offs = ROWS_OFFSETS[K]
+    n = 20_000
+    ops = _system_k(K + B, B, False, shared, dtype, offs, n=n)
+    plan, split = dia_krylov._grid_launch_plan("bicgstab", dtype, B, n, offs,
+                                               ops[0].element_size())
+    near = max(o for o in offs if o <= dia_krylov.ROWS_CHUNK)
+    assert plan.rows and split.window == near
+    kw = dict(tol=1e-8, rel_tol=0.0, max_iter=500)
+    before = dia_krylov.DEVICE_LAUNCHES["bicgstab_rows"]
+    got = dia_krylov.dia_bicgstab(*ops, offs, **kw)
+    l2 = dia_krylov._launch("bicgstab", *ops, offs, kw["tol"], 0.0, kw["max_iter"], window=0)
+    torch.cuda.synchronize()
+    assert dia_krylov.DEVICE_LAUNCHES["bicgstab_rows"] == before + 2
+    assert _same_solve(got, l2)
+    ref = _plain("bicgstab", *ops, offs, **kw)
+    its = _rows_check(got, ref, dtype)
+    assert np.all(its > 0)
+
+
+def test_rows_window_path_fails_a_row_whose_step_overflows():
+    """float32 at 34 offsets, 16 rows of which row 3's right-hand side is
+    1e20 (r·r overflows): the many-rows kernel with its windows fails that
+    row to x0 and its initial residual, as window=0 and the plain version
+    do, and linear.failed_rows counts it (R18); the other rows solve as the
+    plain version's."""
+    _need_cuda()
+    d, up, lo, b, x0 = _system_k(83, 16, False, False, torch.float32, OFFS_SHAFT, n=20_000)
+    b[3] *= 1e20
+    kw = dict(tol=1e-6, rel_tol=0.0, max_iter=500)
+    _, split = dia_krylov._grid_launch_plan("bicgstab", torch.float32, 16, 20_000, OFFS_SHAFT, 4)
+    assert split.window == 87
+    got = dia_krylov.dia_bicgstab(d, up, lo, b, x0, OFFS_SHAFT, **kw)
+    l2 = dia_krylov._launch("bicgstab", d, up, lo, b, x0, OFFS_SHAFT, kw["tol"], 0.0,
+                            kw["max_iter"], window=0)
+    ref = _plain("bicgstab", d, up, lo, b, x0, OFFS_SHAFT, **kw)
+    assert _same_solve(got, l2)
+    assert bool(torch.isfinite(got.x).all())
+    assert torch.equal(got.x[3], x0[3])
+    assert torch.equal(got.final_residual[3], got.initial_residual[3])
+    failed = linear.failed_rows(got, kw["tol"])
+    assert failed.tolist() == [q == 3 for q in range(16)]
+    assert failed.tolist() == linear.failed_rows(ref, kw["tol"]).tolist()
+    assert got.n_iterations.tolist()[3] == ref.n_iterations.tolist()[3]
+    keep = [q for q in range(16) if q != 3]
+    _rows_check(types.SimpleNamespace(x=got.x[keep], n_iterations=got.n_iterations[keep]),
+                types.SimpleNamespace(x=ref.x[keep], n_iterations=ref.n_iterations[keep]),
+                torch.float32)
