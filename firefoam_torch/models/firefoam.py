@@ -105,6 +105,7 @@ from ..solvers.linear import ldu_matvec, solve_ldu, solve_scalar
 from ..solvers.pairmg import PairMG, pairmg_pcg
 from ..thermo import GasThermo, SingleStepReaction
 from ..turbulence.kEqn import KEqnLES
+from ..utils.spans import span
 from .fvoptions import FvOptions
 
 __all__ = ["FireFoamSolver", "state_from_numpy", "state_to_numpy", "GMG_MIN_CELLS"]
@@ -1436,7 +1437,12 @@ class FireFoamSolver:
         return state, out
 
     def step(self, state: Dict) -> Tuple[Dict, Dict]:
-        """One full time step."""
+        """One full time step, in the span ff.step (utils/spans.py lists
+        the spans of its phases)."""
+        with span("step"):
+            return self._step(state)
+
+    def _step(self, state: Dict) -> Tuple[Dict, Dict]:
         g = self.geom
         log: Dict[str, torch.Tensor] = {}
         state = dict(state)
@@ -1457,20 +1463,24 @@ class FireFoamSolver:
         # Courant as the reference prints it: before setDeltaT, with the
         # previous step's dt
         dt_prev = state.get("_dt_prev", dt)
-        log["CoNum"] = self.courant(state) * (dt_prev / dt)
-        log["CoMean"] = self.courant_mean(state) * (dt_prev / dt)
+        with span("log"):
+            log["CoNum"] = self.courant(state) * (dt_prev / dt)
+            log["CoMean"] = self.courant_mean(state) * (dt_prev / dt)
         state["_dt_prev"] = dt
         # boundary phi the species equations see now: the lagged refValue
         # gate of the next step's species inlet BCs
         phi_b_species = state["phi"].b
         # the regions in the reference's order (fireFoam.C:88-95): parcels,
         # film, pyrolysis, then the film's wet/dry BC overrides
-        state, srcs = self._evolve_cloud(state, log)
+        with span("lagrangian"):
+            state, srcs = self._evolve_cloud(state, log)
         if self.film is not None:
-            state, srcs = self._evolve_film(state, srcs, log)
+            with span("surfaceFilm"):
+                state, srcs = self._evolve_film(state, srcs, log)
         ov: Dict = {}
         if self.pyrolysis is not None:
-            state, ov = self._evolve_pyrolysis(state, log, srcs)
+            with span("pyrolysis"):
+                state, ov = self._evolve_pyrolysis(state, log, srcs)
         if self.film is not None:
             ov = self._film_bc_overrides(state, ov)
         srcs["_ov"] = ov
@@ -1480,32 +1490,36 @@ class FireFoamSolver:
         state["rho"] = VolField(rho_i, state["rho"].b)
 
         for _ in range(self.ctl.n_outer):
-            U_new, u_matrix, ubc_coeffs = self._u_eqn(state, log, srcs)
+            with span("UEqn"):
+                U_new, u_matrix, ubc_coeffs = self._u_eqn(state, log, srcs)
             state["U"] = U_new
 
             # species + energy share one multivariate weight field, frozen
             # before the Yi solves (YEEqn.H:1-10)
-            w_mv = self._multivariate_weights(state)
-            Y_new, qdot = self._y_eqns(state, log, srcs, w_mv)
+            with span("YEqn"):
+                w_mv = self._multivariate_weights(state)
+                Y_new, qdot = self._y_eqns(state, log, srcs, w_mv)
             state["Qdot"] = qdot
 
             # radiation: first step + every solverFreq steps, after combustion
             if self.radiation is not None:
-                state["rad"] = self.radiation.maybe_correct(state, self.gas)
+                with span("radiation"):
+                    state["rad"] = self.radiation.maybe_correct(state, self.gas)
                 if getattr(self.radiation, "failed_rows", None) is not None:
                     # fvDOM's ray rows left unsolved this step (ROADMAP R18)
                     log["rad_failedRows"] = self.radiation.failed_rows
-            hs_new, T_new, psi_new, mu_new, alpha_new = self._e_eqn(
-                state, Y_new, qdot, log, srcs, w_mv
-            )
+            with span("EEqn"):
+                hs_new, T_new, psi_new, mu_new, alpha_new = self._e_eqn(
+                    state, Y_new, qdot, log, srcs, w_mv
+                )
+                log["T_min"] = torch.minimum(g.rmin(T_new.i), g.bmin(T_new.b))
+                log["T_max"] = torch.maximum(g.rmax(T_new.i), g.bmax(T_new.b))
             state["Y"] = Y_new
             state["hs"] = hs_new
             state["T"] = T_new
             state["psi"] = psi_new
             state["mu"] = mu_new
             state["alpha"] = alpha_new
-            log["T_min"] = torch.minimum(g.rmin(T_new.i), g.bmin(T_new.b))
-            log["T_max"] = torch.maximum(g.rmax(T_new.i), g.bmax(T_new.b))
 
             # ---- pressure correctors ----
             n_corr = self.ctl.n_correctors
@@ -1514,7 +1528,9 @@ class FireFoamSolver:
             for c in range(n_corr):
                 st2 = dict(base_state)
                 (st2["p_rgh"], st2["p"], st2["rho"], st2["phi"], st2["U"]) = carry
-                *fields, info = self._p_eqn(st2, u_matrix, c == n_corr - 1, srcs, ubc_coeffs)
+                with span("pEqn"):
+                    *fields, info = self._p_eqn(st2, u_matrix, c == n_corr - 1, srcs,
+                                                ubc_coeffs)
                 carry = tuple(fields)
                 log[f"p_rgh_res0_{c}"] = info["res0"]
                 log[f"p_rgh_iters_{c}"] = info["iters"]
@@ -1524,35 +1540,37 @@ class FireFoamSolver:
             state["dpdt"] = (state["p"].i - state["p_old_i"]) / dt
 
             # ---- turbulence ----
-            ctx = self._ctx(state, srcs.get("_ov"))
-            ctl_k = _solver_controls(self.fv_solution, "k", "kFinal")
-            ctl_k["sched"] = self._ldu
-            k_new, nut_i, res_k = self.turb.correct(
-                state["k"], self.k_bcs, state["U"], state["rho"],
-                state["rho_old_i"], state["phi"], state["mu"], dt, ctx, ctl_k,
-            )
-            state["k"] = k_new
-            nut_b = self.turb.nut_b(k_new.b)
-            state["nut"] = VolField(nut_i, nut_b)
-            state["alphat"] = VolField(
-                state["rho"].i * nut_i / self.turb.Prt,
-                state["rho"].b * nut_b / self.turb.Prt,
-            )
-            # the wall functions: the fire alphat first, then the nut family
-            # (nutFire consumes the fire-corrected alphat), then
-            # compressible::alphatWallFunction from the new nut
-            state = self._apply_wall_functions(state)
-            nut_b = self._nut_wall_functions(state, k_new, nut_b)
-            state["nut"] = VolField(nut_i, nut_b)
-            alphat_b = state["alphat"].b
-            for bc, p in zip(self.alphat_bcs.bcs, g.patches):
-                if bc.kind == "compressible::alphatWallFunction":
-                    if alphat_b is state["alphat"].b:
-                        alphat_b = alphat_b.clone()
-                    alphat_b[p.slice] = state["rho"].b[p.slice] * nut_b[p.slice] / self.turb.Prt
-            state["alphat"] = VolField(state["alphat"].i, alphat_b)
-            log["k_res0"] = res_k.initial_residual
-            log["k_iters"] = res_k.n_iterations
+            with span("kEqn"):
+                ctx = self._ctx(state, srcs.get("_ov"))
+                ctl_k = _solver_controls(self.fv_solution, "k", "kFinal")
+                ctl_k["sched"] = self._ldu
+                k_new, nut_i, res_k = self.turb.correct(
+                    state["k"], self.k_bcs, state["U"], state["rho"],
+                    state["rho_old_i"], state["phi"], state["mu"], dt, ctx, ctl_k,
+                )
+                state["k"] = k_new
+                nut_b = self.turb.nut_b(k_new.b)
+                state["nut"] = VolField(nut_i, nut_b)
+                state["alphat"] = VolField(
+                    state["rho"].i * nut_i / self.turb.Prt,
+                    state["rho"].b * nut_b / self.turb.Prt,
+                )
+                # the wall functions: the fire alphat first, then the nut
+                # family (nutFire consumes the fire-corrected alphat), then
+                # compressible::alphatWallFunction from the new nut
+                state = self._apply_wall_functions(state)
+                nut_b = self._nut_wall_functions(state, k_new, nut_b)
+                state["nut"] = VolField(nut_i, nut_b)
+                alphat_b = state["alphat"].b
+                for bc, p in zip(self.alphat_bcs.bcs, g.patches):
+                    if bc.kind == "compressible::alphatWallFunction":
+                        if alphat_b is state["alphat"].b:
+                            alphat_b = alphat_b.clone()
+                        alphat_b[p.slice] = (state["rho"].b[p.slice] * nut_b[p.slice]
+                                             / self.turb.Prt)
+                state["alphat"] = VolField(state["alphat"].i, alphat_b)
+                log["k_res0"] = res_k.initial_residual
+                log["k_iters"] = res_k.n_iterations
 
         # ---- advance time, choose next dt ----
         state["rhoU_old_i"] = state["rho"].i[:, None] * state["U"].i
@@ -1576,6 +1594,13 @@ class FireFoamSolver:
         state["t"] = state["t"] + dt
         if self.ctl.adjust:
             state["dt"] = self.new_dt(state)
+        with span("log"):
+            self._end_of_step_log(state, log, dt)
+        return state, log
+
+    def _end_of_step_log(self, state: Dict, log: Dict, dt) -> None:
+        """The step's diagnostics, added to `log`."""
+        g = self.geom
         log["Qdot_total"] = g.rsum(state["Qdot"] * g.V)
         log["Qdot_max"] = g.rmax(state["Qdot"])
         for pch in g.patches:
@@ -1604,7 +1629,6 @@ class FireFoamSolver:
         log["t"] = state["t"]
         log["dt"] = dt
         log.update(self.function_objects.compute(state))
-        return state, log
 
     # ------------------------------------------------------------------
     def _apply_wall_functions(self, state: Dict) -> Dict:

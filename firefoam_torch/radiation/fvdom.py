@@ -54,6 +54,7 @@ from ..io import Case
 from ..io.foamdict import FoamDict
 from ..ops.geometry import MeshGeometry
 from ..solvers.linear import failed_rows, solve_ldu
+from ..utils.spans import span
 
 __all__ = ["FvDOM", "SIGMA", "parse_grey_species", "read_ft_table", "grey_absorption"]
 
@@ -652,7 +653,10 @@ class FvDOM(RadiantFractionGate):
     def maybe_correct(self, state, gas) -> Dict:
         rad = state["rad"]
         self.failed_rows = torch.zeros((), dtype=torch.int32, device=rad["I"].device)
-        return self._solve_rays(rad, state, gas) if self._due(rad) else self._skip(rad)
+        if not self._due(rad):
+            return self._skip(rad)
+        with span("radiation.solve"):
+            return self._solve_rays(rad, state, gas)
 
     # ------------------------------------------------------- energy source
     def Sh(self, state, gas) -> torch.Tensor:

@@ -32,6 +32,7 @@ from ..ops import fvm
 from ..ops.fields import SurfaceField, VolField
 from ..ops.geometry import MeshGeometry
 from ..solvers.linear import solve_ldu
+from ..utils.spans import span
 from .fvdom import (_GREY_MEAN, SIGMA, RadiantFractionGate, _aslist, grey_absorption,
                     parse_grey_species)
 
@@ -171,7 +172,10 @@ class P1(RadiantFractionGate):
 
     def maybe_correct(self, state, gas) -> Dict:
         rad = state["rad"]
-        return self._solve_G(rad, state, gas) if self._due(rad) else self._skip(rad)
+        if not self._due(rad):
+            return self._skip(rad)
+        with span("radiation.solve"):
+            return self._solve_G(rad, state, gas)
 
     # ------------------------------------------------------- energy source
     def Sh(self, state, gas) -> torch.Tensor:
